@@ -1,0 +1,85 @@
+"""The flagship GraphTransformer configuration, as plain dicts.
+
+The port's counterpart of ``__graft_entry__._build_interface`` (and of the
+bench's flagship): an o96 reduced-Gaussian grid -> ico-5 ``TriNodes`` mesh
+with the hidden nodes sorted along a space-filling curve, 512 channels, 16
+processor layers, 16 heads, 2 input steps, trainable node attributes
+``{data: 8, hidden: 8}``, edge attributes ``[edge_dirs, edge_length]``, the
+7-variable dataset and an ``InputNormalizer``.  Sizes are arguments so that
+tests can build the same model small.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from anemoi_tpu_torch.data_indices.collection import IndexCollection
+
+VARIABLES = ["q", "t", "u", "v", "z", "tp", "cos_lat"]
+EDGE_ATTRIBUTES = ["edge_dirs", "edge_length"]
+
+
+def flagship_recipe(grid: str = "o96", mesh_resolution: int = 5) -> dict:
+    ea = {"edge_length": {"name": "EdgeLength"}, "edge_dirs": {"name": "EdgeDirection"}}
+    return {
+        "nodes": {
+            "data": {
+                "node_builder": {"name": "ReducedGaussianGridNodes", "grid": grid},
+                "attributes": {"area_weight": {"name": "CosineLatWeightedAttribute",
+                                               "norm": "unit-max"}},
+            },
+            "hidden": {"node_builder": {"name": "TriNodes", "resolution": mesh_resolution}},
+        },
+        "edges": [
+            {"source_name": "data", "target_name": "hidden",
+             "edge_builder": {"name": "CutOffEdges", "cutoff_factor": 0.6,
+                              "max_num_neighbours": 32},
+             "attributes": ea},
+            {"source_name": "hidden", "target_name": "hidden",
+             "edge_builder": {"name": "MultiScaleEdges", "x_hops": 1}, "attributes": ea},
+            {"source_name": "hidden", "target_name": "data",
+             "edge_builder": {"name": "KNNEdges", "num_nearest_neighbours": 3},
+             "attributes": ea},
+        ],
+        "post_processors": [{"name": "SortNodesBySpaceFillingCurve", "nodes_name": "hidden"}],
+    }
+
+
+def flagship_config(
+    num_channels: int = 512, num_layers: int = 16, num_heads: int = 16,
+    inference_precision: str = "bf16",
+) -> dict:
+    gt = {"num_heads": num_heads, "mlp_hidden_ratio": 4.0,
+          "sub_graph_edge_attributes": list(EDGE_ATTRIBUTES)}
+    return {
+        "model": {
+            "name": "AnemoiModelEncProcDec",
+            "num_channels": num_channels,
+            "n_step_input": 2,
+            "n_step_output": 1,
+            "graph_attention_backend": "paged",
+            "inference_precision": inference_precision,
+            "trainable_parameters": {"data": 8, "hidden": 8},
+            "encoder": {"name": "GraphTransformerForwardMapper", **gt},
+            "processor": {"name": "GraphTransformerProcessor", "num_layers": num_layers, **gt},
+            "decoder": {"name": "GraphTransformerBackwardMapper", **gt},
+        },
+        "data": {"processors": [{"name": "InputNormalizer", "default": "mean-std"}]},
+    }
+
+
+def flagship_indices() -> Dict[str, IndexCollection]:
+    name_to_index = {n: i for i, n in enumerate(VARIABLES)}
+    return {"data": IndexCollection(name_to_index, forcing=["cos_lat", "z"], diagnostic=["tp"])}
+
+
+def flagship_statistics(seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
+    """Per-variable statistics (seeded; the bench uses zeros and ones)."""
+    rng = np.random.default_rng(seed)
+    n = len(VARIABLES)
+    mean = rng.normal(size=n).astype(np.float32)
+    stdev = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    return {"data": {"mean": mean, "stdev": stdev,
+                     "minimum": mean - 3 * stdev, "maximum": mean + 3 * stdev}}
