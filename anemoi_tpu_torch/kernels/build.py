@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
-the checkout (``build/`` is git-ignored).  The library file name carries a
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing is compiled when a module is
+the checkout (``build/`` is git-ignored); the ``csrc/*.cuh`` headers are
+shared.  The library file name carries a hash of the sources, headers and
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is.  Nothing is compiled when a module is
 imported; without ``nvcc`` the build raises.
 """
 
@@ -21,7 +22,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("gt_attention_fwd",)
+KERNEL_SOURCES = ("gt_attention_fwd", "gt_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -35,40 +35,16 @@
 
 #include <cstddef>
 
+#include "gt_common.cuh"
+
 namespace {
 
-constexpr int kMaxEdgeFeatures = 8;  // K1 keeps W's column in registers
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Sum of x over the d channels of the calling thread's head, returned to
-// every thread of the head.  Every thread of the block must call it.
-__device__ __forceinline__ float head_sum(float x, int d, float* partial) {
-  if (d <= 32) {
-    for (int off = d >> 1; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
-  }
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // the previous edge's reads of `partial` are done
-  if ((threadIdx.x & 31) == 0) partial[warp] = x;
-  __syncthreads();
-  const int warps_per_head = d >> 5;
-  const int first = (warp / warps_per_head) * warps_per_head;
-  float s = 0.f;
-  for (int w = 0; w < warps_per_head; ++w) s += partial[first + w];
-  return s;
-}
+using gt::edge_feature;
+using gt::from_float;
+using gt::head_sum;
+using gt::kMaxEdgeFeatures;
+using gt::load_edge_column;
+using gt::to_float;
 
 template <typename T, bool FUSE_EDGE>
 __global__ void gt_attention_fwd_kernel(
@@ -95,14 +71,9 @@ __global__ void gt_attention_fwd_kernel(
   const T* vb = v + static_cast<size_t>(b) * n_src * hd;
   const float qc = active ? to_float(q[row + c]) : 0.f;
 
-  float wc[kMaxEdgeFeatures];
+  float wc[kMaxEdgeFeatures] = {};
   float bc = 0.f;
-  if (FUSE_EDGE) {
-#pragma unroll
-    for (int t = 0; t < kMaxEdgeFeatures; ++t)
-      wc[t] = (active && t < f) ? to_float(w[t * w_sf + c * w_sc]) : 0.f;
-    bc = active ? to_float(bias[c]) : 0.f;
-  }
+  if (FUSE_EDGE) load_edge_column(w, bias, c, active, f, w_sf, w_sc, wc, bc);
 
   float m = -CUDART_INF_F;  // running max of the head's logits
   float l = 0.f;            // running denominator
@@ -111,15 +82,7 @@ __global__ void gt_attention_fwd_kernel(
   const int end = dst_ptr[i + 1];
   for (int j = beg; j < end; ++j) {
     const size_t s = static_cast<size_t>(src[j]) * hd;
-    float e = 0.f;
-    if (FUSE_EDGE) {
-      e = bc;
-#pragma unroll
-      for (int t = 0; t < kMaxEdgeFeatures; ++t)
-        if (t < f) e += to_float(edge[static_cast<size_t>(j) * f + t]) * wc[t];
-    } else if (active) {
-      e = to_float(edge[static_cast<size_t>(j) * hd + c]);
-    }
+    const float e = edge_feature<T, FUSE_EDGE>(edge, j, c, active, hd, f, wc, bc);
     const float kc = active ? to_float(kb[s + c]) + e : 0.f;
     const float vc = active ? to_float(vb[s + c]) + e : 0.f;
     const float logit = head_sum(qc * kc, d, partial) * scale;

@@ -11,7 +11,9 @@ Ported: the deterministic model on one device.  Bounding, non-skip
 residuals, the ensemble noise and forecast-step channel, conditional norms,
 dynamic edge providers and model parallelism raise ``NotImplementedError``.
 The ``graph_attention_backend`` values of the JAX package (paged, padded,
-segment) all select the port's one CSR attention.
+segment) all select the port's one CSR attention.  Its backward on each edge
+set follows the JAX package's choice between the two-pass and the fused
+backward (:func:`fused_backward`).
 """
 
 from __future__ import annotations
@@ -64,6 +66,26 @@ def _component(config: dict, part: str) -> dict:
     return {k: cfg[k] for k in _MATH_KEYS if k in cfg}
 
 
+def fused_backward(config: dict, part: str, num_edges: int, num_channels: int) -> bool:
+    """The JAX package's choice of attention backward for one edge set
+    (``encoder_processor_decoder.py:284-315``): ``paged_fused_bwd`` for the
+    processor and, unless ``paged_mapper_fused_bwd`` overrides it, for the
+    mappers; a mapper with neither mapper key set (nor ``paged_mapper_block``)
+    also takes the fused backward when the two-pass transient it estimates,
+    ``E * 1.7 * 3 * C * 2`` bytes, exceeds 2 GB.  That estimate is the TPU
+    layout's (1.7 is the padding of its paged slots) and is kept so both
+    packages choose the same backward; the port's per-edge buffer is exactly
+    ``E * 2C`` elements, and the threshold is not measured on the GPU."""
+    fused = bool(config.get("paged_fused_bwd", False))
+    if part == "processor":
+        return fused
+    mapper_key = config.get("paged_mapper_fused_bwd")
+    if mapper_key is not None:
+        return bool(mapper_key)
+    auto = "paged_mapper_block" not in config
+    return fused or (auto and num_edges * 1.7 * 3 * num_channels * 2 > 2e9)
+
+
 class AnemoiModelEncProcDec(nn.Module):
     """The deterministic encoder-processor-decoder."""
 
@@ -104,6 +126,10 @@ class AnemoiModelEncProcDec(nn.Module):
 
         enc, proc, dec = (_component(config, p) for p in ("encoder", "processor", "decoder"))
         c = self.num_channels
+        for part, subs in (("encoder", graph.encoder.values()), ("processor", [graph.processor]),
+                           ("decoder", graph.decoder.values())):
+            for sub in subs:
+                sub.fused_bwd = fused_backward(config, part, sub.num_edges, c)
         self.encoder = nn.ModuleDict({
             ds: GraphTransformerForwardMapper(
                 self.input_dim(ds, trainable), n_hidden_attr, c,

@@ -2,7 +2,10 @@
 
 Port of ``anemoi_tpu.models.graph`` (``SubGraphArrays``, ``ModelGraph``,
 ``build_model_graph``).  The TPU's padded, bucketed, paged and slot tables
-have no counterpart: the CUDA kernel reads the dst-sorted CSR directly.
+have no counterpart: the CUDA kernels read the dst-sorted CSR directly, and
+the backward's source passes read a source-ordered view of it (``src_ptr``,
+``src_perm``), the GPU counterpart of the TPU's page-sorted ``visit_slot`` /
+``visit_page`` walk.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from anemoi_tpu_torch.graphs.graph import Graph
 from anemoi_tpu_torch.models.layers.embed import sincos_coordinates
+from anemoi_tpu_torch.ops.gt_attention import SourceOrder
 
 
 @dataclass
@@ -25,6 +29,17 @@ class SubGraphArrays:
     edge_attr: torch.Tensor  # [E, F] in the model's compute type
     num_src: int
     num_dst: int
+    # the source-ordered view, built from edge_index when not given
+    src_ptr: Optional[torch.Tensor] = None  # [num_src + 1] int32 pointer into src_perm
+    src_perm: Optional[torch.Tensor] = None  # [E] int32 edge ids by source, stable by destination
+    # the attention backward on this edge set: K3 + K4 (False) or K3 without
+    # its per-edge buffer + K5 (True); set by the model from its config
+    fused_bwd: bool = False
+
+    def __post_init__(self) -> None:
+        if self.src_ptr is None or self.src_perm is None:
+            order = SourceOrder.of(self.edge_index, self.num_src)
+            self.src_ptr, self.src_perm = order.src_ptr, order.src_perm
 
     @property
     def num_edges(self) -> int:
@@ -33,6 +48,10 @@ class SubGraphArrays:
     @property
     def edge_dim(self) -> int:
         return int(self.edge_attr.shape[1])
+
+    @property
+    def source(self) -> SourceOrder:
+        return SourceOrder(self.src_ptr, self.src_perm)
 
 
 @dataclass

@@ -7,9 +7,15 @@ it with ``load_state_dict(..., strict=True)``.
 
 Serving precision: ``model.inference_precision`` (default ``bf16``, the
 reference's 16-mixed serving; ``fp32`` on request).  The JAX package casts
-its parameters and the normalised inputs to that type on every call; here
-the parameters are held in it, and a float32 state dict is cast as it
-loads.  Pre- and post-processing stay float32.
+its parameters and the normalised inputs to that type on every call; here,
+by default, the parameters are held in it, and a float32 state dict is cast
+as it loads.  Pre- and post-processing stay float32.
+
+Training (``training=True``): the parameters (the master weights) and the
+graph arrays are held in float32, and each step runs the model on compute
+copies cast by :meth:`AnemoiModelInterface.cast_parameters` (the JAX
+``training/step.py`` ``_cast_params``); ``predict_step`` casts the same way
+to the serving type.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ class AnemoiModelInterface(nn.Module):
         statistics: Dict[str, Dict[str, np.ndarray]],
         metadata: Optional[dict] = None,
         device: torch.device | str | None = None,
+        training: bool = False,
     ) -> None:
         super().__init__()
         self.device = resolve_device(device)
@@ -61,12 +68,13 @@ class AnemoiModelInterface(nn.Module):
         if prec not in PRECISIONS:
             raise ValueError(f"unknown inference_precision '{prec}'")
         self.inference_dtype = PRECISIONS[prec]
+        self.param_dtype = torch.float32 if training else self.inference_dtype
 
         self.model_graph = build_model_graph(
             graph,
             dataset_names=sorted(data_indices),
             device=self.device,
-            dtype=self.inference_dtype,
+            dtype=self.param_dtype,
             encoder_edge_attributes=(model_cfg.get("encoder") or {}).get("sub_graph_edge_attributes"),
             processor_edge_attributes=(model_cfg.get("processor") or {}).get(
                 "sub_graph_edge_attributes"
@@ -75,7 +83,7 @@ class AnemoiModelInterface(nn.Module):
         )
         self.model = AnemoiModelEncProcDec(
             graph=self.model_graph, data_indices=data_indices, config=model_cfg
-        ).to(device=self.device, dtype=self.inference_dtype)
+        ).to(device=self.device, dtype=self.param_dtype)
         processors_cfg = (config.get("data") or {}).get("processors")
         self.pre_processors: Dict[str, Processors] = {
             ds: build_processors(processors_cfg, idx, statistics[ds], device=self.device)
@@ -93,6 +101,24 @@ class AnemoiModelInterface(nn.Module):
         for module in self.modules():
             if isinstance(module, GraphTransformerBaseBlock):
                 module.plain_attention = plain
+
+    def cast_parameters(self, dtype: torch.dtype, fp32_head: bool = False) -> Dict[str, torch.Tensor]:
+        """Compute copies of the model's parameters, ``{name: p.to(dtype)}``
+        with the names of ``self.model``.  The casts stay in the autograd
+        graph, so gradients reach the float32 masters.  ``fp32_head`` keeps
+        the decoder's output head (``node_data_extractor``: its LayerNorm and
+        Linear) in float32, as the JAX ``fp32_head`` keeps ``extractor*``."""
+        return {
+            name: p if fp32_head and "node_data_extractor" in name else p.to(dtype)
+            for name, p in self.model.named_parameters()
+        }
+
+    def run_model(self, x: Dict[str, torch.Tensor], params: Optional[Dict[str, torch.Tensor]] = None):
+        """The model on ``x``, with its own parameters or with ``params``
+        (e.g. :meth:`cast_parameters`) in their place."""
+        if params is None:
+            return self.model(x)
+        return torch.func.functional_call(self.model, params, (x,))
 
     def normalised_input(self, batch: Dict[str, torch.Tensor]):
         """Normalise raw data-space windows (float32): returns the full
@@ -112,5 +138,6 @@ class AnemoiModelInterface(nn.Module):
         ``{ds: [B, n_step_output, E, G, V_model_out]}`` in float32."""
         m = self.model.n_step_input
         _, x = self.normalised_input({ds: b[:, :m] for ds, b in batch.items()})
-        y = self.model(x)
+        cast = self.param_dtype != self.inference_dtype
+        y = self.run_model(x, self.cast_parameters(self.inference_dtype) if cast else None)
         return {ds: self.pre_processors[ds].inverse_transform(y[ds].float()) for ds in y}

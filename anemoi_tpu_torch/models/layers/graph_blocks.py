@@ -10,7 +10,8 @@ features of a sub-graph are shared over the batch.
 The sparse attention runs through ``anemoi_tpu_torch.ops.gt_attention``:
 without an ``edge_pre_mlp`` the ``lin_edge`` projection is fused into the
 kernel (K1, the flagship path); with one, ``lin_edge`` runs first and the
-projected edges go to K2.
+projected edges go to K2.  The backward takes the edge set's source-ordered
+view and its ``fused_bwd`` choice (K3 + K4, or K3 + K5).
 """
 
 from __future__ import annotations
@@ -78,12 +79,13 @@ class GraphTransformerBaseBlock(nn.Module):
             out, _ = gt_attention_fe(
                 query, key, value, e, self.lin_edge.weight.t(), self.lin_edge.bias,
                 sub.edge_index, sub.dst_ptr, self.num_heads, plain=self.plain_attention,
+                source=sub.source, fused_bwd=sub.fused_bwd,
             )
         else:
             edges = self.lin_edge(self.edge_pre_mlp(e))
             out, _ = gt_attention(
                 query, key, value, edges, sub.edge_index, sub.dst_ptr, self.num_heads,
-                plain=self.plain_attention,
+                plain=self.plain_attention, source=sub.source, fused_bwd=sub.fused_bwd,
             )
         return out
 

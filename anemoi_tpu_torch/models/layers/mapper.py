@@ -89,4 +89,8 @@ class GraphTransformerBackwardMapper(nn.Module):
     ) -> torch.Tensor:
         x_dst = self.emb_nodes_dst(x[1])
         _, x_dst = self.proc((x[0], x_dst), sub, edge_attr)
-        return self.node_data_extractor(x_dst)
+        norm, head = self.node_data_extractor
+        out = norm(x_dst)
+        # a float32 head under bf16 compute (training's fp32_head) promotes its
+        # input, as the JAX package's Dense does
+        return head(out.to(torch.promote_types(out.dtype, head.weight.dtype)))
