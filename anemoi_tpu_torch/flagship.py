@@ -7,6 +7,13 @@ processor layers, 16 heads, 2 input steps, trainable node attributes
 ``{data: 8, hidden: 8}``, edge attributes ``[edge_dirs, edge_length]``, the
 7-variable dataset and an ``InputNormalizer``.  Sizes are arguments so that
 tests can build the same model small.
+
+``transformer_config`` is the ``transformer`` preset of the JAX package
+(``config/model/transformer.yaml``, anemoi-core's ``transformer.yaml``) on
+the same graph: GraphTransformer encoder and decoder with edge attributes
+``[edge_length, edge_dirs]``, a dense ``TransformerProcessor`` with a
+sliding window over the SFC-sorted hidden nodes, 1024 channels, 16 layers,
+16 heads, window 512.
 """
 
 from __future__ import annotations
@@ -64,6 +71,34 @@ def flagship_config(
             "trainable_parameters": {"data": 8, "hidden": 8},
             "encoder": {"name": "GraphTransformerForwardMapper", **gt},
             "processor": {"name": "GraphTransformerProcessor", "num_layers": num_layers, **gt},
+            "decoder": {"name": "GraphTransformerBackwardMapper", **gt},
+        },
+        "data": {"processors": [{"name": "InputNormalizer", "default": "mean-std"}]},
+    }
+
+
+def transformer_config(
+    num_channels: int = 1024, num_layers: int = 16, num_heads: int = 16,
+    window_size: int = 512, inference_precision: str = "bf16",
+) -> dict:
+    """The ``transformer`` preset.  Its processor takes the default
+    ``attention_impl`` (``xla``), which computes the band when
+    ``2 * window_size + 1 < num_hidden_nodes``, as at ico-5."""
+    gt = {"num_heads": num_heads, "mlp_hidden_ratio": 4.0,
+          "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]}
+    return {
+        "model": {
+            "name": "AnemoiModelEncProcDec",
+            "num_channels": num_channels,
+            "n_step_input": 2,
+            "n_step_output": 1,
+            "latent_skip": True,
+            "inference_precision": inference_precision,
+            "trainable_parameters": {"data": 8, "hidden": 8},
+            "encoder": {"name": "GraphTransformerForwardMapper", **gt},
+            "processor": {"name": "TransformerProcessor", "num_layers": num_layers,
+                          "num_heads": num_heads, "mlp_hidden_ratio": 4.0,
+                          "window_size": window_size},
             "decoder": {"name": "GraphTransformerBackwardMapper", **gt},
         },
         "data": {"processors": [{"name": "InputNormalizer", "default": "mean-std"}]},

@@ -22,7 +22,9 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("gt_attention_fwd", "gt_attention_bwd")
+KERNEL_SOURCES = (
+    "gt_attention_fwd", "gt_attention_bwd", "window_attention_fwd", "window_attention_bwd",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -69,7 +69,7 @@ constexpr int kFinalizeWarps = 8;
 
 // K3: the destination pass.
 template <typename T, bool FUSE_EDGE>
-__global__ void gt_attention_bwd_dst_kernel(
+__global__ void __launch_bounds__(gt::kMaxThreads) gt_attention_bwd_dst_kernel(
     const T* __restrict__ q,          // [B, Nd, HD]
     const T* __restrict__ k,          // [B, Ns, HD]
     const T* __restrict__ v,          // [B, Ns, HD]
@@ -208,7 +208,7 @@ __global__ void gt_attention_bwd_dw_finalize_kernel(const float* __restrict__ pa
 
 // K4: the source pass, summing the per-edge rows of dkv into their source.
 template <typename T>
-__global__ void gt_attention_bwd_src_kernel(
+__global__ void __launch_bounds__(gt::kMaxThreads) gt_attention_bwd_src_kernel(
     const T* __restrict__ dkv,          // [B, E, 2HD]
     const int* __restrict__ src_ptr,    // [Ns + 1]
     const int* __restrict__ src_perm,   // [E] edge ids sorted by source
@@ -234,7 +234,7 @@ __global__ void gt_attention_bwd_src_kernel(
 // K5: the source pass without dkv, recomputing each edge's alpha and dl
 // (K3's math) from the destination's q, g, lse and delta.
 template <typename T, bool FUSE_EDGE>
-__global__ void gt_attention_bwd_src_fused_kernel(
+__global__ void __launch_bounds__(gt::kMaxThreads) gt_attention_bwd_src_fused_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ dst,       // [E] destination of each dst-sorted edge

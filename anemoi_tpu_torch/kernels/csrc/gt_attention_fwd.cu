@@ -47,7 +47,7 @@ using gt::load_edge_column;
 using gt::to_float;
 
 template <typename T, bool FUSE_EDGE>
-__global__ void gt_attention_fwd_kernel(
+__global__ void __launch_bounds__(gt::kMaxThreads) gt_attention_fwd_kernel(
     const T* __restrict__ q,        // [B, Nd, HD]
     const T* __restrict__ k,        // [B, Ns, HD]
     const T* __restrict__ v,        // [B, Ns, HD]

@@ -8,6 +8,11 @@
 namespace gt {
 
 constexpr int kMaxEdgeFeatures = 8;  // the fused edge projection keeps W's column in registers
+// One thread per channel: HD = 1024 (the Transformer preset's mappers) gives
+// 1024-thread blocks, which launch only if a thread uses at most 64
+// registers.  The bound makes ptxas keep to that for every kernel that
+// launches one thread per channel (the K3 FUSE_EDGE variants use 63 without it).
+constexpr int kMaxThreads = 1024;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }

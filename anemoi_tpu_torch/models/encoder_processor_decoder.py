@@ -7,7 +7,10 @@ with the GraphTransformer mappers and processor.  Data flow, per dataset:
 latent skip -> decoder (hidden -> data) -> [B,T,E,G,V] -> residual added on
 the prognostic variables.
 
-Ported: the deterministic model on one device.  Bounding, non-skip
+Processors: the ``GraphTransformerProcessor`` and the dense
+``TransformerProcessor`` (sliding-window attention over the hidden nodes in
+their order; its processor edge set stays in the graph, unread, as in the
+JAX package).  Ported: the deterministic model on one device.  Bounding, non-skip
 residuals, the ensemble noise and forecast-step channel, conditional norms,
 dynamic edge providers and model parallelism raise ``NotImplementedError``.
 The ``graph_attention_backend`` values of the JAX package (paged, padded,
@@ -31,7 +34,10 @@ from anemoi_tpu_torch.models.layers.mapper import (
     GraphTransformerForwardMapper,
     TrainableEdgeFeatures,
 )
-from anemoi_tpu_torch.models.layers.processor import GraphTransformerProcessor
+from anemoi_tpu_torch.models.layers.processor import (
+    GraphTransformerProcessor,
+    TransformerProcessor,
+)
 from anemoi_tpu_torch.models.layers.residual import build_residual
 
 BACKENDS = ("paged", "padded", "segment")
@@ -41,15 +47,19 @@ _COMPONENT_NAMES = {
     "decoder": "GraphTransformerBackwardMapper",
 }
 _MATH_KEYS = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "edge_pre_mlp")
+_TRANSFORMER_KEYS = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "window_size",
+                     "softcap", "use_alibi_slopes", "use_rotary_embeddings", "attention_impl")
 
 
 def _component(config: dict, part: str) -> dict:
-    """Constructor kwargs of one GraphTransformer component; keys that only
-    steer the TPU's execution (remat, scan, tables) are dropped, keys that
-    change the math and are not ported raise."""
+    """Constructor kwargs of one component (a GraphTransformer mapper or
+    processor, or the dense ``TransformerProcessor``); keys that only steer
+    the TPU's execution (remat, scan, tables) are dropped, keys that change
+    the math and are not ported raise."""
     cfg = dict(config.get(part) or {})
     name = cfg.get("name", _COMPONENT_NAMES[part])
-    if name != _COMPONENT_NAMES[part]:
+    dense = part == "processor" and name == "TransformerProcessor"
+    if name != _COMPONENT_NAMES[part] and not dense:
         raise NotImplementedError(f"{part} '{name}' is not ported to anemoi_tpu_torch")
     if cfg.get("edge_provider"):
         raise NotImplementedError(f"{part}: dynamic edge providers are not ported")
@@ -59,11 +69,13 @@ def _component(config: dict, part: str) -> dict:
         raise NotImplementedError(f"{part}: gated MLPs are not ported")
     if cfg.get("qk_norm_type", "layernorm") != "layernorm":
         raise NotImplementedError(f"{part}: only the layernorm qk-norm is ported")
+    if cfg.get("shard_strategy", "none") != "none":
+        raise NotImplementedError(f"{part}: Ulysses head sharding (shard_strategy) is not ported")
     if int(cfg.get("scan_unroll", 1)) != 1:
         raise NotImplementedError(f"{part}: scan_unroll > 1 stacks parameters differently")
     if "num_heads" not in cfg:
         raise ValueError(f"{part}: num_heads is required")
-    return {k: cfg[k] for k in _MATH_KEYS if k in cfg}
+    return {k: cfg[k] for k in (_TRANSFORMER_KEYS if dense else _MATH_KEYS) if k in cfg}
 
 
 def fused_backward(config: dict, part: str, num_edges: int, num_channels: int) -> bool:
@@ -125,6 +137,7 @@ class AnemoiModelEncProcDec(nn.Module):
             return sub.edge_dim + trainable_size(part)
 
         enc, proc, dec = (_component(config, p) for p in ("encoder", "processor", "decoder"))
+        self.dense_processor = (config["processor"] or {}).get("name") == "TransformerProcessor"
         c = self.num_channels
         for part, subs in (("encoder", graph.encoder.values()), ("processor", [graph.processor]),
                            ("decoder", graph.decoder.values())):
@@ -136,10 +149,13 @@ class AnemoiModelEncProcDec(nn.Module):
                 edge_dim=edge_dim("encoder", graph.encoder[ds]), **enc,
             ) for ds in datasets
         })
-        self.processor = GraphTransformerProcessor(
-            int(config["processor"]["num_layers"]), c,
-            edge_dim=edge_dim("processor", graph.processor), **proc,
-        )
+        if self.dense_processor:
+            self.processor = TransformerProcessor(int(config["processor"]["num_layers"]), c, **proc)
+        else:
+            self.processor = GraphTransformerProcessor(
+                int(config["processor"]["num_layers"]), c,
+                edge_dim=edge_dim("processor", graph.processor), **proc,
+            )
         self.decoder = nn.ModuleDict({
             ds: GraphTransformerBackwardMapper(
                 self.input_dim(ds, trainable), c, self.output_dim(ds),
@@ -152,7 +168,7 @@ class AnemoiModelEncProcDec(nn.Module):
                 ds: TrainableEdgeFeatures(graph.encoder[ds].num_edges, trainable_size("encoder"))
                 for ds in datasets
             })
-        if trainable_size("processor"):
+        if trainable_size("processor") and not self.dense_processor:
             self.processor_graph_provider = TrainableEdgeFeatures(
                 graph.processor.num_edges, trainable_size("processor")
             )
@@ -223,9 +239,12 @@ class AnemoiModelEncProcDec(nn.Module):
             latents.append(x_latent)
 
         x_latent = sum(latents)
-        x_latent_proc = self.processor(
-            x_latent, graph.processor, self._edges("processor_graph_provider", graph.processor)
-        )
+        if self.dense_processor:
+            x_latent_proc = self.processor(x_latent)
+        else:
+            x_latent_proc = self.processor(
+                x_latent, graph.processor, self._edges("processor_graph_provider", graph.processor)
+            )
         if self.latent_skip:
             x_latent_proc = x_latent_proc + x_latent
 

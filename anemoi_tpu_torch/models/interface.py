@@ -30,6 +30,7 @@ from anemoi_tpu_torch.data_indices.collection import IndexCollection
 from anemoi_tpu_torch.graphs.graph import Graph
 from anemoi_tpu_torch.models.encoder_processor_decoder import AnemoiModelEncProcDec
 from anemoi_tpu_torch.models.graph import build_model_graph
+from anemoi_tpu_torch.models.layers.attention import MultiHeadSelfAttention
 from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerBaseBlock
 from anemoi_tpu_torch.preprocessing.processors import Processors, build_processors
 from anemoi_tpu_torch.utils.device import resolve_device
@@ -96,10 +97,12 @@ class AnemoiModelInterface(nn.Module):
         self.eval()
 
     def use_plain_attention(self, plain: bool = True) -> None:
-        """Run every attention block on its plain PyTorch version (``True``)
-        or on the CUDA kernel (``False``, the default on the card)."""
+        """Run every attention -- the graph attention of the GraphTransformer
+        blocks and the band of the dense Transformer's -- on its plain PyTorch
+        version (``True``) or on the CUDA kernels (``False``, the default on
+        the card)."""
         for module in self.modules():
-            if isinstance(module, GraphTransformerBaseBlock):
+            if isinstance(module, (GraphTransformerBaseBlock, MultiHeadSelfAttention)):
                 module.plain_attention = plain
 
     def cast_parameters(self, dtype: torch.dtype, fp32_head: bool = False) -> Dict[str, torch.Tensor]:

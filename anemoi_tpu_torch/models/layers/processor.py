@@ -1,9 +1,12 @@
-"""Hidden-mesh processor.
+"""Hidden-mesh processors.
 
-Port of ``anemoi_tpu.models.layers.processor.GraphTransformerProcessor``.
+Port of ``anemoi_tpu.models.layers.processor``: ``GraphTransformerProcessor``
+and the dense ``TransformerProcessor`` (with ``TransformerProcessorBlock``).
 The JAX package runs the layers as one ``nn.scan`` over stacked parameters;
 here they are an ``nn.ModuleList`` (``proc.<i>``, anemoi-core's layout),
-run in a Python loop.
+run in a Python loop.  The JAX keys that only steer the TPU's execution
+(``gradient_checkpointing``, ``remat_policy``, ``scan_layers``) have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -14,8 +17,10 @@ import torch
 from torch import nn
 
 from anemoi_tpu_torch.models.graph import SubGraphArrays
+from anemoi_tpu_torch.models.layers.attention import MultiHeadSelfAttention
 from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerProcessorBlock
-from anemoi_tpu_torch.models.layers.mlp import compute_mlp_hidden_dim
+from anemoi_tpu_torch.models.layers.mlp import MLP, compute_mlp_hidden_dim
+from anemoi_tpu_torch.models.layers.normalization import LayerNorm
 
 
 class GraphTransformerProcessor(nn.Module):
@@ -39,4 +44,42 @@ class GraphTransformerProcessor(nn.Module):
     def forward(self, x: torch.Tensor, sub: SubGraphArrays, edge_attr: torch.Tensor) -> torch.Tensor:
         for block in self.proc:
             x = block(x, sub, edge_attr)
+        return x
+
+
+class TransformerProcessorBlock(nn.Module):
+    """Dense pre-norm transformer block with sliding-window MHSA:
+    ``x + attention(layer_norm_attention(x))``, then ``x + mlp(layer_norm_mlp(x))``."""
+
+    def __init__(self, num_channels: int, hidden_dim: int, num_heads: int, **attention_kw) -> None:
+        super().__init__()
+        self.layer_norm_attention = LayerNorm(num_channels)
+        self.attention = MultiHeadSelfAttention(num_channels, num_heads, **attention_kw)
+        self.layer_norm_mlp = LayerNorm(num_channels)
+        self.mlp = MLP(num_channels, hidden_dim, num_channels, layer_norm=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attention(self.layer_norm_attention(x))
+        return x + self.mlp(self.layer_norm_mlp(x))
+
+
+class TransformerProcessor(nn.Module):
+    """Stack of dense sliding-window transformer blocks over the hidden
+    nodes, in their (space-filling-curve) order; the processor edges are
+    not read."""
+
+    def __init__(
+        self, num_layers: int, num_channels: int, num_heads: int,
+        mlp_hidden_ratio: float = 4.0, **attention_kw,
+    ) -> None:
+        super().__init__()
+        hidden = compute_mlp_hidden_dim(num_channels, mlp_hidden_ratio)
+        self.proc = nn.ModuleList(
+            TransformerProcessorBlock(num_channels, hidden, num_heads, **attention_kw)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.proc:
+            x = block(x)
         return x

@@ -15,6 +15,13 @@ The port's own copy of the GraphTransformer part of the name mapping in
 - ``node_attributes_<name>.trainable``  -> ``node_attributes.trainable_tensors.<name>.trainable``
 - ``trainable_edges`` of a component    -> ``<component>_graph_provider[.<ds>].trainable``
 - the i-th encoder/decoder module       -> ``encoder.<ds>`` of the i-th dataset in sorted order
+
+and of its dense ``TransformerProcessor`` part (``keep_attention`` there):
+the block keeps its ``attention`` submodule, flax's fused ``qkv`` kernel
+``[C, 3HD]`` becomes the separate ``lin_q``, ``lin_k``, ``lin_v`` weights
+``[HD, C]`` (anemoi-core's names; the JAX export synthesises ``qkv`` from
+them), ``out_proj`` becomes ``projection``, and ``layer_norm_mlp`` keeps its
+name (the GraphTransformer blocks call it ``layer_norm_mlp_dst``).
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ _NORMS = {
     "q_norm": "q_norm",
     "k_norm": "k_norm",
 }
-_MLPS = ("node_dst_mlp", "node_src_mlp", "edge_pre_mlp")
+_MLPS = ("node_dst_mlp", "node_src_mlp", "edge_pre_mlp", "mlp")
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -55,7 +62,7 @@ def _component(p: str, datasets: Sequence[str]):
         if p.startswith(cls):
             ds = datasets[int(p.rsplit("_", 1)[1]) if "_" in p else 0]
             return [part, ds], [f"{part}_graph_provider", ds]
-    if p.startswith("GraphTransformerProcessor"):
+    if p.startswith("GraphTransformerProcessor") or p.startswith("TransformerProcessor"):
         return ["processor"], ["processor_graph_provider"]
     return None
 
@@ -65,6 +72,7 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str]) -> str:
     processor layer index is left as ``{layer}``."""
     out: List[str] = ["model"]
     provider: List[str] = []
+    keep_attention = path[0].startswith("TransformerProcessor")  # the dense block
     i = 0
     while i < len(path) - 1:
         p = path[i]
@@ -80,8 +88,14 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str]) -> str:
             out += ["proc", "{layer}"]
         elif p.startswith("blocks_") and p[len("blocks_"):].isdigit():
             out += ["proc", p[len("blocks_"):]]
+        elif p == "attention" and keep_attention:
+            out.append(p)
         elif p in ("block", "attention", "ln"):
             pass  # scan body, the inlined attention module, LayerNorm's inner module
+        elif p == "out_proj":
+            out.append("projection")
+        elif p == "layer_norm_mlp" and keep_attention:
+            out.append(p)
         elif p in _NORMS:
             out += _NORMS[p].split(".")
         elif p in _MLPS and path[i + 1] in ("ffn_in", "linear_out", "norm"):
@@ -108,9 +122,15 @@ def state_dict_from_jax(params, dataset_names: Sequence[str] = ("data",)) -> Dic
         if path[-1] == "kernel" and value.ndim >= 2:
             value = np.swapaxes(value, -1, -2)  # [.., in, out] -> [.., out, in]
         name = _name(path, datasets)
-        if "{layer}" in name:
-            for layer in range(value.shape[0]):
-                out[name.replace("{layer}", str(layer))] = torch.tensor(value[layer])
-        else:
-            out[name] = torch.tensor(value)
+        parts = {name: value}
+        if ".qkv." in name:  # [.., 3HD, C] or [.., 3HD] -> lin_q, lin_k, lin_v
+            axis = -2 if path[-1] == "kernel" else -1
+            parts = {name.replace(".qkv.", f".lin_{x}."): y
+                     for x, y in zip("qkv", np.split(value, 3, axis=axis))}
+        for name, value in parts.items():
+            if "{layer}" in name:
+                for layer in range(value.shape[0]):
+                    out[name.replace("{layer}", str(layer))] = torch.tensor(value[layer])
+            else:
+                out[name] = torch.tensor(value)
     return out

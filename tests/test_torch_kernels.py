@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K5 against the plain PyTorch attention and its
+"""The CUDA kernels K1-K7 against the plain PyTorch attention and its
 plain backward.
 
 The ``cuda`` tests need a card and skip without one.  They import neither
@@ -7,8 +7,12 @@ JAX nor the JAX package, so they also run where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 They cover the head sizes the flagship (d = 32) does not: d < 32 (a
-butterfly inside a warp) and d = 64 (a sum across warps), destinations
-without edges, sources without edges (backward), and both input types.
+butterfly inside a warp) and d = 64 (a sum across warps) -- also at HD =
+1024 (16 x 64, the Transformer preset's mappers: 1024 threads a block) --,
+destinations without edges, sources without edges (backward), and both input
+types.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
+and dv) are held against ``band_attention_plain`` and its autograd backward,
+with softcap, ALiBi and a ragged last tile.
 Tolerance, per output: float32 1e-4 of max|ref| (another summation order);
 bfloat16 2e-2 of max|ref| (outputs and the dkv buffer are rounded to
 bfloat16).
@@ -19,12 +23,19 @@ import pytest
 import torch
 
 from anemoi_tpu_torch.kernels import gt_attention as kern
+from anemoi_tpu_torch.kernels import window_attention as wkern
 from anemoi_tpu_torch.ops.gt_attention import (
     SourceOrder,
     gt_attention,
     gt_attention_bwd_kernels,
     gt_attention_bwd_plain,
     gt_attention_fe,
+)
+from anemoi_tpu_torch.models.layers.attention import get_alibi_slopes
+from anemoi_tpu_torch.ops.window_attention import (
+    band_attention,
+    band_attention_bwd_plain,
+    band_attention_plain,
 )
 
 DEAD_SRC = (0, 5, 299)
@@ -72,7 +83,7 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads,d", [(2, 4), (4, 8), (2, 64), (16, 32)])
+@pytest.mark.parametrize("heads,d", [(2, 4), (4, 8), (2, 64), (16, 32), (16, 64)])
 @pytest.mark.parametrize("fused", [False, True], ids=["K2", "K1"])
 def test_kernel_matches_plain(card, fused, heads, d, dtype):
     ei_np, ptr_np, a = make_case(np.random.default_rng(1), 300, 200, heads * d)
@@ -120,7 +131,7 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads,d", [(2, 4), (4, 8), (2, 64), (16, 32)])
+@pytest.mark.parametrize("heads,d", [(2, 4), (4, 8), (2, 64), (16, 32), (16, 64)])
 @pytest.mark.parametrize("fused", [False, True], ids=["edges", "fused_edge"])
 @pytest.mark.parametrize("fused_bwd", [False, True], ids=["K3_K4", "K3_K5"])
 def test_backward_kernels_match_plain(card, fused_bwd, fused, heads, d, dtype):
@@ -176,3 +187,70 @@ def test_autograd_reaches_every_input_on_the_card(card, fused_bwd):
         got = grads[False][name]
         assert got is not None and got.abs().max() > 0, name
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+
+
+def test_window_kernel_wrappers_refuse_cpu_tensors():
+    q = torch.zeros(1, 40, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkern.window_attention_fwd(q, q, q, 8)
+    lse = torch.zeros(1, 2, 40)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkern.window_attention_bwd_dq(q, q, q, q, lse, lse, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkern.window_attention_bwd_dkv(q, q, q, q, lse, lse, 8)
+    assert wkern.launch_counts() == {"K6": 0, "K7_dq": 0, "K7_dkv": 0}
+
+
+WINDOW_CASES = {  # name: (B, N, H, D, w, softcap, alibi)
+    "plain": (2, 256, 2, 64, 32, None, False),
+    "ragged": (1, 300, 4, 32, 64, None, False),
+    "softcap_alibi_ragged": (2, 203, 4, 64, 48, 5.0, True),
+    "d16_small_window": (1, 130, 2, 16, 5, None, True),
+    "d128_window_past_n": (1, 100, 2, 128, 128, 3.0, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_kernels_match_plain(card, case, dtype):
+    b, n, h, d, w, softcap, alibi = WINDOW_CASES[case]
+    rng = np.random.default_rng(4)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32))
+                  .to(card, dtype) for _ in range(4))
+    slopes = get_alibi_slopes(h).to(card) if alibi else None
+    before = wkern.launch_counts()
+    out, lse = wkern.window_attention_fwd(q, k, v, w, softcap, slopes)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = wkern.window_attention_bwd_dq(q, k, v, g, lse, delta, w, softcap, slopes)
+    dk, dv = wkern.window_attention_bwd_dkv(q, k, v, g, lse, delta, w, softcap, slopes)
+    torch.cuda.synchronize()
+    assert wkern.launch_counts() == {n_: c + 1 for n_, c in before.items()}
+    ref, ref_lse = band_attention_plain(q, k, v, w, softcap, slopes)
+    refs = band_attention_bwd_plain(q, k, v, g, w, softcap, slopes)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, x, y in (("out", out, ref), ("dq", dq, refs[0]), ("dk", dk, refs[1]),
+                       ("dv", dv, refs[2])):
+        err = (x.float() - y.float()).abs().max()
+        assert torch.isfinite(x).all() and err <= tol * y.float().abs().max(), (name, err.item())
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_window_autograd_on_the_card(card):
+    """``band_attention`` on CUDA tensors: K6 forward, K7 backward, the
+    gradients of the plain version."""
+    rng = np.random.default_rng(5)
+    arrays = [rng.normal(size=(1, 150, 2, 32)).astype(np.float32) for _ in range(3)]
+    grads = {}
+    for plain in (False, True):
+        t = [torch.from_numpy(a).to(card).requires_grad_() for a in arrays]
+        before = wkern.launch_counts()
+        out = band_attention(*t, 20, 4.0, get_alibi_slopes(2), plain=plain)
+        (out * torch.linspace(-1, 1, out.numel(), device=card).view(out.shape)).sum().backward()
+        moved = {n_: c - before[n_] for n_, c in wkern.launch_counts().items()}
+        assert moved == ({"K6": 0, "K7_dq": 0, "K7_dkv": 0} if plain
+                         else {"K6": 1, "K7_dq": 1, "K7_dkv": 1})
+        grads[plain] = [x.grad for x in t]
+    for got, ref in zip(grads[False], grads[True]):
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()

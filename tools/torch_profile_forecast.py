@@ -1,11 +1,15 @@
 """Where a forecast step, or a training step, of the PyTorch port spends its
 time on the card.
 
-    python3 tools/torch_profile_forecast.py [--steps 2] [--reps 3] [--json PATH]
-    python3 tools/torch_profile_forecast.py --train [--reps 3] [--json PATH]
+    python3 tools/torch_profile_forecast.py [--model M] [--steps 2] [--reps 3] [--json PATH]
+    python3 tools/torch_profile_forecast.py [--model M] --train [--reps 3] [--json PATH]
 
-Builds the full-width flagship (o96 -> ico-5, 512 channels, 16 layers, 16
-heads, seeded random weights) with ``anemoi_tpu_torch``, warms up, then
+Builds a full-width model on the o96 -> ico-5 graph with seeded random
+weights -- ``--model flagship`` (default: the GraphTransformer, 512
+channels, 16 layers, 16 heads) or ``--model transformer`` (the
+``transformer`` preset: GraphTransformer mappers and 16 dense
+sliding-window layers, 1024 channels, 16 heads, window 512) -- with
+``anemoi_tpu_torch``, warms up, then
 traces with ``torch.profiler`` either ``reps`` forecasts of ``steps`` steps
 (bf16 serving) or, with ``--train``, ``reps`` training steps of
 ``make_step_fns`` (bf16 compute over float32 masters, area-weighted MSE,
@@ -31,6 +35,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--model", choices=("flagship", "transformer"), default="flagship")
     ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--json", help="also write the result here")
     args = ap.parse_args()
@@ -40,6 +45,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from anemoi_tpu_torch.flagship import (
         flagship_config, flagship_indices, flagship_recipe, flagship_statistics,
+        transformer_config,
     )
     from anemoi_tpu_torch.graphs.create import GraphCreator
     from anemoi_tpu_torch.inference import make_forecast_fn
@@ -53,7 +59,8 @@ def main() -> int:
     graph = GraphCreator(flagship_recipe("o96", 5)).create()
     torch.manual_seed(0)
     iface = AnemoiModelInterface(
-        config=flagship_config(), graph=graph, data_indices=flagship_indices(),
+        config=transformer_config() if args.model == "transformer" else flagship_config(),
+        graph=graph, data_indices=flagship_indices(),
         statistics=flagship_statistics(0), device=device, training=args.train,
     )
     gen = torch.Generator(device=device).manual_seed(0)
@@ -110,6 +117,7 @@ def main() -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
     result = {
         "card": card,
+        "model": args.model,
         "mode": "training step" if args.train else "forecast step",
         "kernel_launches_per_step": sum(v[1] for v in kernels.values()) / n_steps,
         "wall_ms_per_step": wall_ms / n_steps,
