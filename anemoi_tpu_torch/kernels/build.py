@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -92,6 +93,22 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas register and spill counts) of the built library."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from the ``-Xptxas -v`` lines of a build log (:func:`build_log`)."""
+    usage = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        usage[name] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_stores": int(spills.group(1)) if spills else None,
+            "spill_loads": int(spills.group(2)) if spills else None,
+        }
+    return usage
 
 
 def load_library(name: str) -> ctypes.CDLL:

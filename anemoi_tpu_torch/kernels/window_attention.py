@@ -6,9 +6,13 @@ K7 is two kernels in ``csrc/window_attention_bwd.cu``:
 :func:`window_attention_bwd_dq` (replacing ``_flash_bwd_dq_kernel``) and
 :func:`window_attention_bwd_dkv` (replacing ``_flash_bwd_dkv_kernel``).
 
-Inputs are ``[B, N, H, D]`` (contiguous; D 16, 32, 64 or 128), float32 or
-bfloat16; ``lse`` and ``delta`` are float32 ``[B, H, N]``; ``softcap`` None
-or a positive float; ``slopes`` None or float32 ``[H]`` on the same card.
+Inputs are ``[B, N, H, D]`` (contiguous, 16-byte aligned; D 16, 32, 64 or
+128), float32 or bfloat16; ``lse`` and ``delta`` are float32 ``[B, H, N]``;
+``softcap`` None or a positive float; ``slopes`` None or float32 ``[H]`` on
+the same card.  The route depends on the type alone: K6 and float32 K7 do
+their arithmetic in float32 on CUDA cores; bfloat16 K7 runs its products on
+the tensor cores (``mma.sync`` m16n8k16, bf16 inputs, float32 accumulators;
+its tiles are staged with 16-byte ``cp.async`` copies, hence the alignment).
 Each wrapper validates its inputs, allocates the outputs, launches on
 PyTorch's current stream, raises if the launch failed, and adds one to its
 ``launches`` count.  The library is built (``kernels/build.py``) and loaded
@@ -71,6 +75,8 @@ def _check(q, k, v, window_size, softcap, slopes, *more):
     for t in (q, k, v) + more:
         if not t.is_contiguous() or t.device != q.device:
             raise ValueError("q, k, v (and grad) must be contiguous on one card")
+        if t.data_ptr() % 16:
+            raise ValueError("q, k, v (and grad) must start on a 16-byte boundary")
     if slopes is not None and (slopes.shape != (h,) or slopes.dtype != torch.float32
                                or slopes.device != q.device or not slopes.is_contiguous()):
         raise ValueError("slopes must be a contiguous float32 [H] on q's card")
@@ -116,7 +122,9 @@ def window_attention_bwd_dq(
     slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K7, its query side: ``dq [B, N, H, D]``.  ``grad = dL/d out``, ``lse``
-    from K6, ``delta = sum_D(grad * out)`` as float32 ``[B, H, N]``."""
+    from K6, ``delta = sum_D(grad * out)`` as float32 ``[B, H, N]``.
+    bfloat16 runs on the tensor cores (dS rounded to bf16 for ``dS K``),
+    float32 on CUDA cores."""
     _check(q, k, v, window_size, softcap, slopes, grad)
     _check_stats(q, lse, delta)
     dq = torch.empty_like(q)
@@ -135,7 +143,9 @@ def window_attention_bwd_dkv(
     slopes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7, its key side: ``dk``, ``dv [B, N, H, D]``; inputs as for
-    :func:`window_attention_bwd_dq`."""
+    :func:`window_attention_bwd_dq`.  bfloat16 runs on the tensor cores (P
+    and dS rounded to bf16 for ``P^T dO`` and ``dS^T Q``), float32 on CUDA
+    cores."""
     _check(q, k, v, window_size, softcap, slopes, grad)
     _check_stats(q, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

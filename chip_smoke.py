@@ -25,7 +25,10 @@ Phases (any failure exits non-zero, with no result line):
                   float32 and bfloat16, each timed beside its operation bound,
                   the plain version and scaled_dot_product_attention with the
                   [N, N] band mask (forward; its backward for K7); one smaller
-                  case with ALiBi and softcap, checked only;
+                  case with ALiBi and softcap, checked only; each K7 row
+                  names its route (bf16: tensor cores, float32: CUDA cores)
+                  and its instantiation's ptxas registers and spills; bf16
+                  K7 run twice at the main shape must agree bit for bit;
   7. serving   -- a 2-step forecast of the flagship GraphTransformer (o96 ->
                   ico-5, 512 channels, 16 layers, 16 heads, bf16) through the
                   port's entry points: finite, right shape, exactly 18 K1
@@ -120,6 +123,8 @@ WIN_B, WIN_N, WIN_H, WIN_D, WIN_W = 1, 10242, 16, 64, 512
 WIDE_HD = 1024  # the Transformer preset's mappers: 16 heads of 64
 TRANSFORMER_LAYERS = 16
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max|out - ref| / max|ref|
+K7_ROUTES = {torch.bfloat16: "bf16 tensor cores (mma.sync m16n8k16)",
+             torch.float32: "float32 CUDA cores"}
 SERVING_TOL = 2e-2  # relative L2, bf16 forecast on K1 against the plain attention
 # relative L2 of the flattened gradient of one bf16 training step on the
 # kernels against the same step on the plain attention: both run the same
@@ -467,10 +472,22 @@ def window_phase(device) -> dict:
     import torch.nn.functional as F
 
     from anemoi_tpu_torch.kernels import window_attention as wkern
+    from anemoi_tpu_torch.kernels.build import build_log, ptxas_usage
     from anemoi_tpu_torch.models.layers.attention import get_alibi_slopes
     from anemoi_tpu_torch.ops.window_attention import (
         band_attention_bwd_plain, band_attention_plain,
     )
+
+    usage = ptxas_usage(build_log("window_attention_bwd"))
+
+    def k7_build(name, dtype, d):
+        """Route, ptxas registers and spill bytes of the K7 instantiation
+        that ``dtype`` takes at head size ``d``."""
+        part = "dq" if name == "K7_dq" else "dkv"
+        key = (f"window_attention_bwd_{part}_mma_kernelILi{d}E" if dtype == torch.bfloat16
+               else f"window_attention_bwd_{part}_kernelIfLi{d}E")
+        found = [u for entry, u in usage.items() if key in entry]
+        return {"route": K7_ROUTES[dtype], **(found[0] if found else {})}
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     rows = {"K6": [], "K7_dq": [], "K7_dkv": []}
@@ -491,7 +508,7 @@ def window_phase(device) -> dict:
                 raise RuntimeError(f"window launch counters did not move: {wkern.launch_counts()}")
             ref, ref_lse = band_attention_plain(q, k, v, w, softcap, slopes)
             ref_grads = band_attention_bwd_plain(q, k, v, g, w, softcap, slopes)
-            errs = {}
+            errs, rel = {}, {}
             for name, x, y in (("out", out, ref), ("dq", dq, ref_grads[0]),
                                ("dk", dk, ref_grads[1]), ("dv", dv, ref_grads[2])):
                 err = (x.float() - y.float()).abs().max().item()
@@ -499,16 +516,24 @@ def window_phase(device) -> dict:
                 if not (err <= TOL[dtype] * scale_ref and torch.isfinite(x).all()):
                     raise RuntimeError(f"window {case} {dtype} {name}: max abs err {err:.3e}, "
                                        f"max|ref| {scale_ref:.3e} (tol {TOL[dtype]} of max|ref|)")
-                errs[name] = err
+                errs[name], rel[name] = err, err / scale_ref
             lse_err = (lse - ref_lse).abs().max().item()
             if not lse_err <= 1e-3 * ref_lse.abs().max().item():
                 raise RuntimeError(f"window {case} {dtype} lse: max abs err {lse_err:.3e}")
             del ref, ref_lse, ref_grads
             base = {"case": case, "dtype": str(dtype).split(".")[-1], "shape": [b, n, h, d],
                     "window": w, "softcap": softcap, "alibi": alibi}
-            print(f"[window] {base} max abs errors {errs} lse {lse_err:.3e}", flush=True)
+            print(f"[window] {base} max abs errors {errs}, over max|ref| {rel}, "
+                  f"lse {lse_err:.3e}", flush=True)
             if case != "main":
                 continue
+            if dtype == torch.bfloat16:  # each block alone writes its rows: bitwise repeatable
+                again = (wkern.window_attention_bwd_dq(q, k, v, g, lse, delta, w),
+                         *wkern.window_attention_bwd_dkv(q, k, v, g, lse, delta, w))
+                if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
+                    raise RuntimeError("bf16 K7 is not deterministic: two runs differ")
+                print("[window] bf16 K7 deterministic: two runs bitwise equal", flush=True)
+                del again
             ms = {
                 "K6": cuda_ms(lambda: wkern.window_attention_fwd(q, k, v, w)),
                 "K7_dq": cuda_ms(lambda: wkern.window_attention_bwd_dq(q, k, v, g, lse, delta, w)),
@@ -541,6 +566,7 @@ def window_phase(device) -> dict:
             pair = {"K7_pair_ms": ms["K7_dq"] + ms["K7_dkv"]}
             for name in rows:
                 row = {**base, **(pair if name != "K6" else {}),
+                       **(k7_build(name, dtype, d) if name != "K6" else {}),
                        "max_abs_err": errors[name], "lse_max_abs_err": lse_err,
                        "ms": ms[name], "plain_ms": plain[name],
                        "plain_is": ("band_attention_plain" if name == "K6"

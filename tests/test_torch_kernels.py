@@ -12,10 +12,12 @@ butterfly inside a warp) and d = 64 (a sum across warps) -- also at HD =
 destinations without edges, sources without edges (backward), and both input
 types.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
 and dv) are held against ``band_attention_plain`` and its autograd backward,
-with softcap, ALiBi and a ragged last tile.
+with softcap, ALiBi, a ragged last tile, a full band over several tiles and
+a sequence shorter than one tile; bf16 K7 (tensor cores) must be bitwise
+repeatable and refuse tensors off a 16-byte boundary.
 Tolerance, per output: float32 1e-4 of max|ref| (another summation order);
 bfloat16 2e-2 of max|ref| (outputs and the dkv buffer are rounded to
-bfloat16).
+bfloat16; bf16 K7 also rounds P and dS for its tensor-core products).
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 
 from anemoi_tpu_torch.kernels import gt_attention as kern
 from anemoi_tpu_torch.kernels import window_attention as wkern
+from anemoi_tpu_torch.kernels.build import ptxas_usage
 from anemoi_tpu_torch.ops.gt_attention import (
     SourceOrder,
     gt_attention,
@@ -207,18 +210,25 @@ WINDOW_CASES = {  # name: (B, N, H, D, w, softcap, alibi)
     "softcap_alibi_ragged": (2, 203, 4, 64, 48, 5.0, True),
     "d16_small_window": (1, 130, 2, 16, 5, None, True),
     "d128_window_past_n": (1, 100, 2, 128, 128, 3.0, False),
+    "full_band_multi_tile": (1, 1100, 2, 64, 512, None, False),
+    "n_below_one_tile": (2, 40, 3, 64, 8, None, False),
 }
+
+
+def window_inputs(case, dtype, device, seed=4):
+    b, n, h, d, w, softcap, alibi = WINDOW_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32))
+                  .to(device, dtype) for _ in range(4))
+    slopes = get_alibi_slopes(h).to(device) if alibi else None
+    return (q, k, v, g), w, softcap, slopes
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(WINDOW_CASES))
 def test_window_kernels_match_plain(card, case, dtype):
-    b, n, h, d, w, softcap, alibi = WINDOW_CASES[case]
-    rng = np.random.default_rng(4)
-    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32))
-                  .to(card, dtype) for _ in range(4))
-    slopes = get_alibi_slopes(h).to(card) if alibi else None
+    (q, k, v, g), w, softcap, slopes = window_inputs(case, dtype, card)
     before = wkern.launch_counts()
     out, lse = wkern.window_attention_fwd(q, k, v, w, softcap, slopes)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -254,3 +264,59 @@ def test_window_autograd_on_the_card(card):
         grads[plain] = [x.grad for x in t]
     for got, ref in zip(grads[False], grads[True]):
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_window_backward_is_deterministic(card):
+    """bf16 K7_dq and K7_dkv: each block alone writes its rows in a fixed
+    order, so two runs on the same inputs agree bit for bit."""
+    (q, k, v, g), w, softcap, slopes = window_inputs("plain", torch.bfloat16, card)
+    out, lse = wkern.window_attention_fwd(q, k, v, w, softcap, slopes)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    runs = [(wkern.window_attention_bwd_dq(q, k, v, g, lse, delta, w, softcap, slopes),
+             *wkern.window_attention_bwd_dkv(q, k, v, g, lse, delta, w, softcap, slopes))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_window_kernel_refuses_misaligned(card):
+    """cp.async copies 16 bytes at a time: a tensor that starts off a 16-byte
+    boundary is refused before any launch."""
+    b, n, h, d = 1, 64, 2, 16
+    buf = torch.zeros(b * n * h * d + 1, device=card, dtype=torch.bfloat16)
+    bad = buf[1:].view(b, n, h, d)
+    good = torch.zeros(b, n, h, d, device=card, dtype=torch.bfloat16)
+    lse = torch.zeros(b, h, n, device=card)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    before = wkern.launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        wkern.window_attention_bwd_dq(good, good, good, bad, lse, lse, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkern.window_attention_bwd_dkv(bad, good, good, good, lse, lse, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkern.window_attention_fwd(good, bad, good, 8)
+    assert wkern.launch_counts() == before
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z14kernel_aIfLi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z14kernel_aIfLi64EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z14kernel_bILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z14kernel_bILi128EEvv
+    96 bytes stack frame, 92 bytes spill stores, 88 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_parses_build_log():
+    assert ptxas_usage(PTXAS_LOG) == {
+        "_Z14kernel_aIfLi64EEvv": {"registers": 168, "spill_stores": 0, "spill_loads": 0},
+        "_Z14kernel_bILi128EEvv": {"registers": 255, "spill_stores": 92, "spill_loads": 88},
+    }
+    assert ptxas_usage("") == {}
