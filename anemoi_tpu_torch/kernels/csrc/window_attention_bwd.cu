@@ -349,22 +349,7 @@ __device__ __forceinline__ void two_products_mma(const bf16* X, const bf16* U, c
   }
 }
 
-// A warp's 16 x COLS slab x (float32, accumulator layout) rounded to bf16 as
-// the A fragments of the COLS / 16 k-chunks of its next product.  Packing
-// the whole slab first lets its floats die before that product runs.
-template <int COLS>
-__device__ __forceinline__ void pack_slab(uint32_t (&xa)[COLS / 16][4],
-                                          const float (&x)[COLS / 8][4]) {
-#pragma unroll
-  for (int kc = 0; kc < COLS / 16; ++kc) {
-    xa[kc][0] = tc::pack_bf16(x[2 * kc][0], x[2 * kc][1]);
-    xa[kc][1] = tc::pack_bf16(x[2 * kc][2], x[2 * kc][3]);
-    xa[kc][2] = tc::pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
-    xa[kc][3] = tc::pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
-  }
-}
-
-// acc (16 x D) += xa (16 x COLS, packed by pack_slab) times rows c0 ..
+// acc (16 x D) += xa (16 x COLS, packed by tc::pack_slab) times rows c0 ..
 // c0 + COLS - 1 of the swizzled [64][D] tile T.
 template <int D, int COLS>
 __device__ __forceinline__ void product_into(float (&acc)[D / 8][4],
@@ -381,13 +366,6 @@ __device__ __forceinline__ void product_into(float (&acc)[D / 8][4],
     }
 }
 
-// Row r (0 .. 15) and column c (0 .. COLS - 1) of element e of n-tile nt of
-// a warp's slab.
-__device__ __forceinline__ int slab_row(int lane, int e) { return (lane >> 2) + ((e >> 1) << 3); }
-__device__ __forceinline__ int slab_col(int lane, int nt, int e) {
-  return 8 * nt + 2 * (lane & 3) + (e & 1);
-}
-
 // Occupancy: up to D = 64 both kernels keep to 168 registers a thread, so
 // three blocks (12 warps) share an SM; ptxas would otherwise take ~210-240
 // and fit two, which measured slower on the H100.  To stay in 168 without
@@ -397,22 +375,6 @@ __device__ __forceinline__ int slab_col(int lane, int nt, int e) {
 __host__ __device__ constexpr int mma_blocks_per_sm(int d) { return d <= 64 ? 3 : 1; }
 constexpr int kDqCols = 64;
 constexpr int kDkvCols = 32;
-
-// Store rows m0 + slab_row of a warp's 16 x D accumulator times `mul` as
-// bf16 pairs at out + (pos0 + row) * stride, for positions below n.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4], float mul,
-                                           int pos0, int m0, int lane, int n, int stride) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int pos = pos0 + m0 + slab_row(lane, 2 * i);
-    if (pos >= n) continue;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(out + pos * stride + slab_col(lane, nt, 0)) =
-          __floats2bfloat162_rn(acc[nt][2 * i] * mul, acc[nt][2 * i + 1] * mul);
-  }
-}
 
 // dq for one 64-query tile, bf16, on the tensor cores.
 template <int D>
@@ -448,7 +410,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm(D))
   float row_lse[2], row_delta[2], acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int qpos = q0 + m0 + slab_row(lane, 2 * i);
+    const int qpos = q0 + m0 + tc::slab_row(lane, 2 * i);
     row_lse[i] = qpos < a.n ? lse[stat + qpos] : 0.f;
     row_delta[i] = qpos < a.n ? delta[stat + qpos] : 0.f;
   }
@@ -476,21 +438,22 @@ __global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm(D))
       for (int nt = 0; nt < kDqCols / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qpos = q0 + m0 + slab_row(lane, e), kpos = k0 + c0 + slab_col(lane, nt, e);
+          const int qpos = q0 + m0 + tc::slab_row(lane, e);
+          const int kpos = k0 + c0 + tc::slab_col(lane, nt, e);
           float t;
           const float x = band::logit(s[nt][e], qpos, kpos, slope, a, t);
           const float p = band::in_band(qpos, kpos, a) ? __expf(x - row_lse[e >> 1]) : 0.f;
           s[nt][e] = p * (dp[nt][e] - row_delta[e >> 1]) * (1.f - t * t);  // dS
         }
       uint32_t ds[kDqCols / 16][4];
-      pack_slab<kDqCols>(ds, s);
+      tc::pack_slab<kDqCols>(ds, s);
       product_into<D, kDqCols>(acc, ds, tk, c0, lane);
     }
     __syncthreads();  // this stage is refilled by the next iteration's copy
   }
 
   bf16* out = dq + (static_cast<size_t>(b) * a.n * a.heads + h) * D;
-  store_rows<D>(out, acc, a.scale, q0, m0, lane, a.n, stride);
+  tc::store_rows<D>(out, acc, a.scale, q0, m0, lane, a.n, stride);
 }
 
 // dk and dv for one 64-key tile, bf16, on the tensor cores.  Slab rows are
@@ -561,8 +524,8 @@ __global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm(D))
       for (int nt = 0; nt < kDkvCols / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = c0 + slab_col(lane, nt, e), qpos = q0 + c;
-          const int kpos = k0 + m0 + slab_row(lane, e);
+          const int c = c0 + tc::slab_col(lane, nt, e), qpos = q0 + c;
+          const int kpos = k0 + m0 + tc::slab_row(lane, e);
           float t;
           const float x = band::logit(s[nt][e], qpos, kpos, slope, a, t);
           const float p = band::in_band(qpos, kpos, a) ? __expf(x - tl[c]) : 0.f;
@@ -570,8 +533,8 @@ __global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm(D))
           dp[nt][e] = p * (dp[nt][e] - td[c]) * (1.f - t * t);  // dS^T
         }
       uint32_t pa[kDkvCols / 16][4], dsa[kDkvCols / 16][4];
-      pack_slab<kDkvCols>(pa, s);
-      pack_slab<kDkvCols>(dsa, dp);
+      tc::pack_slab<kDkvCols>(pa, s);
+      tc::pack_slab<kDkvCols>(dsa, dp);
       product_into<D, kDkvCols>(acc_v, pa, tg, c0, lane);
       product_into<D, kDkvCols>(acc_k, dsa, tq, c0, lane);
     }
@@ -579,8 +542,8 @@ __global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm(D))
   }
 
   const size_t base = (static_cast<size_t>(b) * a.n * a.heads + h) * D;
-  store_rows<D>(dk + base, acc_k, a.scale, k0, m0, lane, a.n, stride);
-  store_rows<D>(dv + base, acc_v, 1.f, k0, m0, lane, a.n, stride);
+  tc::store_rows<D>(dk + base, acc_k, a.scale, k0, m0, lane, a.n, stride);
+  tc::store_rows<D>(dv + base, acc_v, 1.f, k0, m0, lane, a.n, stride);
 }
 
 struct Ptrs {

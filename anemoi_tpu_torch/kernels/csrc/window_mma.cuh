@@ -1,6 +1,8 @@
-// Tensor-core helpers of the bf16 banded backward (window_attention_bwd.cu):
-// cp.async staging with zero-fill, a swizzled shared-memory tile layout,
-// ldmatrix, and mma.sync.m16n8k16 with bf16 inputs and float32 accumulators.
+// Tensor-core helpers of the bf16 banded kernels (window_attention_bwd.cu;
+// window_attention_fwd.cu through window_wgmma.cuh): cp.async staging with
+// zero-fill, a swizzled shared-memory tile layout, ldmatrix,
+// mma.sync.m16n8k16 with bf16 inputs and float32 accumulators, and the
+// warp-slab fragment helpers (packing, element positions, stores).
 //
 // Fragments of mma.sync.aligned.m16n8k16.row.col (lane = 4 * grp + tig):
 //   A, 16 x 16, 4 x b32:  a0 (grp, 2tig..2tig+1)    a1 (grp + 8, 2tig..)
@@ -131,6 +133,44 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A warp's 16 x COLS slab x (float32, accumulator layout) rounded to bf16 as
+// the A fragments of the COLS / 16 k-chunks of its next product.  Packing
+// the whole slab first lets its floats die before that product runs.
+template <int COLS>
+__device__ __forceinline__ void pack_slab(uint32_t (&xa)[COLS / 16][4],
+                                          const float (&x)[COLS / 8][4]) {
+#pragma unroll
+  for (int kc = 0; kc < COLS / 16; ++kc) {
+    xa[kc][0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
+    xa[kc][1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
+    xa[kc][2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
+    xa[kc][3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
+  }
+}
+
+// Row r (0 .. 15) and column c (0 .. COLS - 1) of element e of n-tile nt of
+// a warp's slab.
+__device__ __forceinline__ int slab_row(int lane, int e) { return (lane >> 2) + ((e >> 1) << 3); }
+__device__ __forceinline__ int slab_col(int lane, int nt, int e) {
+  return 8 * nt + 2 * (lane & 3) + (e & 1);
+}
+
+// Store rows m0 + slab_row of a warp's 16 x D accumulator times `mul` as
+// bf16 pairs at out + (pos0 + row) * stride, for positions below n.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4], float mul,
+                                           int pos0, int m0, int lane, int n, int stride) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = pos0 + m0 + slab_row(lane, 2 * i);
+    if (pos >= n) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(out + pos * stride + slab_col(lane, nt, 0)) =
+          __floats2bfloat162_rn(acc[nt][2 * i] * mul, acc[nt][2 * i + 1] * mul);
+  }
 }
 
 }  // namespace tc

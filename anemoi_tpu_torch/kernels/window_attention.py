@@ -9,10 +9,11 @@ K7 is two kernels in ``csrc/window_attention_bwd.cu``:
 Inputs are ``[B, N, H, D]`` (contiguous, 16-byte aligned; D 16, 32, 64 or
 128), float32 or bfloat16; ``lse`` and ``delta`` are float32 ``[B, H, N]``;
 ``softcap`` None or a positive float; ``slopes`` None or float32 ``[H]`` on
-the same card.  The route depends on the type alone: K6 and float32 K7 do
-their arithmetic in float32 on CUDA cores; bfloat16 K7 runs its products on
-the tensor cores (``mma.sync`` m16n8k16, bf16 inputs, float32 accumulators;
-its tiles are staged with 16-byte ``cp.async`` copies, hence the alignment).
+the same card.  The route depends on the type alone: float32 K6 and K7 do
+their arithmetic in float32 on CUDA cores; bfloat16 K6 runs its products on
+the warpgroup tensor cores (``wgmma`` m64nNk16) and bfloat16 K7 on
+``mma.sync`` m16n8k16, both with bf16 inputs and float32 accumulators and
+tiles staged with 16-byte ``cp.async`` copies, hence the alignment.
 Each wrapper validates its inputs, allocates the outputs, launches on
 PyTorch's current stream, raises if the launch failed, and adds one to its
 ``launches`` count.  The library is built (``kernels/build.py``) and loaded
@@ -104,7 +105,9 @@ def window_attention_fwd(
     softcap: Optional[float] = None, slopes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: the band ``|i - j| <= window_size``.  Returns ``out [B, N, H, D]``
-    in the input type and float32 ``lse [B, H, N]``."""
+    in the input type and float32 ``lse [B, H, N]``.  bfloat16 runs on the
+    warpgroup tensor cores (P rounded to bf16 for ``P V``), float32 on CUDA
+    cores."""
     b, n, h, _ = _check(q, k, v, window_size, softcap, slopes)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)

@@ -18,17 +18,20 @@ Phases (any failure exits non-zero, with no result line):
   5. wide GT   -- K1 and K3 + K4 against their plain versions at HD = 1024
                   (16 heads of 64, the Transformer preset's mappers: blocks
                   of 1024 threads) on the data->hidden and hidden->data edge
-                  sets, float32 and bfloat16;
+                  sets, float32 and bfloat16; K1, K3 and K4 each timed beside
+                  its byte bound, its plain version and (K4) one index_add_;
   6. window    -- K6 (out, lse) and K7 (K7_dq: dq; K7_dkv: dk, dv) against
                   the plain band and its autograd backward at the Transformer
                   preset's processor shape (B 1, N 10 242, H 16, D 64, w 512),
-                  float32 and bfloat16, each timed beside its operation bound,
-                  the plain version and scaled_dot_product_attention with the
-                  [N, N] band mask (forward; its backward for K7); one smaller
-                  case with ALiBi and softcap, checked only; each K7 row
-                  names its route (bf16: tensor cores, float32: CUDA cores)
-                  and its instantiation's ptxas registers and spills; bf16
-                  K7 run twice at the main shape must agree bit for bit;
+                  float32 and bfloat16, each timed (single calls, and calls
+                  back to back) beside its operation bound, the plain version
+                  and scaled_dot_product_attention with the [N, N] band mask
+                  (forward; its backward for K7); one smaller case with ALiBi
+                  and softcap, checked only; each window row names its route
+                  (bf16 K6: warpgroup tensor cores, bf16 K7: mma.sync tensor
+                  cores, float32: CUDA cores) and its instantiation's ptxas
+                  registers and spills; bf16 K6 and K7 run twice at the main
+                  shape must agree bit for bit;
   7. serving   -- a 2-step forecast of the flagship GraphTransformer (o96 ->
                   ico-5, 512 channels, 16 layers, 16 heads, bf16) through the
                   port's entry points: finite, right shape, exactly 18 K1
@@ -123,8 +126,19 @@ WIN_B, WIN_N, WIN_H, WIN_D, WIN_W = 1, 10242, 16, 64, 512
 WIDE_HD = 1024  # the Transformer preset's mappers: 16 heads of 64
 TRANSFORMER_LAYERS = 16
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max|out - ref| / max|ref|
-K7_ROUTES = {torch.bfloat16: "bf16 tensor cores (mma.sync m16n8k16)",
-             torch.float32: "float32 CUDA cores"}
+# window kernel -> (library, kernel-name stem); (kernel, dtype) -> (route, what
+# follows the stem in the mangled name of the instantiation the type takes):
+# bf16 K6 on the warpgroup tensor cores, bf16 K7 on mma.sync, float32 on
+# CUDA cores
+WINDOW_BUILDS = {"K6": ("window_attention_fwd", "window_attention_fwd"),
+                 "K7_dq": ("window_attention_bwd", "window_attention_bwd_dq"),
+                 "K7_dkv": ("window_attention_bwd", "window_attention_bwd_dkv")}
+WINDOW_ROUTES = {
+    ("K6", torch.bfloat16): ("bf16 warpgroup tensor cores (wgmma m64nNk16)", "_wgmma_kernelILi"),
+    ("K7_dq", torch.bfloat16): ("bf16 tensor cores (mma.sync m16n8k16)", "_mma_kernelILi"),
+    ("K7_dkv", torch.bfloat16): ("bf16 tensor cores (mma.sync m16n8k16)", "_mma_kernelILi"),
+    **{(name, torch.float32): ("float32 CUDA cores", "_kernelIfLi") for name in WINDOW_BUILDS},
+}
 SERVING_TOL = 2e-2  # relative L2, bf16 forecast on K1 against the plain attention
 # relative L2 of the flattened gradient of one bf16 training step on the
 # kernels against the same step on the plain attention: both run the same
@@ -160,20 +174,37 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def attention_bound(n_dst, n_src, n_edges, n_feat, elt, fused):
-    """(bound_ms, bound_by) of one attention launch: each input read once and
-    each output written once at the HBM rate, against the float32 operations
-    the kernel does per edge and channel (q.k, k+e, v+e, the online-softmax
-    update, and in K1 the F-term edge projection)."""
-    edge_bytes = n_edges * n_feat * elt + n_feat * HD * elt + HD * elt if fused else n_edges * HD * elt
+def cuda_ms_back_to_back(fn, launches: int = 50, warmup: int = 5) -> float:
+    """Milliseconds a call of ``fn()`` over ``launches`` calls enqueued back
+    to back between two CUDA events: the card's time per call once the host
+    keeps ahead of it (``cuda_ms`` times single calls, host latency
+    included)."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def attention_bound(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD):
+    """(bound_ms, bound_by) of one attention launch of width ``hd``: each
+    input read once and each output written once at the HBM rate, against
+    the float32 operations the kernel does per edge and channel (q.k, k+e,
+    v+e, the online-softmax update, and in K1 the F-term edge projection)."""
+    edge_bytes = (n_edges * n_feat * elt + n_feat * hd * elt + hd * elt if fused
+                  else n_edges * hd * elt)
     nbytes = (
-        2 * n_dst * HD * elt  # q in, out
-        + 2 * n_src * HD * elt  # k, v
+        2 * n_dst * hd * elt  # q in, out
+        + 2 * n_src * hd * elt  # k, v
         + edge_bytes
         + 4 * (n_edges + n_dst + 1)  # src, dst_ptr (int32)
         + 4 * n_dst * HEADS  # lse
     )
-    return bound(nbytes, n_edges * HD * (7 + (2 * n_feat if fused else 0)))
+    return bound(nbytes, n_edges * hd * (7 + (2 * n_feat if fused else 0)))
 
 
 def bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -201,25 +232,25 @@ def window_bounds(b, n, h, d, w, elt):
             "K7_dkv": bound(6 * x + 2 * stats, 8 * d * pairs, rate)}
 
 
-def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused):
-    """{kernel: (bound_ms, bound_by)} of K3, K4 and K5 as the training path
-    launches them: each input read once, each output written once.  K3 writes
-    dq, the per-edge dkv [E, 2HD] and, for projected edges, their float32
-    gradient [E, HD], or, with the projection fused, dW and dbias (the
-    flagship's raw attributes are constants: no d_attr); K4 reads dkv back
-    and writes dk, dv; K5 reads K3's inputs plus the source-ordered view and
-    writes dk, dv.  Operations per edge and channel: K3 12 (+ 4F for the
-    projection and dW), K4 2, K5 12 (+ 2F)."""
-    node_in = 2 * n_dst * HD * elt + 2 * n_src * HD * elt  # q, g; k, v
+def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD):
+    """{kernel: (bound_ms, bound_by)} of K3, K4 and K5 of width ``hd`` as the
+    training path launches them: each input read once, each output written
+    once.  K3 writes dq, the per-edge dkv [E, 2HD] and, for projected edges,
+    their float32 gradient [E, HD], or, with the projection fused, dW and
+    dbias (the flagship's raw attributes are constants: no d_attr); K4 reads
+    dkv back and writes dk, dv; K5 reads K3's inputs plus the source-ordered
+    view and writes dk, dv.  Operations per edge and channel: K3 12 (+ 4F for
+    the projection and dW), K4 2, K5 12 (+ 2F)."""
+    node_in = 2 * n_dst * hd * elt + 2 * n_src * hd * elt  # q, g; k, v
     stats = 2 * 4 * n_dst * HEADS  # lse, delta (float32)
-    edge_in = (n_edges * n_feat * elt + n_feat * HD * elt + HD * elt) if fused \
-        else n_edges * HD * elt
-    dkv = n_edges * 2 * HD * elt
-    k3 = (node_in + stats + edge_in + 4 * (n_edges + n_dst + 1) + n_dst * HD * elt + dkv
-          + ((n_feat + 1) * HD * 4 if fused else n_edges * HD * 4))
-    k4 = dkv + 4 * (n_edges + n_src + 1) + 2 * n_src * HD * elt
-    k5 = node_in + stats + edge_in + 4 * (2 * n_edges + n_src + 1) + 2 * n_src * HD * elt
-    per_edge = n_edges * HD
+    edge_in = (n_edges * n_feat * elt + n_feat * hd * elt + hd * elt) if fused \
+        else n_edges * hd * elt
+    dkv = n_edges * 2 * hd * elt
+    k3 = (node_in + stats + edge_in + 4 * (n_edges + n_dst + 1) + n_dst * hd * elt + dkv
+          + ((n_feat + 1) * hd * 4 if fused else n_edges * hd * 4))
+    k4 = dkv + 4 * (n_edges + n_src + 1) + 2 * n_src * hd * elt
+    k5 = node_in + stats + edge_in + 4 * (2 * n_edges + n_src + 1) + 2 * n_src * hd * elt
+    per_edge = n_edges * hd
     return {
         "K3": bound(k3, per_edge * (12 + (4 * n_feat if fused else 0))),
         "K4": bound(k4, per_edge * 2),
@@ -419,25 +450,29 @@ def backward_phase(graph, device) -> dict:
     return rows
 
 
-def gt_wide_phase(graph, device) -> dict:
+def gt_wide_phase(graph, device):
     """K1 and K3 + K4 at HD = 1024 (16 heads of 64, one thread a channel:
     1024-thread blocks) against their plain versions, at the Transformer
-    preset's mapper edge sets and edge attributes."""
+    preset's mapper edge sets and edge attributes; each of K1, K3 and K4
+    timed beside its byte bound, its plain version and (K4) one index_add_.
+    Returns ({kernel: rows}, {check: max abs error})."""
+    from anemoi_tpu_torch.kernels import gt_attention as kern
     from anemoi_tpu_torch.ops.gt_attention import (
         SourceOrder, gt_attention_bwd_kernels, gt_attention_bwd_plain, gt_attention_fe,
     )
 
     attrs = transformer_config()["model"]["encoder"]["sub_graph_edge_attributes"]
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    errors = {}
+    errors, rows = {}, {"K1": [], "K3": [], "K4": []}
     for key in (("data", "hidden"), ("hidden", "data")):
         es = graph[key]
         n_src, n_dst = graph[key[0]].num_nodes, graph[key[1]].num_nodes
         ei = torch.as_tensor(es.edge_index, dtype=torch.int32, device=device).contiguous()
         ptr = torch.as_tensor(es.dst_ptr, dtype=torch.int32, device=device)
         order = SourceOrder.of(ei, n_src)
+        src = ei[0].long()
         attr32 = torch.as_tensor(es.attribute_matrix(attrs), device=device)
-        n_f = attr32.shape[1]
+        n_e, n_f = attr32.shape
         for dtype in (torch.float32, torch.bfloat16):
             def rnd(*shape, scale=1.0):
                 return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
@@ -455,15 +490,65 @@ def gt_wide_phase(graph, device) -> dict:
             for name in ("dq", "dk", "dv", "d_attr", "d_weight", "d_bias"):
                 got[name], want[name] = getattr(grads, name), getattr(refs, name)
             torch.cuda.synchronize()
+            errs = {}
             for name, x in got.items():
                 y = want[name].float()
                 err = (x.float() - y).abs().max().item()
                 if not (err <= TOL[dtype] * y.abs().max().item() and torch.isfinite(x).all()):
                     raise RuntimeError(f"HD={WIDE_HD} {key} {dtype} {name}: max abs err "
                                        f"{err:.3e}, max|ref| {y.abs().max().item():.3e}")
+                errs[name] = err
                 errors[f"{'->'.join(key)} {str(dtype).split('.')[-1]} {name}"] = err
+            del got, want, grads, refs, ref
+
+            # the times, as the Transformer's training path launches K3
+            # (fused projection: dW and dbias, no d_attr) and K4
+            path_kw = dict(edge_grad=False, weight_grad=True)
+            delta = (out.float() * g.float()).reshape(1, n_dst, HEADS, -1).sum(-1)
+            dkv = kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw,
+                                            **path_kw).dkv
+            ms = {
+                "K1": cuda_ms(lambda: gt_attention_fe(q, k, v, *edge_kw.values(), ei, ptr, HEADS,
+                                                      source=order)),
+                "K3": cuda_ms(lambda: kern.gt_attention_bwd_dst(
+                    q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
+                "K4": cuda_ms(lambda: kern.gt_attention_bwd_src(dkv, order.src_ptr,
+                                                                order.src_perm)),
+            }
+            plain = {
+                "K1": cuda_ms(lambda: gt_attention_fe(q, k, v, *edge_kw.values(), ei, ptr, HEADS,
+                                                      plain=True), reps=10, warmup=2),
+                "K3": cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g,
+                                                             **edge_kw), reps=5, warmup=1),
+                "K4": cuda_ms(lambda: torch.zeros(1, n_src, 2 * WIDE_HD, device=device)
+                              .index_add_(1, src, dkv.float()), reps=10, warmup=2),
+            }
+            k4_library_ms = cuda_ms(lambda: torch.zeros(
+                1, n_src, 2 * WIDE_HD, device=device, dtype=dtype).index_add_(1, src, dkv),
+                reps=10, warmup=2)
+            del dkv
+            bounds = {"K1": attention_bound(n_dst, n_src, n_e, n_f, q.element_size(), True,
+                                            WIDE_HD),
+                      **backward_bounds(n_dst, n_src, n_e, n_f, q.element_size(), True, WIDE_HD)}
+            base = {"edge_set": "->".join(key), "dtype": str(dtype).split(".")[-1],
+                    "hd": WIDE_HD, "fused_edge": True, "n_dst": n_dst, "n_src": n_src,
+                    "n_edges": n_e}
+            per_kernel = {
+                "K1": dict(max_abs_err=errs["out"], plain_is="gt_attention_fe(plain=True)",
+                           library_ms=None),
+                "K3": dict(max_abs_err=max(errs[n] for n in ("dq", "d_weight", "d_bias")),
+                           plain_is="gt_attention_bwd_plain", library_ms=None),
+                "K4": dict(max_abs_err=max(errs["dk"], errs["dv"]),
+                           plain_is="float32 index_add_ of dkv", library_ms=k4_library_ms,
+                           library_is="index_add_ of dkv"),
+            }
+            for name, extra in per_kernel.items():
+                row = {**base, "ms": ms[name], "plain_ms": plain[name],
+                       "bound_ms": bounds[name][0], "bound_by": bounds[name][1], **extra}
+                rows[name].append(row)
+                print(f"[wide GT] {name} {row}", flush=True)
     print(f"[wide GT] K1, K3 + K4 at HD={WIDE_HD} hold: {json.dumps(errors)}", flush=True)
-    return errors
+    return rows, errors
 
 
 def window_phase(device) -> dict:
@@ -478,16 +563,16 @@ def window_phase(device) -> dict:
         band_attention_bwd_plain, band_attention_plain,
     )
 
-    usage = ptxas_usage(build_log("window_attention_bwd"))
+    usage = {lib: ptxas_usage(build_log(lib)) for lib, _ in WINDOW_BUILDS.values()}
 
-    def k7_build(name, dtype, d):
-        """Route, ptxas registers and spill bytes of the K7 instantiation
-        that ``dtype`` takes at head size ``d``."""
-        part = "dq" if name == "K7_dq" else "dkv"
-        key = (f"window_attention_bwd_{part}_mma_kernelILi{d}E" if dtype == torch.bfloat16
-               else f"window_attention_bwd_{part}_kernelIfLi{d}E")
-        found = [u for entry, u in usage.items() if key in entry]
-        return {"route": K7_ROUTES[dtype], **(found[0] if found else {})}
+    def window_build(name, dtype, d):
+        """Route, ptxas registers and spill bytes of the instantiation of
+        window kernel ``name`` that ``dtype`` takes at head size ``d``."""
+        lib, stem = WINDOW_BUILDS[name]
+        route, part = WINDOW_ROUTES[(name, dtype)]
+        key = f"{stem}{part}{d}E"
+        found = [u for entry, u in usage[lib].items() if key in entry]
+        return {"route": route, **(found[0] if found else {})}
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     rows = {"K6": [], "K7_dq": [], "K7_dkv": []}
@@ -528,18 +613,21 @@ def window_phase(device) -> dict:
             if case != "main":
                 continue
             if dtype == torch.bfloat16:  # each block alone writes its rows: bitwise repeatable
-                again = (wkern.window_attention_bwd_dq(q, k, v, g, lse, delta, w),
+                again = (*wkern.window_attention_fwd(q, k, v, w),
+                         wkern.window_attention_bwd_dq(q, k, v, g, lse, delta, w),
                          *wkern.window_attention_bwd_dkv(q, k, v, g, lse, delta, w))
-                if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
-                    raise RuntimeError("bf16 K7 is not deterministic: two runs differ")
-                print("[window] bf16 K7 deterministic: two runs bitwise equal", flush=True)
-                del again
-            ms = {
-                "K6": cuda_ms(lambda: wkern.window_attention_fwd(q, k, v, w)),
-                "K7_dq": cuda_ms(lambda: wkern.window_attention_bwd_dq(q, k, v, g, lse, delta, w)),
-                "K7_dkv": cuda_ms(lambda: wkern.window_attention_bwd_dkv(
-                    q, k, v, g, lse, delta, w)),
+                first = (out, lse, dq, dk, dv)
+                if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                    raise RuntimeError("bf16 K6 or K7 is not deterministic: two runs differ")
+                print("[window] bf16 K6 and K7 deterministic: two runs bitwise equal", flush=True)
+                del again, first
+            calls = {
+                "K6": lambda: wkern.window_attention_fwd(q, k, v, w),
+                "K7_dq": lambda: wkern.window_attention_bwd_dq(q, k, v, g, lse, delta, w),
+                "K7_dkv": lambda: wkern.window_attention_bwd_dkv(q, k, v, g, lse, delta, w),
             }
+            ms = {name: cuda_ms(fn) for name, fn in calls.items()}
+            ms_run = {name: cuda_ms_back_to_back(fn) for name, fn in calls.items()}
             plain_fwd_ms = cuda_ms(lambda: band_attention_plain(q, k, v, w), reps=10, warmup=2)
             plain_bwd_ms = cuda_ms(lambda: band_attention_bwd_plain(q, k, v, g, w), reps=5,
                                    warmup=1)
@@ -565,10 +653,9 @@ def window_phase(device) -> dict:
             # yardsticks compute all of it: compare them with the pair's time
             pair = {"K7_pair_ms": ms["K7_dq"] + ms["K7_dkv"]}
             for name in rows:
-                row = {**base, **(pair if name != "K6" else {}),
-                       **(k7_build(name, dtype, d) if name != "K6" else {}),
+                row = {**base, **(pair if name != "K6" else {}), **window_build(name, dtype, d),
                        "max_abs_err": errors[name], "lse_max_abs_err": lse_err,
-                       "ms": ms[name], "plain_ms": plain[name],
+                       "ms": ms[name], "ms_back_to_back": ms_run[name], "plain_ms": plain[name],
                        "plain_is": ("band_attention_plain" if name == "K6"
                                     else "band_attention_bwd_plain (dq, dk, dv)"),
                        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
@@ -846,7 +933,8 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
 
     def headline(r):
         return (r["dtype"] == "bfloat16" and r.get("edge_set", "hidden->hidden") == "hidden->hidden"
-                and r.get("fused_edge", True) and r.get("case", "main") == "main")
+                and r.get("fused_edge", True) and r.get("case", "main") == "main"
+                and r.get("hd", HD) == HD)
 
     entries = []
     for name, rows in kernel_rows.items():
@@ -859,6 +947,7 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
             "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": head["max_abs_err"], "max_err": head["max_abs_err"],
             "ms": head["ms"],
+            **({"ms_back_to_back": head["ms_back_to_back"]} if "ms_back_to_back" in head else {}),
             # K3, K5: the plain version is the whole plain backward
             # (gt_attention_bwd_plain); K4: a float32 index_add_ of dkv; K6:
             # the plain band; K7: the plain band's autograd backward, to be
@@ -907,7 +996,9 @@ def main() -> int:
           f"{ {k: es.num_edges for k, es in graph.edges.items()} }", flush=True)
     rows = kernel_phase(graph, device)
     rows.update(backward_phase(graph, device))
-    wide = gt_wide_phase(graph, device)
+    wide_rows, wide = gt_wide_phase(graph, device)
+    for name, extra in wide_rows.items():
+        rows[name] += extra
     rows.update(window_phase(device))
     serving = serving_phase(graph, device)
     training = training_phase(graph, device)

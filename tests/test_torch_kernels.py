@@ -13,11 +13,13 @@ destinations without edges, sources without edges (backward), and both input
 types.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
 and dv) are held against ``band_attention_plain`` and its autograd backward,
 with softcap, ALiBi, a ragged last tile, a full band over several tiles and
-a sequence shorter than one tile; bf16 K7 (tensor cores) must be bitwise
+a sequence shorter than one tile, and logits large enough that the running
+max jumps between key tiles; bf16 K6 and K7 (tensor cores) must be bitwise
 repeatable and refuse tensors off a 16-byte boundary.
 Tolerance, per output: float32 1e-4 of max|ref| (another summation order);
 bfloat16 2e-2 of max|ref| (outputs and the dkv buffer are rounded to
-bfloat16; bf16 K7 also rounds P and dS for its tensor-core products).
+bfloat16; bf16 K6 also rounds P, bf16 K7 P and dS, for their tensor-core
+products).
 """
 
 import numpy as np
@@ -212,14 +214,19 @@ WINDOW_CASES = {  # name: (B, N, H, D, w, softcap, alibi)
     "d128_window_past_n": (1, 100, 2, 128, 128, 3.0, False),
     "full_band_multi_tile": (1, 1100, 2, 64, 512, None, False),
     "n_below_one_tile": (2, 40, 3, 64, 8, None, False),
+    "large_logits": (1, 700, 2, 64, 200, None, False),
 }
+# q and k scaled up: logits of ~+-100, so the running max jumps between key
+# tiles and the correction exp(m_old - m_new) underflows to 0
+WINDOW_SCALES = {"large_logits": 6.0}
 
 
 def window_inputs(case, dtype, device, seed=4):
     b, n, h, d, w, softcap, alibi = WINDOW_CASES[case]
     rng = np.random.default_rng(seed)
-    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32))
-                  .to(device, dtype) for _ in range(4))
+    scales = (WINDOW_SCALES.get(case, 1.0),) * 2 + (1.0, 1.0)
+    q, k, v, g = (torch.from_numpy((c * rng.normal(size=(b, n, h, d))).astype(np.float32))
+                  .to(device, dtype) for c in scales)
     slopes = get_alibi_slopes(h).to(device) if alibi else None
     return (q, k, v, g), w, softcap, slopes
 
@@ -264,6 +271,18 @@ def test_window_autograd_on_the_card(card):
         grads[plain] = [x.grad for x in t]
     for got, ref in zip(grads[False], grads[True]):
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_window_forward_is_deterministic(card):
+    """bf16 K6 (warpgroup tensor cores): each block alone writes its rows in
+    a fixed order, so two runs on the same inputs agree bit for bit."""
+    (q, k, v, _), w, softcap, slopes = window_inputs("full_band_multi_tile", torch.bfloat16,
+                                                     card)
+    runs = [wkern.window_attention_fwd(q, k, v, w, softcap, slopes) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

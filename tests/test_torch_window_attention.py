@@ -12,9 +12,10 @@ dispatch at ``w + 1 < n <= 2w + 1``; ``MultiHeadSelfAttention`` and one
 ``state_dict_from_jax`` and loaded strictly.
 
 Tolerance: float32 rtol/atol 3e-5 (the JAX kernel's own test: 2e-5/2e-6;
-here sums over up to 3w keys taken in another order).  One test runs the
-JAX backward kernels on bf16 inputs and holds them to the card's bf16 gate
-for K7, 2e-2 of max|ref|.
+here sums over up to 3w keys taken in another order).  Two tests run the
+JAX kernels on bf16 inputs and hold them to the card's bf16 gates: the
+forward to K6's (out 2e-2 of max|ref|, lse 1e-3 of max|lse|), the backward
+to K7's (2e-2 of max|ref|).
 """
 
 import numpy as np
@@ -201,6 +202,31 @@ def test_transformer_block_matches_flax():
         params, "model.processor.proc.0.")
     out = block(torch.from_numpy(x))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("case", ["plain", "alibi"])
+def test_band_forward_bf16_within_card_gate(case):
+    """The card's bf16 gates for K6 (out 2e-2 of max|ref|, lse 1e-3 of
+    max|lse|) hold on the JAX kernel itself: ``_flash_window_forward`` in
+    interpret mode on bf16 inputs against the port's float32
+    ``band_attention_plain`` on the same inputs.  The JAX kernel rounds P to
+    bf16 for ``P V`` (``p.astype(v.dtype)``) and out on its store, as the
+    port's tensor-core K6 does.  Measured max|d| / max|ref| on these inputs:
+    out 2.7e-3 plain, 3.0e-3 with ALiBi; lse 1.0e-7 and 1.1e-7 (lse sums
+    the float32 P).  So the out gate has a 7x margin over rounding that the
+    reference itself does."""
+    n, _, alibi = CASES[case]
+    slopes = slopes_for(alibi)
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in qkv(0, n))
+    ref, ref_lse = band_attention_plain(q.float(), k.float(), v.float(), W, None, slopes)
+    tup = None if slopes is None else tuple(float(s) for s in slopes)
+    bq, bk, bv = (to_bh(x.float().numpy(), n).astype(jnp.bfloat16) for x in (q, k, v))
+    out, lse = _flash_window_forward(bq, bk, bv, W, None, n, H, tup, interpret=True)
+    got = from_bh(np.asarray(out, dtype=np.float32), 1, n)
+    got_lse = np.asarray(lse).reshape(H, n)
+    y, y_lse = ref.numpy(), ref_lse.numpy()[0]
+    assert np.abs(got - y).max() <= 2e-2 * np.abs(y).max()
+    assert np.abs(got_lse - y_lse).max() <= 1e-3 * np.abs(y_lse).max()
 
 
 @pytest.mark.parametrize("case", ["plain", "alibi"])
