@@ -51,7 +51,7 @@ def _fwd_entry():
 def _bwd_entries():
     lib = "gt_attention_bwd"
     return {
-        "blocks": _bind(lib, "gt_attention_bwd_dst_blocks", [_I, _I, _I, _P]),
+        "blocks": _bind(lib, "gt_attention_bwd_dst_blocks", [_I] * 5 + [_P]),
         "dst": _bind(lib, "gt_attention_bwd_dst",
                      [_I, _I] + [_P] * 17 + [_I] * 7 + [_LL, _LL, ctypes.c_float, _I, _P]),
         "src": _bind(lib, "gt_attention_bwd_src", [_I] + [_P] * 5 + [_I] * 4 + [_P]),
@@ -61,14 +61,26 @@ def _bwd_entries():
 
 
 @functools.lru_cache(maxsize=None)
-def _dst_blocks(device_index: int, dtype_code: int, fused: bool, hd: int) -> int:
+def _dst_blocks(device_index: int, dtype_code: int, fused: bool, hd: int, num_heads: int,
+                f: int) -> int:
     """Blocks of K3 resident on the card at once (its grid-stride width)."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = _bwd_entries()["blocks"](dtype_code, int(fused), hd, ctypes.addressof(out))
+        rc = _bwd_entries()["blocks"](dtype_code, int(fused), hd, num_heads, f,
+                                      ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"gt_attention_bwd_dst_blocks failed: cudaError {rc}")
     return out.value
+
+
+def dst_instantiation(dtype: torch.dtype, d: int, f: int, fused: bool) -> Tuple[int, int]:
+    """(V, FMAX) of the K3 instantiation that a launch takes (``dst_layout``
+    and ``dst_kernel`` in the CUDA source): V channels a lane -- 16 bytes, or
+    4 or 1 when the head size d is smaller -- and room for FMAX edge features
+    (4 or 8; 1 without the fused projection)."""
+    vmax = 16 // (torch.finfo(dtype).bits // 8)
+    vec = vmax if d >= vmax else (4 if d >= 4 else 1)
+    return vec, (4 if f <= 4 else MAX_EDGE_FEATURES) if fused else 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -240,9 +252,15 @@ def gt_attention_bwd_dst(
     edge, f, fuse = _check_edges(query, edge_index, edges, edge_attr, weight, bias)
     _check_grad_inputs(query, grad, lse, delta, num_heads)
     n_e = edge_index.shape[1]
+    # each lane moves V channels of q, k, v, g and e as one aligned vector
+    align = dst_instantiation(query.dtype, d, f, fuse)[0] * query.element_size()
+    vectors = (("query", query), ("key", key), ("value", value), ("grad", grad))
+    for name, t in vectors + (() if fuse else (("edges", edge),)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must start on a {align}-byte boundary")
     dev, code = query.device, _DTYPE_CODES[query.dtype]
     blocks = _dst_blocks(dev.index if dev.index is not None else torch.cuda.current_device(),
-                         code, fuse, hd)
+                         code, fuse, hd, num_heads, f)
     dq = torch.empty_like(query)
     dkv = torch.empty((b, n_e, 2 * hd), device=dev, dtype=query.dtype) if emit_dkv else None
     d_edge = (torch.empty((n_e, f if fuse else hd), device=dev, dtype=torch.float32)

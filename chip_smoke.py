@@ -15,11 +15,16 @@ Phases (any failure exits non-zero, with no result line):
                   K4 against a float32 index_add_ of K3's dkv; each kernel
                   timed beside its byte bound and its plain version (K3, K5:
                   the whole plain backward), K4 also beside one index_add_;
+                  K3 also back to back, with its route and its
+                  instantiation's ptxas registers and spills; bf16 K3 run
+                  twice at the processor edge set with the fused projection
+                  must agree bit for bit (dq, dkv, dW, dbias);
   5. wide GT   -- K1 and K3 + K4 against their plain versions at HD = 1024
-                  (16 heads of 64, the Transformer preset's mappers: blocks
-                  of 1024 threads) on the data->hidden and hidden->data edge
-                  sets, float32 and bfloat16; K1, K3 and K4 each timed beside
-                  its byte bound, its plain version and (K4) one index_add_;
+                  (16 heads of 64, the Transformer preset's mappers: K1, K4
+                  in blocks of 1024 threads) on the data->hidden and
+                  hidden->data edge sets, float32 and bfloat16; K1, K3 and K4
+                  each timed beside its byte bound, its plain version and
+                  (K4) one index_add_, K3 as in phase 4;
   6. window    -- K6 (out, lse) and K7 (K7_dq: dq; K7_dkv: dk, dv) against
                   the plain band and its autograd backward at the Transformer
                   preset's processor shape (B 1, N 10 242, H 16, D 64, w 512),
@@ -133,6 +138,9 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max|out - ref| / max|ref|
 WINDOW_BUILDS = {"K6": ("window_attention_fwd", "window_attention_fwd"),
                  "K7_dq": ("window_attention_bwd", "window_attention_bwd_dq"),
                  "K7_dkv": ("window_attention_bwd", "window_attention_bwd_dkv")}
+# K3: one route for both types; the instantiation a launch takes is named by
+# its type, channels a lane (V), fused projection and room for edge features
+K3_ROUTE = "CUDA cores, 16-byte vectors a lane, several destinations a block"
 WINDOW_ROUTES = {
     ("K6", torch.bfloat16): ("bf16 warpgroup tensor cores (wgmma m64nNk16)", "_wgmma_kernelILi"),
     ("K7_dq", torch.bfloat16): ("bf16 tensor cores (mma.sync m16n8k16)", "_mma_kernelILi"),
@@ -256,6 +264,20 @@ def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD):
         "K4": bound(k4, per_edge * 2),
         "K5": bound(k5, per_edge * (12 + (2 * n_feat if fused else 0))),
     }
+
+
+def k3_build(dtype, d, n_feat, fused) -> dict:
+    """Route, ptxas registers and spill bytes of the K3 instantiation that
+    a launch of ``dtype`` at head size ``d`` with ``n_feat`` edge features
+    takes."""
+    from anemoi_tpu_torch.kernels.build import build_log, ptxas_usage
+    from anemoi_tpu_torch.kernels.gt_attention import dst_instantiation
+
+    vec, fmax = dst_instantiation(dtype, d, n_feat, fused)
+    name = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+    key = f"gt_attention_bwd_dst_kernelI{name}Li{vec}ELb{int(fused)}ELi{fmax}EE"
+    found = [u for entry, u in ptxas_usage(build_log("gt_attention_bwd")).items() if key in entry]
+    return {"route": K3_ROUTE, "instantiation": key, **(found[0] if found else {})}
 
 
 def kernel_phase(graph, device) -> dict:
@@ -386,8 +408,21 @@ def backward_phase(graph, device) -> dict:
                         errs[(fused_bwd, name)] = err
 
                 delta = (out.float() * g.float()).reshape(1, n_dst, HEADS, -1).sum(-1)
-                dkv = kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS,
-                                                **edge_kw, **path_kw).dkv
+                first = kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS,
+                                                  **edge_kw, **path_kw)
+                dkv = first.dkv
+                if dtype == torch.bfloat16 and fused and key == ("hidden", "hidden"):
+                    # a destination's edges belong to one group and dW, dbias
+                    # sum the partials in a fixed order: bitwise repeatable
+                    again = kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS,
+                                                      **edge_kw, **path_kw)
+                    for name in ("dq", "dkv", "d_weight", "d_bias"):
+                        if not torch.equal(getattr(first, name), getattr(again, name)):
+                            raise RuntimeError(f"bf16 K3 is not deterministic: {name} differs")
+                    print("[backward] bf16 K3 deterministic: dq, dkv, dW, dbias of two runs "
+                          "bitwise equal", flush=True)
+                    del again
+                del first
 
                 # K4 alone: the sum of K3's dkv rows into their sources.  Its
                 # plain version accumulates in float32 as K4 does; the library
@@ -411,6 +446,8 @@ def backward_phase(graph, device) -> dict:
                 del k4_ref
                 ms = {
                     "K3": cuda_ms(lambda: kern.gt_attention_bwd_dst(
+                        q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
+                    "K3_b2b": cuda_ms_back_to_back(lambda: kern.gt_attention_bwd_dst(
                         q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
                     "K3_no_dkv": cuda_ms(lambda: kern.gt_attention_bwd_dst(
                         q, k, v, g, lse, delta, ei, ptr, HEADS, emit_dkv=False, **edge_kw,
@@ -436,7 +473,8 @@ def backward_phase(graph, device) -> dict:
                 k3_errs = {n: errs[(False, n)] for n in names if n not in ("dk", "dv")}
                 per_kernel = {
                     "K3": dict(max_abs_err=max(k3_errs.values()), errors=k3_errs,
-                               ms_no_dkv=ms["K3_no_dkv"]),
+                               ms_no_dkv=ms["K3_no_dkv"], ms_back_to_back=ms["K3_b2b"],
+                               **k3_build(dtype, HD // HEADS, n_f, fused)),
                     "K4": dict(max_abs_err=max(errs[(False, "dk")], errs[(False, "dv")]),
                                plain_ms=k4_plain_ms, plain_is="float32 index_add_ of dkv",
                                library_ms=k4_library_ms, library_is="index_add_ of dkv"),
@@ -451,10 +489,10 @@ def backward_phase(graph, device) -> dict:
 
 
 def gt_wide_phase(graph, device):
-    """K1 and K3 + K4 at HD = 1024 (16 heads of 64, one thread a channel:
-    1024-thread blocks) against their plain versions, at the Transformer
-    preset's mapper edge sets and edge attributes; each of K1, K3 and K4
-    timed beside its byte bound, its plain version and (K4) one index_add_.
+    """K1 and K3 + K4 at HD = 1024 (16 heads of 64) against their plain
+    versions, at the Transformer preset's mapper edge sets and edge
+    attributes; each of K1, K3 and K4 timed beside its byte bound, its plain
+    version and (K4) one index_add_.
     Returns ({kernel: rows}, {check: max abs error})."""
     from anemoi_tpu_torch.kernels import gt_attention as kern
     from anemoi_tpu_torch.ops.gt_attention import (
@@ -512,6 +550,8 @@ def gt_wide_phase(graph, device):
                                                       source=order)),
                 "K3": cuda_ms(lambda: kern.gt_attention_bwd_dst(
                     q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
+                "K3_b2b": cuda_ms_back_to_back(lambda: kern.gt_attention_bwd_dst(
+                    q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
                 "K4": cuda_ms(lambda: kern.gt_attention_bwd_src(dkv, order.src_ptr,
                                                                 order.src_perm)),
             }
@@ -537,7 +577,9 @@ def gt_wide_phase(graph, device):
                 "K1": dict(max_abs_err=errs["out"], plain_is="gt_attention_fe(plain=True)",
                            library_ms=None),
                 "K3": dict(max_abs_err=max(errs[n] for n in ("dq", "d_weight", "d_bias")),
-                           plain_is="gt_attention_bwd_plain", library_ms=None),
+                           plain_is="gt_attention_bwd_plain", library_ms=None,
+                           ms_back_to_back=ms["K3_b2b"],
+                           **k3_build(dtype, WIDE_HD // HEADS, n_f, True)),
                 "K4": dict(max_abs_err=max(errs["dk"], errs["dv"]),
                            plain_is="float32 index_add_ of dkv", library_ms=k4_library_ms,
                            library_is="index_add_ of dkv"),

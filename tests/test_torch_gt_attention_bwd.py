@@ -34,7 +34,13 @@ from anemoi_tpu.ops.pallas.paged_gt import (
     paged_gt_attention_flat,
     paged_gt_attention_flat_fe,
 )
-from anemoi_tpu_torch.ops.gt_attention import gt_attention, gt_attention_fe, source_order
+from anemoi_tpu_torch.ops.gt_attention import (
+    gt_attention,
+    gt_attention_bwd_plain,
+    gt_attention_fe,
+    gt_attention_plain,
+    source_order,
+)
 
 TOL = dict(rtol=3e-5, atol=3e-5)
 EMPTY_DST = (7, 20)
@@ -153,6 +159,35 @@ def test_constant_edge_attributes_still_train_the_projection(interpret):
     assert ours["attr"] is None
     np.testing.assert_allclose(ours["w"], ref["w"], **TOL)
     np.testing.assert_allclose(ours["b"], ref["b"], **TOL)
+
+
+def test_dst_pass_bf16_within_card_gate(interpret):
+    """The card's bf16 gate for K3 + K4 (2e-2 of max|ref| per output) holds
+    on the JAX kernels themselves: ``_bwd_kernel`` then ``_reduce_kernel``
+    (through ``paged_gt_attention_flat_fe``, interpret mode) on bf16 inputs,
+    with the edge projection fused as on the flagship's path, against the
+    port's float32 plain backward on the same bf16-rounded values.  The JAX
+    kernels round dkv and the gradients to bf16 as the port's K3 + K4 do.
+    Measured max|d| / max|ref| on these inputs (4 heads of 32, the
+    flagship's head size): dq 1.04e-2, dk 9.1e-3, dv 5.1e-3, dW 8.0e-3, db
+    2.5e-3 -- so the gate has a 2x margin over rounding that the reference
+    itself does."""
+    case = make_case(seed=21, batch=1, h=4, d=32)
+    names = ("q", "k", "v", "g", "attr", "w", "b")
+    rounded = {**case, **{n: case[n].astype(jnp.bfloat16) for n in names}}
+    theirs = jax_grads(rounded, fused=True, fused_bwd=False)
+    t = {n: torch.from_numpy(np.asarray(rounded[n], dtype=np.float32)) for n in names}
+    ei = torch.from_numpy(case["ei"].astype(np.int32))
+    ptr = torch.from_numpy(case["ptr"].astype(np.int32))
+    h = case["h"]
+    out, lse = gt_attention_plain(t["q"], t["k"], t["v"], t["attr"] @ t["w"] + t["b"], ei, ptr, h)
+    ref = gt_attention_bwd_plain(t["q"], t["k"], t["v"], ei, h, out, lse, t["g"],
+                                 edge_attr=t["attr"], weight=t["w"], bias=t["b"])
+    for name, ours in (("q", ref.dq), ("k", ref.dk), ("v", ref.dv), ("w", ref.d_weight),
+                       ("b", ref.d_bias)):
+        y = ours.numpy()
+        x = np.asarray(theirs[name], dtype=np.float32).reshape(y.shape)
+        assert np.abs(x - y).max() <= 2e-2 * np.abs(y).max(), f"d{name}"
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["pre_projected", "fused_edge"])

@@ -6,11 +6,13 @@ JAX nor the JAX package, so they also run where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-They cover the head sizes the flagship (d = 32) does not: d < 32 (a
-butterfly inside a warp) and d = 64 (a sum across warps) -- also at HD =
-1024 (16 x 64, the Transformer preset's mappers: 1024 threads a block) --,
-destinations without edges, sources without edges (backward), and both input
-types.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
+They cover the head sizes the flagship (d = 32) does not: d < 32 and d =
+64 -- also at HD = 1024 (16 x 64, the Transformer preset's mappers: 1024
+threads a block in K1, K4, K5) --, destinations without edges, sources
+without edges (backward), and both input types; for the destination pass K3
+also a destination of in-degree 75 (three chunks of edge sources) and heads
+of 512 channels (a head sum across warps), bitwise repeatability in bf16 and
+the refusal of a query or grad off its 16-byte vector boundary.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
 and dv) are held against ``band_attention_plain`` and its autograd backward,
 with softcap, ALiBi, a ragged last tile, a full band over several tiles and
 a sequence shorter than one tile, and logits large enough that the running
@@ -46,13 +48,16 @@ from anemoi_tpu_torch.ops.window_attention import (
 DEAD_SRC = (0, 5, 299)
 
 
-def make_case(rng, num_src, num_dst, hd, f=3, empty_dst=(3, 17), dead_src=()):
+def make_case(rng, num_src, num_dst, hd, f=3, empty_dst=(3, 17), dead_src=(), degree=None):
+    """A dst-sorted graph of 1-11 edges a destination (``degree``: {dst:
+    in-degree} overrides), inputs for batch 2 and an edge projection."""
     src, dst = [], []
     alive = np.setdiff1d(np.arange(num_src), dead_src)
     for d in range(num_dst):
         if d in empty_dst:
             continue
         k = int(rng.integers(1, 12))
+        k = (degree or {}).get(d, k)
         src.append(rng.choice(alive, size=k, replace=False))
         dst.append(np.full(k, d))
     ei = np.stack([np.concatenate(src), np.concatenate(dst)]).astype(np.int32)
@@ -154,6 +159,14 @@ def test_backward_kernels_match_plain(card, fused_bwd, fused, heads, d, dtype):
         out, lse = gt_attention(t["q"], t["k"], t["v"], t["e"], ei, ptr, heads, source=order)
     g = torch.randn(out.shape, generator=torch.Generator(card).manual_seed(0), device=card)
     g = g.to(dtype)
+    check_backward_against_plain(t, ei, ptr, order, heads, out, lse, g, edge_kw, fused,
+                                 fused_bwd, dtype)
+
+
+def check_backward_against_plain(t, ei, ptr, order, heads, out, lse, g, edge_kw, fused,
+                                 fused_bwd, dtype):
+    """K3 + K4 (or K3 + K5) against the plain backward, per output; sources
+    in DEAD_SRC get dk = dv = 0, destinations 3 and 17 (no edges) dq = 0."""
     before = kern.launch_counts()
     got = gt_attention_bwd_kernels(t["q"], t["k"], t["v"], ei, ptr, order.src_ptr,
                                    order.src_perm, heads, out, lse, g, fused_bwd=fused_bwd,
@@ -192,6 +205,78 @@ def test_autograd_reaches_every_input_on_the_card(card, fused_bwd):
         got = grads[False][name]
         assert got is not None and got.abs().max() > 0, name
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+
+
+# K3 layouts the cases above do not reach: a destination of in-degree 75
+# (its edge sources come in three 32-edge chunks), and 2 heads of 512
+# channels (64 bf16 or 128 float32 lanes a head: the head sum crosses warps)
+K3_CASES = {"in_degree_75": (16, 32, {5: 75}), "two_heads_of_512": (2, 512, None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [False, True], ids=["edges", "fused_edge"])
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_backward_kernel_layouts_match_plain(card, case, fused, dtype):
+    heads, d, degree = K3_CASES[case]
+    ei_np, ptr_np, a = make_case(np.random.default_rng(6), 300, 200, heads * d,
+                                 dead_src=DEAD_SRC, degree=degree)
+    assert np.bincount(ei_np[1]).max() >= (75 if degree else 1)
+    t = {k: torch.from_numpy(v).to(card, dtype) for k, v in a.items()}
+    ei, ptr = torch.from_numpy(ei_np).to(card), torch.from_numpy(ptr_np).to(card)
+    order = SourceOrder.of(ei, 300)
+    edge_kw = (dict(edge_attr=t["attr"], weight=t["w"], bias=t["b"]) if fused
+               else dict(edges=t["e"]))
+    fn = gt_attention_fe if fused else gt_attention
+    out, lse = fn(t["q"], t["k"], t["v"], *edge_kw.values(), ei, ptr, heads, source=order)
+    g = torch.randn(out.shape, generator=torch.Generator(card).manual_seed(1), device=card)
+    check_backward_against_plain(t, ei, ptr, order, heads, out, lse, g.to(dtype), edge_kw,
+                                 fused, False, dtype)
+
+
+def k3_inputs(card, seed, heads, d):
+    """bf16 inputs of K3 with the fused projection: (q, k, v, g, lse,
+    delta, edge_index, dst_ptr, edge keywords)."""
+    ei_np, ptr_np, a = make_case(np.random.default_rng(seed), 300, 200, heads * d)
+    t = {k: torch.from_numpy(v).to(card, torch.bfloat16) for k, v in a.items()}
+    ei, ptr = torch.from_numpy(ei_np).to(card), torch.from_numpy(ptr_np).to(card)
+    edge_kw = dict(edge_attr=t["attr"], weight=t["w"], bias=t["b"])
+    out, lse = gt_attention_fe(t["q"], t["k"], t["v"], *edge_kw.values(), ei, ptr, heads,
+                               source=SourceOrder.of(ei, 300))
+    g = torch.randn(out.shape, generator=torch.Generator(card).manual_seed(2), device=card)
+    g = g.to(torch.bfloat16)
+    delta = (out.float() * g.float()).reshape(*out.shape[:2], heads, d).sum(-1)
+    return t["q"], t["k"], t["v"], g, lse, delta, ei, ptr, edge_kw
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_deterministic(card):
+    """bf16 K3 with the fused projection: a destination's edges belong to one
+    group, and dW, dbias sum the blocks' partials in a fixed order, so two
+    runs agree bit for bit in every output (dq, dkv, d_attr, dW, dbias)."""
+    q, k, v, g, lse, delta, ei, ptr, edge_kw = k3_inputs(card, 7, 16, 32)
+    runs = [kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, 16, **edge_kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert first is not None and torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_refuses_misaligned(card):
+    """K3 moves 8 bf16 channels a lane as one 16-byte vector: a query or
+    grad that starts off a 16-byte boundary is refused before any launch."""
+    q, k, v, g, lse, delta, ei, ptr, edge_kw = k3_inputs(card, 8, 2, 32)
+    buf = torch.zeros(q.numel() + 1, device=card, dtype=q.dtype)
+    bad = buf[1:].view(q.shape)
+    bad.copy_(q)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    before = kern.launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        kern.gt_attention_bwd_dst(bad, k, v, g, lse, delta, ei, ptr, 2, **edge_kw)
+    with pytest.raises(ValueError, match="16-byte"):
+        kern.gt_attention_bwd_dst(q, k, v, bad, lse, delta, ei, ptr, 2, **edge_kw)
+    assert kern.launch_counts() == before
 
 
 def test_window_kernel_wrappers_refuse_cpu_tensors():
