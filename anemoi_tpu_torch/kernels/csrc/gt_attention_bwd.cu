@@ -68,94 +68,22 @@
 
 namespace {
 
+using gt::DstLayout;
+using gt::dst_layout;
 using gt::edge_feature;
 using gt::from_float;
 using gt::head_sum;
+using gt::kDstThreads;
 using gt::kMaxEdgeFeatures;
 using gt::load_edge_column;
+using gt::load_f32;
+using gt::store_vec;
 using gt::to_float;
+using gt::Vec;
 
 constexpr int kFinalizeWarps = 8;
 
 // ---- K3: the destination pass ---------------------------------------------
-
-constexpr int kDstThreads = 256;  // a K3 block: 256 / GS destination groups of GS lanes
-
-// V consecutive elements of T as one aligned access of V * sizeof(T) bytes
-// (16 at V = 16 / sizeof(T)), held as raw 32-bit words until first use, so
-// that a load issued an edge ahead stalls nothing before its values are read.
-template <typename T, int V>
-struct Vec {
-  static constexpr int kBytes = V * static_cast<int>(sizeof(T));
-  static constexpr int kWords = (kBytes + 3) / 4;
-  unsigned w[kWords];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int x = 0; x < kWords; ++x) w[x] = 0u;
-  }
-  __device__ __forceinline__ void load(const T* p) {
-    if constexpr (kBytes == 16) {
-      const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
-    } else if constexpr (kBytes == 8) {
-      const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-      w[0] = r.x, w[1] = r.y;
-    } else if constexpr (kBytes == 4) {
-      w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
-    } else {
-      w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
-    }
-  }
-  // element x as float32 (bf16: the low half of a word is the lower element)
-  __device__ __forceinline__ float get(int x) const {
-    if constexpr (sizeof(T) == 4) {
-      return __uint_as_float(w[x]);
-    } else {
-      const unsigned u = w[x >> 1];
-      return __uint_as_float((x & 1) ? (u & 0xffff0000u) : (u << 16));
-    }
-  }
-};
-
-// x[0..V) rounded once to T and stored as one aligned access.
-template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* p, const float (&x)[V]) {
-  Vec<T, V> o;
-  o.zero();
-#pragma unroll
-  for (int c = 0; c < V; ++c) {
-    if constexpr (sizeof(T) == 4) {
-      o.w[c] = __float_as_uint(x[c]);
-    } else {
-      const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(x[c]));
-      o.w[c >> 1] |= (c & 1) ? (h << 16) : h;
-    }
-  }
-  if constexpr (Vec<T, V>::kBytes == 16)
-    *reinterpret_cast<uint4*>(p) = make_uint4(o.w[0], o.w[1], o.w[2], o.w[3]);
-  else if constexpr (Vec<T, V>::kBytes == 8)
-    *reinterpret_cast<uint2*>(p) = make_uint2(o.w[0], o.w[1]);
-  else if constexpr (Vec<T, V>::kBytes == 4)
-    *reinterpret_cast<unsigned*>(p) = o.w[0];
-  else
-    *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(o.w[0]);
-}
-
-// V float32 values from p (shared or global), as float4 where V allows.
-template <int V>
-__device__ __forceinline__ void load_f32(const float* p, float (&x)[V]) {
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < V; c += 4) {
-      const float4 r = *reinterpret_cast<const float4*>(p + c);
-      x[c] = r.x, x[c + 1] = r.y, x[c + 2] = r.z, x[c + 3] = r.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < V; ++c) x[c] = p[c];
-  }
-}
 
 // p[0..V) = x (add: p += x), float32, as float4 where V allows.
 template <int V>
@@ -183,10 +111,10 @@ __device__ __forceinline__ void store_f32(float* p, const float (&x)[V], bool ad
 // channels [lV, lV + V); lanes past HD / V only take part in the group's
 // shuffles and barriers.  GS is HD / V rounded up to a power of two (at most
 // 32) or to a multiple of 32, so a group is a slice of one warp or whole
-// warps.  A head spans lh = d / V lanes; its dot products are V FMAs and a
-// butterfly over `seg` lanes (the largest power of two dividing lh, at most
-// 32), plus, when a head is wider than that (lh > 32, or lh not a power of
-// two), one barrier of the group's lanes and a sum of the segments' partials
+// warps (gt::dst_layout, shared with K1).  A head spans lh = d / V lanes;
+// its dot products are V FMAs and a butterfly over `seg` lanes (the largest
+// power of two dividing lh, at most 32), plus, when a head is wider than that
+// (lh > 32, or lh not a power of two), one barrier of the group's lanes and a sum of the segments' partials
 // through shared memory.  The smem scratch of each group holds two buffers
 // used in turn, so that one barrier per exchange suffices.  Two blocks an SM
 // (at most 128 registers a thread), except with room for 8 edge features
@@ -562,34 +490,11 @@ __global__ void __launch_bounds__(gt::kMaxThreads) gt_attention_bwd_src_fused_ke
 
 int threads_for(int hd) { return (hd + 31) / 32 * 32; }
 
-// K3's launch shape for HD, head size d, F edge features and the type's
-// element size: V channels a lane (16 bytes, or the head size when that is
-// smaller), GS lanes a destination group, the head butterfly's width, the
-// block and its shared memory (two exchange buffers per group, plus W and
-// bias as float32 on the K1 side, reused for the block's dW sum).
-struct DstLayout {
-  int v, gs, seg, threads;
-  size_t smem;
-};
-
-DstLayout dst_layout(int elt, int hd, int d, int f, bool fuse_edge) {
-  DstLayout l;
-  const int vmax = 16 / elt;
-  l.v = d >= vmax ? vmax : (d >= 4 ? 4 : 1);
-  const int lanes = hd / l.v;
-  if (lanes <= 32) {
-    l.gs = 1;
-    while (l.gs < lanes) l.gs *= 2;
-  } else {
-    l.gs = (lanes + 31) / 32 * 32;
-  }
-  l.threads = l.gs <= kDstThreads ? l.gs * (kDstThreads / l.gs) : l.gs;
-  const int lh = d / l.v;
-  l.seg = lh & -lh;
-  if (l.seg > 32) l.seg = 32;
-  l.smem = (4 * static_cast<size_t>(l.threads) + (fuse_edge ? (f + 1) * static_cast<size_t>(hd) : 0)) *
-           sizeof(float);
-  return l;
+// K3's shared memory: two exchange buffers of float2 per group, plus W and
+// bias as float32 on the K1 side, reused for the block's dW sum.
+size_t dst_smem(const DstLayout& l, int hd, int f, bool fuse_edge) {
+  const size_t w_floats = fuse_edge ? (f + 1) * static_cast<size_t>(hd) : 0;
+  return (4 * static_cast<size_t>(l.threads) + w_floats) * sizeof(float);
 }
 
 template <typename T>
@@ -615,19 +520,20 @@ DstKernel<T> dst_kernel(const DstLayout& l, bool fuse_edge, int f) {
 }
 
 template <typename T>
-cudaError_t prepare_dst(DstKernel<T> kernel, const DstLayout& l) {
-  if (l.smem <= 48 * 1024) return cudaSuccess;
+cudaError_t prepare_dst(DstKernel<T> kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(l.smem));
+                              static_cast<int>(smem));
 }
 
 template <typename T>
 int dst_blocks_per_sm(int hd, int d, int f, bool fuse_edge) {
-  const DstLayout l = dst_layout(sizeof(T), hd, d, f, fuse_edge);
+  const DstLayout l = dst_layout(sizeof(T), hd, d);
   const DstKernel<T> kernel = dst_kernel<T>(l, fuse_edge, f);
+  const size_t smem = dst_smem(l, hd, f, fuse_edge);
   int n = 0;
-  if (prepare_dst<T>(kernel, l) == cudaSuccess)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, l.threads, l.smem);
+  if (prepare_dst<T>(kernel, smem) == cudaSuccess)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, l.threads, smem);
   return n;
 }
 
@@ -640,13 +546,14 @@ int launch_dst(bool fuse_edge, const void* q, const void* k, const void* v, cons
                float* d_edge, float* dw_part, int batch, int n_dst, int n_src, int n_edges, int hd,
                int d, int f, long long w_sf, long long w_sc, float scale, int blocks,
                cudaStream_t stream) {
-  const DstLayout l = dst_layout(sizeof(T), hd, d, f, fuse_edge);
+  const DstLayout l = dst_layout(sizeof(T), hd, d);
   const DstKernel<T> kernel = dst_kernel<T>(l, fuse_edge, f);
+  const size_t smem = dst_smem(l, hd, f, fuse_edge);
   const int groups = l.threads / l.gs;
   const int needed = (n_dst + groups - 1) / groups;
   const int grid = needed < blocks ? needed : blocks;
-  if (prepare_dst<T>(kernel, l) != cudaSuccess) return grid;  // cudaGetLastError reports it
-  kernel<<<grid, l.threads, l.smem, stream>>>(
+  if (prepare_dst<T>(kernel, smem) != cudaSuccess) return grid;  // cudaGetLastError reports it
+  kernel<<<grid, l.threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, src, dst_ptr, static_cast<const T*>(edge),
       static_cast<const T*>(w), static_cast<const T*>(bias), static_cast<T*>(dq),

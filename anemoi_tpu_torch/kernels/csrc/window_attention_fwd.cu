@@ -246,11 +246,8 @@ __device__ __forceinline__ uint64_t n_major(const bf16* tile, int kk) {
   return wg::smem_desc<L::kCols>(tile + 16 * kk * L::kCols, L::kSlabBytes);
 }
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using gt::exp2_approx;
+
 // Max / sum over the 4 lanes (lane & 3) that hold one row of a fragment.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

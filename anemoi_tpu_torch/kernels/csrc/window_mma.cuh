@@ -18,6 +18,8 @@
 
 #include <cstdint>
 
+#include "gt_common.cuh"
+
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -56,14 +58,8 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using gt::cp_async_commit;
+using gt::cp_async_wait;
 
 // Stage rows [pos0, pos0 + ROWS) of a bf16 tensor whose row `pos` starts at
 // src + pos * stride (16-byte aligned; n * stride < 2^31) into a swizzled

@@ -42,9 +42,13 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_entry():
-    return _bind("gt_attention_fwd", "gt_attention_fwd",
-                 [_I, _I] + [_P] * 10 + [_I] * 6 + [_LL, _LL, ctypes.c_float, _P])
+def _fwd_entries():
+    lib = "gt_attention_fwd"
+    return {
+        "blocks": _bind(lib, "gt_attention_fwd_blocks", [_I] * 5 + [_P]),
+        "fwd": _bind(lib, "gt_attention_fwd",
+                     [_I, _I] + [_P] * 10 + [_I] * 6 + [_LL, _LL, ctypes.c_float, _I, _P]),
+    }
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,26 +65,33 @@ def _bwd_entries():
 
 
 @functools.lru_cache(maxsize=None)
-def _dst_blocks(device_index: int, dtype_code: int, fused: bool, hd: int, num_heads: int,
-                f: int) -> int:
-    """Blocks of K3 resident on the card at once (its grid-stride width)."""
+def _dst_blocks(backward: bool, device_index: int, dtype_code: int, fused: bool, hd: int,
+                num_heads: int, f: int) -> int:
+    """Blocks of K1/K2 (``backward`` False) or K3 resident on the card at once:
+    the width of their grid-stride walk over destinations."""
     out = ctypes.c_int(0)
+    entries = _bwd_entries() if backward else _fwd_entries()
     with torch.cuda.device(device_index):
-        rc = _bwd_entries()["blocks"](dtype_code, int(fused), hd, num_heads, f,
-                                      ctypes.addressof(out))
+        rc = entries["blocks"](dtype_code, int(fused), hd, num_heads, f, ctypes.addressof(out))
     if rc != 0:
-        raise RuntimeError(f"gt_attention_bwd_dst_blocks failed: cudaError {rc}")
+        raise RuntimeError(f"gt_attention_{'bwd_dst' if backward else 'fwd'}_blocks failed: "
+                           f"cudaError {rc}")
     return out.value
 
 
 def dst_instantiation(dtype: torch.dtype, d: int, f: int, fused: bool) -> Tuple[int, int]:
-    """(V, FMAX) of the K3 instantiation that a launch takes (``dst_layout``
-    and ``dst_kernel`` in the CUDA source): V channels a lane -- 16 bytes, or
-    4 or 1 when the head size d is smaller -- and room for FMAX edge features
+    """(V, FMAX) of the K1/K2 or K3 instantiation that a launch takes
+    (``gt::dst_layout`` in ``csrc/gt_common.cuh``, ``fwd_kernel`` and
+    ``dst_kernel`` in the CUDA sources): V channels a lane -- 16 bytes, or 4
+    or 1 when the head size d is smaller -- and room for FMAX edge features
     (4 or 8; 1 without the fused projection)."""
     vmax = 16 // (torch.finfo(dtype).bits // 8)
     vec = vmax if d >= vmax else (4 if d >= 4 else 1)
     return vec, (4 if f <= 4 else MAX_EDGE_FEATURES) if fused else 1
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -124,6 +135,16 @@ def _check(query, key, value, edge_index, dst_ptr, num_heads):
         if t.is_floating_point() and t.dtype != query.dtype:
             raise TypeError(f"{name} is {t.dtype}, query {query.dtype}")
     return b, nd, key.shape[1], hd, d
+
+
+def _check_aligned(query, d, f, fuse, vectors):
+    """Each lane of K1/K2 and K3 moves V channels of its row vectors as one
+    aligned access: refuse a tensor that starts off that boundary (no
+    fallback)."""
+    align = dst_instantiation(query.dtype, d, f, fuse)[0] * query.element_size()
+    for name, t in vectors:
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must start on a {align}-byte boundary")
 
 
 def _check_edges(query, edge_index, edges, edge_attr, weight, bias):
@@ -179,16 +200,19 @@ def _check_source_order(src_ptr, src_perm, n_src, n_edges, device):
 def _launch(query, key, value, edge_index, dst_ptr, num_heads, edges, edge_attr, weight, bias):
     b, nd, ns, hd, d = _check(query, key, value, edge_index, dst_ptr, num_heads)
     edge, f, fuse = _check_edges(query, edge_index, edges, edge_attr, weight, bias)
+    vectors = (("query", query), ("key", key), ("value", value))
+    _check_aligned(query, d, f, fuse, vectors + (() if fuse else (("edges", edge),)))
+    code = _DTYPE_CODES[query.dtype]
+    blocks = _dst_blocks(False, _device_index(query), code, fuse, hd, num_heads, f)
     out = torch.empty_like(query)
     lse = torch.empty((b, nd, num_heads), device=query.device, dtype=torch.float32)
-    rc = _fwd_entry()(
-        _DTYPE_CODES[query.dtype], int(fuse),
-        query.data_ptr(), key.data_ptr(), value.data_ptr(),
+    rc = _fwd_entries()["fwd"](
+        code, int(fuse), query.data_ptr(), key.data_ptr(), value.data_ptr(),
         edge_index[0].data_ptr(), dst_ptr.data_ptr(), edge.data_ptr(),
         _ptr(weight), _ptr(bias), out.data_ptr(), lse.data_ptr(),
         b, nd, ns, hd, num_heads, f,
         weight.stride(0) if fuse else 0, weight.stride(1) if fuse else 0,
-        1.0 / math.sqrt(d), _stream(query),
+        1.0 / math.sqrt(d), blocks, _stream(query),
     )
     if rc != 0:
         raise RuntimeError(f"gt_attention_fwd launch failed: cudaError {rc}")
@@ -203,7 +227,9 @@ def gt_attention_fused_edge(
     """K1: attention with the edge projection ``edge_attr @ weight + bias``
     (raw ``edge_attr [E, F]``, ``weight [F, HD]`` of any strides, ``bias
     [HD]``) formed inside the kernel.  Returns ``out [B, Nd, HD]`` in the
-    input type and ``lse [B, Nd, H]`` in float32."""
+    input type and ``lse [B, Nd, H]`` in float32.  ``query``, ``key`` and
+    ``value`` must start on a 16-byte boundary (V channels a lane; see
+    :func:`dst_instantiation`)."""
     out = _launch(query, key, value, edge_index, dst_ptr, num_heads, None, edge_attr, weight, bias)
     gt_attention_fused_edge.launches += 1
     return out
@@ -214,7 +240,8 @@ def gt_attention_edge(
     edge_index: torch.Tensor, dst_ptr: torch.Tensor, num_heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: attention with pre-projected edge features ``edges [E, HD]``.
-    Returns ``out [B, Nd, HD]`` and ``lse [B, Nd, H]`` (float32)."""
+    Returns ``out [B, Nd, HD]`` and ``lse [B, Nd, H]`` (float32).  Alignment
+    as for K1, ``edges`` included."""
     out = _launch(query, key, value, edge_index, dst_ptr, num_heads, edges, None, None, None)
     gt_attention_edge.launches += 1
     return out
@@ -252,15 +279,10 @@ def gt_attention_bwd_dst(
     edge, f, fuse = _check_edges(query, edge_index, edges, edge_attr, weight, bias)
     _check_grad_inputs(query, grad, lse, delta, num_heads)
     n_e = edge_index.shape[1]
-    # each lane moves V channels of q, k, v, g and e as one aligned vector
-    align = dst_instantiation(query.dtype, d, f, fuse)[0] * query.element_size()
     vectors = (("query", query), ("key", key), ("value", value), ("grad", grad))
-    for name, t in vectors + (() if fuse else (("edges", edge),)):
-        if t.data_ptr() % align:
-            raise ValueError(f"{name} must start on a {align}-byte boundary")
+    _check_aligned(query, d, f, fuse, vectors + (() if fuse else (("edges", edge),)))
     dev, code = query.device, _DTYPE_CODES[query.dtype]
-    blocks = _dst_blocks(dev.index if dev.index is not None else torch.cuda.current_device(),
-                         code, fuse, hd, num_heads, f)
+    blocks = _dst_blocks(True, _device_index(query), code, fuse, hd, num_heads, f)
     dq = torch.empty_like(query)
     dkv = torch.empty((b, n_e, 2 * hd), device=dev, dtype=query.dtype) if emit_dkv else None
     d_edge = (torch.empty((n_e, f if fuse else hd), device=dev, dtype=torch.float32)

@@ -8,7 +8,10 @@ Phases (any failure exits non-zero, with no result line):
                   nvcc per source, all started together;
   3. kernels   -- hold K1 and K2 against their plain PyTorch versions at the
                   three full-size edge sets of the o96 -> ico-5 graph, in
-                  float32 and bfloat16, and time both with CUDA events;
+                  float32 and bfloat16, and time both with CUDA events
+                  (single calls, and calls back to back), each row with
+                  its route and its instantiation's ptxas registers and
+                  spills;
   4. backward  -- at the same edge sets and types, for both edge inputs (K1's
                   raw attributes and K2's projected edges): K3 + K4 and K3
                   (no dkv) + K5 against the plain backward, per output, and
@@ -20,11 +23,11 @@ Phases (any failure exits non-zero, with no result line):
                   twice at the processor edge set with the fused projection
                   must agree bit for bit (dq, dkv, dW, dbias);
   5. wide GT   -- K1 and K3 + K4 against their plain versions at HD = 1024
-                  (16 heads of 64, the Transformer preset's mappers: K1, K4
-                  in blocks of 1024 threads) on the data->hidden and
+                  (16 heads of 64, the Transformer preset's mappers: K4 in
+                  blocks of 1024 threads) on the data->hidden and
                   hidden->data edge sets, float32 and bfloat16; K1, K3 and K4
                   each timed beside its byte bound, its plain version and
-                  (K4) one index_add_, K3 as in phase 4;
+                  (K4) one index_add_, K1 as in phase 3, K3 as in phase 4;
   6. window    -- K6 (out, lse) and K7 (K7_dq: dq; K7_dkv: dk, dv) against
                   the plain band and its autograd backward at the Transformer
                   preset's processor shape (B 1, N 10 242, H 16, D 64, w 512),
@@ -138,9 +141,15 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max|out - ref| / max|ref|
 WINDOW_BUILDS = {"K6": ("window_attention_fwd", "window_attention_fwd"),
                  "K7_dq": ("window_attention_bwd", "window_attention_bwd_dq"),
                  "K7_dkv": ("window_attention_bwd", "window_attention_bwd_dkv")}
-# K3: one route for both types; the instantiation a launch takes is named by
-# its type, channels a lane (V), fused projection and room for edge features
-K3_ROUTE = "CUDA cores, 16-byte vectors a lane, several destinations a block"
+# K1, K2 and K3 (destination groups): kernel -> (library, kernel-name stem,
+# route), one route for both types; the instantiation a launch takes is
+# named by its type, channels a lane (V), fused projection and room for edge
+# features
+DST_ROUTE = "CUDA cores, 16-byte vectors a lane, several destinations a block"
+FWD_ROUTE = DST_ROUTE + ", edge rows through a cp.async ring, grid-stride over destinations"
+DST_BUILDS = {"K1": ("gt_attention_fwd", "gt_attention_fwd_kernel", FWD_ROUTE),
+              "K2": ("gt_attention_fwd", "gt_attention_fwd_kernel", FWD_ROUTE),
+              "K3": ("gt_attention_bwd", "gt_attention_bwd_dst_kernel", DST_ROUTE)}
 WINDOW_ROUTES = {
     ("K6", torch.bfloat16): ("bf16 warpgroup tensor cores (wgmma m64nNk16)", "_wgmma_kernelILi"),
     ("K7_dq", torch.bfloat16): ("bf16 tensor cores (mma.sync m16n8k16)", "_mma_kernelILi"),
@@ -266,18 +275,21 @@ def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD):
     }
 
 
-def k3_build(dtype, d, n_feat, fused) -> dict:
-    """Route, ptxas registers and spill bytes of the K3 instantiation that
-    a launch of ``dtype`` at head size ``d`` with ``n_feat`` edge features
-    takes."""
+def dst_build(kernel, dtype, d, n_feat, fused) -> dict:
+    """Route, ptxas registers and spill bytes of the instantiation of
+    ``kernel`` (K1, K2 or K3) that a launch of ``dtype`` at head size ``d``
+    with ``n_feat`` edge features takes."""
     from anemoi_tpu_torch.kernels.build import build_log, ptxas_usage
     from anemoi_tpu_torch.kernels.gt_attention import dst_instantiation
 
+    lib, stem, route = DST_BUILDS[kernel]
     vec, fmax = dst_instantiation(dtype, d, n_feat, fused)
     name = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
-    key = f"gt_attention_bwd_dst_kernelI{name}Li{vec}ELb{int(fused)}ELi{fmax}EE"
-    found = [u for entry, u in ptxas_usage(build_log("gt_attention_bwd")).items() if key in entry]
-    return {"route": K3_ROUTE, "instantiation": key, **(found[0] if found else {})}
+    key = f"{stem}I{name}Li{vec}ELb{int(fused)}ELi{fmax}EE"
+    found = [u for entry, u in ptxas_usage(build_log(lib)).items() if key in entry]
+    if not found:  # another build of the kernel (an older checkout's)
+        route = "unknown: no such instantiation in the build log"
+    return {"route": route, "instantiation": key, **(found[0] if found else {})}
 
 
 def kernel_phase(graph, device) -> dict:
@@ -306,11 +318,13 @@ def kernel_phase(graph, device) -> dict:
             e = rnd(n_e, HD, scale=0.5)
             cases = {
                 "K1": (lambda p: gt_attention_fe(q, k, v, attr, w, b, ei, ptr, HEADS, plain=p,
-                                                 source=order), True),
+                                                 source=order), True,
+                       lambda: kern.gt_attention_fused_edge(q, k, v, attr, w, b, ei, ptr, HEADS)),
                 "K2": (lambda p: gt_attention(q, k, v, e, ei, ptr, HEADS, plain=p,
-                                              source=order), False),
+                                              source=order), False,
+                       lambda: kern.gt_attention_edge(q, k, v, e, ei, ptr, HEADS)),
             }
-            for name, (fn, fused) in cases.items():
+            for name, (fn, fused, raw) in cases.items():
                 wrapper = kern.gt_attention_fused_edge if fused else kern.gt_attention_edge
                 before = wrapper.launches
                 out, lse = fn(False)
@@ -329,6 +343,7 @@ def kernel_phase(graph, device) -> dict:
                         f"(tol {TOL[dtype]}), lse rel err {lse_rel:.3e}"
                     )
                 ms = cuda_ms(lambda: fn(False))
+                ms_b2b = cuda_ms_back_to_back(raw)
                 plain_ms = cuda_ms(lambda: fn(True), reps=20)
                 bound_ms, bound_by = attention_bound(
                     n_dst, n_src, n_e, n_f, q.element_size(), fused
@@ -337,8 +352,9 @@ def kernel_phase(graph, device) -> dict:
                     "edge_set": "->".join(key), "dtype": str(dtype).split(".")[-1],
                     "n_dst": n_dst, "n_src": n_src, "n_edges": n_e,
                     "max_abs_err": err, "rel_err": rel, "lse_max_abs_err": lse_err,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None,
+                    "ms": ms, "ms_back_to_back": ms_b2b,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None, **dst_build(name, dtype, HD // HEADS, n_f, fused),
                 }
                 results[name].append(row)
                 print(f"[kernels] {name} {row}", flush=True)
@@ -474,7 +490,7 @@ def backward_phase(graph, device) -> dict:
                 per_kernel = {
                     "K3": dict(max_abs_err=max(k3_errs.values()), errors=k3_errs,
                                ms_no_dkv=ms["K3_no_dkv"], ms_back_to_back=ms["K3_b2b"],
-                               **k3_build(dtype, HD // HEADS, n_f, fused)),
+                               **dst_build("K3", dtype, HD // HEADS, n_f, fused)),
                     "K4": dict(max_abs_err=max(errs[(False, "dk")], errs[(False, "dv")]),
                                plain_ms=k4_plain_ms, plain_is="float32 index_add_ of dkv",
                                library_ms=k4_library_ms, library_is="index_add_ of dkv"),
@@ -545,9 +561,13 @@ def gt_wide_phase(graph, device):
             delta = (out.float() * g.float()).reshape(1, n_dst, HEADS, -1).sum(-1)
             dkv = kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw,
                                             **path_kw).dkv
+            def k1_raw():
+                return kern.gt_attention_fused_edge(q, k, v, *edge_kw.values(), ei, ptr, HEADS)
+
             ms = {
                 "K1": cuda_ms(lambda: gt_attention_fe(q, k, v, *edge_kw.values(), ei, ptr, HEADS,
                                                       source=order)),
+                "K1_b2b": cuda_ms_back_to_back(k1_raw),
                 "K3": cuda_ms(lambda: kern.gt_attention_bwd_dst(
                     q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
                 "K3_b2b": cuda_ms_back_to_back(lambda: kern.gt_attention_bwd_dst(
@@ -575,11 +595,12 @@ def gt_wide_phase(graph, device):
                     "n_edges": n_e}
             per_kernel = {
                 "K1": dict(max_abs_err=errs["out"], plain_is="gt_attention_fe(plain=True)",
-                           library_ms=None),
+                           library_ms=None, ms_back_to_back=ms["K1_b2b"],
+                           **dst_build("K1", dtype, WIDE_HD // HEADS, n_f, True)),
                 "K3": dict(max_abs_err=max(errs[n] for n in ("dq", "d_weight", "d_bias")),
                            plain_is="gt_attention_bwd_plain", library_ms=None,
                            ms_back_to_back=ms["K3_b2b"],
-                           **k3_build(dtype, WIDE_HD // HEADS, n_f, True)),
+                           **dst_build("K3", dtype, WIDE_HD // HEADS, n_f, True)),
                 "K4": dict(max_abs_err=max(errs["dk"], errs["dv"]),
                            plain_is="float32 index_add_ of dkv", library_ms=k4_library_ms,
                            library_is="index_add_ of dkv"),
@@ -989,7 +1010,12 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
             "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": head["max_abs_err"], "max_err": head["max_abs_err"],
             "ms": head["ms"],
-            **({"ms_back_to_back": head["ms_back_to_back"]} if "ms_back_to_back" in head else {}),
+            # K1-K3 and K6/K7: the kernel's design, its instantiation's ptxas
+            # registers and spills, and its time back to back
+            **{key: head[key] for key in ("ms_back_to_back", "instantiation", "registers",
+                                          "spill_stores", "spill_loads")
+               if key in head},
+            **({"route_detail": head["route"]} if "route" in head else {}),
             # K3, K5: the plain version is the whole plain backward
             # (gt_attention_bwd_plain); K4: a float32 index_add_ of dkv; K6:
             # the plain band; K7: the plain band's autograd backward, to be

@@ -8,11 +8,13 @@ JAX nor the JAX package, so they also run where only PyTorch is installed:
 
 They cover the head sizes the flagship (d = 32) does not: d < 32 and d =
 64 -- also at HD = 1024 (16 x 64, the Transformer preset's mappers: 1024
-threads a block in K1, K4, K5) --, destinations without edges, sources
-without edges (backward), and both input types; for the destination pass K3
-also a destination of in-degree 75 (three chunks of edge sources) and heads
-of 512 channels (a head sum across warps), bitwise repeatability in bf16 and
-the refusal of a query or grad off its 16-byte vector boundary.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
+threads a block in K4 and K5) --, destinations without edges, sources
+without edges (backward), and both input types; for the kernels that walk
+destinations in groups of lanes (K1/K2 forward, K3 backward) also a
+destination of in-degree 75 (three chunks of edge sources) and heads of 512
+channels (a head sum across warps), for K1 eight raw edge features,
+bitwise repeatability in bf16 and the refusal of a vector input off its
+16-byte boundary.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
 and dv) are held against ``band_attention_plain`` and its autograd backward,
 with softcap, ALiBi, a ragged last tile, a full band over several tiles and
 a sequence shorter than one tile, and logits large enough that the running
@@ -96,7 +98,35 @@ def card():
 @pytest.mark.parametrize("heads,d", [(2, 4), (4, 8), (2, 64), (16, 32), (16, 64)])
 @pytest.mark.parametrize("fused", [False, True], ids=["K2", "K1"])
 def test_kernel_matches_plain(card, fused, heads, d, dtype):
-    ei_np, ptr_np, a = make_case(np.random.default_rng(1), 300, 200, heads * d)
+    check_forward_against_plain(card, np.random.default_rng(1), heads, d, dtype, fused)
+
+
+# K1/K2 layouts the cases above do not reach: a destination of in-degree 75
+# (its edge sources and raw attributes come in three 32-edge chunks), 2 heads
+# of 512 channels (the head sum crosses warps through the group's shared
+# memory) and, for K1, 8 raw edge features (the FMAX = 8 instantiation)
+FWD_CASES = {"in_degree_75": (16, 32, 3, {5: 75}), "two_heads_of_512": (2, 512, 3, None),
+             "eight_features": (16, 32, 8, None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,fused", [
+    ("in_degree_75", False), ("in_degree_75", True), ("two_heads_of_512", False),
+    ("two_heads_of_512", True), ("eight_features", True),
+])
+def test_kernel_layouts_match_plain(card, case, fused, dtype):
+    heads, d, f, degree = FWD_CASES[case]
+    ei_np = check_forward_against_plain(card, np.random.default_rng(9), heads, d, dtype, fused,
+                                        f=f, degree=degree)
+    assert np.bincount(ei_np[1]).max() >= (75 if degree else 1)
+
+
+def check_forward_against_plain(card, rng, heads, d, dtype, fused, f=3, degree=None):
+    """K1 (``fused``) or K2 on a batch-2 case against the plain op: out
+    within the type's tolerance of max|ref|, lse within 1e-4, destinations
+    3 and 17 (no edges) out = 0 and lse = -inf.  Returns the edge index."""
+    ei_np, ptr_np, a = make_case(rng, 300, 200, heads * d, f=f, degree=degree)
     t = {k: torch.from_numpy(v).to(card, dtype) for k, v in a.items()}
     ei, ptr = torch.from_numpy(ei_np).to(card), torch.from_numpy(ptr_np).to(card)
     if fused:
@@ -119,6 +149,54 @@ def test_kernel_matches_plain(card, fused, heads, d, dtype):
     finite = ref_lse.isfinite()
     torch.testing.assert_close(lse[finite], ref_lse[finite], rtol=1e-4, atol=1e-4)
     assert torch.all(out[:, [3, 17]] == 0)
+    return ei_np
+
+
+def k1_inputs(card, seed, heads, d):
+    """bf16 inputs of K1 for batch 2: (q, k, v, attr, w, b, edge_index,
+    dst_ptr) and the projected edges e."""
+    ei_np, ptr_np, a = make_case(np.random.default_rng(seed), 300, 200, heads * d)
+    t = {k: torch.from_numpy(v).to(card, torch.bfloat16) for k, v in a.items()}
+    ei, ptr = torch.from_numpy(ei_np).to(card), torch.from_numpy(ptr_np).to(card)
+    return (t["q"], t["k"], t["v"], t["attr"], t["w"], t["b"], ei, ptr), t["e"]
+
+
+@pytest.mark.cuda
+def test_forward_kernel_is_deterministic(card):
+    """bf16 K1: a destination belongs to one group, which walks its edges in
+    CSR order with no atomics, so two runs agree bit for bit (out and
+    lse)."""
+    args, _ = k1_inputs(card, 10, 16, 32)
+    runs = [kern.gt_attention_fused_edge(*args, 16) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_forward_kernel_refuses_misaligned(card):
+    """K1 and K2 move 8 bf16 channels a lane as one 16-byte vector: a query,
+    key, value or (K2) projected edge tensor that starts off a 16-byte
+    boundary is refused before any launch."""
+    (q, k, v, attr, w, b, ei, ptr), e = k1_inputs(card, 11, 2, 32)
+
+    def off_boundary(x):
+        buf = torch.zeros(x.numel() + 1, device=card, dtype=x.dtype)
+        bad = buf[1:].view(x.shape)
+        bad.copy_(x)
+        assert bad.is_contiguous() and bad.data_ptr() % 16
+        return bad
+
+    before = kern.launch_counts()
+    for name, x in (("query", q), ("key", k), ("value", v)):
+        qkv = [off_boundary(y) if y is x else y for y in (q, k, v)]
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte"):
+            kern.gt_attention_fused_edge(*qkv, attr, w, b, ei, ptr, 2)
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte"):
+            kern.gt_attention_edge(*qkv, e, ei, ptr, 2)
+    with pytest.raises(ValueError, match="edges must start on a 16-byte"):
+        kern.gt_attention_edge(q, k, v, off_boundary(e), ei, ptr, 2)
+    assert kern.launch_counts() == before
 
 
 def test_backward_kernel_wrappers_refuse_cpu_tensors():
