@@ -50,12 +50,16 @@
 //     row, and a second short kernel sums the partials in a fixed order.
 //     Every K3 output is therefore deterministic run to run on a given card
 //     (the block count follows the card's SM count and the kernel's
-//     occupancy).  Thread c of K4 and K5 owns channel c; their per-head dot
-//     products are head_sum butterflies (gt_common.cuh).
-//   - K4 and K5 use one block per (source, batch row) and walk the source's
-//     edges through the source-ordered view (src_ptr, src_perm: the edge ids
-//     sorted by source, stable by destination).  No atomics: deterministic.
-//     A source without edges writes dk = dv = 0.
+//     occupancy).
+//   - K4 and K5 walk a source's edges through the source-ordered view
+//     (src_ptr, src_perm: the edge ids sorted by source, stable by
+//     destination), so each dk, dv row is written by one walk: no atomics,
+//     deterministic; a source without edges writes dk = dv = 0.  K4 takes one
+//     block per (source, batch row), thread c owning channel c.  K5 takes
+//     K3's groups of 16-byte lanes, one source a group, the card's resident
+//     blocks striding over the sources; the q and g rows (and e rows) its edges gather are in flight kStages edges
+//     at a time through a cp.async ring, as in K1 (gt_attention_fwd.cu;
+//     K5's own comment below).
 //   - The TPU kernels' slot/page tables and one-hot matmul gathers are
 //     artefacts of Mosaic lacking a row gather and do not appear.
 
@@ -68,14 +72,17 @@
 
 namespace {
 
+using gt::blocks_per_sm;
+using gt::cp_async;
+using gt::cp_async_commit;
+using gt::cp_async_wait;
 using gt::DstLayout;
 using gt::dst_layout;
-using gt::edge_feature;
+using gt::exp2_approx;
 using gt::from_float;
-using gt::head_sum;
+using gt::group_kernel;
+using gt::prepare_smem;
 using gt::kDstThreads;
-using gt::kMaxEdgeFeatures;
-using gt::load_edge_column;
 using gt::load_f32;
 using gt::store_vec;
 using gt::to_float;
@@ -111,12 +118,15 @@ __device__ __forceinline__ void store_f32(float* p, const float (&x)[V], bool ad
 // channels [lV, lV + V); lanes past HD / V only take part in the group's
 // shuffles and barriers.  GS is HD / V rounded up to a power of two (at most
 // 32) or to a multiple of 32, so a group is a slice of one warp or whole
-// warps (gt::dst_layout, shared with K1).  A head spans lh = d / V lanes;
-// its dot products are V FMAs and a butterfly over `seg` lanes (the largest
-// power of two dividing lh, at most 32), plus, when a head is wider than that
-// (lh > 32, or lh not a power of two), one barrier of the group's lanes and a sum of the segments' partials
-// through shared memory.  The smem scratch of each group holds two buffers
-// used in turn, so that one barrier per exchange suffices.  Two blocks an SM
+// warps (gt::dst_layout and gt::Group, shared with K1 and K5).  A head spans
+// lh = d / V lanes; its dot products are V FMAs and gt::Group::head_sums: a
+// butterfly over `seg` lanes (the largest power of two dividing lh, at most
+// 32), plus, when a head is wider than that (lh > 32, or lh not a power of
+// two), one barrier of the group's lanes and a sum of the segments' partials
+// through the group's two exchange buffers in shared memory.  K3 takes the
+// group with its mask in a register and the butterfly as a loop
+// (Group<false>): at its register cap, the literal mask's second shuffle
+// path spilled more and ran 1.5-3.5 % slower on an H100.  Two blocks an SM
 // (at most 128 registers a thread), except with room for 8 edge features
 // (72 dW and dbias sums a lane) and at V = 1, whose groups may span 1024
 // threads (HD = 1024 at d < 4).
@@ -141,24 +151,20 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
         int batch, int n_dst, int n_src, int n_edges, int hd, int d, int f, long long w_sf,
         long long w_sc, float scale, int gs, int seg) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* smem = reinterpret_cast<float*>(smem4);  // the groups' exchange buffers, then:
   const int threads = blockDim.x;
+  float* wsm = smem + 4 * threads;  // K1 side: W as [F, HD] then bias, float32
+  gt::Group<false> grp(V, gs, seg, hd, d, smem, 2);
   const int groups = threads / gs;
-  const int group = threadIdx.x / gs;
-  const int lane_g = threadIdx.x - group * gs;  // lane in the group
-  const int lane = threadIdx.x & 31;
-  const int base = gs < 32 ? (lane & ~(gs - 1)) : 0;  // warp lane of the group's first lane
-  const unsigned mask = gs < 32 ? ((1u << gs) - 1u) << base : 0xffffffffu;
-  const int chunk = gs < 32 ? gs : 32;  // edge sources read at once, one per lane
-  const int cl = lane - base;           // this lane's entry of a chunk
-  const bool active = lane_g * V < hd;
-  const int c0 = active ? lane_g * V : 0;
+  const int group = grp.id;
+  const int lane_g = grp.lane_g;
+  const int base = grp.base;
+  const int chunk = grp.chunk;
+  const int cl = grp.cl;
+  const bool active = grp.active;
+  const int c0 = grp.c0;
   const int n_heads = hd / d;
   const int head = c0 / d;
-  const int lh = d / V;
-  float* scratch = smem + 4 * gs * group;  // [2][2 * gs] floats, used in turn
-  float* wsm = smem + 4 * threads;         // K1 side: W as [F, HD] then bias, float32
-  int parity = 0;
 
   if (FUSE_EDGE) {
     for (int x = threadIdx.x; x < (f + 1) * hd; x += threads) {
@@ -168,46 +174,22 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
     __syncthreads();
   }
 
-  auto group_sync = [&]() {
-    if (gs <= 32)
-      __syncwarp(mask);
-    else  // the group's own warps only: named barrier 1 + group
-      asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(gs) : "memory");
-  };
-  // x, y summed over the lh lanes of the calling lane's head
-  auto head_sums = [&](float& x, float& y) {
-    for (int off = seg >> 1; off > 0; off >>= 1) {
-      x += __shfl_xor_sync(mask, x, off);
-      y += __shfl_xor_sync(mask, y, off);
-    }
-    if (seg < lh) {
-      float2* buf = reinterpret_cast<float2*>(scratch) + parity * gs;
-      parity ^= 1;
-      if ((lane_g & (seg - 1)) == 0) buf[lane_g / seg] = make_float2(x, y);
-      group_sync();
-      const int per = lh / seg;
-      const float2* p = buf + (lane_g / lh) * per;
-      float sx = 0.f, sy = 0.f;
-      for (int s = 0; s < per; ++s) sx += p[s].x, sy += p[s].y;
-      x = sx, y = sy;
-    }
-  };
   // part[0..f) summed over all lanes of the group, returned to every lane
+  // (through the exchange buffers of grp.head_sums, in the same turns)
   auto group_sum = [&](float (&part)[FMAX]) {
     const int width = gs < 32 ? gs : 32;
 #pragma unroll
     for (int t = 0; t < FMAX; ++t)
       if (t < f)
-        for (int off = width >> 1; off > 0; off >>= 1)
-          part[t] += __shfl_xor_sync(mask, part[t], off);
+        for (int off = width >> 1; off > 0; off >>= 1) part[t] += grp.shfl_xor(part[t], off);
     if (gs > 32) {
-      float* buf = scratch + parity * 2 * gs;
-      parity ^= 1;
-      if (lane == 0)
+      float* buf = grp.scratch + grp.parity * 2 * gs;
+      grp.parity ^= 1;
+      if ((lane_g & 31) == 0)
 #pragma unroll
         for (int t = 0; t < FMAX; ++t)
           if (t < f) buf[(lane_g >> 5) * FMAX + t] = part[t];
-      group_sync();
+      grp.sync();
 #pragma unroll
       for (int t = 0; t < FMAX; ++t) {
         float s = 0.f;
@@ -261,12 +243,12 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
               if (t < f) ar[t] = edge[static_cast<size_t>(j) * f + t];
         };
         int s_chunk = beg + cl < end ? src[beg + cl] : 0;
-        load_edge(beg, __shfl_sync(mask, s_chunk, base), kc, vc, ec, ac);
+        load_edge(beg, grp.shfl(s_chunk, base), kc, vc, ec, ac);
         for (int j = beg; j < end; ++j) {
           if (j + 1 < end) {
             const int o = (j + 1 - beg) & (chunk - 1);
             if (o == 0) s_chunk = j + 1 + cl < end ? src[j + 1 + cl] : 0;
-            load_edge(j + 1, __shfl_sync(mask, s_chunk, base + o), kn, vn, en, an);
+            load_edge(j + 1, grp.shfl(s_chunk, base + o), kn, vn, en, an);
           }
           float e[V], kf[V];
           if constexpr (FUSE_EDGE) {
@@ -285,16 +267,16 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
 #pragma unroll
             for (int x = 0; x < V; ++x) e[x] = ec.get(x);
           }
-          float logit = 0.f, dalpha = 0.f;
+          float sums[2] = {0.f, 0.f};  // the head's logit and g . v_eff
 #pragma unroll
           for (int x = 0; x < V; ++x) {
             kf[x] = kc.get(x) + e[x];
-            logit += qr.get(x) * kf[x];
-            dalpha += gr.get(x) * (vc.get(x) + e[x]);
+            sums[0] += qr.get(x) * kf[x];
+            sums[1] += gr.get(x) * (vc.get(x) + e[x]);
           }
-          head_sums(logit, dalpha);
-          const float alpha = active ? expf(logit * scale - lse_h) : 0.f;
-          const float dl = active ? alpha * (dalpha - delta_h) * scale : 0.f;
+          grp.head_sums(sums);
+          const float alpha = active ? expf(sums[0] * scale - lse_h) : 0.f;
+          const float dl = active ? alpha * (sums[1] - delta_h) * scale : 0.f;
           float dk_e[V], dv_e[V], de[V];
 #pragma unroll
           for (int x = 0; x < V; ++x) {
@@ -435,56 +417,224 @@ __global__ void __launch_bounds__(gt::kMaxThreads) gt_attention_bwd_src_kernel(
   dv[o] = from_float<T>(av);
 }
 
-// K5: the source pass without dkv, recomputing each edge's alpha and dl
-// (K3's math) from the destination's q, g, lse and delta.
-template <typename T, bool FUSE_EDGE>
-__global__ void __launch_bounds__(gt::kMaxThreads) gt_attention_bwd_src_fused_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ dst,       // [E] destination of each dst-sorted edge
-    const int* __restrict__ src_ptr,   // [Ns + 1]
-    const int* __restrict__ src_perm,  // [E]
-    const T* __restrict__ edge, const T* __restrict__ w, const T* __restrict__ bias,
-    T* __restrict__ dk, T* __restrict__ dv,  // [B, Ns, HD]
-    int n_dst, int n_src, int hd, int d, int f, long long w_sf, long long w_sc, float scale) {
-  extern __shared__ float partial[];
-  const int s = blockIdx.x;
-  const int b = blockIdx.y;
-  const int c = threadIdx.x;
-  const bool active = c < hd;
-  const int n_heads = hd / d;
-  const int head = active ? c / d : 0;
+// ---- K5: the fused source pass ---------------------------------------------
 
-  float wc[kMaxEdgeFeatures] = {};
-  float bc = 0.f;
-  if (FUSE_EDGE) load_edge_column(w, bias, c, active, f, w_sf, w_sc, wc, bc);
-  const size_t row_s = (static_cast<size_t>(b) * n_src + s) * hd;
-  const float k0 = active ? to_float(k[row_s + c]) : 0.f;
-  const float v0 = active ? to_float(v[row_s + c]) : 0.f;
-  float ak = 0.f, av = 0.f;
-  const int end = src_ptr[s + 1];
-  for (int p = src_ptr[s]; p < end; ++p) {
-    const int j = src_perm[p];
-    const int i = dst[j];
-    const float e = edge_feature<T, FUSE_EDGE>(edge, j, c, active, hd, f, wc, bc);
-    const float kc = active ? k0 + e : 0.f;
-    const float vc = active ? v0 + e : 0.f;
-    const size_t row = (static_cast<size_t>(b) * n_dst + i) * hd;
-    const size_t hrow = (static_cast<size_t>(b) * n_dst + i) * n_heads + head;
-    const float qc = active ? to_float(q[row + c]) : 0.f;
-    const float gc = active ? to_float(g[row + c]) : 0.f;
-    const float lse_h = active ? lse[hrow] : 0.f;  // i has an edge: lse is finite
-    const float delta_h = active ? delta[hrow] : 0.f;
-    const float logit = head_sum(qc * kc, d, partial) * scale;
-    const float alpha = active ? expf(logit - lse_h) : 0.f;
-    const float dalpha = head_sum(gc * vc, d, partial);
-    const float dl = alpha * (dalpha - delta_h) * scale;
-    ak += dl * qc;
-    av += alpha * gc;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 4;  // edges of a source group whose gathered rows are in flight at once
+
+// K5.  A source is walked by a group of GS lanes laid out as K3's
+// destination groups (gt::dst_layout, gt::Group): lane l owns channels
+// [lV, lV + V) of k_s, v_s, dk_s and dv_s and of every gathered q_i, g_i (and
+// e_ij) row, each moved as one vector.  The grid is the card's resident
+// blocks a batch row (the grid's y), and each group strides over sources,
+// loading the next source's edge range and k, v rows while it walks this
+// one's edges.  A source's edges (src_perm order) come in chunks of up to
+// 32: lane c reads the chunk's c-th edge id j, its destination i = dst[j]
+// (and, K1 side, its F raw attributes), spread to the group by shuffles.
+// The q_i and g_i rows (and K2 side's e_ij row) and the head's lse_i and
+// delta_i of kStages edges are in flight at once: the group copies them with
+// cp.async into its own ring in shared memory, and each lane reads back only
+// what it copied, so the ring needs no barrier.  A head's two dot products
+// are V FMAs each and gt::Group::head_sums.  alpha is formed in base 2
+// (log2 e folded into the scale), dl without its factor 1/sqrt(d), which the
+// store applies.  Each lane sums its channels of dk_s and dv_s in float32
+// registers over the source's edges and stores them once; a source without
+// edges writes zeros.  No atomics: bitwise repeatable.  K1 side's W and bias
+// are staged once a block in shared memory as float32 (the kernel's only
+// block barrier); the bias is folded into k_s and v_s.  Two blocks an SM (at
+// most 128 registers a thread), except with room for 8 edge features and at
+// V = 1, whose groups may span 1024 threads.  On the card (PERF.md §6),
+// neither an 8-edge ring nor gathers through L1 moved it by more than 2 %,
+// and lanes of 32 bytes ran 16-20 % slower.
+template <typename T, int V, bool FUSE_EDGE, int FMAX>
+__global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 4 ? 1 : 2)
+    gt_attention_bwd_src_fused_kernel(
+        const T* __restrict__ q,           // [B, Nd, HD]
+        const T* __restrict__ k,           // [B, Ns, HD]
+        const T* __restrict__ v,           // [B, Ns, HD]
+        const T* __restrict__ g,           // [B, Nd, HD]
+        const float* __restrict__ lse,     // [B, Nd, H]
+        const float* __restrict__ delta,   // [B, Nd, H]
+        const int* __restrict__ dst,       // [E] destination of each dst-sorted edge
+        const int* __restrict__ src_ptr,   // [Ns + 1]
+        const int* __restrict__ src_perm,  // [E] edge ids sorted by source
+        const T* __restrict__ edge,        // K2 side: e [E, HD]; K1 side: raw attributes [E, F]
+        const T* __restrict__ w,           // K1 side: W, element (t, c) at t*w_sf + c*w_sc
+        const T* __restrict__ bias,        // K1 side: [HD]
+        T* __restrict__ dk,                // [B, Ns, HD]
+        T* __restrict__ dv,                // [B, Ns, HD]
+        int n_dst, int n_src, int hd, int d, int f, long long w_sf, long long w_sc, float scale,
+        int gs, int seg) {
+  extern __shared__ float4 smem4[];
+  constexpr int kRows = FUSE_EDGE ? 2 : 3;  // rows a ring slot holds: q, g (and e)
+  // shared memory: each group's ring, [kStages][kRows][gs] vectors of V
+  // elements; each group's (lse, delta) slots, [kStages][gs]; each group's
+  // exchange buffers, [2][2 * gs] floats used in turn (heads wider than seg
+  // only); K1 side's W as [F, HD] then bias, float32
+  float2* stats_all = reinterpret_cast<float2*>(
+      reinterpret_cast<T*>(smem4) + static_cast<size_t>(kStages) * kRows * blockDim.x * V);
+  float* scratch =
+      reinterpret_cast<float*>(stats_all + static_cast<size_t>(kStages) * blockDim.x);
+  float* wsm = scratch + (seg < d / V ? 4 * blockDim.x : 0);
+  gt::Group<true> grp(V, gs, seg, hd, d, scratch, 2);
+  const int groups = blockDim.x / gs;
+  const int b = blockIdx.y;
+  const int base = grp.base;
+  const int chunk = grp.chunk;
+  const int cl = grp.cl;
+  const bool active = grp.active;
+  const int c0 = grp.c0;
+  const int n_heads = hd / d;
+  T* ring = reinterpret_cast<T*>(smem4) + static_cast<size_t>(grp.id) * kStages * kRows * gs * V +
+            grp.lane_g * V;
+  float2* stats = stats_all + static_cast<size_t>(grp.id) * kStages * gs + grp.lane_g;
+
+  if constexpr (FUSE_EDGE) {
+    for (int x = threadIdx.x; x < (f + 1) * hd; x += blockDim.x) {
+      const int t = x / hd, c = x - t * hd;
+      wsm[x] = to_float(t < f ? w[t * w_sf + c * w_sc] : bias[c]);
+    }
+    __syncthreads();  // once, before any source
   }
-  if (active) {
-    dk[row_s + c] = from_float<T>(ak);
-    dv[row_s + c] = from_float<T>(av);
+  const float scale2 = scale * kLog2e;  // the logits come out in base 2
+  const size_t kv_base = static_cast<size_t>(b) * n_src * hd + c0;
+  const T* qb = q + static_cast<size_t>(b) * n_dst * hd + c0;
+  const T* gb = g + static_cast<size_t>(b) * n_dst * hd + c0;
+  const float* lb = lse + static_cast<size_t>(b) * n_dst * n_heads + c0 / d;
+  const float* db = delta + static_cast<size_t>(b) * n_dst * n_heads + c0 / d;
+
+  // the group's sources stride by `step`; the next one's edge range and k,
+  // v rows are loaded while this one's edges are walked
+  const int step = gridDim.x * groups;
+  int beg_n = 0, end_n = 0;
+  Vec<T, V> k_n, v_n;
+  k_n.zero();
+  v_n.zero();
+  auto prefetch = [&](int s) {
+    if (s < n_src) {
+      beg_n = src_ptr[s];
+      end_n = src_ptr[s + 1];
+      if (active) {
+        k_n.load(k + kv_base + static_cast<size_t>(s) * hd);
+        v_n.load(v + kv_base + static_cast<size_t>(s) * hd);
+      }
+    }
+  };
+  prefetch(blockIdx.x * groups + grp.id);
+  for (int s = blockIdx.x * groups + grp.id; s < n_src; s += step) {
+    const int beg = beg_n;
+    const int end = end_n;
+    float kf[V], vf[V];  // k_s and v_s (K1 side: plus the bias)
+    if constexpr (FUSE_EDGE) {
+      load_f32<V>(wsm + static_cast<size_t>(f) * hd + c0, kf);
+    } else {
+#pragma unroll
+      for (int x = 0; x < V; ++x) kf[x] = 0.f;
+    }
+#pragma unroll
+    for (int x = 0; x < V; ++x) {
+      vf[x] = kf[x] + v_n.get(x);
+      kf[x] += k_n.get(x);
+    }
+    prefetch(s + step);
+
+    float ak[V] = {};  // sum of dl q_i, without dl's factor 1/sqrt(d)
+    float av[V] = {};  // sum of alpha g_i
+    for (int c = beg; c < end; c += chunk) {
+      const int n = end - c < chunk ? end - c : chunk;  // edges of this chunk
+      // lane cl's edge of the chunk: its id, its destination (and K1 side's
+      // raw attributes)
+      int j_c = 0, i_c = 0;
+      float a_c[FMAX] = {};
+      if (cl < n) {
+        j_c = src_perm[c + cl];
+        i_c = dst[j_c];
+        if constexpr (FUSE_EDGE) {
+#pragma unroll
+          for (int t = 0; t < FMAX; ++t)
+            if (t < f) a_c[t] = to_float(edge[static_cast<size_t>(j_c) * f + t]);
+        }
+      }
+      int lead = 0;  // the next edge of the chunk to copy
+      auto issue = [&]() {  // copies of edge `lead` (if any) into its slot, as one group
+        if (lead < n) {
+          const int i = grp.shfl(i_c, base + lead);
+          int j = 0;
+          if constexpr (!FUSE_EDGE) j = grp.shfl(j_c, base + lead);
+          if (active) {
+            const int slot = lead & (kStages - 1);
+            T* r = ring + static_cast<size_t>(slot) * kRows * gs * V;
+            const size_t row = static_cast<size_t>(i) * hd;
+            cp_async<T, V>(r, qb + row);
+            cp_async<T, V>(r + gs * V, gb + row);
+            if constexpr (!FUSE_EDGE)
+              cp_async<T, V>(r + 2 * gs * V, edge + static_cast<size_t>(j) * hd + c0);
+            float* st = reinterpret_cast<float*>(stats + slot * gs);
+            const size_t hrow = static_cast<size_t>(i) * n_heads;
+            cp_async<float, 1>(st, lb + hrow);
+            cp_async<float, 1>(st + 1, db + hrow);
+          }
+        }
+        cp_async_commit();
+        ++lead;
+      };
+#pragma unroll
+      for (int t = 0; t < kStages - 1; ++t) issue();
+      for (int o = 0; o < n; ++o) {
+        issue();  // edge o + kStages - 1
+        float a[FMAX];  // K1 side: edge o's raw attributes
+        if constexpr (FUSE_EDGE) {
+#pragma unroll
+          for (int t = 0; t < FMAX; ++t) a[t] = grp.shfl(a_c[t], base + o);
+        }
+        cp_async_wait<kStages - 1>();  // edge o's rows have landed (this lane's copies)
+        const int slot = o & (kStages - 1);
+        const T* r = ring + static_cast<size_t>(slot) * kRows * gs * V;
+        Vec<T, V> qc, gc;
+        qc.load_shared(r);
+        gc.load_shared(r + gs * V);
+        const float2 st = stats[slot * gs];  // (lse_i, delta_i) of the lane's head
+        float e[V];
+        if constexpr (FUSE_EDGE) {
+#pragma unroll
+          for (int x = 0; x < V; ++x) e[x] = 0.f;
+#pragma unroll
+          for (int t = 0; t < FMAX; ++t) {
+            if (t < f) {
+              float wr[V];
+              load_f32<V>(wsm + static_cast<size_t>(t) * hd + c0, wr);
+#pragma unroll
+              for (int x = 0; x < V; ++x) e[x] += a[t] * wr[x];
+            }
+          }
+        } else {
+          Vec<T, V> ec;
+          ec.load_shared(r + 2 * gs * V);
+#pragma unroll
+          for (int x = 0; x < V; ++x) e[x] = ec.get(x);
+        }
+        float sums[2] = {0.f, 0.f};  // the head's logit and g . v_eff
+#pragma unroll
+        for (int x = 0; x < V; ++x) {
+          sums[0] += qc.get(x) * (kf[x] + e[x]);
+          sums[1] += gc.get(x) * (vf[x] + e[x]);
+        }
+        grp.head_sums(sums);
+        const float alpha = exp2_approx(sums[0] * scale2 - st.x * kLog2e);
+        const float dl = alpha * (sums[1] - st.y);
+#pragma unroll
+        for (int x = 0; x < V; ++x) {
+          ak[x] += dl * qc.get(x);
+          av[x] += alpha * gc.get(x);
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int x = 0; x < V; ++x) ak[x] *= scale;
+      store_vec<T, V>(dk + kv_base + static_cast<size_t>(s) * hd, ak);
+      store_vec<T, V>(dv + kv_base + static_cast<size_t>(s) * hd, av);
+    }
   }
 }
 
@@ -497,44 +647,21 @@ size_t dst_smem(const DstLayout& l, int hd, int f, bool fuse_edge) {
   return (4 * static_cast<size_t>(l.threads) + w_floats) * sizeof(float);
 }
 
-template <typename T>
-using DstKernel = void (*)(const T*, const T*, const T*, const T*, const float*, const float*,
-                           const int*, const int*, const T*, const T*, const T*, T*, T*, float*,
-                           float*, int, int, int, int, int, int, int, long long, long long, float,
-                           int, int);
-
-template <typename T, int V>
-DstKernel<T> dst_kernel_v(bool fuse_edge, int f) {
-  if (!fuse_edge) return gt_attention_bwd_dst_kernel<T, V, false, 1>;
-  return f <= 4 ? gt_attention_bwd_dst_kernel<T, V, true, 4>
-                : gt_attention_bwd_dst_kernel<T, V, true, kMaxEdgeFeatures>;
-}
-
-// The instantiation of K3 for a layout: V = 16 bytes, 4 or 1; FMAX = 4 or 8.
-template <typename T>
-DstKernel<T> dst_kernel(const DstLayout& l, bool fuse_edge, int f) {
-  constexpr int kVmax = 16 / static_cast<int>(sizeof(T));
-  if (l.v == kVmax) return dst_kernel_v<T, kVmax>(fuse_edge, f);
-  if (l.v == 4) return dst_kernel_v<T, 4>(fuse_edge, f);
-  return dst_kernel_v<T, 1>(fuse_edge, f);
-}
-
-template <typename T>
-cudaError_t prepare_dst(DstKernel<T> kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
+// K3's and K5's instantiations, for gt::group_kernel
+template <typename T, int V, bool FUSE_EDGE, int FMAX>
+struct DstKernel {
+  static auto get() { return gt_attention_bwd_dst_kernel<T, V, FUSE_EDGE, FMAX>; }
+};
+template <typename T, int V, bool FUSE_EDGE, int FMAX>
+struct SrcFusedKernel {
+  static auto get() { return gt_attention_bwd_src_fused_kernel<T, V, FUSE_EDGE, FMAX>; }
+};
 
 template <typename T>
 int dst_blocks_per_sm(int hd, int d, int f, bool fuse_edge) {
   const DstLayout l = dst_layout(sizeof(T), hd, d);
-  const DstKernel<T> kernel = dst_kernel<T>(l, fuse_edge, f);
-  const size_t smem = dst_smem(l, hd, f, fuse_edge);
-  int n = 0;
-  if (prepare_dst<T>(kernel, smem) == cudaSuccess)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, l.threads, smem);
-  return n;
+  return blocks_per_sm(group_kernel<DstKernel, T>(l, fuse_edge, f), l.threads,
+                       dst_smem(l, hd, f, fuse_edge));
 }
 
 // Launches K3 with at most `blocks` blocks (fewer when the groups of fewer
@@ -547,12 +674,12 @@ int launch_dst(bool fuse_edge, const void* q, const void* k, const void* v, cons
                int d, int f, long long w_sf, long long w_sc, float scale, int blocks,
                cudaStream_t stream) {
   const DstLayout l = dst_layout(sizeof(T), hd, d);
-  const DstKernel<T> kernel = dst_kernel<T>(l, fuse_edge, f);
+  const auto kernel = group_kernel<DstKernel, T>(l, fuse_edge, f);
   const size_t smem = dst_smem(l, hd, f, fuse_edge);
   const int groups = l.threads / l.gs;
   const int needed = (n_dst + groups - 1) / groups;
   const int grid = needed < blocks ? needed : blocks;
-  if (prepare_dst<T>(kernel, smem) != cudaSuccess) return grid;  // cudaGetLastError reports it
+  if (prepare_smem(kernel, smem) != cudaSuccess) return grid;  // cudaGetLastError reports it
   kernel<<<grid, l.threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, src, dst_ptr, static_cast<const T*>(edge),
@@ -562,30 +689,46 @@ int launch_dst(bool fuse_edge, const void* q, const void* k, const void* v, cons
   return grid;
 }
 
+// K5's shared memory: per group a ring of kStages slots, each the q and g
+// rows (and K2 side's e row) of one edge, V elements a lane, then the slots'
+// (lse, delta) pairs, one a lane; two exchange buffers of float2 a lane for
+// heads wider than `seg`; K1 side's W and bias as float32.
+size_t src_fused_smem(const DstLayout& l, int hd, int d, int f, int elt, bool fuse_edge) {
+  const size_t lanes = static_cast<size_t>(l.threads);
+  return kStages * (fuse_edge ? 2 : 3) * lanes * l.v * elt + kStages * lanes * sizeof(float2) +
+         (l.seg < d / l.v ? 2 * lanes * sizeof(float2) : 0) +
+         (fuse_edge ? (f + 1) * static_cast<size_t>(hd) * sizeof(float) : 0);
+}
+
+template <typename T>
+int src_fused_blocks_per_sm(int hd, int d, int f, bool fuse_edge) {
+  const DstLayout l = dst_layout(sizeof(T), hd, d);
+  return blocks_per_sm(group_kernel<SrcFusedKernel, T>(l, fuse_edge, f), l.threads,
+                       src_fused_smem(l, hd, d, f, sizeof(T), fuse_edge));
+}
+
+// Launches K5 with at most `blocks` blocks a batch row (fewer when the
+// groups of fewer cover every source); each group strides over sources.
 template <typename T>
 void launch_src_fused(bool fuse_edge, const void* q, const void* k, const void* v, const void* g,
                       const float* lse, const float* delta, const int* dst, const int* src_ptr,
                       const int* src_perm, const void* edge, const void* w, const void* bias,
                       void* dk, void* dv, int batch, int n_dst, int n_src, int hd, int d, int f,
-                      long long w_sf, long long w_sc, float scale, cudaStream_t stream) {
-  const dim3 grid(n_src, batch);
-  const int threads = threads_for(hd);
-  const size_t smem = d > 32 ? (threads / 32) * sizeof(float) : 0;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gtt = static_cast<const T*>(g);
-  const T* et = static_cast<const T*>(edge);
-  if (fuse_edge) {
-    gt_attention_bwd_src_fused_kernel<T, true><<<grid, threads, smem, stream>>>(
-        qt, kt, vt, gtt, lse, delta, dst, src_ptr, src_perm, et, static_cast<const T*>(w),
-        static_cast<const T*>(bias), static_cast<T*>(dk), static_cast<T*>(dv), n_dst, n_src, hd,
-        d, f, w_sf, w_sc, scale);
-  } else {
-    gt_attention_bwd_src_fused_kernel<T, false><<<grid, threads, smem, stream>>>(
-        qt, kt, vt, gtt, lse, delta, dst, src_ptr, src_perm, et, nullptr, nullptr,
-        static_cast<T*>(dk), static_cast<T*>(dv), n_dst, n_src, hd, d, 0, 0, 0, scale);
-  }
+                      long long w_sf, long long w_sc, float scale, int blocks,
+                      cudaStream_t stream) {
+  const DstLayout l = dst_layout(sizeof(T), hd, d);
+  const auto kernel = group_kernel<SrcFusedKernel, T>(l, fuse_edge, f);
+  const size_t smem = src_fused_smem(l, hd, d, f, sizeof(T), fuse_edge);
+  const int groups = l.threads / l.gs;
+  const int needed = (n_src + groups - 1) / groups;
+  const dim3 grid(needed < blocks ? needed : blocks, batch);
+  if (prepare_smem(kernel, smem) != cudaSuccess) return;  // cudaGetLastError reports it
+  kernel<<<grid, l.threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), lse, delta, dst, src_ptr, src_perm, static_cast<const T*>(edge),
+      static_cast<const T*>(w), static_cast<const T*>(bias), static_cast<T*>(dk),
+      static_cast<T*>(dv), n_dst, n_src, hd, d, fuse_edge ? f : 0, w_sf, w_sc, scale, l.gs,
+      l.seg);
 }
 
 }  // namespace
@@ -594,19 +737,23 @@ void launch_src_fused(bool fuse_edge, const void* q, const void* k, const void* 
 // Shapes and types are validated by the Python wrappers.  Each returns the
 // cudaError_t of its launches (0 on success).
 
-// Blocks of K3 that fit on the current card at once (SMs x occupancy): the
-// grid of the destination pass and the row count of its dW partials.
-extern "C" int gt_attention_bwd_dst_blocks(int dtype, int fuse_edge, int hd, int num_heads, int f,
-                                           int* blocks) {
+// Blocks of K3 (src_fused = 0) or K5 (src_fused = 1) that fit on the current
+// card at once (SMs x occupancy): the grid of K3, the row count of its dW
+// partials, and K5's grid a batch row.
+extern "C" int gt_attention_bwd_blocks(int src_fused, int dtype, int fuse_edge, int hd,
+                                       int num_heads, int f, int* blocks) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int d = hd / num_heads;
+  const bool fe = fuse_edge != 0;
   int per_sm = 0;
   if (dtype == 0)
-    per_sm = dst_blocks_per_sm<float>(hd, d, f, fuse_edge != 0);
+    per_sm = src_fused ? src_fused_blocks_per_sm<float>(hd, d, f, fe)
+                       : dst_blocks_per_sm<float>(hd, d, f, fe);
   else if (dtype == 1)
-    per_sm = dst_blocks_per_sm<__nv_bfloat16>(hd, d, f, fuse_edge != 0);
+    per_sm = src_fused ? src_fused_blocks_per_sm<__nv_bfloat16>(hd, d, f, fe)
+                       : dst_blocks_per_sm<__nv_bfloat16>(hd, d, f, fe);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   *blocks = sms * (per_sm > 0 ? per_sm : 1);
@@ -678,7 +825,7 @@ extern "C" int gt_attention_bwd_src(int dtype, const void* dkv, const void* src_
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5.
+// K5, with at most `blocks` blocks a batch row.
 extern "C" int gt_attention_bwd_src_fused(int dtype, int fuse_edge, const void* q, const void* k,
                                           const void* v, const void* g, const void* lse,
                                           const void* delta, const void* dst, const void* src_ptr,
@@ -686,7 +833,7 @@ extern "C" int gt_attention_bwd_src_fused(int dtype, int fuse_edge, const void* 
                                           const void* bias, void* dk, void* dv, int batch,
                                           int n_dst, int n_src, int hd, int num_heads, int f,
                                           long long w_sf, long long w_sc, float scale,
-                                          void* stream) {
+                                          int blocks, void* stream) {
   const int d = hd / num_heads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -697,11 +844,11 @@ extern "C" int gt_attention_bwd_src_fused(int dtype, int fuse_edge, const void* 
   if (n_src > 0 && batch > 0) {
     if (dtype == 0)
       launch_src_fused<float>(fuse_edge != 0, q, k, v, g, l, dl, di, p, perm, edge, w, bias, dk,
-                              dv, batch, n_dst, n_src, hd, d, f, w_sf, w_sc, scale, st);
+                              dv, batch, n_dst, n_src, hd, d, f, w_sf, w_sc, scale, blocks, st);
     else if (dtype == 1)
       launch_src_fused<__nv_bfloat16>(fuse_edge != 0, q, k, v, g, l, dl, di, p, perm, edge, w,
                                       bias, dk, dv, batch, n_dst, n_src, hd, d, f, w_sf, w_sc,
-                                      scale, st);
+                                      scale, blocks, st);
     else
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -71,7 +71,6 @@ using gt::DstLayout;
 using gt::dst_layout;
 using gt::exp2_approx;
 using gt::kDstThreads;
-using gt::kMaxEdgeFeatures;
 using gt::load_f32;
 using gt::store_vec;
 using gt::to_float;
@@ -111,58 +110,19 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
         float q_scale, int gs, int seg) {
   extern __shared__ float4 smem4[];
   constexpr int kRows = FUSE_EDGE ? 2 : 3;  // rows a ring slot holds: k, v (and e)
-  const int groups = blockDim.x / gs;
-  const int group = threadIdx.x / gs;
-  const int b = blockIdx.y;
-  const int lane_g = threadIdx.x - group * gs;  // lane in the group
-  const int lane = threadIdx.x & 31;
-  const int base = gs < 32 ? (lane & ~(gs - 1)) : 0;  // warp lane of the group's first lane
-  const unsigned mask = gs < 32 ? ((1u << gs) - 1u) << base : 0xffffffffu;
-  const int chunk = gs < 32 ? gs : 32;  // edge sources read at once, one per lane
-  const int cl = lane - base;           // this lane's entry of a chunk
-  const bool active = lane_g * V < hd;
-  const int c0 = active ? lane_g * V : 0;
-  const int lh = d / V;
   // shared memory: each group's ring, [kStages][kRows][gs] vectors of V
   // elements; K1's W as [F, HD] then bias, float32; each group's exchange
   // buffers, [2][gs] floats used in turn
   T* rings = reinterpret_cast<T*>(smem4);
-  T* ring = rings + static_cast<size_t>(group) * kStages * kRows * gs * V;
   float* wsm =
       reinterpret_cast<float*>(rings + static_cast<size_t>(kStages) * kRows * blockDim.x * V);
-  float* scratch = wsm + (FUSE_EDGE ? (f + 1) * hd : 0) + 2 * gs * group;
-  int parity = 0;
-
-  // shuffles among the group's lanes; a group of whole warps names the full
-  // mask as a constant, which spares the convergence checks a mask held in a
-  // register costs on every shuffle
-  auto shfl = [&](int x, int from) {
-    return gs >= 32 ? __shfl_sync(0xffffffffu, x, from) : __shfl_sync(mask, x, from);
-  };
-  auto shfl_xor = [&](float x, int off) {
-    return gs >= 32 ? __shfl_xor_sync(0xffffffffu, x, off) : __shfl_xor_sync(mask, x, off);
-  };
-  // x summed over the lh lanes of the calling lane's head
-  auto head_dot = [&](float x) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      if (off < seg) x += shfl_xor(x, off);
-    if (seg < lh) {
-      float* buf = scratch + parity * gs;
-      parity ^= 1;
-      if ((lane_g & (seg - 1)) == 0) buf[lane_g / seg] = x;
-      if (gs <= 32)
-        __syncwarp(mask);
-      else  // the group's own warps only: named barrier 1 + group
-        asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(gs) : "memory");
-      const int per = lh / seg;
-      const float* p = buf + (lane_g / lh) * per;
-      float s = 0.f;
-      for (int t = 0; t < per; ++t) s += p[t];
-      x = s;
-    }
-    return x;
-  };
+  gt::Group<true> grp(V, gs, seg, hd, d, wsm + (FUSE_EDGE ? (f + 1) * hd : 0), 1);
+  const int groups = blockDim.x / gs;
+  const int b = blockIdx.y;
+  const int lane_g = grp.lane_g;
+  const bool active = grp.active;
+  const int c0 = grp.c0;
+  T* ring = rings + static_cast<size_t>(grp.id) * kStages * kRows * gs * V;
 
   if constexpr (FUSE_EDGE) {
     for (int x = threadIdx.x; x < (f + 1) * hd; x += blockDim.x) {
@@ -187,8 +147,8 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
       if (active) q_n.load(q + (static_cast<size_t>(b) * n_dst + i) * hd + c0);
     }
   };
-  prefetch(blockIdx.x * groups + group);
-  for (int i = blockIdx.x * groups + group; i < n_dst; i += step) {
+  prefetch(blockIdx.x * groups + grp.id);
+  for (int i = blockIdx.x * groups + grp.id; i < n_dst; i += step) {
     const size_t row = (static_cast<size_t>(b) * n_dst + i) * hd + c0;
     const int beg = beg_n;
     const int end = end_n;
@@ -204,13 +164,14 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
       // edges are copied kStages - 1 ahead of the one whose arithmetic runs;
       // the copies take their sources from s_chunk, refilled 32 edges (one a
       // lane) at a time
+      const int cl = grp.cl;
       int s_chunk = beg + cl < end ? src[beg + cl] : 0;  // this lane's edge's source
       int lead = beg;  // the next edge to copy
       auto issue = [&]() {  // copies of edge `lead` (if any) into its slot, as one group
         if (lead < end) {
-          const int o = (lead - beg) & (chunk - 1);
+          const int o = (lead - beg) & (grp.chunk - 1);
           if (o == 0 && lead != beg) s_chunk = lead + cl < end ? src[lead + cl] : 0;
-          const int s = shfl(s_chunk, base + o);
+          const int s = grp.shfl(s_chunk, grp.base + o);
           if (active) {
             T* slot = ring + static_cast<size_t>((lead - beg) & (kStages - 1)) * kRows * gs * V;
             cp_async<T, V>(slot + lane_g * V, kb + static_cast<size_t>(s) * hd);
@@ -256,10 +217,11 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
 #pragma unroll
           for (int x = 0; x < V; ++x) e[x] = ec.get(x);
         }
-        float dot = 0.f;
+        float dot[1] = {0.f};
 #pragma unroll
-        for (int x = 0; x < V; ++x) dot += qf[x] * (kc.get(x) + e[x]);
-        const float logit = head_dot(dot);
+        for (int x = 0; x < V; ++x) dot[0] += qf[x] * (kc.get(x) + e[x]);
+        grp.head_sums(dot);
+        const float logit = dot[0];
         const float m_new = fmaxf(m, logit);
         const float corr = exp2_approx(m - m_new);
         const float p = exp2_approx(logit - m_new);
@@ -281,27 +243,10 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
   }
 }
 
-template <typename T>
-using FwdKernel = void (*)(const T*, const T*, const T*, const int*, const int*, const T*,
-                           const T*, const T*, T*, float*, int, int, int, int, int, long long,
-                           long long, float, int, int);
-
-template <typename T, int V>
-FwdKernel<T> fwd_kernel_v(bool fuse_edge, int f) {
-  if (!fuse_edge) return gt_attention_fwd_kernel<T, V, false, 1>;
-  return f <= 4 ? gt_attention_fwd_kernel<T, V, true, 4>
-                : gt_attention_fwd_kernel<T, V, true, kMaxEdgeFeatures>;
-}
-
-// The instantiation for a layout: V = 16 bytes, 4 or 1; FMAX = 4 or 8
-// (kernels/gt_attention.py:dst_instantiation names the same).
-template <typename T>
-FwdKernel<T> fwd_kernel(const DstLayout& l, bool fuse_edge, int f) {
-  constexpr int kVmax = 16 / static_cast<int>(sizeof(T));
-  if (l.v == kVmax) return fwd_kernel_v<T, kVmax>(fuse_edge, f);
-  if (l.v == 4) return fwd_kernel_v<T, 4>(fuse_edge, f);
-  return fwd_kernel_v<T, 1>(fuse_edge, f);
-}
+template <typename T, int V, bool FUSE_EDGE, int FMAX>
+struct FwdKernel {  // for gt::group_kernel
+  static auto get() { return gt_attention_fwd_kernel<T, V, FUSE_EDGE, FMAX>; }
+};
 
 // The block's shared memory: the rings, K1's W and bias, and two exchange
 // buffers of one float a lane for heads wider than `seg`.
@@ -312,21 +257,10 @@ size_t fwd_smem(const DstLayout& l, int hd, int d, int f, int elt, bool fuse_edg
 }
 
 template <typename T>
-cudaError_t prepare_fwd(FwdKernel<T> kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-template <typename T>
 int fwd_blocks_per_sm(int hd, int d, int f, bool fuse_edge) {
   const DstLayout l = dst_layout(sizeof(T), hd, d);
-  const FwdKernel<T> kernel = fwd_kernel<T>(l, fuse_edge, f);
-  const size_t smem = fwd_smem(l, hd, d, f, sizeof(T), fuse_edge);
-  int n = 0;
-  if (prepare_fwd<T>(kernel, smem) == cudaSuccess)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, l.threads, smem);
-  return n;
+  return gt::blocks_per_sm(gt::group_kernel<FwdKernel, T>(l, fuse_edge, f), l.threads,
+                           fwd_smem(l, hd, d, f, sizeof(T), fuse_edge));
 }
 
 // Launches with at most `blocks` blocks a batch row (fewer when the groups
@@ -337,12 +271,12 @@ void launch(bool fuse_edge, const void* q, const void* k, const void* v, const i
             float* lse, int batch, int n_dst, int n_src, int hd, int d, int f, long long w_sf,
             long long w_sc, float scale, int blocks, cudaStream_t stream) {
   const DstLayout l = dst_layout(sizeof(T), hd, d);
-  const FwdKernel<T> kernel = fwd_kernel<T>(l, fuse_edge, f);
+  const auto kernel = gt::group_kernel<FwdKernel, T>(l, fuse_edge, f);
   const int groups = l.threads / l.gs;
   const int needed = (n_dst + groups - 1) / groups;
   const dim3 grid(needed < blocks ? needed : blocks, batch);
   const size_t smem = fwd_smem(l, hd, d, f, sizeof(T), fuse_edge);
-  if (prepare_fwd<T>(kernel, smem) != cudaSuccess) return;  // cudaGetLastError reports it
+  if (gt::prepare_smem(kernel, smem) != cudaSuccess) return;  // cudaGetLastError reports it
   kernel<<<grid, l.threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), src, dst_ptr,
       static_cast<const T*>(edge), static_cast<const T*>(w), static_cast<const T*>(bias),

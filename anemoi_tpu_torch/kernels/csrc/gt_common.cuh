@@ -10,10 +10,10 @@
 namespace gt {
 
 constexpr int kMaxEdgeFeatures = 8;  // the fused edge projection's raw width F, at most
-// One thread per channel (K4, K5): HD = 1024 (the Transformer preset's
-// mappers) gives 1024-thread blocks, which launch only if a thread uses at
-// most 64 registers.  The bound makes ptxas keep to that for both.  K1, K2
-// and K3 walk destinations in groups of lanes instead (DstLayout below).
+// One thread per channel (K4): HD = 1024 (the Transformer preset's mappers)
+// gives 1024-thread blocks, which launch only if a thread uses at most 64
+// registers.  The bound makes ptxas keep to that.  K1, K2, K3 and K5 walk
+// destinations or sources in groups of lanes instead (DstLayout below).
 constexpr int kMaxThreads = 1024;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -36,17 +36,18 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// ---- destination groups (K1, K2, K3) ---------------------------------------
+// ---- groups of 16-byte lanes (K1, K2, K3, K5) ------------------------------
 
-constexpr int kDstThreads = 256;  // a block: 256 / GS destination groups of GS lanes
+constexpr int kDstThreads = 256;  // a block: 256 / GS groups of GS lanes
 
-// The launch shape of a destination-group kernel for HD, head size d and
-// the type's element size: V channels a lane (16 bytes, or 4 or 1 when the
-// head is smaller), GS lanes a destination group (HD / V rounded up to a
-// power of two at most 32, or to a multiple of 32, so a group is a slice of
-// one warp or whole warps), the head butterfly's width `seg` (the largest
-// power of two dividing d / V, at most 32; a head wider than that exchanges
-// partial sums through the group's shared memory) and the block's threads.
+// The launch shape of a group kernel (a group walks one destination, in K5
+// one source) for HD, head size d and the type's element size: V channels a
+// lane (16 bytes, or 4 or 1 when the head is smaller), GS lanes a group
+// (HD / V rounded up to a power of two at most 32, or to a multiple of 32,
+// so a group is a slice of one warp or whole warps), the head butterfly's
+// width `seg` (the largest power of two dividing d / V, at most 32; a head
+// wider than that exchanges partial sums through the group's shared memory)
+// and the block's threads.
 // Each kernel sizes its own shared memory.
 struct DstLayout {
   int v, gs, seg, threads;
@@ -69,6 +70,103 @@ inline DstLayout dst_layout(int elt, int hd, int d) {
   if (l.seg > 32) l.seg = 32;
   return l;
 }
+
+// The lanes of one group of a block and the group's collectives.  Lane
+// lane_g owns channels [c0, c0 + V); lanes past HD / V (`active` false)
+// take part in the shuffles and barriers and are masked out of loads and
+// stores.  With kLiteralMask, a group of whole warps names the full shuffle
+// mask as a constant, which spares the convergence checks a mask held in a
+// register costs on every shuffle, and the head butterfly is unrolled.
+// `scratch` is the group's share of the block's exchange buffers: two of
+// N * gs floats, used in turn, for heads wider than `seg` (N: the sums
+// exchanged at once, 1 or 2).
+template <bool kLiteralMask>
+struct Group {
+  int gs, seg, lh;  // lanes of the group, the head butterfly's width, lanes of a head
+  int id, lane_g;   // the group in its block, the lane in the group
+  int base;         // warp lane of the group's first lane
+  unsigned mask;    // the group's lanes of their warp
+  int chunk, cl;    // edge indices read at once (one a lane), this lane's entry of them
+  bool active;
+  int c0;
+  float* scratch;
+  int parity;
+
+  __device__ __forceinline__ Group(int v, int gs_, int seg_, int hd, int d, float* scratch_all,
+                                   int n) {
+    gs = gs_;
+    seg = seg_;
+    lh = d / v;
+    id = threadIdx.x / gs;
+    lane_g = threadIdx.x - id * gs;
+    const int lane = threadIdx.x & 31;
+    base = gs < 32 ? (lane & ~(gs - 1)) : 0;
+    mask = gs < 32 ? ((1u << gs) - 1u) << base : 0xffffffffu;
+    chunk = gs < 32 ? gs : 32;
+    cl = lane - base;
+    active = lane_g * v < hd;
+    c0 = active ? lane_g * v : 0;
+    scratch = scratch_all + 2 * n * gs * id;
+    parity = 0;
+  }
+  __device__ __forceinline__ int shfl(int x, int from) const {
+    if (kLiteralMask && gs >= 32) return __shfl_sync(0xffffffffu, x, from);
+    return __shfl_sync(mask, x, from);
+  }
+  __device__ __forceinline__ float shfl(float x, int from) const {
+    if (kLiteralMask && gs >= 32) return __shfl_sync(0xffffffffu, x, from);
+    return __shfl_sync(mask, x, from);
+  }
+  __device__ __forceinline__ float shfl_xor(float x, int off) const {
+    if (kLiteralMask && gs >= 32) return __shfl_xor_sync(0xffffffffu, x, off);
+    return __shfl_xor_sync(mask, x, off);
+  }
+  // a barrier of the group's lanes: its warp's, or its own warps' (named
+  // barrier 1 + id; barrier 0 is __syncthreads)
+  __device__ __forceinline__ void sync() const {
+    if (gs <= 32)
+      __syncwarp(mask);
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(id + 1), "r"(gs) : "memory");
+  }
+  // x[0..N) each summed over the lh lanes of the calling lane's head: an
+  // unrolled butterfly over `seg` lanes, then, for a head wider than that,
+  // the segments' partials through `scratch` behind one barrier
+  template <int N>
+  __device__ __forceinline__ void head_sums(float (&x)[N]) {
+    if constexpr (kLiteralMask) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        if (off < seg) {
+#pragma unroll
+          for (int n = 0; n < N; ++n) x[n] += shfl_xor(x[n], off);
+        }
+      }
+    } else {
+      for (int off = seg >> 1; off > 0; off >>= 1) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) x[n] += shfl_xor(x[n], off);
+      }
+    }
+    if (seg < lh) {
+      float* buf = scratch + parity * N * gs;
+      parity ^= 1;
+      if ((lane_g & (seg - 1)) == 0) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) buf[lane_g / seg * N + n] = x[n];
+      }
+      sync();
+      const int per = lh / seg;
+      const float* p = buf + (lane_g / lh) * per * N;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        float s = 0.f;
+        for (int t = 0; t < per; ++t) s += p[t * N + n];
+        x[n] = s;
+      }
+    }
+  }
+};
 
 // V consecutive elements of T as one aligned access of V * sizeof(T) bytes
 // (16 at V = 16 / sizeof(T)), held as raw 32-bit words until first use, so
@@ -183,54 +281,41 @@ __device__ __forceinline__ void store_vec(T* p, const float (&x)[V]) {
     *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(o.w[0]);
 }
 
-// ---- one thread per channel (K5) -------------------------------------------
+// ---- host side of the group kernels ----------------------------------------
 
-// Sum of x over the d channels of the calling thread's head, returned to
-// every thread of the head.  Every thread of the block must call it.
-// `partial` holds one float per warp (used only when d > 32).
-__device__ __forceinline__ float head_sum(float x, int d, float* partial) {
-  if (d <= 32) {
-    for (int off = d >> 1; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
-  }
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // the previous call's reads of `partial` are done
-  if ((threadIdx.x & 31) == 0) partial[warp] = x;
-  __syncthreads();
-  const int warps_per_head = d >> 5;
-  const int first = (warp / warps_per_head) * warps_per_head;
-  float s = 0.f;
-  for (int w = 0; w < warps_per_head; ++w) s += partial[first + w];
-  return s;
+// The instantiation of a group kernel that a launch takes: V = 16 bytes, 4
+// or 1 (the layout's); FMAX = 1 without the fused projection, else 4 or 8
+// (kernels/gt_attention.py:dst_instantiation names the same).
+// `Of<T, V, FUSE_EDGE, FMAX>::get()` returns the kernel's instantiation.
+template <template <typename, int, bool, int> class Of, typename T, int V>
+auto group_kernel_v(bool fuse_edge, int f) {
+  if (!fuse_edge) return Of<T, V, false, 1>::get();
+  return f <= 4 ? Of<T, V, true, 4>::get() : Of<T, V, true, kMaxEdgeFeatures>::get();
 }
 
-// The thread's column of the edge projection: wc[t] = W[t, c], bc = bias[c]
-// (W element (t, c) at t * w_sf + c * w_sc; zeros for inactive threads).
-template <typename T>
-__device__ __forceinline__ void load_edge_column(const T* w, const T* bias, int c, bool active,
-                                                 int f, long long w_sf, long long w_sc,
-                                                 float (&wc)[kMaxEdgeFeatures], float& bc) {
-#pragma unroll
-  for (int t = 0; t < kMaxEdgeFeatures; ++t)
-    wc[t] = (active && t < f) ? to_float(w[t * w_sf + c * w_sc]) : 0.f;
-  bc = active ? to_float(bias[c]) : 0.f;
+template <template <typename, int, bool, int> class Of, typename T>
+auto group_kernel(const DstLayout& l, bool fuse_edge, int f) {
+  constexpr int kVmax = 16 / static_cast<int>(sizeof(T));
+  if (l.v == kVmax) return group_kernel_v<Of, T, kVmax>(fuse_edge, f);
+  if (l.v == 4) return group_kernel_v<Of, T, 4>(fuse_edge, f);
+  return group_kernel_v<Of, T, 1>(fuse_edge, f);
 }
 
-// Channel c of edge j's feature: attr[j] . W[:, c] + bias[c] when FUSE_EDGE,
-// else e[j, c] of the pre-projected [E, HD] edge tensor.
-template <typename T, bool FUSE_EDGE>
-__device__ __forceinline__ float edge_feature(const T* edge, int j, int c, bool active, int hd,
-                                              int f, const float (&wc)[kMaxEdgeFeatures],
-                                              float bc) {
-  if (FUSE_EDGE) {
-    float e = bc;
-#pragma unroll
-    for (int t = 0; t < kMaxEdgeFeatures; ++t)
-      if (t < f) e += to_float(edge[static_cast<size_t>(j) * f + t]) * wc[t];
-    return e;
-  }
-  return active ? to_float(edge[static_cast<size_t>(j) * hd + c]) : 0.f;
+// Allows a launch of `kernel` more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+cudaError_t prepare_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Blocks of `kernel` that fit on an SM at once with `threads` and `smem`.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
+  int n = 0;
+  if (prepare_smem(kernel, smem) == cudaSuccess)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return n;
 }
 
 }  // namespace gt

@@ -55,36 +55,40 @@ def _fwd_entries():
 def _bwd_entries():
     lib = "gt_attention_bwd"
     return {
-        "blocks": _bind(lib, "gt_attention_bwd_dst_blocks", [_I] * 5 + [_P]),
+        "blocks": _bind(lib, "gt_attention_bwd_blocks", [_I] * 6 + [_P]),
         "dst": _bind(lib, "gt_attention_bwd_dst",
                      [_I, _I] + [_P] * 17 + [_I] * 7 + [_LL, _LL, ctypes.c_float, _I, _P]),
         "src": _bind(lib, "gt_attention_bwd_src", [_I] + [_P] * 5 + [_I] * 4 + [_P]),
         "src_fused": _bind(lib, "gt_attention_bwd_src_fused",
-                           [_I, _I] + [_P] * 14 + [_I] * 6 + [_LL, _LL, ctypes.c_float, _P]),
+                           [_I, _I] + [_P] * 14 + [_I] * 6
+                           + [_LL, _LL, ctypes.c_float, _I, _P]),
     }
 
 
 @functools.lru_cache(maxsize=None)
-def _dst_blocks(backward: bool, device_index: int, dtype_code: int, fused: bool, hd: int,
-                num_heads: int, f: int) -> int:
-    """Blocks of K1/K2 (``backward`` False) or K3 resident on the card at once:
-    the width of their grid-stride walk over destinations."""
+def _resident_blocks(kernel: str, device_index: int, dtype_code: int, fused: bool, hd: int,
+                     num_heads: int, f: int) -> int:
+    """Blocks of ``kernel`` ("K1" for K1/K2, "K3" or "K5") resident on the
+    card at once: the width of its grid-stride walk over destinations (K1,
+    K3) or sources (K5)."""
     out = ctypes.c_int(0)
-    entries = _bwd_entries() if backward else _fwd_entries()
+    args = (dtype_code, int(fused), hd, num_heads, f, ctypes.addressof(out))
     with torch.cuda.device(device_index):
-        rc = entries["blocks"](dtype_code, int(fused), hd, num_heads, f, ctypes.addressof(out))
+        if kernel == "K1":
+            rc = _fwd_entries()["blocks"](*args)
+        else:
+            rc = _bwd_entries()["blocks"](int(kernel == "K5"), *args)
     if rc != 0:
-        raise RuntimeError(f"gt_attention_{'bwd_dst' if backward else 'fwd'}_blocks failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"{kernel}: resident-block query failed: cudaError {rc}")
     return out.value
 
 
 def dst_instantiation(dtype: torch.dtype, d: int, f: int, fused: bool) -> Tuple[int, int]:
-    """(V, FMAX) of the K1/K2 or K3 instantiation that a launch takes
-    (``gt::dst_layout`` in ``csrc/gt_common.cuh``, ``fwd_kernel`` and
-    ``dst_kernel`` in the CUDA sources): V channels a lane -- 16 bytes, or 4
-    or 1 when the head size d is smaller -- and room for FMAX edge features
-    (4 or 8; 1 without the fused projection)."""
+    """(V, FMAX) of the K1/K2, K3 or K5 instantiation that a launch takes
+    (``gt::dst_layout`` and ``gt::group_kernel`` in ``csrc/gt_common.cuh``):
+    V channels a lane -- 16 bytes, or 4 or 1 when the head size d is smaller
+    -- and room for FMAX edge features (4 or 8; 1 without the fused
+    projection)."""
     vmax = 16 // (torch.finfo(dtype).bits // 8)
     vec = vmax if d >= vmax else (4 if d >= 4 else 1)
     return vec, (4 if f <= 4 else MAX_EDGE_FEATURES) if fused else 1
@@ -138,7 +142,7 @@ def _check(query, key, value, edge_index, dst_ptr, num_heads):
 
 
 def _check_aligned(query, d, f, fuse, vectors):
-    """Each lane of K1/K2 and K3 moves V channels of its row vectors as one
+    """Each lane of K1/K2, K3 and K5 moves V channels of its row vectors as one
     aligned access: refuse a tensor that starts off that boundary (no
     fallback)."""
     align = dst_instantiation(query.dtype, d, f, fuse)[0] * query.element_size()
@@ -203,7 +207,7 @@ def _launch(query, key, value, edge_index, dst_ptr, num_heads, edges, edge_attr,
     vectors = (("query", query), ("key", key), ("value", value))
     _check_aligned(query, d, f, fuse, vectors + (() if fuse else (("edges", edge),)))
     code = _DTYPE_CODES[query.dtype]
-    blocks = _dst_blocks(False, _device_index(query), code, fuse, hd, num_heads, f)
+    blocks = _resident_blocks("K1", _device_index(query), code, fuse, hd, num_heads, f)
     out = torch.empty_like(query)
     lse = torch.empty((b, nd, num_heads), device=query.device, dtype=torch.float32)
     rc = _fwd_entries()["fwd"](
@@ -282,7 +286,7 @@ def gt_attention_bwd_dst(
     vectors = (("query", query), ("key", key), ("value", value), ("grad", grad))
     _check_aligned(query, d, f, fuse, vectors + (() if fuse else (("edges", edge),)))
     dev, code = query.device, _DTYPE_CODES[query.dtype]
-    blocks = _dst_blocks(True, _device_index(query), code, fuse, hd, num_heads, f)
+    blocks = _resident_blocks("K3", _device_index(query), code, fuse, hd, num_heads, f)
     dq = torch.empty_like(query)
     dkv = torch.empty((b, n_e, 2 * hd), device=dev, dtype=query.dtype) if emit_dkv else None
     d_edge = (torch.empty((n_e, f if fuse else hd), device=dev, dtype=torch.float32)
@@ -349,22 +353,26 @@ def gt_attention_bwd_src_fused(
     """K5, the fused source pass: ``dk``, ``dv [B, Ns, HD]`` with each edge's
     attention weight and logit gradient recomputed from the destination's
     ``query``, ``grad``, ``lse`` and ``delta`` -- the ``[B, E, 2HD]`` dkv
-    buffer of K3 + K4 never exists.  Inputs as for K3, plus the
-    source-ordered view."""
+    buffer of K3 + K4 never exists.  Inputs, and their alignment, as for
+    K3, plus the source-ordered view."""
     b, nd, ns, hd, d = _check(query, key, value, edge_index, dst_ptr, num_heads)
     edge, f, fuse = _check_edges(query, edge_index, edges, edge_attr, weight, bias)
     _check_grad_inputs(query, grad, lse, delta, num_heads)
     _check_source_order(src_ptr, src_perm, ns, edge_index.shape[1], query.device)
+    vectors = (("query", query), ("key", key), ("value", value), ("grad", grad))
+    _check_aligned(query, d, f, fuse, vectors + (() if fuse else (("edges", edge),)))
+    code = _DTYPE_CODES[query.dtype]
+    blocks = _resident_blocks("K5", _device_index(query), code, fuse, hd, num_heads, f)
     dk = torch.empty_like(key)
     dv = torch.empty_like(value)
     rc = _bwd_entries()["src_fused"](
-        _DTYPE_CODES[query.dtype], int(fuse), query.data_ptr(), key.data_ptr(),
+        code, int(fuse), query.data_ptr(), key.data_ptr(),
         value.data_ptr(), grad.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         edge_index[1].data_ptr(), src_ptr.data_ptr(), src_perm.data_ptr(), edge.data_ptr(),
         _ptr(weight), _ptr(bias), dk.data_ptr(), dv.data_ptr(),
         b, nd, ns, hd, num_heads, f,
         weight.stride(0) if fuse else 0, weight.stride(1) if fuse else 0,
-        1.0 / math.sqrt(d), _stream(query),
+        1.0 / math.sqrt(d), blocks, _stream(query),
     )
     if rc != 0:
         raise RuntimeError(f"gt_attention_bwd_src_fused launch failed: cudaError {rc}")

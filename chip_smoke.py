@@ -18,16 +18,18 @@ Phases (any failure exits non-zero, with no result line):
                   K4 against a float32 index_add_ of K3's dkv; each kernel
                   timed beside its byte bound and its plain version (K3, K5:
                   the whole plain backward), K4 also beside one index_add_;
-                  K3 also back to back, with its route and its
-                  instantiation's ptxas registers and spills; bf16 K3 run
-                  twice at the processor edge set with the fused projection
-                  must agree bit for bit (dq, dkv, dW, dbias);
-  5. wide GT   -- K1 and K3 + K4 against their plain versions at HD = 1024
-                  (16 heads of 64, the Transformer preset's mappers: K4 in
-                  blocks of 1024 threads) on the data->hidden and
-                  hidden->data edge sets, float32 and bfloat16; K1, K3 and K4
-                  each timed beside its byte bound, its plain version and
-                  (K4) one index_add_, K1 as in phase 3, K3 as in phase 4;
+                  K3, K4 and K5 also back to back, K3 and K5 with their
+                  route and their instantiation's ptxas registers and
+                  spills; bf16 K3 and K5 run twice at the processor edge set
+                  with the fused projection must agree bit for bit (K3: dq,
+                  dkv, dW, dbias; K5: dk, dv);
+  5. wide GT   -- K1, K3 + K4 and K3 + K5 against their plain versions at HD
+                  = 1024 (16 heads of 64, the Transformer preset's mappers:
+                  K4 in blocks of 1024 threads) on the data->hidden and
+                  hidden->data edge sets, float32 and bfloat16; K1, K3, K4
+                  and K5 each timed beside its byte bound, its plain version
+                  and (K4) one index_add_, K1 as in phase 3, K3, K4 and K5
+                  as in phase 4;
   6. window    -- K6 (out, lse) and K7 (K7_dq: dq; K7_dkv: dk, dv) against
                   the plain band and its autograd backward at the Transformer
                   preset's processor shape (B 1, N 10 242, H 16, D 64, w 512),
@@ -141,15 +143,18 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max|out - ref| / max|ref|
 WINDOW_BUILDS = {"K6": ("window_attention_fwd", "window_attention_fwd"),
                  "K7_dq": ("window_attention_bwd", "window_attention_bwd_dq"),
                  "K7_dkv": ("window_attention_bwd", "window_attention_bwd_dkv")}
-# K1, K2 and K3 (destination groups): kernel -> (library, kernel-name stem,
-# route), one route for both types; the instantiation a launch takes is
-# named by its type, channels a lane (V), fused projection and room for edge
-# features
+# K1, K2, K3 (destination groups) and K5 (source groups): kernel ->
+# (library, kernel-name stem, route), one route for both types; the
+# instantiation a launch takes is named by its type, channels a lane (V),
+# fused projection and room for edge features
 DST_ROUTE = "CUDA cores, 16-byte vectors a lane, several destinations a block"
 FWD_ROUTE = DST_ROUTE + ", edge rows through a cp.async ring, grid-stride over destinations"
+SRC_ROUTE = ("CUDA cores, 16-byte vectors a lane, several sources a block, gathered rows "
+             "through a cp.async ring, grid-stride over sources")
 DST_BUILDS = {"K1": ("gt_attention_fwd", "gt_attention_fwd_kernel", FWD_ROUTE),
               "K2": ("gt_attention_fwd", "gt_attention_fwd_kernel", FWD_ROUTE),
-              "K3": ("gt_attention_bwd", "gt_attention_bwd_dst_kernel", DST_ROUTE)}
+              "K3": ("gt_attention_bwd", "gt_attention_bwd_dst_kernel", DST_ROUTE),
+              "K5": ("gt_attention_bwd", "gt_attention_bwd_src_fused_kernel", SRC_ROUTE)}
 WINDOW_ROUTES = {
     ("K6", torch.bfloat16): ("bf16 warpgroup tensor cores (wgmma m64nNk16)", "_wgmma_kernelILi"),
     ("K7_dq", torch.bfloat16): ("bf16 tensor cores (mma.sync m16n8k16)", "_mma_kernelILi"),
@@ -277,8 +282,8 @@ def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD):
 
 def dst_build(kernel, dtype, d, n_feat, fused) -> dict:
     """Route, ptxas registers and spill bytes of the instantiation of
-    ``kernel`` (K1, K2 or K3) that a launch of ``dtype`` at head size ``d``
-    with ``n_feat`` edge features takes."""
+    ``kernel`` (K1, K2, K3 or K5) that a launch of ``dtype`` at head size
+    ``d`` with ``n_feat`` edge features takes."""
     from anemoi_tpu_torch.kernels.build import build_log, ptxas_usage
     from anemoi_tpu_torch.kernels.gt_attention import dst_instantiation
 
@@ -437,7 +442,16 @@ def backward_phase(graph, device) -> dict:
                             raise RuntimeError(f"bf16 K3 is not deterministic: {name} differs")
                     print("[backward] bf16 K3 deterministic: dq, dkv, dW, dbias of two runs "
                           "bitwise equal", flush=True)
-                    del again
+                    # a source's edges are summed by one group in source
+                    # order, with no atomics on the sums
+                    runs = [kern.gt_attention_bwd_src_fused(
+                        q, k, v, g, lse, delta, ei, ptr, order.src_ptr, order.src_perm, HEADS,
+                        **edge_kw) for _ in range(2)]
+                    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+                        raise RuntimeError("bf16 K5 is not deterministic: dk or dv differs")
+                    print("[backward] bf16 K5 deterministic: dk, dv of two runs bitwise equal",
+                          flush=True)
+                    del again, runs
                 del first
 
                 # K4 alone: the sum of K3's dkv rows into their sources.  Its
@@ -460,19 +474,26 @@ def backward_phase(graph, device) -> dict:
                         raise RuntimeError(f"K4 {key} {dtype} against its plain version: "
                                            f"max abs err {err:.3e}")
                 del k4_ref
+
+                def k3():
+                    return kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS,
+                                                     **edge_kw, **path_kw)
+
+                def k4():
+                    return kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm)
+
+                def k5():
+                    return kern.gt_attention_bwd_src_fused(
+                        q, k, v, g, lse, delta, ei, ptr, order.src_ptr, order.src_perm, HEADS,
+                        **edge_kw)
+
                 ms = {
-                    "K3": cuda_ms(lambda: kern.gt_attention_bwd_dst(
-                        q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
-                    "K3_b2b": cuda_ms_back_to_back(lambda: kern.gt_attention_bwd_dst(
-                        q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
+                    "K3": cuda_ms(k3), "K3_b2b": cuda_ms_back_to_back(k3),
                     "K3_no_dkv": cuda_ms(lambda: kern.gt_attention_bwd_dst(
                         q, k, v, g, lse, delta, ei, ptr, HEADS, emit_dkv=False, **edge_kw,
                         **path_kw)),
-                    "K4": cuda_ms(lambda: kern.gt_attention_bwd_src(
-                        dkv, order.src_ptr, order.src_perm)),
-                    "K5": cuda_ms(lambda: kern.gt_attention_bwd_src_fused(
-                        q, k, v, g, lse, delta, ei, ptr, order.src_ptr, order.src_perm, HEADS,
-                        **edge_kw)),
+                    "K4": cuda_ms(k4), "K4_b2b": cuda_ms_back_to_back(k4),
+                    "K5": cuda_ms(k5), "K5_b2b": cuda_ms_back_to_back(k5),
                 }
                 k4_plain_ms, k4_library_ms = cuda_ms(k4_plain), cuda_ms(k4_library)
                 del dkv
@@ -493,8 +514,11 @@ def backward_phase(graph, device) -> dict:
                                **dst_build("K3", dtype, HD // HEADS, n_f, fused)),
                     "K4": dict(max_abs_err=max(errs[(False, "dk")], errs[(False, "dv")]),
                                plain_ms=k4_plain_ms, plain_is="float32 index_add_ of dkv",
-                               library_ms=k4_library_ms, library_is="index_add_ of dkv"),
-                    "K5": dict(max_abs_err=max(errs[(True, "dk")], errs[(True, "dv")])),
+                               library_ms=k4_library_ms, library_is="index_add_ of dkv",
+                               ms_back_to_back=ms["K4_b2b"]),
+                    "K5": dict(max_abs_err=max(errs[(True, "dk")], errs[(True, "dv")]),
+                               ms_back_to_back=ms["K5_b2b"],
+                               **dst_build("K5", dtype, HD // HEADS, n_f, fused)),
                 }
                 for name, extra in per_kernel.items():
                     row = {**base, "ms": ms[name], "bound_ms": bounds[name][0],
@@ -505,10 +529,10 @@ def backward_phase(graph, device) -> dict:
 
 
 def gt_wide_phase(graph, device):
-    """K1 and K3 + K4 at HD = 1024 (16 heads of 64) against their plain
-    versions, at the Transformer preset's mapper edge sets and edge
-    attributes; each of K1, K3 and K4 timed beside its byte bound, its plain
-    version and (K4) one index_add_.
+    """K1, K3 + K4 and K3 + K5 at HD = 1024 (16 heads of 64) against their
+    plain versions, at the Transformer preset's mapper edge sets and edge
+    attributes; each of K1, K3, K4 and K5 timed beside its byte bound, its
+    plain version and (K4) one index_add_.
     Returns ({kernel: rows}, {check: max abs error})."""
     from anemoi_tpu_torch.kernels import gt_attention as kern
     from anemoi_tpu_torch.ops.gt_attention import (
@@ -517,7 +541,7 @@ def gt_wide_phase(graph, device):
 
     attrs = transformer_config()["model"]["encoder"]["sub_graph_edge_attributes"]
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    errors, rows = {}, {"K1": [], "K3": [], "K4": []}
+    errors, rows = {}, {"K1": [], "K3": [], "K4": [], "K5": []}
     for key in (("data", "hidden"), ("hidden", "data")):
         es = graph[key]
         n_src, n_dst = graph[key[0]].num_nodes, graph[key[1]].num_nodes
@@ -540,9 +564,14 @@ def gt_wide_phase(graph, device):
             want = {"out": ref}
             grads = gt_attention_bwd_kernels(q, k, v, ei, ptr, order.src_ptr, order.src_perm,
                                              HEADS, out, lse, g, **edge_kw)
+            fused = gt_attention_bwd_kernels(q, k, v, ei, ptr, order.src_ptr, order.src_perm,
+                                             HEADS, out, lse, g, fused_bwd=True, **edge_kw)
             refs = gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g, **edge_kw)
             for name in ("dq", "dk", "dv", "d_attr", "d_weight", "d_bias"):
                 got[name], want[name] = getattr(grads, name), getattr(refs, name)
+            for name in ("dk", "dv"):  # K5's outputs
+                got[f"{name} (K5)"] = getattr(fused, name)
+                want[f"{name} (K5)"] = getattr(refs, name)
             torch.cuda.synchronize()
             errs = {}
             for name, x in got.items():
@@ -553,7 +582,7 @@ def gt_wide_phase(graph, device):
                                        f"{err:.3e}, max|ref| {y.abs().max().item():.3e}")
                 errs[name] = err
                 errors[f"{'->'.join(key)} {str(dtype).split('.')[-1]} {name}"] = err
-            del got, want, grads, refs, ref
+            del got, want, grads, fused, refs, ref
 
             # the times, as the Transformer's training path launches K3
             # (fused projection: dW and dbias, no d_attr) and K4
@@ -564,16 +593,25 @@ def gt_wide_phase(graph, device):
             def k1_raw():
                 return kern.gt_attention_fused_edge(q, k, v, *edge_kw.values(), ei, ptr, HEADS)
 
+            def k3():
+                return kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS,
+                                                 **edge_kw, **path_kw)
+
+            def k4():
+                return kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm)
+
+            def k5():
+                return kern.gt_attention_bwd_src_fused(q, k, v, g, lse, delta, ei, ptr,
+                                                       order.src_ptr, order.src_perm, HEADS,
+                                                       **edge_kw)
+
             ms = {
                 "K1": cuda_ms(lambda: gt_attention_fe(q, k, v, *edge_kw.values(), ei, ptr, HEADS,
                                                       source=order)),
                 "K1_b2b": cuda_ms_back_to_back(k1_raw),
-                "K3": cuda_ms(lambda: kern.gt_attention_bwd_dst(
-                    q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
-                "K3_b2b": cuda_ms_back_to_back(lambda: kern.gt_attention_bwd_dst(
-                    q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
-                "K4": cuda_ms(lambda: kern.gt_attention_bwd_src(dkv, order.src_ptr,
-                                                                order.src_perm)),
+                "K3": cuda_ms(k3), "K3_b2b": cuda_ms_back_to_back(k3),
+                "K4": cuda_ms(k4), "K4_b2b": cuda_ms_back_to_back(k4),
+                "K5": cuda_ms(k5), "K5_b2b": cuda_ms_back_to_back(k5),
             }
             plain = {
                 "K1": cuda_ms(lambda: gt_attention_fe(q, k, v, *edge_kw.values(), ei, ptr, HEADS,
@@ -583,6 +621,7 @@ def gt_wide_phase(graph, device):
                 "K4": cuda_ms(lambda: torch.zeros(1, n_src, 2 * WIDE_HD, device=device)
                               .index_add_(1, src, dkv.float()), reps=10, warmup=2),
             }
+            plain["K5"] = plain["K3"]  # both parts of the whole plain backward
             k4_library_ms = cuda_ms(lambda: torch.zeros(
                 1, n_src, 2 * WIDE_HD, device=device, dtype=dtype).index_add_(1, src, dkv),
                 reps=10, warmup=2)
@@ -603,14 +642,19 @@ def gt_wide_phase(graph, device):
                            **dst_build("K3", dtype, WIDE_HD // HEADS, n_f, True)),
                 "K4": dict(max_abs_err=max(errs["dk"], errs["dv"]),
                            plain_is="float32 index_add_ of dkv", library_ms=k4_library_ms,
-                           library_is="index_add_ of dkv"),
+                           library_is="index_add_ of dkv", ms_back_to_back=ms["K4_b2b"]),
+                "K5": dict(max_abs_err=max(errs["dk (K5)"], errs["dv (K5)"]),
+                           plain_is="gt_attention_bwd_plain", library_ms=None,
+                           ms_back_to_back=ms["K5_b2b"],
+                           **dst_build("K5", dtype, WIDE_HD // HEADS, n_f, True)),
             }
             for name, extra in per_kernel.items():
                 row = {**base, "ms": ms[name], "plain_ms": plain[name],
                        "bound_ms": bounds[name][0], "bound_by": bounds[name][1], **extra}
                 rows[name].append(row)
                 print(f"[wide GT] {name} {row}", flush=True)
-    print(f"[wide GT] K1, K3 + K4 at HD={WIDE_HD} hold: {json.dumps(errors)}", flush=True)
+    print(f"[wide GT] K1, K3 + K4, K3 + K5 at HD={WIDE_HD} hold: {json.dumps(errors)}",
+          flush=True)
     return rows, errors
 
 

@@ -8,13 +8,14 @@ JAX nor the JAX package, so they also run where only PyTorch is installed:
 
 They cover the head sizes the flagship (d = 32) does not: d < 32 and d =
 64 -- also at HD = 1024 (16 x 64, the Transformer preset's mappers: 1024
-threads a block in K4 and K5) --, destinations without edges, sources
-without edges (backward), and both input types; for the kernels that walk
-destinations in groups of lanes (K1/K2 forward, K3 backward) also a
-destination of in-degree 75 (three chunks of edge sources) and heads of 512
-channels (a head sum across warps), for K1 eight raw edge features,
-bitwise repeatability in bf16 and the refusal of a vector input off its
-16-byte boundary.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
+threads a block in K4) --, destinations without edges, sources without
+edges (backward), and both input types; for the kernels that walk
+destinations or sources in groups of lanes (K1/K2 forward, K3 and K5
+backward) also a destination of in-degree 75 (K1/K2, K3) or a source of
+out-degree 75 (K5) -- three 32-edge chunks --, heads of 512 channels (a
+head sum across warps), eight raw edge features (K1, K5), bitwise
+repeatability in bf16 and the refusal of a vector input off its 16-byte
+boundary.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
 and dv) are held against ``band_attention_plain`` and its autograd backward,
 with softcap, ALiBi, a ragged last tile, a full band over several tiles and
 a sequence shorter than one tile, and logits large enough that the running
@@ -50,17 +51,26 @@ from anemoi_tpu_torch.ops.window_attention import (
 DEAD_SRC = (0, 5, 299)
 
 
-def make_case(rng, num_src, num_dst, hd, f=3, empty_dst=(3, 17), dead_src=(), degree=None):
+def make_case(rng, num_src, num_dst, hd, f=3, empty_dst=(3, 17), dead_src=(), degree=None,
+              out_degree=None):
     """A dst-sorted graph of 1-11 edges a destination (``degree``: {dst:
-    in-degree} overrides), inputs for batch 2 and an edge projection."""
+    in-degree} overrides; ``out_degree``: {src: n} puts each such source on
+    the first n destinations that have edges), inputs for batch 2 and an edge
+    projection."""
     src, dst = [], []
     alive = np.setdiff1d(np.arange(num_src), dead_src)
+    placed = dict.fromkeys(out_degree or {}, 0)
     for d in range(num_dst):
         if d in empty_dst:
             continue
         k = int(rng.integers(1, 12))
         k = (degree or {}).get(d, k)
-        src.append(rng.choice(alive, size=k, replace=False))
+        chosen = rng.choice(alive, size=k, replace=False)
+        for s_, n in (out_degree or {}).items():
+            if placed[s_] < n and s_ not in chosen[1:]:
+                chosen[0] = s_
+                placed[s_] += 1
+        src.append(chosen)
         dst.append(np.full(k, d))
     ei = np.stack([np.concatenate(src), np.concatenate(dst)]).astype(np.int32)
     ptr = np.concatenate([[0], np.cumsum(np.bincount(ei[1], minlength=num_dst))]).astype(np.int32)
@@ -355,6 +365,118 @@ def test_backward_kernel_refuses_misaligned(card):
     with pytest.raises(ValueError, match="16-byte"):
         kern.gt_attention_bwd_dst(q, k, v, bad, lse, delta, ei, ptr, 2, **edge_kw)
     assert kern.launch_counts() == before
+
+
+# K5 layouts the cases above do not reach: a source of out-degree 75 (its
+# edges come in three 32-edge chunks), 2 heads of 512 channels (64 bf16 or 128
+# float32 lanes a head: the head sums cross warps), with the fused projection
+# 8 raw edge features (the FMAX = 8 instantiation), and far more sources than
+# K5's grid holds groups, so that each group strides over several: HD = 512
+# (groups of 64 bf16 or 128 float32 lanes) and HD = 64 (groups of 8 or 16
+# lanes sharing a warp).  (heads, d, F, {source: out-degree}, sources,
+# destinations)
+K5_CASES = {"out_degree_75": (16, 32, 3, {7: 75}, 300, 200),
+            "two_heads_of_512": (2, 512, 3, None, 300, 200),
+            "eight_features": (16, 32, 8, None, 300, 200),
+            "hd512_20000_sources": (16, 32, 3, None, 20000, 4000),
+            "hd64_60000_sources": (2, 32, 3, None, 60000, 4000)}
+
+
+def k5_grid_groups(dtype, heads, d, f, fused):
+    """Groups in K5's grid a batch row on this card."""
+    v, _ = kern.dst_instantiation(dtype, d, f, fused)
+    lanes = heads * d // v
+    gs = 1 << (lanes - 1).bit_length() if lanes <= 32 else -(-lanes // 32) * 32
+    blocks = kern._resident_blocks("K5", torch.cuda.current_device(), kern._DTYPE_CODES[dtype],
+                                   fused, heads * d, heads, f)
+    return blocks * max(1, 256 // gs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,fused", [
+    ("out_degree_75", False), ("out_degree_75", True), ("two_heads_of_512", False),
+    ("two_heads_of_512", True), ("eight_features", True), ("hd512_20000_sources", False),
+    ("hd512_20000_sources", True), ("hd64_60000_sources", False), ("hd64_60000_sources", True),
+])
+def test_fused_source_pass_layouts_match_plain(card, case, fused, dtype):
+    """K3 (no dkv) + K5 against the plain backward, batch 2, with the sources
+    in DEAD_SRC (no edges) getting dk = dv = 0."""
+    heads, d, f, out_degree, n_src, n_dst = K5_CASES[case]
+    if n_src > 300:
+        assert n_src >= 2 * k5_grid_groups(dtype, heads, d, f, fused)
+    ei_np, ptr_np, a = make_case(np.random.default_rng(12), n_src, n_dst, heads * d, f=f,
+                                 dead_src=DEAD_SRC, out_degree=out_degree)
+    assert np.bincount(ei_np[0]).max() >= (75 if out_degree else 1)
+    t = {k: torch.from_numpy(v).to(card, dtype) for k, v in a.items()}
+    ei, ptr = torch.from_numpy(ei_np).to(card), torch.from_numpy(ptr_np).to(card)
+    order = SourceOrder.of(ei, n_src)
+    edge_kw = (dict(edge_attr=t["attr"], weight=t["w"], bias=t["b"]) if fused
+               else dict(edges=t["e"]))
+    fn = gt_attention_fe if fused else gt_attention
+    out, lse = fn(t["q"], t["k"], t["v"], *edge_kw.values(), ei, ptr, heads, source=order)
+    g = torch.randn(out.shape, generator=torch.Generator(card).manual_seed(3), device=card)
+    check_backward_against_plain(t, ei, ptr, order, heads, out, lse, g.to(dtype), edge_kw,
+                                 fused, True, dtype)
+
+
+@pytest.mark.cuda
+def test_fused_source_pass_is_deterministic(card):
+    """bf16 K5 with the fused projection: a source's edges belong to one group,
+    which sums them in source order with no atomics, so two runs agree bit
+    for bit (dk, dv)."""
+    q, k, v, g, lse, delta, ei, ptr, edge_kw = k3_inputs(card, 13, 16, 32)
+    order = SourceOrder.of(ei, 300)
+    runs = [kern.gt_attention_bwd_src_fused(q, k, v, g, lse, delta, ei, ptr, order.src_ptr,
+                                            order.src_perm, 16, **edge_kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_fused_source_pass_refuses_misaligned(card):
+    """K5 moves 8 bf16 channels a lane as one 16-byte vector: a query or grad
+    that starts off a 16-byte boundary is refused before any launch."""
+    q, k, v, g, lse, delta, ei, ptr, edge_kw = k3_inputs(card, 14, 2, 32)
+    order = SourceOrder.of(ei, 300)
+    buf = torch.zeros(q.numel() + 1, device=card, dtype=q.dtype)
+    bad = buf[1:].view(q.shape)
+    bad.copy_(q)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    before = kern.launch_counts()
+    for name, args in (("query", (bad, k, v, g)), ("grad", (q, k, v, bad))):
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte"):
+            kern.gt_attention_bwd_src_fused(*args, lse, delta, ei, ptr, order.src_ptr,
+                                            order.src_perm, 2, **edge_kw)
+    assert kern.launch_counts() == before
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hd512_20000_sources", "hd64_60000_sources"])
+def test_fused_source_pass_many_sources_is_deterministic(card, case):
+    """bf16 K5 with the fused projection, several sources a group: two runs
+    agree bit for bit (dk, dv)."""
+    heads, d, f, _, n_src, n_dst = K5_CASES[case]
+    assert n_src >= 2 * k5_grid_groups(torch.bfloat16, heads, d, f, True)
+    ei_np, ptr_np, a = make_case(np.random.default_rng(15), n_src, n_dst, heads * d, f=f)
+    t = {k: torch.from_numpy(x).to(card, torch.bfloat16) for k, x in a.items()}
+    ei, ptr = torch.from_numpy(ei_np).to(card), torch.from_numpy(ptr_np).to(card)
+    order = SourceOrder.of(ei, n_src)
+    edge_kw = dict(edge_attr=t["attr"], weight=t["w"], bias=t["b"])
+    out, lse = gt_attention_fe(t["q"], t["k"], t["v"], *edge_kw.values(), ei, ptr, heads,
+                               source=order)
+    g = torch.randn(out.shape, generator=torch.Generator(card).manual_seed(5), device=card)
+    g = g.to(torch.bfloat16)
+    delta = (out.float() * g.float()).reshape(*out.shape[:2], heads, d).sum(-1)
+    runs = [kern.gt_attention_bwd_src_fused(t["q"], t["k"], t["v"], g, lse, delta, ei, ptr,
+                                            order.src_ptr, order.src_perm, heads, **edge_kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert runs[0][0].abs().max() > 0
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 def test_window_kernel_wrappers_refuse_cpu_tensors():

@@ -2,7 +2,7 @@
 time on the card.
 
     python3 tools/torch_profile_forecast.py [--model M] [--steps 2] [--reps 3] [--json PATH]
-    python3 tools/torch_profile_forecast.py [--model M] --train [--reps 3] [--json PATH]
+    python3 tools/torch_profile_forecast.py [--model M] --train [--fused-bwd] [--reps 3] [--json PATH]
 
 Builds a full-width model on the o96 -> ico-5 graph with seeded random
 weights -- ``--model flagship`` (default: the GraphTransformer, 512
@@ -13,7 +13,9 @@ sliding-window layers, 1024 channels, 16 heads, window 512) -- with
 traces with ``torch.profiler`` either ``reps`` forecasts of ``steps`` steps
 (bf16 serving) or, with ``--train``, ``reps`` training steps of
 ``make_step_fns`` (bf16 compute over float32 masters, area-weighted MSE,
-AdamW, value clipping at 32, rollout 1).  Prints the card (name, power
+AdamW, value clipping at 32, rollout 1); ``--fused-bwd`` sets the model's
+``paged_fused_bwd`` key (every graph attention's backward as K3 without dkv,
+then K5).  Prints the card (name, power
 limit), the wall ms per step, the device-busy share of the traced window,
 and the device time by kernel name (top 20); with --json also writes them
 to PATH.  Needs a CUDA card.
@@ -37,6 +39,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--model", choices=("flagship", "transformer"), default="flagship")
     ap.add_argument("--train", action="store_true", help="profile training steps")
+    ap.add_argument("--fused-bwd", action="store_true",
+                    help="set paged_fused_bwd: the attention backward as K3 + K5")
     ap.add_argument("--json", help="also write the result here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -58,9 +62,10 @@ def main() -> int:
     device = torch.device("cuda")
     graph = GraphCreator(flagship_recipe("o96", 5)).create()
     torch.manual_seed(0)
+    config = transformer_config() if args.model == "transformer" else flagship_config()
+    config["model"]["paged_fused_bwd"] = args.fused_bwd
     iface = AnemoiModelInterface(
-        config=transformer_config() if args.model == "transformer" else flagship_config(),
-        graph=graph, data_indices=flagship_indices(),
+        config=config, graph=graph, data_indices=flagship_indices(),
         statistics=flagship_statistics(0), device=device, training=args.train,
     )
     gen = torch.Generator(device=device).manual_seed(0)
@@ -119,6 +124,7 @@ def main() -> int:
         "card": card,
         "model": args.model,
         "mode": "training step" if args.train else "forecast step",
+        "paged_fused_bwd": args.fused_bwd,
         "kernel_launches_per_step": sum(v[1] for v in kernels.values()) / n_steps,
         "wall_ms_per_step": wall_ms / n_steps,
         "device_kernel_ms_per_step": device_ms / n_steps,
