@@ -225,3 +225,45 @@ def compare_variables(
         )
     if error:
         raise ValueError(error)
+
+
+def compare_variables(
+    ckpt_name_to_index: Optional[Dict[str, int]],
+    data_name_to_index: Dict[str, int],
+) -> None:
+    """Check the data's variable order against a recorded order (a
+    checkpoint's).  Raises ``ValueError`` when the orders verifiably differ:
+    the same names at other indices, or renamed variables at other index
+    locations.  Renames in the same positions only warn."""
+    import logging
+
+    log = logging.getLogger(__name__)
+    if ckpt_name_to_index is None:
+        log.info("No variable order to compare; skipping check.")
+        return
+    if ckpt_name_to_index == data_name_to_index:
+        return
+    keys_m, keys_d = set(ckpt_name_to_index), set(data_name_to_index)
+    only_in_model = {k: ckpt_name_to_index[k] for k in keys_m - keys_d}
+    only_in_data = {k: data_name_to_index[k] for k in keys_d - keys_m}
+    different = {
+        k: (ckpt_name_to_index[k], data_name_to_index[k])
+        for k in keys_m & keys_d
+        if ckpt_name_to_index[k] != data_name_to_index[k]
+    }
+    error = ""
+    if only_in_model:
+        log.warning("Variables only in model: %s", only_in_model)
+    if only_in_data:
+        log.warning("Variables only in data: %s", only_in_data)
+    if set(only_in_model.values()) == set(only_in_data.values()):
+        if only_in_model:
+            log.warning("Variable naming differs but the order appears unchanged; continuing.")
+    else:
+        error += ("The variable order in the model and data is different; adjust the "
+                  "variable order/renames in the dataloader config.\n")
+    if different:
+        error += (f"Same variables at different positions: {different}. "
+                  f"Reorder the data to match: {ckpt_name_to_index}\n")
+    if error:
+        raise ValueError(error)

@@ -8,6 +8,11 @@ processor layers, 16 heads, 2 input steps, trainable node attributes
 7-variable dataset and an ``InputNormalizer``.  Sizes are arguments so that
 tests can build the same model small.
 
+``example_o96_gt_config`` is the JAX package's packaged training example
+(``config/example_o96_gt.yaml`` composed with its ``graphtransformer``,
+``multi_scale``, ``default`` training, diagnostics and dataloader groups)
+as one dict, at the flagship's widths: the port's trainer and CLI run it.
+
 ``transformer_config`` is the ``transformer`` preset of the JAX package
 (``config/model/transformer.yaml``, anemoi-core's ``transformer.yaml``) on
 the same graph: GraphTransformer encoder and decoder with edge attributes
@@ -118,3 +123,107 @@ def flagship_statistics(seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
     stdev = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
     return {"data": {"mean": mean, "stdev": stdev,
                      "minimum": mean - 3 * stdev, "maximum": mean + 3 * stdev}}
+
+
+EXAMPLE_VARIABLES = ["q_850", "q_500", "t_850", "t_500", "u_850", "v_850", "z_500", "2t", "10u",
+                     "10v", "tp", "cos_lat"]
+
+
+def example_o96_gt_config(
+    num_channels: int = 512, num_layers: int = 16, precision: str = "bf16",
+    grid: str = "o96", mesh_resolution: int = 5, num_times: int = 64,
+) -> dict:
+    """The packaged example ``example_o96_gt.yaml`` as the JAX package's
+    ``load_config`` composes it, with ``model.num_channels``,
+    ``model.processor.num_layers`` and ``training.precision`` set (the
+    defaults: the flagship's 512 channels and 16 layers, bf16); the
+    synthetic o96 dataset of 12 variables and 64 times.  The grid, the mesh
+    and the dataset's length are arguments so that tests can run it small."""
+    ea = {"edge_length": {"name": "EdgeLength"}, "edge_dirs": {"name": "EdgeDirection"}}
+    gt = {"num_heads": 16, "mlp_hidden_ratio": 4.0,
+          "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]}
+    return {
+        "model": {
+            "name": "AnemoiModelEncProcDec",
+            "num_channels": num_channels,
+            "n_step_input": 2,
+            "n_step_output": 1,
+            "latent_skip": True,
+            "graph_attention_backend": "padded",
+            "trainable_parameters": {"data": 8, "hidden": 8},
+            "encoder": {"name": "GraphTransformerForwardMapper", **gt},
+            "processor": {"name": "GraphTransformerProcessor", "num_layers": num_layers,
+                          "num_heads": 16, "mlp_hidden_ratio": 4.0, "qk_norm": False,
+                          "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]},
+            "decoder": {"name": "GraphTransformerBackwardMapper", "num_heads": 16,
+                        "mlp_hidden_ratio": 4.0, "initialise_data_extractor_zero": False,
+                        "sub_graph_edge_attributes": ["edge_length", "edge_dirs"]},
+        },
+        "graph": {
+            "recipe": {
+                "nodes": {
+                    "data": {
+                        "node_builder": {"name": "ReducedGaussianGridNodes", "grid": grid},
+                        "attributes": {"area_weight": {"name": "SphericalAreaWeights",
+                                                       "norm": "unit-max"}},
+                    },
+                    "hidden": {"node_builder": {"name": "TriNodes",
+                                                "resolution": mesh_resolution}},
+                },
+                "edges": [
+                    {"source_name": "data", "target_name": "hidden",
+                     "edge_builder": {"name": "CutOffEdges", "cutoff_factor": 0.6},
+                     "attributes": dict(ea)},
+                    {"source_name": "hidden", "target_name": "hidden",
+                     "edge_builder": {"name": "MultiScaleEdges", "x_hops": 1},
+                     "attributes": dict(ea)},
+                    {"source_name": "hidden", "target_name": "data",
+                     "edge_builder": {"name": "KNNEdges", "num_nearest_neighbours": 3},
+                     "attributes": dict(ea)},
+                ],
+                "post_processors": [{"name": "SortNodesByIncomingDegree", "nodes_name": "hidden"}],
+            }
+        },
+        "training": {
+            "max_epochs": 2,
+            "lr": {"rate": 6.25e-05, "min": 3e-07, "warmup": 1000, "iterations": 300000},
+            "optimizer": {"name": "adamw", "b1": 0.9, "b2": 0.95, "weight_decay": 0.0},
+            "gradient_clip": {"val": 32.0, "algorithm": "value"},
+            "rollout": {"start": 1, "epoch_increment": 0, "max": 1},
+            "loss": {"name": "WeightedMSELoss", "scalers": ["area", "variable", "level"]},
+            "scalers": {
+                "area": {"name": "GraphNodeAttributeScaler", "nodes_name": "data",
+                         "attribute_name": "area_weight"},
+                "variable": {"name": "GeneralVariableLossScaler"},
+                "level": {"name": "ReluVariableLevelScaler", "slope": 0.001,
+                          "y_intercept": 0.2},
+            },
+            "remat_rollout": True,
+            "precision": precision,
+        },
+        "diagnostics": {
+            "log_interval": 10,
+            "checkpoint_interval": 500,
+            "checkpoint_keep": 3,
+            "callbacks": [
+                {"name": "LearningRateMonitor"},
+                {"name": "RolloutEvalCallback", "rollout": 4, "every_n_validations": 1,
+                 "max_batches": 2},
+            ],
+        },
+        "dataloader": {"batch_size": 1, "validation_fraction": 0.15},
+        "output_dir": "runs/o96_gt",
+        "data": {
+            "datasets": {
+                "data": {
+                    "kind": "synthetic",
+                    "nodes": {"name": "ReducedGaussianGridNodes", "grid": grid},
+                    "variables": list(EXAMPLE_VARIABLES),
+                    "num_times": num_times,
+                }
+            },
+            "forcing": ["cos_lat"],
+            "diagnostic": ["tp"],
+            "processors": [{"name": "InputNormalizer", "default": "mean-std"}],
+        },
+    }

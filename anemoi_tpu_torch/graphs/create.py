@@ -19,7 +19,8 @@ post-processor.
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -64,5 +65,12 @@ class GraphCreator:
             graph = apply_post_processor(graph, proc_cfg)
         return sort_edges_by_dst(graph)
 
-    def create(self) -> Graph:
-        return self.post_process(self.update_graph(Graph()))
+    def create(self, save_path: Optional[str] = None, overwrite: bool = False) -> Graph:
+        """Build the graph; with ``save_path``, load it from there when the
+        file exists (unless ``overwrite``), else write it there."""
+        if save_path and os.path.exists(save_path) and not overwrite:
+            return Graph.load(save_path)
+        graph = self.post_process(self.update_graph(Graph()))
+        if save_path:
+            graph.save(save_path)
+        return graph

@@ -3,10 +3,13 @@
 Copy of ``anemoi_tpu.graphs.graph``: a numpy-backed container of named node
 sets and named directed edge sets.  Edges are stored **sorted by destination
 node** with a CSR ``dst_ptr`` (the invariant the attention kernel reads).
+:meth:`Graph.save` / :meth:`Graph.load` use the JAX package's flat ``.npz``
+layout (no pickle), so either package loads a graph the other wrote.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -92,3 +95,40 @@ class Graph:
 
     def node_names(self) -> list:
         return list(self.nodes)
+
+    def save(self, path: str) -> None:
+        arrays: Dict[str, np.ndarray] = {}
+        meta = {"nodes": {}, "edges": {}}
+        for name, ns in self.nodes.items():
+            arrays[f"n|{name}|coords"] = ns.coords
+            meta["nodes"][name] = {"attributes": sorted(ns.attributes)}
+            for k, v in ns.attributes.items():
+                arrays[f"n|{name}|a|{k}"] = v
+        for (src, dst), es in self.edges.items():
+            base = f"e|{src}|{dst}"
+            arrays[f"{base}|edge_index"] = es.edge_index
+            if es.dst_ptr is not None:
+                arrays[f"{base}|dst_ptr"] = es.dst_ptr
+            meta["edges"][f"{src}|{dst}"] = {"attributes": sorted(es.attributes)}
+            for k, v in es.attributes.items():
+                arrays[f"{base}|a|{k}"] = v
+        arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+        np.savez_compressed(path, **arrays)
+
+    @classmethod
+    def load(cls, path: str) -> "Graph":
+        data = np.load(path, allow_pickle=False)
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        g = cls()
+        for name, info in meta["nodes"].items():
+            attrs = {k: data[f"n|{name}|a|{k}"] for k in info["attributes"]}
+            g.nodes[name] = NodeSet(coords=data[f"n|{name}|coords"], attributes=attrs)
+        for key, info in meta["edges"].items():
+            src, dst = key.split("|")
+            base = f"e|{src}|{dst}"
+            attrs = {k: data[f"{base}|a|{k}"] for k in info["attributes"]}
+            dst_ptr = data[f"{base}|dst_ptr"] if f"{base}|dst_ptr" in data else None
+            g.edges[(src, dst)] = EdgeSet(
+                edge_index=data[f"{base}|edge_index"], attributes=attrs, dst_ptr=dst_ptr
+            )
+        return g

@@ -1,8 +1,9 @@
 """Node builders and node attributes.
 
 Copy of ``anemoi_tpu.graphs.nodes``, trimmed to the builders the flagship
-recipe uses.  Builders return ``(lat, lon)`` coordinates in radians;
-attributes return ``[N, k]`` float arrays.
+recipe and the packaged ``multi_scale`` graph use.  Builders return
+``(lat, lon)`` coordinates in radians; attributes return ``[N, k]`` float
+arrays.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+from scipy.spatial import SphericalVoronoi
 
 from anemoi_tpu_torch.graphs.generate.gaussian import (
     full_gaussian_grid,
@@ -18,6 +20,7 @@ from anemoi_tpu_torch.graphs.generate.gaussian import (
 )
 from anemoi_tpu_torch.graphs.generate.icosahedron import create_tri_nodes
 from anemoi_tpu_torch.graphs.graph import Graph
+from anemoi_tpu_torch.graphs.transforms import latlon_rad_to_xyz
 
 
 def normalise(values: np.ndarray, norm: Optional[str]) -> np.ndarray:
@@ -70,11 +73,29 @@ def cosine_lat_weights(
     return normalise(w.astype(np.float32)[:, None], norm)
 
 
+def spherical_area_weights(
+    graph: Graph,
+    nodes_name: str,
+    norm: Optional[str] = "unit-max",
+    fill_value: float = 0.0,
+) -> np.ndarray:
+    """Voronoi cell area of each node on the unit sphere (scipy's
+    ``SphericalVoronoi``); nodes without a region get ``fill_value``."""
+    points = latlon_rad_to_xyz(graph[nodes_name].coords)
+    sv = SphericalVoronoi(points, radius=1.0, center=np.zeros(3))
+    mask = np.array([bool(r) for r in sv.regions])
+    sv.regions = [r for r in sv.regions if r]
+    result = np.full(points.shape[0], fill_value, dtype=np.float64)
+    result[mask] = sv.calculate_areas()
+    return normalise(result.astype(np.float32)[:, None], norm)
+
+
 NODE_BUILDERS = {
     "ReducedGaussianGridNodes": reduced_gaussian_nodes,
     "TriNodes": tri_nodes,
 }
-NODE_ATTRIBUTES = {"CosineLatWeightedAttribute": cosine_lat_weights}
+NODE_ATTRIBUTES = {"CosineLatWeightedAttribute": cosine_lat_weights,
+                   "SphericalAreaWeights": spherical_area_weights}
 
 
 def _lookup(table: Dict, kind: str, config: Dict):

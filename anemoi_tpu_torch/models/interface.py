@@ -11,6 +11,12 @@ its parameters and the normalised inputs to that type on every call; here,
 by default, the parameters are held in it, and a float32 state dict is cast
 as it loads.  Pre- and post-processing stay float32.
 
+Initial weights follow the JAX package's flax initialisers, drawn from a
+``torch.Generator`` seeded with ``context_seed("model-init")``
+(:func:`initialise_parameters`): the same distribution per tensor, not the
+same draws.  Parity tests and bundles overwrite them with
+``load_state_dict``.
+
 Training (``training=True``): the parameters (the master weights) and the
 graph arrays are held in float32, and each step runs the model on compute
 copies cast by :meth:`AnemoiModelInterface.cast_parameters` (the JAX
@@ -32,8 +38,52 @@ from anemoi_tpu_torch.models.encoder_processor_decoder import AnemoiModelEncProc
 from anemoi_tpu_torch.models.graph import build_model_graph
 from anemoi_tpu_torch.models.layers.attention import MultiHeadSelfAttention
 from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerBaseBlock
+from anemoi_tpu_torch.models.layers.normalization import LayerNorm
 from anemoi_tpu_torch.preprocessing.processors import Processors, build_processors
 from anemoi_tpu_torch.utils.device import resolve_device
+from anemoi_tpu_torch.utils.seeding import context_generator
+
+# flax's truncated_normal variance scaling: the standard deviation of a
+# normal truncated at +-2 standard deviations is this fraction of the
+# untruncated one, so the draws are divided by it to keep the variance
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def initialise_parameters(model: nn.Module, generator: torch.Generator,
+                          zero_extractor: bool = False) -> None:
+    """Every parameter from its flax initialiser: ``Linear`` weights from
+    ``lecun_normal`` (variance ``1 / fan_in``, truncated at two standard
+    deviations) and zero biases; LayerNorm scales 1 and offsets 0; the
+    trainable node and edge tensors 0; the decoder's output ``Linear``
+    (``node_data_extractor``) 0 with ``initialise_data_extractor_zero``.
+    Draws come from ``generator`` in module order, on the parameters'
+    device (the CPU when the interface builds its model)."""
+    covered = set()
+    for name, module in model.named_modules():
+        if isinstance(module, nn.Linear):
+            std = (1.0 / module.in_features) ** 0.5 / _TRUNCATED_STD
+            if zero_extractor and name.endswith("node_data_extractor.1"):
+                module.weight.zero_()
+            else:
+                nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+            covered.add(id(module.weight))
+        elif isinstance(module, (LayerNorm, nn.LayerNorm)) and module.weight is not None:
+            module.weight.fill_(1.0)
+            covered.add(id(module.weight))
+        else:
+            continue
+        if module.bias is not None:
+            module.bias.zero_()
+            covered.add(id(module.bias))
+    for name, p in model.named_parameters():
+        if id(p) in covered:
+            continue
+        if not name.endswith(".trainable"):
+            raise NotImplementedError(f"no initialiser for parameter '{name}'")
+        p.zero_()
+
 
 PRECISIONS = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": torch.bfloat16,
               "fp32": torch.float32, "float32": torch.float32, "32": torch.float32}
@@ -82,9 +132,15 @@ class AnemoiModelInterface(nn.Module):
             ),
             decoder_edge_attributes=(model_cfg.get("decoder") or {}).get("sub_graph_edge_attributes"),
         )
-        self.model = AnemoiModelEncProcDec(
+        model = AnemoiModelEncProcDec(
             graph=self.model_graph, data_indices=data_indices, config=model_cfg
-        ).to(device=self.device, dtype=self.param_dtype)
+        )
+        initialise_parameters(
+            model, context_generator("model-init"),
+            zero_extractor=bool((model_cfg.get("decoder") or {}).get(
+                "initialise_data_extractor_zero", False)),
+        )
+        self.model = model.to(device=self.device, dtype=self.param_dtype)
         processors_cfg = (config.get("data") or {}).get("processors")
         self.pre_processors: Dict[str, Processors] = {
             ds: build_processors(processors_cfg, idx, statistics[ds], device=self.device)

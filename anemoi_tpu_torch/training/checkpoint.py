@@ -1,0 +1,192 @@
+"""Checkpoints: the training state, and self-contained inference bundles.
+
+Port of ``anemoi_tpu.training.checkpoint``.
+
+- :class:`CheckpointManager` keeps the latest ``max_to_keep`` training
+  checkpoints, each ``ckpt_<step>.pt``: a ``torch.save`` of the interface's
+  float32 master weights, the optimizer's state (``torch.optim`` numbers its
+  state by parameter order, and the trainer builds the optimizer from
+  ``interface.parameters()`` in one fixed order), its update count and the
+  step.  :meth:`CheckpointManager.restore` continues a run bit for bit on
+  the CPU.
+- :func:`save_inference_checkpoint` writes the JAX package's bundle layout:
+  ``checkpoint.json`` (``config``, ``data_indices``, ``metadata`` with
+  ``format_version``, ``migrations`` and ``provenance``),
+  ``statistics.npz`` (``<dataset>|<statistic>``) and, in place of flax's
+  ``params.msgpack``, ``params.pt``: the model's state dict with
+  anemoi-core names in float32.
+- :func:`load_inference_checkpoint` reads the port's bundles and the JAX
+  package's (``params.msgpack``, decoded by ``_msgpack.py`` and converted by
+  ``models/port.py:state_dict_from_jax``).  A bundle with migrations pending
+  is refused: the JAX package's ``anemoi-tpu-training checkpoint migrate``
+  brings it up to date.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import platform
+import re
+import sys
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+# the JAX package's migrations (``anemoi_tpu/models/migrations.py``), in
+# order; a bundle written now has applied them all
+MIGRATION_NAMES = (
+    "20260817000000_initial_format",
+    "20260817120000_stack_processor_scan",
+    "20260820120000_hierarchical_module_names",
+)
+FORMAT_VERSION = 1
+_CKPT = re.compile(r"^ckpt_(\d+)\.pt$")
+
+
+class CheckpointManager:
+    """Save and restore the training state; keeps the latest ``max_to_keep``."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3) -> None:
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = int(max_to_keep)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}.pt")
+
+    def steps(self) -> list:
+        return sorted(int(m.group(1)) for f in os.listdir(self.directory)
+                      if (m := _CKPT.match(f)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state) -> None:
+        payload = {
+            "step": int(state.step),
+            "model": {k: v.detach().cpu() for k, v in state.interface.state_dict().items()},
+            "optimizer": state.optimizer.opt.state_dict(),
+            "optimizer_count": int(state.optimizer.count),
+        }
+        tmp = self._path(step) + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self._path(step))
+        for old in self.steps()[: -self.max_to_keep] if self.max_to_keep > 0 else []:
+            os.remove(self._path(old))
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load checkpoint ``step`` (default: the latest) into ``state`` in
+        place; returns it, or None when there is no checkpoint."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        payload = torch.load(self._path(step), map_location=state.interface.device,
+                             weights_only=True)
+        state.interface.load_state_dict(payload["model"], strict=True)
+        state.optimizer.opt.load_state_dict(payload["optimizer"])
+        state.optimizer.count = int(payload["optimizer_count"])
+        state.step = int(payload["step"])
+        return state
+
+
+def _provenance() -> Dict[str, Any]:
+    info = {
+        "time": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
+        "python": sys.version.split()[0],
+        "platform": platform.platform(),
+        "packages": {"torch": torch.__version__, "numpy": np.__version__},
+    }
+    if torch.cuda.is_available():
+        info["devices"] = {"backend": "cuda", "count": torch.cuda.device_count(),
+                           "kind": torch.cuda.get_device_name(0)}
+    return info
+
+
+def save_inference_checkpoint(
+    path: str,
+    state_dict: Dict[str, torch.Tensor],
+    config: dict,
+    data_indices_config: Dict[str, dict],
+    statistics: Dict[str, Dict[str, np.ndarray]],
+    metadata: Optional[dict] = None,
+) -> None:
+    """Write a self-contained inference bundle.  ``state_dict``: the
+    model's parameters with anemoi-core names (``model.``-prefixed, as the
+    interface holds them), saved in float32."""
+    os.makedirs(path, exist_ok=True)
+    torch.save({k: v.detach().float().cpu() for k, v in state_dict.items()},
+               os.path.join(path, "params.pt"))
+    np.savez(
+        os.path.join(path, "statistics.npz"),
+        **{f"{ds}|{key}": arr for ds, stats in statistics.items() for key, arr in stats.items()},
+    )
+    md = dict(metadata or {})
+    md.setdefault("provenance", _provenance())
+    md.setdefault("format_version", FORMAT_VERSION)
+    md["migrations"] = list(MIGRATION_NAMES)
+    bundle = {"config": config, "data_indices": data_indices_config, "metadata": md}
+    with open(os.path.join(path, "checkpoint.json"), "w") as f:
+        json.dump(bundle, f, default=str)
+
+
+def pending_migrations(bundle: dict) -> list:
+    done = set((bundle.get("metadata") or {}).get("migrations", []))
+    return [name for name in MIGRATION_NAMES if name not in done]
+
+
+def load_inference_checkpoint(path: str, device: torch.device | str | None = None):
+    """Rebuild the ``AnemoiModelInterface`` of a bundle (the port's or the
+    JAX package's) on ``device`` (default: the CUDA card), serving in the
+    config's ``inference_precision``: the float32 parameters are cast once,
+    as they load."""
+    from anemoi_tpu_torch.data_indices.collection import IndexCollection
+    from anemoi_tpu_torch.graphs.create import GraphCreator
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.models.interface import AnemoiModelInterface
+
+    with open(os.path.join(path, "checkpoint.json")) as f:
+        bundle = json.load(f)
+    pending = pending_migrations(bundle)
+    if pending:
+        raise RuntimeError(
+            f"checkpoint {path} has migrations pending ({', '.join(pending)}): run "
+            "`anemoi-tpu-training checkpoint migrate` on it first"
+        )
+    stats_flat = np.load(os.path.join(path, "statistics.npz"))
+    statistics: Dict[str, Dict[str, np.ndarray]] = {}
+    for key in stats_flat.files:
+        ds, stat = key.split("|")
+        statistics.setdefault(ds, {})[stat] = stats_flat[key]
+    data_indices = {
+        ds: IndexCollection(
+            {k: int(v) for k, v in di["name_to_index"].items()},
+            forcing=di.get("forcing"), diagnostic=di.get("diagnostic"), target=di.get("target"),
+        )
+        for ds, di in bundle["data_indices"].items()
+    }
+    config = bundle["config"]
+    graph_cfg = config.get("graph", {})
+    graph_path = graph_cfg.get("save_path")
+    if graph_path and os.path.exists(graph_path):
+        graph = Graph.load(graph_path)
+    else:
+        graph = GraphCreator(graph_cfg.get("recipe", graph_cfg)).create()
+    iface = AnemoiModelInterface(
+        config=config, graph=graph, data_indices=data_indices, statistics=statistics,
+        metadata=bundle.get("metadata"), device=device,
+    )
+    torch_params = os.path.join(path, "params.pt")
+    if os.path.exists(torch_params):
+        state_dict = torch.load(torch_params, map_location="cpu", weights_only=True)
+    else:
+        from anemoi_tpu_torch.models.port import state_dict_from_jax
+        from anemoi_tpu_torch.training._msgpack import msgpack_restore
+
+        with open(os.path.join(path, "params.msgpack"), "rb") as f:
+            state_dict = state_dict_from_jax(msgpack_restore(f.read()), sorted(data_indices))
+    iface.load_state_dict(state_dict, strict=True)
+    return iface

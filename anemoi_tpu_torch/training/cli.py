@@ -1,0 +1,166 @@
+"""``anemoi-tpu-torch-training``: the port's training CLI.
+
+Port of ``anemoi_tpu.training.cli`` with the same arguments:
+
+    train <config.json> [a.b.c=value ...] [--output-dir DIR]
+    evaluate <config.json> [a.b.c=value ...] [--output-dir DIR] [--rollout N]
+    predict <bundle> [--config C.json] [--steps N] [--start-index I]
+                     [--output F.npz] [--seed S] [--platform cpu] [--aot-cache DIR]
+    checkpoint inspect <bundle>
+
+Configs are JSON files (or dicts, through :func:`main`'s callers): compose a
+packaged preset with the JAX package's ``load_config`` and ``json.dump`` it.
+``hardware.platform=cpu`` (train, evaluate) or ``--platform cpu`` (predict)
+runs on the CPU; otherwise the CUDA card, which must be visible.  Configs
+are not schema-validated (``schemas.py`` needs pydantic and is not ported).
+The subcommands ``validate``, ``config``, ``mlflow``, ``profile`` and
+``checkpoint migrate`` are not ported: they print so and return 2.
+
+    python -m anemoi_tpu_torch.training.cli train cfg.json hardware.platform=cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+
+NOT_PORTED = 2
+
+
+def _not_ported(what: str) -> int:
+    print(f"{what}: not ported to anemoi_tpu_torch")
+    return NOT_PORTED
+
+
+def _parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="anemoi-tpu-torch-training")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_train = sub.add_parser("train", help="Train a model from a JSON config")
+    p_train.add_argument("config", help="JSON config path")
+    p_train.add_argument("overrides", nargs="*", help="a.b.c=value overrides")
+    p_train.add_argument("--output-dir", default=None)
+
+    p_val = sub.add_parser("validate", help="(not ported)")
+    p_val.add_argument("config")
+    p_val.add_argument("overrides", nargs="*")
+
+    p_eval = sub.add_parser("evaluate", help="Validation pass from the latest checkpoint")
+    p_eval.add_argument("config")
+    p_eval.add_argument("overrides", nargs="*")
+    p_eval.add_argument("--output-dir", default=None)
+    p_eval.add_argument("--rollout", type=int, default=None)
+
+    p_cfg = sub.add_parser("config", help="(not ported)")
+    p_cfg.add_argument("rest", nargs="*")
+
+    p_ckpt = sub.add_parser("checkpoint", help="Inspect checkpoints")
+    ckpt_sub = p_ckpt.add_subparsers(dest="checkpoint_command", required=True)
+    p_ck_insp = ckpt_sub.add_parser("inspect", help="Summarise an inference checkpoint")
+    p_ck_insp.add_argument("checkpoint")
+    p_ck_mig = ckpt_sub.add_parser("migrate", help="(not ported)")
+    p_ck_mig.add_argument("checkpoint", nargs="?", default=None)
+    p_ck_mig.add_argument("--create", default=None, metavar="LABEL")
+    p_ck_mig.add_argument("--scripts-dir", default=None)
+    p_ck_mig.add_argument("--rollback", default=None, metavar="TARGET")
+
+    p_pred = sub.add_parser("predict", help="Autoregressive forecast from an inference checkpoint")
+    p_pred.add_argument("checkpoint", help="Inference checkpoint directory")
+    p_pred.add_argument("--config", default=None,
+                        help="JSON config with data.datasets for the initial conditions "
+                             "(default: the checkpoint's bundled config)")
+    p_pred.add_argument("--steps", type=int, default=4)
+    p_pred.add_argument("--start-index", type=int, default=0)
+    p_pred.add_argument("--output", default="forecast.npz")
+    p_pred.add_argument("--seed", type=int, default=0,
+                        help="RNG seed of generative forecasts (not ported; unused)")
+    p_pred.add_argument("--platform", default=None,
+                        help="cpu to serve on the CPU; default: the CUDA card")
+    p_pred.add_argument("--aot-cache", default=None, help="accepted; no effect")
+
+    p_mlf = sub.add_parser("mlflow", help="(not ported)")
+    p_mlf.add_argument("rest", nargs="*")
+
+    p_prof = sub.add_parser("profile", help="(not ported)")
+    p_prof.add_argument("rest", nargs="*")
+    return parser
+
+
+def _inspect(path: str) -> int:
+    from anemoi_tpu_torch.training.checkpoint import pending_migrations
+
+    with open(os.path.join(path, "checkpoint.json")) as f:
+        bundle = json.load(f)
+    meta = bundle.get("metadata", {})
+    info = {
+        "format_version": meta.get("format_version"),
+        "migrations_applied": meta.get("migrations", []),
+        "migrations_pending": pending_migrations(bundle),
+        "datasets": list(bundle.get("data_indices", {})),
+        "model": bundle.get("config", {}).get("model", {}).get("name"),
+        "num_params": meta.get("num_params"),
+        "provenance": meta.get("provenance"),
+        "params": "params.pt" if os.path.exists(os.path.join(path, "params.pt"))
+        else "params.msgpack",
+    }
+    print(json.dumps(info, indent=1))
+    return 0
+
+
+def _evaluate(conf: dict, output_dir, rollout) -> int:
+    from anemoi_tpu_torch.training.metrics import make_rollout_eval_fn
+    from anemoi_tpu_torch.training.trainer import AnemoiTrainer
+
+    conf.setdefault("training", {})["resume"] = True
+    trainer = AnemoiTrainer(conf, output_dir=output_dir)
+    rollout = rollout or trainer.rollout_schedule.maximum
+    trainer.datamodule.set_rollout(rollout)
+    val = trainer.validate(rollout)
+    fn = make_rollout_eval_fn(trainer.interface, rollout)
+    agg: dict = {}
+    for i, batch_np in enumerate(trainer.datamodule.val_batches()):
+        for k, v in fn(trainer.put_batch(batch_np)).items():
+            agg.setdefault(k, []).append(float(v))
+        if i >= 4:
+            break
+    metrics = {k: sum(v) / len(v) for k, v in agg.items()}
+    for lg in trainer.loggers:
+        lg.finalize()
+    print(f"evaluation: {val} {metrics}")
+    return 0
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    args = _parser().parse_args(argv)
+
+    if args.command in ("validate", "config", "mlflow", "profile"):
+        return _not_ported(args.command)
+    if args.command == "checkpoint":
+        if args.checkpoint_command == "migrate":
+            return _not_ported("checkpoint migrate")
+        return _inspect(args.checkpoint)
+    if args.command == "predict":
+        from anemoi_tpu_torch.inference import run_forecast_cli
+
+        return run_forecast_cli(args)
+
+    from anemoi_tpu_torch.utils.config import load_config
+
+    conf = load_config(args.config, overrides=list(args.overrides)).to_dict()
+    if args.command == "train":
+        from anemoi_tpu_torch.training.trainer import AnemoiTrainer
+
+        result = AnemoiTrainer(conf, output_dir=args.output_dir).train()
+        print(f"training done: {result}")
+        return 0
+    if args.command == "evaluate":
+        return _evaluate(conf, args.output_dir, args.rollout)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

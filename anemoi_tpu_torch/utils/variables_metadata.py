@@ -1,0 +1,141 @@
+"""Variable names, groups and levels.
+
+The port's copy of the part of ``anemoi_tpu.utils.variables_metadata`` that
+the loss scalers use: :func:`crack_variable_name`, :class:`VariableMetadata`
+(param, level and surface flag from a dataset's per-variable metadata,
+mars keys or plain keys) and :class:`ExtractVariableGroupAndLevel`, which
+resolves a variable's group from ``training.variable_groups``.  The
+checkpoint-versus-dataset compatibility checks are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple, Union
+
+GROUP_SPEC = Union[str, List[str], bool, dict]
+
+# mars levtypes that denote surface/single-level fields
+_SURFACE_LEVTYPES = {"sfc", "o2d", "surface"}
+
+
+def crack_variable_name(variable_name: str) -> Tuple[str, Optional[int]]:
+    """``q_850`` -> ``("q", 850)``; names without a numeric suffix give
+    ``(name, None)``."""
+    head, _, tail = variable_name.rpartition("_")
+    if head and tail.isdigit():
+        return head, int(tail)
+    return variable_name, None
+
+
+@dataclass
+class VariableMetadata:
+    """Per-variable metadata: param, level, surface flag."""
+
+    name: str
+    raw: dict = field(default_factory=dict)
+
+    @property
+    def _mars(self) -> dict:
+        return self.raw.get("mars", {}) or {}
+
+    @property
+    def param(self) -> str:
+        p = self._mars.get("param") or self.raw.get("param")
+        return str(p) if p is not None else crack_variable_name(self.name)[0]
+
+    @property
+    def level(self) -> Optional[int]:
+        lvl = self._mars.get("levelist", self.raw.get("level"))
+        return None if lvl is None else int(lvl)
+
+    @property
+    def is_surface_level(self) -> bool:
+        levtype = self._mars.get("levtype", self.raw.get("levtype"))
+        if levtype is not None:
+            return str(levtype) in _SURFACE_LEVTYPES
+        return self.level is None
+
+    def __getattr__(self, key: str):
+        # complex variable_groups specs match arbitrary metadata keys
+        raw = object.__getattribute__(self, "raw")
+        if key in raw:
+            return raw[key]
+        mars = raw.get("mars") or {}
+        if key in mars:
+            return mars[key]
+        raise AttributeError(key)
+
+
+class ExtractVariableGroupAndLevel:
+    """(group, param, level) of a variable from ``variable_groups`` and the
+    dataset's optional per-variable metadata.
+
+    Group specs: simple, ``{"pl": ["q", "t"], "default": "sfc"}`` (the
+    variable's param is matched against the list), or complex, ``{"pl":
+    {"levtype": "pl"}}`` (every key/value is matched against the variable's
+    metadata; only ``{"param": ...}`` works without metadata)."""
+
+    def __init__(
+        self,
+        variable_groups: Dict[str, GROUP_SPEC],
+        metadata_variables: Optional[Dict[str, Union[dict, VariableMetadata]]] = None,
+    ) -> None:
+        variable_groups = dict(variable_groups or {"default": "sfc"})
+        if "default" not in variable_groups:
+            raise ValueError("Default group not defined in variable_groups")
+        self.default_group = variable_groups.pop("default")
+        self.variable_groups = variable_groups
+        self.metadata_variables: Dict[str, VariableMetadata] = {
+            name: val if isinstance(val, VariableMetadata) else VariableMetadata(name, dict(val or {}))
+            for name, val in (metadata_variables or {}).items()
+        }
+
+    def _is_metadata_trusted(self, variable_name: str) -> bool:
+        """Vertical-level variables carry a level, surface ones do not."""
+        meta = self.metadata_variables.get(variable_name)
+        if meta is None:
+            return False
+        return (not meta.is_surface_level) ^ (meta.level is None)
+
+    def get_param(self, variable_name: str) -> str:
+        if self._is_metadata_trusted(variable_name):
+            return self.metadata_variables[variable_name].param
+        return crack_variable_name(variable_name)[0]
+
+    def get_level(self, variable_name: str) -> Optional[int]:
+        if self._is_metadata_trusted(variable_name):
+            return self.metadata_variables[variable_name].level
+        return crack_variable_name(variable_name)[1]
+
+    def get_group(self, variable_name: str) -> str:
+        for group_name, spec in self.variable_groups.items():
+            if isinstance(spec, (list, str)):
+                params = spec if isinstance(spec, list) else [spec]
+                if self.get_param(variable_name) in params:
+                    return group_name
+            elif isinstance(spec, dict):
+                if variable_name not in self.metadata_variables:
+                    if set(spec.keys()) != {"param"}:
+                        raise ValueError(
+                            f"Variable {variable_name} not found in metadata; complex "
+                            f"variable_groups specs other than {{'param': ...}} need metadata."
+                        )
+                    params = spec["param"] if isinstance(spec["param"], list) else [spec["param"]]
+                    if self.get_param(variable_name) in params:
+                        return group_name
+                else:
+                    meta = self.metadata_variables[variable_name]
+                    if all(
+                        getattr(meta, key, None) in (val if isinstance(val, list) else [val])
+                        for key, val in spec.items()
+                    ):
+                        return group_name
+        return self.default_group
+
+    def get_group_and_level(self, variable_name: str) -> Tuple[str, str, Optional[int]]:
+        return (
+            self.get_group(variable_name),
+            self.get_param(variable_name),
+            self.get_level(variable_name),
+        )

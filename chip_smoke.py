@@ -56,27 +56,54 @@ Phases (any failure exits non-zero, with no result line):
                   gradients on every attention projection, gradients of both
                   backwards close to the same step on the plain attention; ms
                   per step and peak memory;
-  9. transformer serving -- a 2-step bf16 forecast of the ``transformer``
+  9. trainer   -- the packaged example (``example_o96_gt_config``: the
+                  ``multi_scale`` graph with spherical area weights, 512
+                  channels, 16 layers, bf16) through the port's CLI,
+                  ``cli.main(["train", cfg.json])``, reading a zlib zarr
+                  store of the synthetic o96 dataset (12 variables, 64
+                  times) written first: 8 steps with the prefetch thread,
+                  a validation pass with the ``RolloutEvalCallback``
+                  (rollout 4), a checkpoint and an inference bundle; exit
+                  code 0, 8 finite loss and grad_norm records, a validation
+                  record with ``val_loss`` and ``rmse/...``, exactly 18 K1,
+                  K3 and K4 launches and no other kernel in every training
+                  step; then the trained model's gradient on a batch of the
+                  store against the same step on the plain attention
+                  (relative L2 within phase 8's tolerance: K1, K3 and K4 at
+                  the packaged graph's edge sets); the packaged graph's edge
+                  counts, the LZ4 blocks each decoder decoded in the run
+                  (none for a zlib store), the trainer's wall ms a step over
+                  steps 3-8 (median and spread) beside phase 8's and its
+                  host wait for batches;
+ 10. predict   -- ``cli.main(["predict", bundle, "--steps", "2", ...])`` on
+                  that bundle: exactly 18 K1 launches a step and no other
+                  kernel, a finite forecast [1, 2, 1, 40320, 11], equal bit
+                  for bit to ``make_forecast_fn`` on an interface loaded
+                  in-process from the same bundle on the same window, and
+                  within relative L2 2e-2 of that interface on the plain
+                  attention; ms a step of the in-process forecast;
+ 11. transformer serving -- a 2-step bf16 forecast of the ``transformer``
                   preset (GT mappers, 16 dense sliding-window layers, 1024
                   channels, window 512) on the same graph: finite, right
                   shape, exactly 16 K6 and 2 K1 launches per step and no other
                   kernel, relative L2 <= 2e-2 against the plain attention; ms
                   per step and peak memory;
- 10. transformer training -- its ``make_step_fns`` step as in phase 8:
+ 12. transformer training -- its ``make_step_fns`` step as in phase 8:
                   exactly 16 K6, 16 K7_dq, 16 K7_dkv, 2 K1, 2 K3, 2 K4 and no
                   K5 per step, non-zero gradients on every lin_q, lin_k, lin_v
                   and projection, the flattened gradient within relative L2
                   1e-2 of the plain attention's at all 16 layers; ms per step
                   and peak memory;
- 11. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 13. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``), the card line, and last
                   {"ok": true, "device": {...}}; with --json, the same and
                   the serving and training details also go to PATH.
 
 Launch counts come from ``anemoi_tpu_torch.kernels.launch_counts()`` (all
-seven kernels), set to 0 just before each path runs; each path's ``want``
-dict lists every kernel, the ones it must not launch at 0.
+seven kernels), set to 0 just before each path runs (in the trainer phase,
+before each of its training steps); each path's ``want`` dict lists every
+kernel, the ones it must not launch at 0.  Every phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -88,6 +115,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -787,7 +815,7 @@ def serving_phase(graph, device, config=None, per_step=None, label="serving") ->
 
     config = config or flagship_config()
     per_step = per_step or {"K1": LAUNCHES_PER_STEP}
-    torch.manual_seed(SEED)  # the modules' random initial weights
+    # the weights: the interface's own draws from context_seed("model-init")
     iface = AnemoiModelInterface(
         config=config, graph=graph, data_indices=flagship_indices(),
         statistics=flagship_statistics(SEED), device=device,
@@ -869,7 +897,7 @@ def build_training(graph, device, config):
 
     scalers = create_scalers({"area": {"name": "GraphNodeAttributeScaler", "nodes_name": "data",
                                        "attribute_name": "area_weight"}}, graph=graph)
-    torch.manual_seed(SEED)  # the modules' random initial weights
+    # the weights: the interface's own draws from context_seed("model-init")
     iface = AnemoiModelInterface(config=config, graph=graph, data_indices=flagship_indices(),
                                  statistics=flagship_statistics(SEED), device=device,
                                  training=True)
@@ -987,6 +1015,224 @@ def training_phase(graph, device) -> dict:
     return result
 
 
+TRAINER_STEPS = 8  # the trainer phase's training steps (max_steps)
+TRAINER_TIMED = slice(2, None)  # steps 3-8: after the first steps' warmup
+
+
+def write_example_store(path: str, config: dict) -> float:
+    """The example's synthetic dataset written as a zlib zarr store with the
+    port's writer; returns the seconds it took."""
+    from anemoi_tpu_torch.data.dataset import open_dataset, save_zarr_copy
+
+    t0 = time.perf_counter()
+    save_zarr_copy(open_dataset(dict(config["data"]["datasets"]["data"])), path)
+    return time.perf_counter() - t0
+
+
+class StepLaunches:
+    """Counts each training step's launches inside the trainer: wraps the
+    ``train_step`` that ``make_step_fns`` builds so that the counts are set
+    to 0 just before each step and read just after it (validation and the
+    rollout evaluation run outside it), and keeps the trainer it ran in and
+    the unwrapped ``train_step``."""
+
+    def __init__(self):
+        self.per_step, self.trainer, self.train_step = [], None, None
+
+    def __enter__(self):
+        from anemoi_tpu_torch import kernels
+        from anemoi_tpu_torch.training import trainer as trainer_mod
+
+        self._mod, self._make, self._train = (trainer_mod, trainer_mod.make_step_fns,
+                                              trainer_mod.AnemoiTrainer.train)
+        counter = self
+
+        def make_step_fns(*args, **kwargs):
+            train_step, eval_step = counter._make(*args, **kwargs)
+            counter.train_step = train_step
+
+            def counted(state, batch):
+                kernels.reset_launches()
+                out = train_step(state, batch)
+                counter.per_step.append(kernels.launch_counts())
+                return out
+
+            return counted, eval_step
+
+        def train(trainer):
+            counter.trainer = trainer
+            return counter._train(trainer)
+
+        trainer_mod.make_step_fns = make_step_fns
+        trainer_mod.AnemoiTrainer.train = train
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.make_step_fns = self._make
+        self._mod.AnemoiTrainer.train = self._train
+
+
+def trainer_phase(workdir: str, training: dict) -> dict:
+    """The packaged example trained through the port's CLI (phase 9)."""
+    from anemoi_tpu_torch.data import _lz4
+    from anemoi_tpu_torch.flagship import example_o96_gt_config
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.training import cli
+
+    config = example_o96_gt_config()
+    store = os.path.join(workdir, "example_o96.zarr")
+    write_s = write_example_store(store, config)
+    print(f"[trainer] synthetic o96 dataset (12 variables, 64 times) written to a zlib zarr "
+          f"store in {write_s:.2f} s", flush=True)
+    config["data"]["datasets"]["data"] = {"kind": "zarr", "path": store}
+    config["graph"]["save_path"] = os.path.join(workdir, "graph.npz")
+    config["output_dir"] = os.path.join(workdir, "run")
+    config["training"].update(max_steps=TRAINER_STEPS, max_epochs=1)
+    config["diagnostics"]["log_interval"] = 1
+    config["dataloader"]["prefetch"] = 2
+    cfg_path = os.path.join(workdir, "example_o96_gt.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+
+    lz4_before = _lz4.decoded_blocks()
+    t0 = time.perf_counter()
+    with StepLaunches() as counted:
+        rc = cli.main(["train", cfg_path])
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"trainer: cli train returned {rc}")
+    lz4 = {k: n - lz4_before[k] for k, n in _lz4.decoded_blocks().items()}
+    print(f"[trainer] LZ4 blocks decoded in the run, by decoder: {lz4}"
+          + ("" if any(lz4.values()) else " (the store is zlib: no LZ4 decoder ran)"),
+          flush=True)
+    graph = Graph.load(config["graph"]["save_path"])
+    edges = {f"{s}->{d}": es.num_edges for (s, d), es in graph.edges.items()}
+    print(f"[trainer] packaged graph (multi_scale, SortNodesByIncomingDegree): edges {edges}",
+          flush=True)
+
+    with open(os.path.join(config["output_dir"], "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "loss" in r]
+    if [r["step"] for r in steps] != list(range(1, TRAINER_STEPS + 1)) or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps):
+        raise RuntimeError(f"trainer: want {TRAINER_STEPS} finite loss/grad_norm records, "
+                           f"got {steps}")
+    val = [r for r in records if "val_loss" in r]
+    if not val or not math.isfinite(val[-1]["val_loss"]) or not any(
+            k.startswith("rmse/data/") and k.endswith("/4") for k in val[-1]):
+        raise RuntimeError(f"trainer: no validation record with val_loss and the rollout-4 "
+                           f"rmse keys: {val}")
+    for path in ("checkpoints", os.path.join("inference", "checkpoint.json")):
+        if not os.path.exists(os.path.join(config["output_dir"], path)):
+            raise RuntimeError(f"trainer: {path} missing from the run directory")
+    want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
+            "K4": LAUNCHES_PER_STEP}
+    if len(counted.per_step) != TRAINER_STEPS or any(c != want for c in counted.per_step):
+        raise RuntimeError(f"trainer: expected {want} in each of {TRAINER_STEPS} steps, "
+                           f"got {counted.per_step}")
+    # the trained example's step on a batch of the store, on the kernels
+    # against the plain attention: K1, K3 and K4 at the packaged graph's edge sets
+    trainer = counted.trainer
+    trainer.datamodule.set_rollout(1)
+    batch = trainer.put_batch(trainer.datamodule.make_batch(trainer.datamodule.train_starts[:1]))
+    grad_rel_l2 = grad_gap(trainer.interface, trainer.state, counted.train_step, batch,
+                           "example (packaged graph) K3 + K4")
+
+    walls = [(b["elapsed_s"] - a["elapsed_s"]) * 1e3 for a, b in zip(steps, steps[1:])]
+    timed = walls[TRAINER_TIMED.start - 1:]  # the walls of steps 3-8
+    waits = [w * 1e3 for w in trainer.data_wait_s[TRAINER_TIMED]]
+    counted.trainer = counted.train_step = None
+    del trainer, batch
+    torch.cuda.empty_cache()
+    result = {
+        "seconds": seconds, "store_write_s": write_s, "edges": edges,
+        "ms_per_step": statistics.median(timed), "ms_per_step_runs": timed,
+        "ms_per_step_min": min(timed), "ms_per_step_max": max(timed),
+        "data_wait_ms_runs": waits, "data_wait_ms": statistics.median(waits),
+        "fixed_batch_ms_per_step": training["ms_per_step"],
+        "losses": [r["loss"] for r in steps], "grad_norms": [r["grad_norm"] for r in steps],
+        "val_loss": val[-1]["val_loss"], "launches_per_step": counted.per_step[-1],
+        "n_val_keys": len(val[-1]), "lz4_blocks_decoded": lz4,
+        "grad_rel_l2_vs_plain": grad_rel_l2,
+    }
+    print(f"[trainer] wall ms a step over steps 3-{TRAINER_STEPS} (data pipeline included): "
+          f"median {result['ms_per_step']:.3f}, min {min(timed):.3f}, max {max(timed):.3f}; "
+          f"host wait for batches median {result['data_wait_ms']:.3f} ms; phase 8's fixed "
+          f"batch {training['ms_per_step']:.3f} ms", flush=True)
+    print(f"[trainer] {json.dumps(result)}", flush=True)
+    return result
+
+
+def predict_phase(workdir: str) -> dict:
+    """The bundle of phase 9 served through the port's CLI (phase 10)."""
+    import numpy as np
+
+    from anemoi_tpu_torch import kernels
+    from anemoi_tpu_torch.data.dataset import open_dataset
+    from anemoi_tpu_torch.inference import make_forecast_fn
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.training.checkpoint import load_inference_checkpoint
+
+    bundle = os.path.join(workdir, "run", "inference")
+    output = os.path.join(workdir, "forecast.npz")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["predict", bundle, "--steps", str(STEPS), "--output", output])
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if rc != 0:
+        raise RuntimeError(f"predict: cli predict returned {rc}")
+    want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP * STEPS}
+    if launches != want:
+        raise RuntimeError(f"predict: expected launches {want}, got {launches}")
+    with open(os.path.join(bundle, "checkpoint.json")) as f:
+        dataset = open_dataset(dict(json.load(f)["config"]["data"]["datasets"]["data"]))
+    out = np.load(output)["data|forecast"]
+    expect = (1, STEPS, 1, dataset.num_grid_points, 11)  # 40 320 points at o96
+    if out.shape != expect or not np.isfinite(out).all():
+        raise RuntimeError(f"predict: forecast shape {out.shape} (want {expect}) or not finite")
+
+    iface = load_inference_checkpoint(bundle)
+    window = dataset.get_window(0, iface.model.n_step_input + STEPS)
+    batch = {"data": torch.from_numpy(window[None]).to(iface.device)}
+    forecast = make_forecast_fn(iface, steps=STEPS)
+    ref = forecast(batch)["data"].cpu().numpy()
+    max_abs = float(np.abs(out - ref).max())
+    print(f"[predict] cli forecast vs make_forecast_fn in-process: max |diff| {max_abs:.3e} "
+          f"(want 0: same bundle, window and kernels)", flush=True)
+    if not np.array_equal(out, ref):
+        raise RuntimeError(f"predict: the CLI's forecast differs from the in-process one "
+                           f"(max |diff| {max_abs:.3e})")
+    iface.use_plain_attention(True)
+    plain = forecast(batch)["data"].cpu().numpy()
+    iface.use_plain_attention(False)
+    rel_l2 = float(np.linalg.norm(out - plain) / np.linalg.norm(plain))
+    print(f"[predict] cli forecast vs the bundle on the plain attention (K1 at the packaged "
+          f"graph's edge sets): relative L2 {rel_l2:.3e} (tol {SERVING_TOL})", flush=True)
+    if not rel_l2 <= SERVING_TOL:
+        raise RuntimeError(f"predict: forecast disagrees with the plain attention: {rel_l2:.3e}")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        forecast(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3 / STEPS)
+    # the serving time: the in-process make_forecast_fn on the bundle the CLI
+    # served, timed after the CLI call (the CLI's own call includes loading)
+    result = {"seconds": seconds, "launches": launches, "output_shape": list(out.shape),
+              "in_process_ms_per_step": statistics.median(times),
+              "in_process_ms_per_step_runs": times,
+              "max_abs_diff_vs_in_process": max_abs, "rel_l2_vs_plain": rel_l2}
+    print(f"[predict] in-process make_forecast_fn on the loaded bundle, after the CLI call: "
+          f"median {result['in_process_ms_per_step']:.3f} ms a step", flush=True)
+    print(f"[predict] {json.dumps(result)}", flush=True)
+    del iface, forecast
+    torch.cuda.empty_cache()
+    return result
+
+
 def transformer_training_phase(graph, device) -> dict:
     """The ``transformer`` preset's training step at full width and depth:
     launches, gradients on every projection, ms per step and peak memory;
@@ -1019,7 +1265,7 @@ def transformer_training_phase(graph, device) -> dict:
 
 
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
-           t_training: dict) -> dict:
+           t_training: dict, trainer: dict, predict: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -1028,9 +1274,12 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     2-step forecast for K1 and K2, its training step for K3 and K4, its
     ``paged_fused_bwd`` training step for K5, the Transformer's 2-step
     forecast for K6 and its training step for K7; ``launches_by_path`` has
-    all five."""
+    these five and the packaged example's trainer step and 2-step
+    ``predict``."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
+               "example_trainer_step": trainer["launches_per_step"],
+               "example_predict_2_steps": predict["launches"],
                "transformer_serving_2_steps": t_serving["launches"],
                "transformer_training_step": t_training["launches"]}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
@@ -1106,24 +1355,35 @@ def main() -> int:
     graph = GraphCreator(flagship_recipe("o96", 5)).create()
     print(f"[graph] o96 -> ico-5 built in {time.perf_counter() - t0:.2f} s: "
           f"{ {k: es.num_edges for k, es in graph.edges.items()} }", flush=True)
-    rows = kernel_phase(graph, device)
-    rows.update(backward_phase(graph, device))
-    wide_rows, wide = gt_wide_phase(graph, device)
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        print(f"[phase] {name}: {time.perf_counter() - t:.2f} s", flush=True)
+        return out
+
+    rows = phase("kernels", kernel_phase, graph, device)
+    rows.update(phase("backward", backward_phase, graph, device))
+    wide_rows, wide = phase("wide GT", gt_wide_phase, graph, device)
     for name, extra in wide_rows.items():
         rows[name] += extra
-    rows.update(window_phase(device))
-    serving = serving_phase(graph, device)
-    training = training_phase(graph, device)
+    rows.update(phase("window", window_phase, device))
+    serving = phase("serving", serving_phase, graph, device)
+    training = phase("training", training_phase, graph, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        trainer = phase("trainer", trainer_phase, workdir, training)
+        predict = phase("predict", predict_phase, workdir)
     layers = TRANSFORMER_LAYERS
-    t_serving = serving_phase(graph, device, transformer_config(num_layers=layers),
-                              {"K1": 2, "K6": layers}, "transformer serving")
-    t_training = transformer_training_phase(graph, device)
-    rep = report(rows, serving, training, t_serving, t_training)
+    t_serving = phase("transformer serving", serving_phase, graph, device,
+                      transformer_config(num_layers=layers), {"K1": 2, "K6": layers},
+                      "transformer serving")
+    t_training = phase("transformer training", transformer_training_phase, graph, device)
+    rep = report(rows, serving, training, t_serving, t_training, trainer, predict)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card, "build_seconds": seconds, "serving": serving,
-                       "training": training, "transformer_serving": t_serving,
+                       "training": training, "trainer": trainer, "predict": predict,
+                       "transformer_serving": t_serving,
                        "transformer_training": t_training, "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

@@ -292,7 +292,7 @@ def test_not_ported_pieces_raise(tiny):
     with pytest.raises(NotImplementedError):
         get_loss_function({"name": "KernelCRPS"}, {})
     with pytest.raises(NotImplementedError):
-        create_scalers({"v": {"name": "GeneralVariableLossScaler"}})
+        create_scalers({"v": {"name": "StdevTendencyScaler"}})
     with pytest.raises(NotImplementedError):
         build_optimizer({"optimizer": {"name": "ademamix"}})
     iface, _, _, _ = port_setup(tiny)

@@ -8,7 +8,10 @@ Builds a full-width model on the o96 -> ico-5 graph with seeded random
 weights -- ``--model flagship`` (default: the GraphTransformer, 512
 channels, 16 layers, 16 heads) or ``--model transformer`` (the
 ``transformer`` preset: GraphTransformer mappers and 16 dense
-sliding-window layers, 1024 channels, 16 heads, window 512) -- with
+sliding-window layers, 1024 channels, 16 heads, window 512) or ``--model
+example`` (the packaged example, ``example_o96_gt_config``: the
+``multi_scale`` graph with its hidden nodes sorted by incoming degree, 12
+variables, 512 channels, 16 layers) -- with
 ``anemoi_tpu_torch``, warms up, then
 traces with ``torch.profiler`` either ``reps`` forecasts of ``steps`` steps
 (bf16 serving) or, with ``--train``, ``reps`` training steps of
@@ -30,6 +33,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 
@@ -37,7 +41,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--model", choices=("flagship", "transformer"), default="flagship")
+    ap.add_argument("--model", choices=("flagship", "transformer", "example"),
+                    default="flagship")
     ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--fused-bwd", action="store_true",
                     help="set paged_fused_bwd: the attention backward as K3 + K5")
@@ -47,9 +52,10 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from anemoi_tpu_torch.data_indices.collection import IndexCollection
     from anemoi_tpu_torch.flagship import (
-        flagship_config, flagship_indices, flagship_recipe, flagship_statistics,
-        transformer_config,
+        EXAMPLE_VARIABLES, example_o96_gt_config, flagship_config, flagship_indices,
+        flagship_recipe, flagship_statistics, transformer_config,
     )
     from anemoi_tpu_torch.graphs.create import GraphCreator
     from anemoi_tpu_torch.inference import make_forecast_fn
@@ -60,18 +66,30 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     device = torch.device("cuda")
-    graph = GraphCreator(flagship_recipe("o96", 5)).create()
-    torch.manual_seed(0)
-    config = transformer_config() if args.model == "transformer" else flagship_config()
+    if args.model == "example":
+        config = example_o96_gt_config()
+        graph = GraphCreator(config["graph"]["recipe"]).create()
+        indices = {"data": IndexCollection({n: i for i, n in enumerate(EXAMPLE_VARIABLES)},
+                                           forcing=["cos_lat"], diagnostic=["tp"])}
+        rng = np.random.default_rng(0)
+        n_vars = len(EXAMPLE_VARIABLES)
+        mean = rng.normal(size=n_vars).astype(np.float32)
+        stdev = rng.uniform(0.5, 2.0, size=n_vars).astype(np.float32)
+        statistics = {"data": {"mean": mean, "stdev": stdev, "minimum": mean - 3 * stdev,
+                               "maximum": mean + 3 * stdev}}
+    else:
+        graph = GraphCreator(flagship_recipe("o96", 5)).create()
+        config = transformer_config() if args.model == "transformer" else flagship_config()
+        indices, statistics = flagship_indices(), flagship_statistics(0)
     config["model"]["paged_fused_bwd"] = args.fused_bwd
     iface = AnemoiModelInterface(
-        config=config, graph=graph, data_indices=flagship_indices(),
-        statistics=flagship_statistics(0), device=device, training=args.train,
+        config=config, graph=graph, data_indices=indices, statistics=statistics,
+        device=device, training=args.train,
     )
     gen = torch.Generator(device=device).manual_seed(0)
     steps = 1 if args.train else args.steps
-    batch = {"data": torch.randn(1, 2 + steps, 1, graph["data"].num_nodes, 7,
-                                 generator=gen, device=device)}
+    batch = {"data": torch.randn(1, 2 + steps, 1, graph["data"].num_nodes,
+                                 indices["data"].num_data_vars, generator=gen, device=device)}
     if args.train:
         from anemoi_tpu_torch.training.losses import get_loss_function
         from anemoi_tpu_torch.training.losses.scalers import create_scalers
