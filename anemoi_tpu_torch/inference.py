@@ -59,14 +59,15 @@ def run_forecast_cli(args) -> int:
     port's or the JAX package's) on the card, or on the CPU with
     ``args.platform == "cpu"``; read the window of ``m + steps * n_out``
     times from ``args.start_index`` of the datasets of ``args.config`` (a
-    JSON config) or, without it, of the bundle's own config; forecast
+    YAML or JSON config, composed with the packaged presets on its search
+    path) or, without it, of the bundle's own config; forecast
     ``args.steps`` steps and write ``<ds>|forecast`` ``[1, steps * n_out, E,
     G, V_out]`` and ``<ds>|variables`` to the ``.npz`` ``args.output``.
     ``args.aot_cache`` is accepted and has no effect (nothing is compiled
     ahead)."""
     from anemoi_tpu_torch.data.dataset import open_dataset
     from anemoi_tpu_torch.training.checkpoint import load_inference_checkpoint
-    from anemoi_tpu_torch.utils.config import load_config
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
 
     platform = getattr(args, "platform", None)
     if platform not in (None, "cpu", "gpu", "cuda"):
@@ -80,7 +81,7 @@ def run_forecast_cli(args) -> int:
     steps = args.steps
     forecast = make_forecast_fn(iface, steps)
 
-    cfg = load_config(args.config) if args.config else {}
+    cfg = load_config(args.config, search_paths=[PACKAGED_CONFIG_DIR]) if args.config else {}
     data_cfg = cfg.get("data", {})
     if not data_cfg.get("datasets"):
         data_cfg = (iface.config or {}).get("data", {})

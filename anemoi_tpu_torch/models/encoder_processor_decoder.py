@@ -46,16 +46,19 @@ _COMPONENT_NAMES = {
     "processor": "GraphTransformerProcessor",
     "decoder": "GraphTransformerBackwardMapper",
 }
-_MATH_KEYS = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "edge_pre_mlp")
+_REMAT_KEYS = ("gradient_checkpointing", "remat_policy")
+_GT_KEYS = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "edge_pre_mlp",
+            *_REMAT_KEYS)
 _TRANSFORMER_KEYS = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "window_size",
-                     "softcap", "use_alibi_slopes", "use_rotary_embeddings", "attention_impl")
+                     "softcap", "use_alibi_slopes", "use_rotary_embeddings", "attention_impl",
+                     *_REMAT_KEYS)
 
 
 def _component(config: dict, part: str) -> dict:
     """Constructor kwargs of one component (a GraphTransformer mapper or
-    processor, or the dense ``TransformerProcessor``); keys that only steer
-    the TPU's execution (remat, scan, tables) are dropped, keys that change
-    the math and are not ported raise."""
+    processor, or the dense ``TransformerProcessor``), the remat keys
+    included; keys that only steer the TPU's execution (scan, tables) are
+    dropped, keys that change the math and are not ported raise."""
     cfg = dict(config.get(part) or {})
     name = cfg.get("name", _COMPONENT_NAMES[part])
     dense = part == "processor" and name == "TransformerProcessor"
@@ -75,7 +78,7 @@ def _component(config: dict, part: str) -> dict:
         raise NotImplementedError(f"{part}: scan_unroll > 1 stacks parameters differently")
     if "num_heads" not in cfg:
         raise ValueError(f"{part}: num_heads is required")
-    return {k: cfg[k] for k in (_TRANSFORMER_KEYS if dense else _MATH_KEYS) if k in cfg}
+    return {k: cfg[k] for k in (_TRANSFORMER_KEYS if dense else _GT_KEYS) if k in cfg}
 
 
 def fused_backward(config: dict, part: str, num_edges: int, num_channels: int) -> bool:

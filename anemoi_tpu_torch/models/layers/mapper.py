@@ -3,7 +3,9 @@
 Port of ``anemoi_tpu.models.layers.mapper`` (``TrainableEdgeFeatures``,
 ``GraphTransformerForwardMapper``, ``GraphTransformerBackwardMapper``).
 A mapper = node embeddings + one bipartite block + (decoder) the output
-extractor.
+extractor.  ``gradient_checkpointing`` (default off, as in the JAX package)
+checkpoints the block alone under ``remat_policy``; the node embeddings and
+the trainable edge features stay outside.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from anemoi_tpu_torch.models.graph import SubGraphArrays
 from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerMapperBlock
 from anemoi_tpu_torch.models.layers.mlp import compute_mlp_hidden_dim
 from anemoi_tpu_torch.models.layers.normalization import LayerNorm
+from anemoi_tpu_torch.models.layers.remat import BlockRemat
 
 
 class TrainableEdgeFeatures(nn.Module):
@@ -42,7 +45,7 @@ def _block(in_channels, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio, attn_
     )
 
 
-class GraphTransformerForwardMapper(nn.Module):
+class GraphTransformerForwardMapper(BlockRemat, nn.Module):
     """data -> hidden encoder.  Returns ``(x[0], latent)``: the RAW source
     input, not its embedding -- the decoder re-embeds it with its own
     ``emb_nodes_dst``."""
@@ -51,8 +54,10 @@ class GraphTransformerForwardMapper(nn.Module):
         self, in_channels_src: int, in_channels_dst: int, hidden_dim: int, num_heads: int,
         edge_dim: int, mlp_hidden_ratio: float = 4.0, attn_channels: Optional[int] = None,
         qk_norm: bool = False, edge_pre_mlp: bool = False,
+        gradient_checkpointing: bool = False, remat_policy: Optional[str] = "save_attention",
     ) -> None:
         super().__init__()
+        self._init_remat(gradient_checkpointing, remat_policy)
         self.emb_nodes_src = nn.Linear(in_channels_src, hidden_dim)
         self.emb_nodes_dst = nn.Linear(in_channels_dst, hidden_dim)
         self.proc = _block(hidden_dim, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio,
@@ -63,11 +68,11 @@ class GraphTransformerForwardMapper(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         x_src = self.emb_nodes_src(x[0])
         x_dst = self.emb_nodes_dst(x[1])
-        _, x_dst = self.proc((x_src, x_dst), sub, edge_attr)
+        _, x_dst = self._run(self.proc, (x_src, x_dst), sub, edge_attr)
         return x[0], x_dst
 
 
-class GraphTransformerBackwardMapper(nn.Module):
+class GraphTransformerBackwardMapper(BlockRemat, nn.Module):
     """hidden -> data decoder: embed the data nodes' raw input, attend from
     the mesh, then ``node_data_extractor`` = LayerNorm -> Linear(out)."""
 
@@ -75,8 +80,10 @@ class GraphTransformerBackwardMapper(nn.Module):
         self, in_channels_dst: int, hidden_dim: int, out_channels_dst: int, num_heads: int,
         edge_dim: int, mlp_hidden_ratio: float = 4.0, attn_channels: Optional[int] = None,
         qk_norm: bool = False, edge_pre_mlp: bool = False,
+        gradient_checkpointing: bool = False, remat_policy: Optional[str] = "save_attention",
     ) -> None:
         super().__init__()
+        self._init_remat(gradient_checkpointing, remat_policy)
         self.emb_nodes_dst = nn.Linear(in_channels_dst, hidden_dim)
         self.proc = _block(hidden_dim, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio,
                            attn_channels, qk_norm, edge_pre_mlp)
@@ -88,7 +95,7 @@ class GraphTransformerBackwardMapper(nn.Module):
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
     ) -> torch.Tensor:
         x_dst = self.emb_nodes_dst(x[1])
-        _, x_dst = self.proc((x[0], x_dst), sub, edge_attr)
+        _, x_dst = self._run(self.proc, (x[0], x_dst), sub, edge_attr)
         norm, head = self.node_data_extractor
         out = norm(x_dst)
         # a float32 head under bf16 compute (training's fp32_head) promotes its

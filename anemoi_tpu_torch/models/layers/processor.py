@@ -4,9 +4,10 @@ Port of ``anemoi_tpu.models.layers.processor``: ``GraphTransformerProcessor``
 and the dense ``TransformerProcessor`` (with ``TransformerProcessorBlock``).
 The JAX package runs the layers as one ``nn.scan`` over stacked parameters;
 here they are an ``nn.ModuleList`` (``proc.<i>``, anemoi-core's layout),
-run in a Python loop.  The JAX keys that only steer the TPU's execution
-(``gradient_checkpointing``, ``remat_policy``, ``scan_layers``) have no
-counterpart.
+run in a Python loop.  ``gradient_checkpointing`` (default on) checkpoints
+each block under ``remat_policy`` (default ``save_attention``), as the JAX
+package remats its scan body of one block; only while autograd records, so
+forecasts and evaluation run as before.  ``scan_layers`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -21,17 +22,20 @@ from anemoi_tpu_torch.models.layers.attention import MultiHeadSelfAttention
 from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerProcessorBlock
 from anemoi_tpu_torch.models.layers.mlp import MLP, compute_mlp_hidden_dim
 from anemoi_tpu_torch.models.layers.normalization import LayerNorm
+from anemoi_tpu_torch.models.layers.remat import BlockRemat
 
 
-class GraphTransformerProcessor(nn.Module):
+class GraphTransformerProcessor(BlockRemat, nn.Module):
     """Stack of graph-transformer blocks over the hidden mesh."""
 
     def __init__(
         self, num_layers: int, num_channels: int, num_heads: int, edge_dim: int,
         mlp_hidden_ratio: float = 4.0, attn_channels: Optional[int] = None,
         qk_norm: bool = False, edge_pre_mlp: bool = False,
+        gradient_checkpointing: bool = True, remat_policy: Optional[str] = "save_attention",
     ) -> None:
         super().__init__()
+        self._init_remat(gradient_checkpointing, remat_policy)
         hidden = compute_mlp_hidden_dim(num_channels, mlp_hidden_ratio)
         self.proc = nn.ModuleList(
             GraphTransformerProcessorBlock(
@@ -43,7 +47,7 @@ class GraphTransformerProcessor(nn.Module):
 
     def forward(self, x: torch.Tensor, sub: SubGraphArrays, edge_attr: torch.Tensor) -> torch.Tensor:
         for block in self.proc:
-            x = block(x, sub, edge_attr)
+            x = self._run(block, x, sub, edge_attr)
         return x
 
 
@@ -63,16 +67,18 @@ class TransformerProcessorBlock(nn.Module):
         return x + self.mlp(self.layer_norm_mlp(x))
 
 
-class TransformerProcessor(nn.Module):
+class TransformerProcessor(BlockRemat, nn.Module):
     """Stack of dense sliding-window transformer blocks over the hidden
     nodes, in their (space-filling-curve) order; the processor edges are
     not read."""
 
     def __init__(
         self, num_layers: int, num_channels: int, num_heads: int,
-        mlp_hidden_ratio: float = 4.0, **attention_kw,
+        mlp_hidden_ratio: float = 4.0, gradient_checkpointing: bool = True,
+        remat_policy: Optional[str] = "save_attention", **attention_kw,
     ) -> None:
         super().__init__()
+        self._init_remat(gradient_checkpointing, remat_policy)
         hidden = compute_mlp_hidden_dim(num_channels, mlp_hidden_ratio)
         self.proc = nn.ModuleList(
             TransformerProcessorBlock(num_channels, hidden, num_heads, **attention_kw)
@@ -81,5 +87,5 @@ class TransformerProcessor(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.proc:
-            x = block(x)
+            x = self._run(block, x)
         return x

@@ -14,8 +14,9 @@ type, ``lse`` ``[..., Nd, H]`` in float32.  A destination with no incoming
 edges gets ``out = 0`` and ``lse = -inf``.  ``query`` is ``[Nd, HD]`` or
 ``[B, Nd, HD]``; edges, attributes and weights are shared over the batch.
 
-Both ops are differentiable (``torch.autograd.Function``, the counterpart of
-the JAX package's ``custom_vjp``); ``lse`` is not.  The backward forms
+Both ops are differentiable: they run through one ``torch.library`` op,
+:func:`gt_attention_fwd`, whose registered autograd is the counterpart of the
+JAX package's ``custom_vjp``; ``lse`` is not differentiable.  The backward forms
 ``delta = sum_head(out * g)`` in float32 and then runs the destination pass
 (K3) followed by the source pass (K4), or, with ``fused_bwd``, K3 without its
 per-edge ``[B, E, 2HD]`` buffer followed by the fused source pass (K5).  The
@@ -205,56 +206,74 @@ class SourceOrder(NamedTuple):
         return cls(torch.as_tensor(ptr, device=dev), torch.as_tensor(perm, device=dev))
 
 
-class _GTAttention(torch.autograd.Function):
-    """``[B, Nd, HD]`` attention with its backward.  ``graph`` is
-    ``(edge_index, dst_ptr, SourceOrder)``; the order may be None on the
-    plain path, which does not read it."""
+@torch.library.custom_op("anemoi_tpu_torch::gt_attention_fwd", mutates_args=())
+def gt_attention_fwd(
+    query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+    edges: Optional[torch.Tensor], edge_attr: Optional[torch.Tensor],
+    weight: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+    edge_index: torch.Tensor, dst_ptr: torch.Tensor,
+    src_ptr: Optional[torch.Tensor], src_perm: Optional[torch.Tensor],
+    num_heads: int, fused_bwd: bool, plain: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[B, Nd, HD]`` attention as one op, ``(out, lse)``: the plain version
+    with ``plain``, else K1 (``weight`` given) or K2.  Being an op, it is
+    what a checkpoint policy sees (``models/layers/remat.py``: the
+    ``save_attention`` policies keep its outputs, as the JAX package's keep
+    the tagged ``paged_attn_out``/``paged_attn_lse``).  ``src_ptr``,
+    ``src_perm`` and ``fused_bwd`` steer only the backward."""
+    if plain:
+        return gt_attention_plain(
+            query, key, value, _project(edges, edge_attr, weight, bias, _acc_type(query)),
+            edge_index, dst_ptr, num_heads,
+        )
+    from anemoi_tpu_torch.kernels import gt_attention as kern
 
-    @staticmethod
-    def forward(ctx, query, key, value, edges, edge_attr, weight, bias, graph, num_heads,
-                fused_bwd, plain):
-        edge_index, dst_ptr, order = graph
-        if plain:
-            out, lse = gt_attention_plain(
-                query, key, value, _project(edges, edge_attr, weight, bias, _acc_type(query)),
-                edge_index, dst_ptr, num_heads,
-            )
-        else:
-            from anemoi_tpu_torch.kernels import gt_attention as kern
+    if weight is None:
+        return kern.gt_attention_edge(query, key, value, edges, edge_index, dst_ptr, num_heads)
+    return kern.gt_attention_fused_edge(
+        query, key, value, edge_attr, weight, bias, edge_index, dst_ptr, num_heads
+    )
 
-            if weight is None:
-                out, lse = kern.gt_attention_edge(
-                    query, key, value, edges, edge_index, dst_ptr, num_heads
-                )
-            else:
-                out, lse = kern.gt_attention_fused_edge(
-                    query, key, value, edge_attr, weight, bias, edge_index, dst_ptr, num_heads
-                )
-        ctx.save_for_backward(query, key, value, edges, edge_attr, weight, bias, out, lse)
-        ctx.graph, ctx.num_heads, ctx.fused_bwd, ctx.plain = graph, num_heads, fused_bwd, plain
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, g_out, _g_lse):
-        query, key, value, edges, edge_attr, weight, bias, out, lse = ctx.saved_tensors
-        edge_index, dst_ptr, order = ctx.graph
-        need = ctx.needs_input_grad
-        edge_kw = dict(edges=edges, edge_attr=edge_attr, weight=weight, bias=bias)
-        if ctx.plain:
-            grads = gt_attention_bwd_plain(
-                query, key, value, edge_index, ctx.num_heads, out, lse, g_out, **edge_kw
-            )
-        else:
-            grads = gt_attention_bwd_kernels(
-                query, key, value, edge_index, dst_ptr, order.src_ptr, order.src_perm,
-                ctx.num_heads, out, lse, g_out, fused_bwd=ctx.fused_bwd,
-                edge_grad=need[3] or need[4], weight_grad=need[5] or need[6], **edge_kw,
-            )
-        return (grads.dq, grads.dk, grads.dv,
-                grads.d_edges if need[3] else None, grads.d_attr if need[4] else None,
-                grads.d_weight if need[5] else None, grads.d_bias if need[6] else None,
-                None, None, None, None)
+@gt_attention_fwd.register_fake
+def _(query, key, value, edges, edge_attr, weight, bias, edge_index, dst_ptr, src_ptr,
+      src_perm, num_heads, fused_bwd, plain):
+    b, nd, _ = query.shape
+    return torch.empty_like(query), query.new_empty((b, nd, num_heads), dtype=_acc_type(query))
+
+
+def _gt_setup_context(ctx, inputs, output):
+    (query, key, value, edges, edge_attr, weight, bias, edge_index, dst_ptr, src_ptr, src_perm,
+     num_heads, fused_bwd, plain) = inputs
+    out, lse = output
+    ctx.save_for_backward(query, key, value, edges, edge_attr, weight, bias, out, lse,
+                          edge_index, dst_ptr, src_ptr, src_perm)
+    ctx.num_heads, ctx.fused_bwd, ctx.plain = num_heads, fused_bwd, plain
+    ctx.mark_non_differentiable(lse)
+
+
+def _gt_backward(ctx, g_out, _g_lse):
+    (query, key, value, edges, edge_attr, weight, bias, out, lse,
+     edge_index, dst_ptr, src_ptr, src_perm) = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    edge_kw = dict(edges=edges, edge_attr=edge_attr, weight=weight, bias=bias)
+    if ctx.plain:
+        grads = gt_attention_bwd_plain(
+            query, key, value, edge_index, ctx.num_heads, out, lse, g_out, **edge_kw
+        )
+    else:
+        grads = gt_attention_bwd_kernels(
+            query, key, value, edge_index, dst_ptr, src_ptr, src_perm, ctx.num_heads, out, lse,
+            g_out, fused_bwd=ctx.fused_bwd, edge_grad=need[3] or need[4],
+            weight_grad=need[5] or need[6], **edge_kw,
+        )
+    return (grads.dq, grads.dk, grads.dv,
+            grads.d_edges if need[3] else None, grads.d_attr if need[4] else None,
+            grads.d_weight if need[5] else None, grads.d_bias if need[6] else None,
+            *(None,) * 7)
+
+
+gt_attention_fwd.register_autograd(_gt_backward, setup_context=_gt_setup_context)
 
 
 def _use_plain(query: torch.Tensor, plain: bool) -> bool:
@@ -271,12 +290,13 @@ def _apply(query, key, value, edges, edge_attr, weight, bias, edge_index, dst_pt
     if not plain and source is None:
         raise ValueError("the kernel path needs the source-ordered view: pass "
                          "source=SourceOrder.of(edge_index, num_src)")
-    graph = (edge_index, dst_ptr, source)
-    args = (edges, edge_attr, weight, bias, graph, num_heads, bool(fused_bwd), plain)
+    src_ptr, src_perm = source if source is not None else (None, None)
+    args = (edges, edge_attr, weight, bias, edge_index, dst_ptr, src_ptr, src_perm,
+            int(num_heads), bool(fused_bwd), plain)
     if query.dim() == 2:
-        out, lse = _GTAttention.apply(query[None], key[None], value[None], *args)
+        out, lse = gt_attention_fwd(query[None], key[None], value[None], *args)
         return out[0], lse[0]
-    return _GTAttention.apply(query, key, value, *args)
+    return gt_attention_fwd(query, key, value, *args)
 
 
 def gt_attention(

@@ -16,12 +16,13 @@ This module computes the band ``|i - j| <= w``.  When the band runs and
 when full attention runs instead is the JAX ``MultiHeadSelfAttention``'s
 rule, kept in ``models/layers/attention.py`` (``self_attention``).
 
-The band on CPU tensors (or with ``plain=True``) runs
+The band is one ``torch.library`` op, :func:`band_attention_fwd`, with a
+registered autograd.  On CPU tensors (or with ``plain=True``) it runs
 :func:`band_attention_plain`, the port's copy of ``_window_attention``'s
-block-banded scheme, and its backward is autograd of it.  On CUDA tensors it
-is a ``torch.autograd.Function`` whose forward launches K6 and whose
-backward launches K7 (``anemoi_tpu_torch/kernels/window_attention.py``),
-softcap included; there is no fallback -- a kernel that cannot run raises.
+block-banded scheme, and its backward is autograd of it.  On CUDA tensors
+its forward launches K6 and its backward K7
+(``anemoi_tpu_torch/kernels/window_attention.py``), softcap included; there
+is no fallback -- a kernel that cannot run raises.
 The plain versions compute in float32 (float64 for float64 inputs) and
 round the output once to the input type, as the kernels do.
 """
@@ -112,32 +113,57 @@ def band_attention_bwd_plain(
     return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
-class _BandAttention(torch.autograd.Function):
-    """The band on the card: K6 forward, K7 backward (dq; dk and dv)."""
+@torch.library.custom_op("anemoi_tpu_torch::band_attention_fwd", mutates_args=())
+def band_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
+    softcap: Optional[float], slopes: Optional[torch.Tensor], plain: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The band as one op, ``(out, lse)``: :func:`band_attention_plain` with
+    ``plain``, else K6.  Being an op, it is what a checkpoint policy sees
+    (``models/layers/remat.py``: the ``save_attention`` policies keep its
+    outputs, as the JAX package's keep the tagged ``flash_attn_out``/
+    ``flash_attn_lse``)."""
+    if plain:
+        return band_attention_plain(q, k, v, window_size, softcap, slopes)
+    from anemoi_tpu_torch.kernels import window_attention as kern
 
-    @staticmethod
-    def forward(ctx, q, k, v, window_size, softcap, slopes):
-        from anemoi_tpu_torch.kernels import window_attention as kern
+    return kern.window_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                     window_size, softcap, slopes)
 
-        q, k, v = (x.contiguous() for x in (q, k, v))
-        out, lse = kern.window_attention_fwd(q, k, v, window_size, softcap, slopes)
-        ctx.save_for_backward(q, k, v, out, lse, slopes)
-        ctx.window_size, ctx.softcap = window_size, softcap
-        return out
 
-    @staticmethod
-    def backward(ctx, g_out):
-        from anemoi_tpu_torch.kernels import window_attention as kern
+@band_attention_fwd.register_fake
+def _(q, k, v, window_size, softcap, slopes, plain):
+    b, n, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, n), dtype=_acc_type(q))
 
-        q, k, v, out, lse, slopes = ctx.saved_tensors
-        g = g_out.contiguous()
-        # delta = rowsum(dO * O) per (batch, head, position), float32 [B, H, N]
-        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = kern.window_attention_bwd_dq(q, k, v, g, lse, delta, ctx.window_size, ctx.softcap,
-                                          slopes)
-        dk, dv = kern.window_attention_bwd_dkv(q, k, v, g, lse, delta, ctx.window_size,
-                                               ctx.softcap, slopes)
-        return dq, dk, dv, None, None, None
+
+def _band_setup_context(ctx, inputs, output):
+    q, k, v, window_size, softcap, slopes, plain = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse, slopes)
+    ctx.window_size, ctx.softcap, ctx.plain = window_size, softcap, plain
+    ctx.mark_non_differentiable(lse)
+
+
+def _band_backward(ctx, g_out, _g_lse):
+    """The plain version's autograd backward, or K7 (dq; dk and dv)."""
+    q, k, v, out, lse, slopes = ctx.saved_tensors
+    w, softcap = ctx.window_size, ctx.softcap
+    if ctx.plain:
+        dq, dk, dv = band_attention_bwd_plain(q, k, v, g_out, w, softcap, slopes)
+        return dq, dk, dv, None, None, None, None
+    from anemoi_tpu_torch.kernels import window_attention as kern
+
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    g = g_out.contiguous()
+    # delta = rowsum(dO * O) per (batch, head, position), float32 [B, H, N]
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = kern.window_attention_bwd_dq(q, k, v, g, lse, delta, w, softcap, slopes)
+    dk, dv = kern.window_attention_bwd_dkv(q, k, v, g, lse, delta, w, softcap, slopes)
+    return dq, dk, dv, None, None, None, None
+
+
+band_attention_fwd.register_autograd(_band_backward, setup_context=_band_setup_context)
 
 
 def band_attention(
@@ -146,14 +172,13 @@ def band_attention(
     plain: bool = False,
 ) -> torch.Tensor:
     """The band ``|i - j| <= w`` of ``[B, N, H, D]`` inputs, differentiable:
-    K6/K7 on CUDA tensors, :func:`band_attention_plain` on CPU tensors or
-    with ``plain=True``.  ``alibi_slopes``: float32 ``[H]`` or None (the
-    slopes get no gradient)."""
+    K6/K7 on CUDA tensors, :func:`band_attention_plain` and its autograd
+    backward on CPU tensors or with ``plain=True``.  ``alibi_slopes``:
+    float32 ``[H]`` or None (the slopes get no gradient)."""
     softcap = float(softcap) if softcap else None
-    if _use_plain(q, plain):
-        return band_attention_plain(q, k, v, window_size, softcap, alibi_slopes)[0]
+    plain = _use_plain(q, plain)
     slopes = None if alibi_slopes is None else alibi_slopes.to(q.device, torch.float32)
-    return _BandAttention.apply(q, k, v, int(window_size), softcap, slopes)
+    return band_attention_fwd(q, k, v, int(window_size), softcap, slopes, plain)[0]
 
 
 def band_pairs(n: int, window_size: int) -> int:

@@ -2,21 +2,26 @@
 
 Port of ``anemoi_tpu.training.cli`` with the same arguments:
 
-    train <config.json> [a.b.c=value ...] [--output-dir DIR]
-    evaluate <config.json> [a.b.c=value ...] [--output-dir DIR] [--rollout N]
-    predict <bundle> [--config C.json] [--steps N] [--start-index I]
+    train <config.yaml|json> [a.b.c=value ...] [--output-dir DIR]
+    evaluate <config.yaml|json> [a.b.c=value ...] [--output-dir DIR] [--rollout N]
+    predict <bundle> [--config C.yaml] [--steps N] [--start-index I]
                      [--output F.npz] [--seed S] [--platform cpu] [--aot-cache DIR]
+    config list
+    config generate <config.yaml|json> [a.b.c=value ...] [--output F.yaml]
     checkpoint inspect <bundle>
 
-Configs are JSON files (or dicts, through :func:`main`'s callers): compose a
-packaged preset with the JAX package's ``load_config`` and ``json.dump`` it.
+Configs are YAML (or JSON) files composed with their ``defaults:`` by
+``utils/config.py:load_config``, searched in the file's folder and then in
+the packaged presets (``anemoi_tpu_torch/config``, which ``config list``
+lists).  ``config generate`` prints or writes the composed config as YAML.
 ``hardware.platform=cpu`` (train, evaluate) or ``--platform cpu`` (predict)
 runs on the CPU; otherwise the CUDA card, which must be visible.  Configs
 are not schema-validated (``schemas.py`` needs pydantic and is not ported).
-The subcommands ``validate``, ``config``, ``mlflow``, ``profile`` and
-``checkpoint migrate`` are not ported: they print so and return 2.
+The subcommands ``validate``, ``mlflow``, ``profile`` and ``checkpoint
+migrate`` are not ported: they print so and return 2.
 
-    python -m anemoi_tpu_torch.training.cli train cfg.json hardware.platform=cpu
+    python -m anemoi_tpu_torch.training.cli train anemoi_tpu_torch/config/example_o96_gt.yaml \
+        hardware.platform=cpu
 """
 
 from __future__ import annotations
@@ -39,8 +44,8 @@ def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="anemoi-tpu-torch-training")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p_train = sub.add_parser("train", help="Train a model from a JSON config")
-    p_train.add_argument("config", help="JSON config path")
+    p_train = sub.add_parser("train", help="Train a model from a YAML or JSON config")
+    p_train.add_argument("config", help="YAML or JSON config path")
     p_train.add_argument("overrides", nargs="*", help="a.b.c=value overrides")
     p_train.add_argument("--output-dir", default=None)
 
@@ -54,8 +59,13 @@ def _parser() -> argparse.ArgumentParser:
     p_eval.add_argument("--output-dir", default=None)
     p_eval.add_argument("--rollout", type=int, default=None)
 
-    p_cfg = sub.add_parser("config", help="(not ported)")
-    p_cfg.add_argument("rest", nargs="*")
+    p_cfg = sub.add_parser("config", help="List the packaged presets / dump composed configs")
+    cfg_sub = p_cfg.add_subparsers(dest="config_command", required=True)
+    p_cfg_gen = cfg_sub.add_parser("generate", help="Dump the fully composed config")
+    p_cfg_gen.add_argument("config")
+    p_cfg_gen.add_argument("overrides", nargs="*")
+    p_cfg_gen.add_argument("--output", default=None)
+    cfg_sub.add_parser("list", help="List the packaged config files")
 
     p_ckpt = sub.add_parser("checkpoint", help="Inspect checkpoints")
     ckpt_sub = p_ckpt.add_subparsers(dest="checkpoint_command", required=True)
@@ -70,7 +80,7 @@ def _parser() -> argparse.ArgumentParser:
     p_pred = sub.add_parser("predict", help="Autoregressive forecast from an inference checkpoint")
     p_pred.add_argument("checkpoint", help="Inference checkpoint directory")
     p_pred.add_argument("--config", default=None,
-                        help="JSON config with data.datasets for the initial conditions "
+                        help="Config with data.datasets for the initial conditions "
                              "(default: the checkpoint's bundled config)")
     p_pred.add_argument("--steps", type=int, default=4)
     p_pred.add_argument("--start-index", type=int, default=0)
@@ -133,12 +143,24 @@ def _evaluate(conf: dict, output_dir, rollout) -> int:
     return 0
 
 
+def _config_list() -> int:
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    for dirpath, _, files in sorted(os.walk(PACKAGED_CONFIG_DIR)):
+        for f in sorted(files):
+            if f.endswith(".yaml"):
+                print(os.path.relpath(os.path.join(dirpath, f), PACKAGED_CONFIG_DIR))
+    return 0
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     args = _parser().parse_args(argv)
 
-    if args.command in ("validate", "config", "mlflow", "profile"):
+    if args.command in ("validate", "mlflow", "profile"):
         return _not_ported(args.command)
+    if args.command == "config" and args.config_command == "list":
+        return _config_list()
     if args.command == "checkpoint":
         if args.checkpoint_command == "migrate":
             return _not_ported("checkpoint migrate")
@@ -148,9 +170,19 @@ def main(argv=None) -> int:
 
         return run_forecast_cli(args)
 
-    from anemoi_tpu_torch.utils.config import load_config
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, dump_yaml, load_config
 
-    conf = load_config(args.config, overrides=list(args.overrides)).to_dict()
+    conf = load_config(args.config, overrides=list(args.overrides),
+                       search_paths=[PACKAGED_CONFIG_DIR]).to_dict()
+    if args.command == "config":  # generate (list handled above)
+        text = dump_yaml(conf)
+        if args.output:
+            with open(args.output, "w") as f:
+                f.write(text)
+            print(f"composed config -> {args.output}")
+        else:
+            print(text, end="")
+        return 0
     if args.command == "train":
         from anemoi_tpu_torch.training.trainer import AnemoiTrainer
 

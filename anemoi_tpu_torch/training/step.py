@@ -8,10 +8,13 @@ the master weights and the optimizer state in place.
 Batch layout (data space, un-normalised): ``{ds: [B, W, E, G, V_data]}``
 with ``W = n_step_input + rollout * n_step_output``.
 
+Rollout remat (``remat_rollout`` at ``rollout > 1``) checkpoints each
+rollout step's forward under ``remat_policy`` (``None``: recompute it
+whole), as the JAX step wraps it in ``jax.checkpoint``.
+
 Not ported (``NotImplementedError``): the autoencoder and
-temporal-downscaler tasks, ensembles (``ensemble_size > 1``), boundary
-masks, and rollout remat (``remat_rollout`` at ``rollout > 1``,
-``remat_policy``).
+temporal-downscaler tasks, ensembles (``ensemble_size > 1``) and boundary
+masks.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from anemoi_tpu_torch.data_indices.collection import IndexCollection
+from anemoi_tpu_torch.models.layers.remat import checkpointed, resolve_remat_policy
 from anemoi_tpu_torch.training.metrics import variable_groups
 
 COMPUTE_TYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": torch.bfloat16,
@@ -111,7 +115,7 @@ def make_step_fns(
     interface,
     losses: Dict[str, Callable],
     rollout: int,
-    remat_rollout: bool = False,
+    remat_rollout: bool = True,
     remat_policy: Optional[str] = None,
     ensemble_size: int = 1,
     output_masks: Optional[dict] = None,
@@ -126,7 +130,12 @@ def make_step_fns(
     (float32 master weights).  ``losses``: per-dataset loss callables
     ``(pred, target) -> scalar``.  ``precision="bf16"`` runs the model on
     bf16 compute copies of the masters (``fp32_head`` keeps the decoder's
-    output head in float32); the loss is always float32.
+    output head in float32); the loss is always float32.  With
+    ``remat_rollout`` and ``rollout > 1`` each rollout step's forward is
+    checkpointed under ``remat_policy`` (``None`` or ``"full"``: nothing
+    kept; ``"save_attention"``, ``"save_attention_mlp"``, ``"dots"``: see
+    ``models/layers/remat.py``); the compute copies are cast once per step,
+    outside the checkpoints, and enter them as inputs.
 
     ``train_step(state, batch) -> (state, {"loss", "grad_norm"})`` updates
     ``state`` IN PLACE (the master weights, the optimizer state and the step
@@ -142,8 +151,10 @@ def make_step_fns(
         raise NotImplementedError("ensemble training is not ported to anemoi_tpu_torch")
     if output_masks:
         raise NotImplementedError("boundary masks are not ported to anemoi_tpu_torch")
-    if remat_policy is not None or (remat_rollout and rollout > 1):
-        raise NotImplementedError("rollout remat is not ported to anemoi_tpu_torch")
+    policy = resolve_remat_policy(remat_policy)
+    # at rollout 1 there is nothing between rollout steps to free: the outer
+    # checkpoint would only add a recompute (the JAX step's rule)
+    remat = remat_rollout and rollout > 1
     if precision not in COMPUTE_TYPES:
         raise ValueError(f"unknown precision '{precision}'")
     if any(p.dtype != torch.float32 for p in interface.parameters()):
@@ -183,7 +194,10 @@ def make_step_fns(
         total = 0.0
         metrics: Dict[str, torch.Tensor] = {}
         for step in range(rollout):
-            y_pred = interface.run_model(x, params)
+            if remat and torch.is_grad_enabled():
+                y_pred = checkpointed(interface.run_model, policy, x, params)
+            else:
+                y_pred = interface.run_model(x, params)
             t0 = m + step * n_out
             for ds in dataset_names:
                 target = batch_norm[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]]

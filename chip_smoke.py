@@ -50,7 +50,9 @@ Phases (any failure exits non-zero, with no result line):
                   memory;
   8. training  -- flagship training steps through ``make_step_fns`` (bf16
                   compute over float32 masters, area-weighted MSE, AdamW,
-                  value clipping at 32, rollout 1): finite loss and grad norm,
+                  value clipping at 32, rollout 1; the processor's default
+                  per-layer remat, ``save_attention``, as in phases 9 and
+                  12): finite loss and grad norm,
                   exactly 18 K1, K3 and K4 launches per step (18 K5 and no K4
                   under ``paged_fused_bwd``) and no other kernel, non-zero
                   gradients on every attention projection, gradients of both
@@ -94,9 +96,31 @@ Phases (any failure exits non-zero, with no result line):
                   and projection, the flattened gradient within relative L2
                   1e-2 of the plain attention's at all 16 layers; ms per step
                   and peak memory;
- 13. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 13. remat     -- the flagship through ``make_step_fns`` on one interface
+                  (the same weights) in each remat variant: per-layer remat
+                  off, ``save_attention`` and ``full`` at rollout 1; no
+                  remat, ``remat_rollout`` off, and on with no policy
+                  (``full``) and with ``save_attention`` at rollout 2; no
+                  remat and ``remat_rollout`` (``full``) at rollout 3.  Each:
+                  exactly the K1, K3 and K4 launches a step that the remat
+                  structure gives (``remat_launches``: the counts
+                  tests/test_torch_remat.py asserts on the CPU), the
+                  gradient within relative L2 1e-5 of no remat at the same
+                  rollout, wall ms a step (median of 3 after 1 of warmup),
+                  device ms and launches a step (``torch.profiler``, the
+                  card's activity over 1 step) and peak memory;
+ 14. presets   -- the packaged YAML presets without PyYAML: ``cli config
+                  list`` lists the files of ``anemoi_tpu/config`` (49, 16
+                  presets); ``example_o96_gt.yaml`` composed with the
+                  flagship's width equals ``example_o96_gt_config()``;
+                  ``cli train`` on that YAML over phase 9's store at
+                  rollout 2 with the packaged remat defaults (3 steps:
+                  finite records, exactly 72 K1, 36 K3 and 36 K4 a step);
+                  ``cli evaluate --rollout 2`` on it;
+ 15. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
-                  ``path_of`` in ``report``), the card line, and last
+                  ``path_of`` in ``report``; ``launches_by_path`` also each
+                  remat variant's and the YAML preset's), the card line, and last
                   {"ok": true, "device": {...}}; with --json, the same and
                   the serving and training details also go to PATH.
 
@@ -873,39 +897,45 @@ def serving_phase(graph, device, config=None, per_step=None, label="serving") ->
     return result
 
 
-def training_batch(graph, device):
-    """A data-space batch of m + 1 = 3 steps (rollout 1) from the seeded
-    statistics."""
+def training_batch(graph, device, times: int = 3):
+    """A data-space batch of ``times`` steps (3 = m + 1: rollout 1) from the
+    seeded statistics."""
     idx = flagship_indices()["data"]
     stats = flagship_statistics(SEED)
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    noise = torch.randn(1, 3, 1, graph["data"].num_nodes, idx.num_data_vars, generator=gen,
+    noise = torch.randn(1, times, 1, graph["data"].num_nodes, idx.num_data_vars, generator=gen,
                         device=device)
     mean, std = (torch.as_tensor(stats["data"][k], device=device) for k in ("mean", "stdev"))
     return {"data": mean + std * noise}
 
 
-def build_training(graph, device, config):
-    """(interface, TrainState, train_step) of the bench's training setup:
-    bf16 over float32 masters, area-weighted MSE, AdamW, value clipping at
-    32, rollout 1."""
-    from anemoi_tpu_torch.models.interface import AnemoiModelInterface
+def training_losses(graph):
+    """The bench's loss: area-weighted MSE."""
     from anemoi_tpu_torch.training.losses import get_loss_function
     from anemoi_tpu_torch.training.losses.scalers import create_scalers
-    from anemoi_tpu_torch.training.optimizers import build_optimizer
-    from anemoi_tpu_torch.training.step import TrainState, make_step_fns
 
     scalers = create_scalers({"area": {"name": "GraphNodeAttributeScaler", "nodes_name": "data",
                                        "attribute_name": "area_weight"}}, graph=graph)
+    return {"data": get_loss_function({"name": "WeightedMSELoss", "scalers": ["area"]},
+                                      scalers)}
+
+
+def build_training(graph, device, config):
+    """(interface, TrainState, train_step) of the bench's training setup:
+    bf16 over float32 masters, area-weighted MSE, AdamW, value clipping at
+    32, rollout 1; the processor's per-layer remat as configured (default:
+    ``save_attention``)."""
+    from anemoi_tpu_torch.models.interface import AnemoiModelInterface
+    from anemoi_tpu_torch.training.optimizers import build_optimizer
+    from anemoi_tpu_torch.training.step import TrainState, make_step_fns
+
     # the weights: the interface's own draws from context_seed("model-init")
     iface = AnemoiModelInterface(config=config, graph=graph, data_indices=flagship_indices(),
                                  statistics=flagship_statistics(SEED), device=device,
                                  training=True)
-    losses = {"data": get_loss_function({"name": "WeightedMSELoss", "scalers": ["area"]},
-                                        scalers)}
     tx = build_optimizer({"lr": {"rate": 1e-4, "warmup": 10, "iterations": 1000},
                           "gradient_clip": {"val": 32.0, "algorithm": "value"}})
-    train_step, _ = make_step_fns(iface, losses, rollout=1, precision="bf16")
+    train_step, _ = make_step_fns(iface, training_losses(graph), rollout=1, precision="bf16")
     return iface, TrainState.create(iface, tx), train_step
 
 
@@ -1264,8 +1294,239 @@ def transformer_training_phase(graph, device) -> dict:
     return result
 
 
+# the remat phase's variants on the flagship: (label, rollout, the
+# processor's per-layer policy or "off", remat_rollout, rollout policy)
+REMAT_VARIANTS = [
+    ("r1 layers off", 1, "off", False, None),
+    ("r1 layers save_attention", 1, "save_attention", False, None),
+    ("r1 layers full", 1, "full", False, None),
+    ("r2 no remat", 2, "off", False, None),
+    ("r2 rollout off", 2, "save_attention", False, None),
+    ("r2 rollout full", 2, "save_attention", True, None),
+    ("r2 rollout save_attention", 2, "save_attention", True, "save_attention"),
+    ("r3 no remat", 3, "off", False, None),
+    ("r3 rollout full", 3, "save_attention", True, None),
+]
+REMAT_STEPS = 3  # wall-timed steps a variant, after 1 of warmup; 1 more profiled
+REMAT_TOL = 1e-5  # relative L2, a variant's gradient against no remat at its rollout
+FLAGSHIP_LAYERS = 16
+KEEPS_ATTENTION = ("save_attention", "save_attention_mlp")
+
+
+def remat_launches(rollout, layer_policy, remat_rollout, rollout_policy) -> dict:
+    """A flagship training step's launches from the remat structure (the
+    counts tests/test_torch_remat.py asserts for the same structure): each
+    rollout step's forward launches K1 in its 18 blocks; a rollout
+    checkpoint that does not keep the attention's outputs runs the forward
+    again in the backward (rollout > 1 only); a per-layer checkpoint that
+    does not keep them runs each layer's K1 once more; K3 and K4 run once
+    a block's backward."""
+    f = LAUNCHES_PER_STEP
+    outer = remat_rollout and rollout > 1 and rollout_policy not in KEEPS_ATTENTION
+    again = FLAGSHIP_LAYERS if layer_policy not in ("off", *KEEPS_ATTENTION) else 0
+    return {**NO_LAUNCHES, "K1": (f * (1 + outer) + again) * rollout, "K3": f * rollout,
+            "K4": f * rollout}
+
+
+def profiled_device_ms(fn, steps: int):
+    """(device ms a step, device launches a step) of ``steps`` calls of
+    ``fn`` under ``torch.profiler`` (kernels and copies on the card; the
+    card's activity only: host ops would multiply the trace's parse
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    ms, n = 0.0, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
+            ms += evt.device_time / 1e3
+            n += 1
+    if n == 0:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return ms / steps, n / steps
+
+
+def remat_phase(graph, device) -> dict:
+    """The flagship through ``make_step_fns`` under each remat variant: exact
+    launches a step, the gradient against no remat at the same rollout, wall
+    and device ms a step and peak memory.  One interface (the same weights)
+    for every variant: the per-layer policy is set on its processor."""
+    from anemoi_tpu_torch.models.layers.remat import resolve_remat_policy
+    from anemoi_tpu_torch.training.step import make_step_fns
+
+    batch = training_batch(graph, device, times=2 + max(v[1] for v in REMAT_VARIANTS))
+    iface, state, _ = build_training(graph, device, flagship_config())
+    losses = training_losses(graph)
+    proc = iface.model.processor
+
+    def configure(rollout, layer_policy, remat_rollout, rollout_policy):
+        proc.gradient_checkpointing = layer_policy != "off"
+        proc.remat_policy = resolve_remat_policy(None if layer_policy == "off" else layer_policy)
+        train_step, _ = make_step_fns(iface, losses, rollout=rollout, remat_rollout=remat_rollout,
+                                      remat_policy=rollout_policy, precision="bf16")
+        return train_step, {"data": batch["data"][:, :2 + rollout]}
+
+    from anemoi_tpu_torch import kernels
+
+    # gradients first, all at the same weights
+    results, reference = {}, {}
+    for label, rollout, layer_policy, remat_rollout, rollout_policy in REMAT_VARIANTS:
+        train_step, b = configure(rollout, layer_policy, remat_rollout, rollout_policy)
+        kernels.reset_launches()
+        train_step.compute_gradients(state, b)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = remat_launches(rollout, layer_policy, remat_rollout, rollout_policy)
+        if launches != want:
+            raise RuntimeError(f"remat {label}: expected launches {want}, got {launches}")
+        g = flat_grads(iface)
+        if layer_policy == "off" and not remat_rollout:
+            reference[rollout] = g
+        gap = ((g - reference[rollout]).norm() / reference[rollout].norm()).item()
+        if not gap <= REMAT_TOL:
+            raise RuntimeError(f"remat {label}: gradient against no remat {gap:.3e} "
+                               f"(tol {REMAT_TOL})")
+        results[label] = {"rollout": rollout, "layer_policy": layer_policy,
+                          "remat_rollout": remat_rollout,
+                          "rollout_policy": rollout_policy if remat_rollout else None,
+                          "launches": launches, "grad_rel_l2_vs_no_remat": gap}
+        del g
+    del reference
+    iface.zero_grad(set_to_none=True)
+
+    for label, rollout, layer_policy, remat_rollout, rollout_policy in REMAT_VARIANTS:
+        train_step, b = configure(rollout, layer_policy, remat_rollout, rollout_policy)
+        train_step(state, b)  # warmup
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        walls = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            launches, loss, _ = one_step(state, train_step, b)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if launches != results[label]["launches"]:
+                raise RuntimeError(f"remat {label}: launches {launches} in a timed step")
+        peak = torch.cuda.max_memory_allocated(device)
+        device_ms, device_launches = profiled_device_ms(lambda: train_step(state, b), 1)
+        r = results[label]
+        r.update(ms_per_step=statistics.median(walls), ms_per_step_runs=walls,
+                 device_ms_per_step=device_ms, device_launches_per_step=device_launches,
+                 peak_memory_bytes=peak, loss=loss)
+        print(f"[remat] {label}: K1 {r['launches']['K1']} K3 {r['launches']['K3']} "
+              f"K4 {r['launches']['K4']} a step; gradient vs no remat "
+              f"{r['grad_rel_l2_vs_no_remat']:.3e}; "
+              f"wall {r['ms_per_step']:.3f} ms, device {device_ms:.3f} ms "
+              f"({device_launches:.1f} device launches) a step; peak {peak} B", flush=True)
+    proc.gradient_checkpointing = True
+    proc.remat_policy = resolve_remat_policy("save_attention")
+    del iface, state
+    torch.cuda.empty_cache()
+    print(f"[remat] {json.dumps(results)}", flush=True)
+    return results
+
+
+PRESET_STEPS = 3  # training steps of the presets phase, at rollout 2
+PRESET_ROLLOUT = 2
+
+
+def presets_phase(workdir: str) -> dict:
+    """The packaged presets read without PyYAML: ``cli config list``, the
+    example composed from its YAML, ``cli train`` on it over phase 9's store
+    at rollout 2 with the packaged remat defaults, ``cli evaluate --rollout
+    2``."""
+    import contextlib
+    import glob
+    import io
+
+    from anemoi_tpu_torch.flagship import example_o96_gt_config
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["config", "list"])
+    listed = out.getvalue().split()
+    jax_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "anemoi_tpu", "config")
+    files = sorted(os.path.relpath(p, jax_dir)
+                   for p in glob.glob(os.path.join(jax_dir, "**", "*.yaml"), recursive=True))
+    presets = [f for f in listed if os.sep not in f]
+    if rc != 0 or sorted(listed) != files or len(presets) != 16:
+        raise RuntimeError(f"presets: config list returned {rc} and {listed}, want {files}")
+    print(f"[presets] config list: {len(listed)} files, {len(presets)} presets, as "
+          f"anemoi_tpu/config lists them", flush=True)
+
+    preset = os.path.join(PACKAGED_CONFIG_DIR, "example_o96_gt.yaml")
+    width = ["model.num_channels=512", "model.processor.num_layers=16", "training.precision=bf16"]
+    t0 = time.perf_counter()
+    composed = load_config(preset, width, search_paths=[PACKAGED_CONFIG_DIR]).to_dict()
+    compose_s = time.perf_counter() - t0
+    if composed != example_o96_gt_config():
+        raise RuntimeError("presets: example_o96_gt.yaml composed differs from "
+                           "example_o96_gt_config()")
+    training = composed["training"]
+    print(f"[presets] example_o96_gt.yaml composed in {compose_s * 1e3:.2f} ms equals "
+          f"example_o96_gt_config(); remat_rollout {training.get('remat_rollout')}, "
+          f"remat_policy {training.get('remat_policy')}", flush=True)
+
+    store = os.path.join(workdir, "example_o96.zarr")
+    run_dir = os.path.join(workdir, "presets_run")
+    run = width + ["data.datasets.data.kind=zarr", f"data.datasets.data.path={store}",
+                   f"graph.save_path={os.path.join(workdir, 'graph.npz')}",  # phase 9's
+                   f"output_dir={run_dir}", f"training.max_steps={PRESET_STEPS}",
+                   "training.max_epochs=1", f"training.rollout.start={PRESET_ROLLOUT}",
+                   f"training.rollout.max={PRESET_ROLLOUT}", "diagnostics.log_interval=1"]
+    t0 = time.perf_counter()
+    with StepLaunches() as counted:
+        rc = cli.main(["train", preset, *run])
+    train_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"presets: cli train returned {rc}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "loss" in r]
+    if [(r["step"], r["rollout"]) for r in steps] != [
+            (i, PRESET_ROLLOUT) for i in range(1, PRESET_STEPS + 1)] or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps):
+        raise RuntimeError(f"presets: want {PRESET_STEPS} finite records at rollout "
+                           f"{PRESET_ROLLOUT}, got {steps}")
+    # the packaged defaults: remat_rollout true with no policy (full
+    # recompute of each rollout step), per-layer save_attention
+    want = remat_launches(PRESET_ROLLOUT, "save_attention", True, None)
+    if len(counted.per_step) != PRESET_STEPS or any(c != want for c in counted.per_step):
+        raise RuntimeError(f"presets: expected {want} in each of {PRESET_STEPS} steps, "
+                           f"got {counted.per_step}")
+    counted.trainer = counted.train_step = None
+    walls = [(b["elapsed_s"] - a["elapsed_s"]) * 1e3 for a, b in zip(steps, steps[1:])]
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["evaluate", preset, *run, "--rollout", str(PRESET_ROLLOUT)])
+    evaluate_s = time.perf_counter() - t0
+    text = out.getvalue()
+    if rc != 0 or "val_loss" not in text or f"/{PRESET_ROLLOUT}'" not in text:
+        raise RuntimeError(f"presets: cli evaluate returned {rc}: {text[-2000:]}")
+    torch.cuda.empty_cache()
+    result = {"files_listed": len(listed), "presets": len(presets), "compose_ms": compose_s * 1e3,
+              "train_s": train_s, "evaluate_s": evaluate_s,
+              "launches_per_step": counted.per_step[-1],
+              "losses": [r["loss"] for r in steps], "grad_norms": [r["grad_norm"] for r in steps],
+              "wall_ms_steps_2_on": walls}
+    print(f"[presets] cli train example_o96_gt.yaml at rollout {PRESET_ROLLOUT}: "
+          f"{PRESET_STEPS} steps, launches a step {counted.per_step[-1]}, wall ms a step "
+          f"(steps 2-{PRESET_STEPS}) {walls}; cli evaluate --rollout {PRESET_ROLLOUT} "
+          f"{evaluate_s:.2f} s", flush=True)
+    print(f"[presets] {json.dumps(result)}", flush=True)
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
-           t_training: dict, trainer: dict, predict: dict) -> dict:
+           t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -1274,14 +1535,17 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     2-step forecast for K1 and K2, its training step for K3 and K4, its
     ``paged_fused_bwd`` training step for K5, the Transformer's 2-step
     forecast for K6 and its training step for K7; ``launches_by_path`` has
-    these five and the packaged example's trainer step and 2-step
-    ``predict``."""
+    these five, the packaged example's trainer step and 2-step
+    ``predict``, each remat variant's flagship step (``remat: <variant>``)
+    and the YAML preset's trainer step at rollout 2."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
                "example_trainer_step": trainer["launches_per_step"],
                "example_predict_2_steps": predict["launches"],
                "transformer_serving_2_steps": t_serving["launches"],
-               "transformer_training_step": t_training["launches"]}
+               "transformer_training_step": t_training["launches"],
+               **{f"remat: {label}": r["launches"] for label, r in remat.items()},
+               "example_yaml_trainer_step_rollout_2": presets["launches_per_step"]}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
                "K4": "training_step", "K5": "training_step_fused_bwd",
                "K6": "transformer_serving_2_steps", "K7_dq": "transformer_training_step",
@@ -1355,10 +1619,13 @@ def main() -> int:
     graph = GraphCreator(flagship_recipe("o96", 5)).create()
     print(f"[graph] o96 -> ico-5 built in {time.perf_counter() - t0:.2f} s: "
           f"{ {k: es.num_edges for k, es in graph.edges.items()} }", flush=True)
+    phase_seconds = {}
+
     def phase(name, fn, *a):
         t = time.perf_counter()
         out = fn(*a)
-        print(f"[phase] {name}: {time.perf_counter() - t:.2f} s", flush=True)
+        phase_seconds[name] = time.perf_counter() - t
+        print(f"[phase] {name}: {phase_seconds[name]:.2f} s", flush=True)
         return out
 
     rows = phase("kernels", kernel_phase, graph, device)
@@ -1372,19 +1639,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         trainer = phase("trainer", trainer_phase, workdir, training)
         predict = phase("predict", predict_phase, workdir)
-    layers = TRANSFORMER_LAYERS
-    t_serving = phase("transformer serving", serving_phase, graph, device,
-                      transformer_config(num_layers=layers), {"K1": 2, "K6": layers},
-                      "transformer serving")
-    t_training = phase("transformer training", transformer_training_phase, graph, device)
-    rep = report(rows, serving, training, t_serving, t_training, trainer, predict)
+        layers = TRANSFORMER_LAYERS
+        t_serving = phase("transformer serving", serving_phase, graph, device,
+                          transformer_config(num_layers=layers), {"K1": 2, "K6": layers},
+                          "transformer serving")
+        t_training = phase("transformer training", transformer_training_phase, graph, device)
+        remat = phase("remat", remat_phase, graph, device)
+        presets = phase("presets", presets_phase, workdir)
+    rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"card": card, "build_seconds": seconds, "serving": serving,
+            json.dump({"card": card, "build_seconds": seconds, "phase_seconds": phase_seconds,
+                       "serving": serving,
                        "training": training, "trainer": trainer, "predict": predict,
                        "transformer_serving": t_serving,
-                       "transformer_training": t_training, "wide_gt_errors": wide, **rep},
+                       "transformer_training": t_training, "remat": remat, "presets": presets,
+                       "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))
     print(card)

@@ -1,5 +1,6 @@
 """The port's CLI end to end on the CPU: ``train`` (a JSON config with
-dotted overrides) -> ``checkpoint inspect`` -> ``evaluate`` -> ``predict``
+dotted overrides) -> ``checkpoint inspect`` -> ``evaluate`` -> ``predict``,
+``config generate``, and a YAML config trained and evaluated at rollout 2
 through ``anemoi_tpu_torch.training.cli.main`` with
 ``hardware.platform=cpu``, the packaged example shrunk to an o8 grid, a
 level-1 mesh, 16 channels and 1 processor layer, reading a zarr store
@@ -17,6 +18,7 @@ from anemoi_tpu_torch.data.zarr_reader import save_zarr_dataset
 from anemoi_tpu_torch.flagship import EXAMPLE_VARIABLES, example_o96_gt_config
 from anemoi_tpu_torch.training.checkpoint import MIGRATION_NAMES, load_inference_checkpoint
 from anemoi_tpu_torch.training.cli import main
+from anemoi_tpu_torch.utils.config import dump_yaml, load_config, read_yaml
 
 OVERRIDES = ["hardware.platform=cpu", "training.max_steps=3", "training.max_epochs=1",
              "diagnostics.log_interval=1", "dataloader.prefetch=2"]
@@ -102,7 +104,54 @@ def test_bundle_with_pending_migrations_is_refused(cli_run, tmp_path):
         load_inference_checkpoint(str(bundle), device="cpu")
 
 
-@pytest.mark.parametrize("argv", [["validate", "c.json"], ["config", "generate", "c.json"],
+def test_cli_config_generate_writes_the_composed_config(cli_run, tmp_path):
+    _, _, cfg_path = cli_run
+    out = tmp_path / "cfg.yaml"
+    assert main(["config", "generate", str(cfg_path), *OVERRIDES, "--output", str(out)]) == 0
+    want = load_config(str(cfg_path), OVERRIDES).to_dict()
+    assert read_yaml(out.read_text()) == want
+    assert load_config(str(out)).to_dict() == want
+
+
+def test_cli_yaml_config_trains_and_evaluates_at_rollout_2(cli_run, tmp_path, capsys):
+    """A YAML config through ``train`` with a rollout of 2 and the packaged
+    remat defaults (``remat_rollout: true``, per-layer ``save_attention``),
+    then ``evaluate --rollout 2``."""
+    _, tmp, cfg_path = cli_run
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(dump_yaml(load_config(str(cfg_path)).to_dict()))
+    assert load_config(str(cfg)).training.remat_rollout is True
+    run = ["hardware.platform=cpu", "training.max_steps=1", "training.max_epochs=1",
+           "diagnostics.log_interval=1",
+           "training.rollout.start=2", "training.rollout.max=2", f"output_dir={tmp_path / 'r2'}"]
+    assert main(["train", str(cfg), *run]) == 0
+    recs = [json.loads(line) for line in open(tmp_path / "r2" / "metrics.jsonl")]
+    steps = [r for r in recs if "loss" in r]
+    assert [(r["step"], r["rollout"]) for r in steps] == [(1, 2)]
+    assert np.isfinite(steps[0]["loss"]) and np.isfinite(steps[0]["grad_norm"])
+    capsys.readouterr()
+    assert main(["evaluate", str(cfg), *run, "--rollout", "2"]) == 0
+    assert "rmse/data/sfc/2" in capsys.readouterr().out
+
+
+def test_cli_predict_reads_a_yaml_config(cli_run, tmp_path):
+    """``predict --config`` with a YAML config that composes its data from
+    a ``defaults:`` entry in its own folder: the same forecast as the
+    bundle's own config gives."""
+    _, tmp, cfg_path = cli_run
+    (tmp_path / "data").mkdir()
+    data = load_config(str(cfg_path)).to_dict()["data"]
+    (tmp_path / "data" / "store.yaml").write_text(dump_yaml(data))
+    (tmp_path / "cfg.yaml").write_text("defaults:\n  - data: store\n")
+    args = ["predict", str(tmp / "run" / "inference"), "--steps", "1", "--platform", "cpu"]
+    assert main([*args, "--config", str(tmp_path / "cfg.yaml"),
+                 "--output", str(tmp_path / "yaml.npz")]) == 0
+    assert main([*args, "--output", str(tmp_path / "own.npz")]) == 0
+    np.testing.assert_array_equal(np.load(tmp_path / "yaml.npz")["data|forecast"],
+                                  np.load(tmp_path / "own.npz")["data|forecast"])
+
+
+@pytest.mark.parametrize("argv", [["validate", "c.json"],
                                   ["mlflow", "sync", "runs"], ["profile", "c.json"],
                                   ["checkpoint", "migrate", "bundle"]])
 def test_unported_subcommands_return_2(argv, capsys):

@@ -45,7 +45,12 @@ from anemoi_tpu_torch.data.zarr_reader import save_zarr_dataset
 from anemoi_tpu_torch.flagship import EXAMPLE_VARIABLES, example_o96_gt_config
 from anemoi_tpu_torch.graphs.create import GraphCreator
 from anemoi_tpu_torch.graphs.graph import Graph
-from anemoi_tpu_torch.utils.config import _parse_value, apply_overrides, load_config
+from anemoi_tpu_torch.utils.config import (
+    PACKAGED_CONFIG_DIR,
+    _parse_value,
+    apply_overrides,
+    load_config,
+)
 
 CODECS = {
     "raw": None,
@@ -244,8 +249,12 @@ def test_overrides_and_json_config(tmp_path):
     path.write_text(json.dumps({"model": {"num_channels": 8}}))
     loaded = load_config(str(path), ["model.num_channels=16", "training.precision=bf16"])
     assert loaded.model.num_channels == 16 and loaded.to_dict()["training"] == {"precision": "bf16"}
-    with pytest.raises(ValueError, match="composed"):
+    # a dict's defaults compose from the search paths
+    with pytest.raises(FileNotFoundError, match="model/x.yaml"):
         load_config({"defaults": ["model/x"]})
+    composed = load_config({"defaults": [{"model": "graphtransformer"}], "model": {"x": 1}},
+                           search_paths=[PACKAGED_CONFIG_DIR])
+    assert composed.model.x == 1 and composed.model.processor.name == "GraphTransformerProcessor"
     for text in ("2024-01-01", "0x1f", "1:30", "a: b"):  # beyond the override forms
         assert _parse_value(text) == text
 

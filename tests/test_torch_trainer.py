@@ -125,7 +125,7 @@ def test_trainer_trajectory_rollout1(rollout1):
 
 def test_trainer_trajectory_rollout_curriculum(tmp_path):
     _, ref, port_trainer, ours = run_both(
-        tmp_path, max_epochs=2, remat_rollout=False,
+        tmp_path, max_epochs=2,
         rollout={"start": 1, "epoch_increment": 1, "max": 2})
     assert {r["rollout"] for r in ours if "loss" in r} == {1, 2}
     assert_trajectories_agree(ref, ours)

@@ -297,8 +297,7 @@ def test_not_ported_pieces_raise(tiny):
         build_optimizer({"optimizer": {"name": "ademamix"}})
     iface, _, _, _ = port_setup(tiny)
     losses = {"data": get_loss_function(LOSS, {})}
-    for kw in ({"task": "autoencoder"}, {"ensemble_size": 2}, {"remat_policy": "save_attention"},
-               {"rollout": 2, "remat_rollout": True}):
+    for kw in ({"task": "autoencoder"}, {"ensemble_size": 2}):
         with pytest.raises(NotImplementedError):
             make_step_fns(iface, losses, **{"rollout": 1, **kw})
     serving = AnemoiModelInterface(  # bf16 serving weights cannot be master weights
