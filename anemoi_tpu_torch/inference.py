@@ -7,6 +7,13 @@ forecasts; the rollout helpers are the port's ``training/step.py``; an
 interface that holds float32 training weights serves on copies cast to its
 serving type) and ``run_forecast_cli``, the ``predict`` command.  The
 generative forecasts of transport models are not ported.
+
+An ensemble model that draws noise is served by
+``AnemoiModelInterface.predict_step`` (or ``apply``), not here: the JAX
+``make_forecast_fn`` runs its model with no noise stream and fails on one,
+so ``make_forecast_fn`` refuses it
+(``AnemoiModelInterface.require_deterministic``) and ``predict``
+returns 1.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ def make_forecast_fn(interface, steps: int) -> Callable[[Dict[str, torch.Tensor]
 
     batch: raw data-space {ds: [B, m + steps*n_out, E, G, V_data]} on the
     interface's device -- the window beyond the first m steps supplies the
-    future forcings."""
+    future forcings.  Raises ``ValueError`` for a model that draws noise."""
+    interface.require_deterministic("make_forecast_fn")
     model = interface.model
     pre = interface.pre_processors
     m, n_out = model.n_step_input, model.n_step_output
@@ -40,7 +48,7 @@ def make_forecast_fn(interface, steps: int) -> Callable[[Dict[str, torch.Tensor]
         params = interface.cast_parameters(interface.inference_dtype) if cast else None
         outputs = {ds: [] for ds in dataset_names}
         for step in range(steps):
-            y_pred = interface.run_model(x, params)
+            y_pred = interface.run_model(x, params, fcstep=step)
             t0 = m + step * n_out
             for ds in dataset_names:
                 outputs[ds].append(pre[ds].inverse_transform(y_pred[ds].float()))
@@ -79,7 +87,11 @@ def run_forecast_cli(args) -> int:
         raise NotImplementedError("transport (generative) forecasts are not ported to "
                                   "anemoi_tpu_torch")
     steps = args.steps
-    forecast = make_forecast_fn(iface, steps)
+    try:
+        forecast = make_forecast_fn(iface, steps)
+    except ValueError as err:
+        print(f"predict: {err}")
+        return 1
 
     cfg = load_config(args.config, search_paths=[PACKAGED_CONFIG_DIR]) if args.config else {}
     data_cfg = cfg.get("data", {})

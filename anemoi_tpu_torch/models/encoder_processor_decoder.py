@@ -1,19 +1,22 @@
 """Encoder-processor-decoder graph model.
 
-Port of ``anemoi_tpu.models.encoder_processor_decoder.AnemoiModelEncProcDec``
-with the GraphTransformer mappers and processor.  Data flow, per dataset:
-[B,T,E,G,V] -> [(B E), G, (T V)], node attributes appended -> encoder
-(data -> hidden) -> sum of the latents -> processor over the hidden mesh ->
-latent skip -> decoder (hidden -> data) -> [B,T,E,G,V] -> residual added on
-the prognostic variables.
+Port of ``anemoi_tpu.models.encoder_processor_decoder``:
+``AnemoiModelEncProcDec`` with the GraphTransformer mappers and processor,
+and the ensemble model ``AnemoiEnsModelEncProcDec``.  Data flow, per
+dataset: [B,T,E,G,V] -> [(B E), G, (T V)] (member-major rows: row ``b * E +
+e`` is member ``e`` of sample ``b``), node attributes appended (and, for the
+ensemble model, the forecast-step channel ``min(1, fcstep)``) -> encoder
+(data -> hidden) -> sum of the latents -> noise hook (the ensemble's noise
+injector; the conditioning it returns goes to every processor block) ->
+processor over the hidden mesh -> latent skip -> decoder (hidden -> data) ->
+[B,T,E,G,V] -> residual added on the prognostic variables -> boundings.
 
 Processors: the ``GraphTransformerProcessor`` and the dense
 ``TransformerProcessor`` (sliding-window attention over the hidden nodes in
 their order; its processor edge set stays in the graph, unread, as in the
-JAX package).  Ported: the deterministic model on one device.  Bounding, non-skip
-residuals, the ensemble noise and forecast-step channel, conditional norms,
-dynamic edge providers and model parallelism raise ``NotImplementedError``.
-The ``graph_attention_backend`` values of the JAX package (paged, padded,
+JAX package).  Ported: both models on one device.  Dynamic edge providers
+and model parallelism raise ``NotImplementedError``.  The
+``graph_attention_backend`` values of the JAX package (paged, padded,
 segment) all select the port's one CSR attention.  Its backward on each edge
 set follows the JAX package's choice between the two-pass and the fused
 backward (:func:`fused_backward`).
@@ -21,14 +24,17 @@ backward (:func:`fused_backward`).
 
 from __future__ import annotations
 
-from typing import Dict
+import logging
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from anemoi_tpu_torch.data_indices.collection import IndexCollection
 from anemoi_tpu_torch.models.graph import ModelGraph
+from anemoi_tpu_torch.models.layers.bounding import build_boundings
 from anemoi_tpu_torch.models.layers.embed import NamedNodesAttributes
+from anemoi_tpu_torch.models.layers.ensemble import build_noise_injector
 from anemoi_tpu_torch.models.layers.mapper import (
     GraphTransformerBackwardMapper,
     GraphTransformerForwardMapper,
@@ -40,6 +46,7 @@ from anemoi_tpu_torch.models.layers.processor import (
 )
 from anemoi_tpu_torch.models.layers.residual import build_residual
 
+LOGGER = logging.getLogger(__name__)
 BACKENDS = ("paged", "padded", "segment")
 _COMPONENT_NAMES = {
     "encoder": "GraphTransformerForwardMapper",
@@ -48,17 +55,23 @@ _COMPONENT_NAMES = {
 }
 _REMAT_KEYS = ("gradient_checkpointing", "remat_policy")
 _GT_KEYS = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "edge_pre_mlp",
-            *_REMAT_KEYS)
+            "mlp_implementation", *_REMAT_KEYS)
 _TRANSFORMER_KEYS = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "window_size",
                      "softcap", "use_alibi_slopes", "use_rotary_embeddings", "attention_impl",
-                     *_REMAT_KEYS)
+                     "mlp_implementation", *_REMAT_KEYS)
 
 
 def _component(config: dict, part: str) -> dict:
     """Constructor kwargs of one component (a GraphTransformer mapper or
     processor, or the dense ``TransformerProcessor``), the remat keys
     included; keys that only steer the TPU's execution (scan, tables) are
-    dropped, keys that change the math and are not ported raise."""
+    dropped, keys that change the math and are not ported raise.  The
+    processors' ``conditional`` is applied by the model (the conditioning's
+    width); the GT processor's ``scan_unroll`` is checked against its depth,
+    as the JAX processor checks it.  ``qk_norm_type`` (a field of the JAX
+    blocks, not of its mappers and processors) and the mappers'
+    ``conditional`` are dropped with a warning, as the JAX package drops
+    them: the blocks' query/key norm stays the LayerNorm."""
     cfg = dict(config.get(part) or {})
     name = cfg.get("name", _COMPONENT_NAMES[part])
     dense = part == "processor" and name == "TransformerProcessor"
@@ -66,19 +79,18 @@ def _component(config: dict, part: str) -> dict:
         raise NotImplementedError(f"{part} '{name}' is not ported to anemoi_tpu_torch")
     if cfg.get("edge_provider"):
         raise NotImplementedError(f"{part}: dynamic edge providers are not ported")
-    if cfg.get("conditional"):
-        raise NotImplementedError(f"{part}: conditional layer norms are not ported")
-    if cfg.get("mlp_implementation", "mlp") != "mlp":
-        raise NotImplementedError(f"{part}: gated MLPs are not ported")
-    if cfg.get("qk_norm_type", "layernorm") != "layernorm":
-        raise NotImplementedError(f"{part}: only the layernorm qk-norm is ported")
     if cfg.get("shard_strategy", "none") != "none":
         raise NotImplementedError(f"{part}: Ulysses head sharding (shard_strategy) is not ported")
-    if int(cfg.get("scan_unroll", 1)) != 1:
-        raise NotImplementedError(f"{part}: scan_unroll > 1 stacks parameters differently")
     if "num_heads" not in cfg:
         raise ValueError(f"{part}: num_heads is required")
-    return {k: cfg[k] for k in (_TRANSFORMER_KEYS if dense else _GT_KEYS) if k in cfg}
+    out = {k: cfg[k] for k in (_TRANSFORMER_KEYS if dense else _GT_KEYS) if k in cfg}
+    if part == "processor" and not dense and "scan_unroll" in cfg:
+        out["scan_unroll"] = int(cfg["scan_unroll"])
+    dropped = sorted(k for k in ("qk_norm_type", "conditional") if k in cfg
+                     and not (k == "conditional" and part == "processor"))
+    if dropped:
+        LOGGER.warning("%s: ignoring config keys %s, as the JAX package does", part, dropped)
+    return out
 
 
 def fused_backward(config: dict, part: str, num_edges: int, num_channels: int) -> bool:
@@ -102,14 +114,18 @@ def fused_backward(config: dict, part: str, num_edges: int, num_channels: int) -
 
 
 class AnemoiModelEncProcDec(nn.Module):
-    """The deterministic encoder-processor-decoder."""
+    """The deterministic encoder-processor-decoder.  ``statistics`` (per
+    dataset) seeds a ``ScalarOrnsteinConnection``'s theta, as in the JAX
+    package."""
+
+    fcstep_input = False  # the ensemble model's forecast-step input channel
 
     def __init__(
-        self, *, graph: ModelGraph, data_indices: Dict[str, IndexCollection], config: dict
+        self, *, graph: ModelGraph, data_indices: Dict[str, IndexCollection], config: dict,
+        statistics: Optional[Dict[str, dict]] = None,
     ) -> None:
         super().__init__()
-        if config.get("bounding"):
-            raise NotImplementedError("output bounding is not ported to anemoi_tpu_torch")
+        self.config = config
         if str(config.get("graph_attention_backend", "padded")) not in BACKENDS:
             raise ValueError(f"unknown graph_attention_backend {config['graph_attention_backend']}")
         strategy = str(config.get("shard_strategy", "none"))
@@ -123,7 +139,6 @@ class AnemoiModelEncProcDec(nn.Module):
         self.n_step_input = int(config.get("n_step_input", 2))
         self.n_step_output = int(config.get("n_step_output", 1))
         self.latent_skip = bool(config.get("latent_skip", True))
-        self.residual = build_residual(config.get("residual"))
         hidden = graph.hidden_name
         trainable = config.get("trainable_parameters") or {}
         datasets = sorted(data_indices)
@@ -142,6 +157,13 @@ class AnemoiModelEncProcDec(nn.Module):
         enc, proc, dec = (_component(config, p) for p in ("encoder", "processor", "decoder"))
         self.dense_processor = (config["processor"] or {}).get("name") == "TransformerProcessor"
         c = self.num_channels
+        self.noise_injector = self._noise_injector()
+        if (config["processor"] or {}).get("conditional"):
+            cond_dim = getattr(self.noise_injector, "conditioning_dim", None)
+            if cond_dim is None:
+                raise ValueError("processor.conditional needs the conditioning of an "
+                                 "AnemoiEnsModelEncProcDec with the NoiseConditioning injector")
+            proc["cond_dim"] = cond_dim
         for part, subs in (("encoder", graph.encoder.values()), ("processor", [graph.processor]),
                            ("decoder", graph.decoder.values())):
             for sub in subs:
@@ -181,6 +203,17 @@ class AnemoiModelEncProcDec(nn.Module):
                 for ds in datasets
             })
 
+        statistics = statistics or {}
+        self.residual = nn.ModuleDict({
+            ds: build_residual(config.get("residual"), data_indices[ds], statistics.get(ds))
+            for ds in datasets
+        })
+        self.boundings = nn.ModuleDict({
+            ds: build_boundings(config.get("bounding"),
+                                data_indices[ds].model.output.name_to_index)
+            for ds in datasets
+        })
+
         # prognostic residual: per output variable, the input variable to add
         for ds in datasets:
             idx = data_indices[ds]
@@ -193,11 +226,26 @@ class AnemoiModelEncProcDec(nn.Module):
             self.register_buffer(f"add_mask_{ds}", add_mask, persistent=False)
             self.register_buffer(f"skip_gather_{ds}", skip_gather, persistent=False)
 
+    def _noise_injector(self) -> Optional[nn.Module]:
+        """The noise injector between encoder and processor: none here."""
+        return None
+
+    def noise_shape(self, x: Dict[str, torch.Tensor]):
+        """The shape of the standard normal draw the model needs for inputs
+        ``x`` (``[B·M, N_hidden, noise_channels_dim]``), or None if it draws
+        none."""
+        if self.noise_injector is None or not self.noise_injector.draws_noise:
+            return None
+        some = next(iter(x.values()))
+        return self.noise_injector.noise_shape(some.shape[0] * some.shape[2],
+                                               self.graph.num_nodes[self.graph.hidden_name])
+
     def input_dim(self, ds: str, trainable: dict) -> int:
         return (
             self.n_step_input * self.data_indices[ds].num_model_input_vars
             + self.graph.node_features[ds].shape[1]
             + int(trainable.get(ds, 0))
+            + int(self.fcstep_input)
         )
 
     def output_dim(self, ds: str) -> int:
@@ -209,8 +257,12 @@ class AnemoiModelEncProcDec(nn.Module):
             return sub.edge_attr
         return (trainable[ds] if ds is not None else trainable)(sub.edge_attr)
 
-    def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """x[ds]: [B, T, E, G, V_model_in] in the compute type.
+    def forward(self, x: Dict[str, torch.Tensor], cond: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None, fcstep: int = 0) -> Dict[str, torch.Tensor]:
+        """x[ds]: [B, T, E, G, V_model_in] in the compute type; ``cond``: the
+        processor's conditioning (default: the noise injector's); ``noise``:
+        the noise injector's standard normal draw (``noise_shape(x)``);
+        ``fcstep``: the rollout step (the ensemble model's input channel).
         Returns {ds: [B, n_step_output, E, G, V_model_out]}."""
         graph = self.graph
         hidden = graph.hidden_name
@@ -228,13 +280,15 @@ class AnemoiModelEncProcDec(nn.Module):
         x_skip, x_data_latent, latents = {}, {}, []
         for ds in datasets:
             xd = x[ds]
-            x_skip[ds] = self.residual(xd, n_step_output=self.n_step_output)
+            x_skip[ds] = self.residual[ds](xd, n_step_output=self.n_step_output)
             node_attrs = self.node_attributes(ds, graph.node_features[ds].to(dt))
             # [B,T,E,G,V] -> [(B E), G, (T V)]
             flat = xd.permute(0, 2, 3, 1, 4).reshape(bflat, xd.shape[3], n_time * xd.shape[4])
-            x_latent_in = torch.cat(
-                [flat, node_attrs[None].expand((bflat,) + node_attrs.shape)], dim=-1
-            )
+            parts = [flat, node_attrs[None].expand((bflat,) + node_attrs.shape)]
+            if self.fcstep_input:
+                # [x, node attrs, fcstep], the step clamped to min(1, fcstep)
+                parts.append(flat.new_full((bflat, xd.shape[3], 1), float(min(1, fcstep))))
+            x_latent_in = torch.cat(parts, dim=-1)
             sub = graph.encoder[ds]
             x_data_latent[ds], x_latent = self.encoder[ds](
                 (x_latent_in, x_hidden_latent), sub, self._edges("encoder_graph_provider", sub, ds)
@@ -242,11 +296,17 @@ class AnemoiModelEncProcDec(nn.Module):
             latents.append(x_latent)
 
         x_latent = sum(latents)
+        noise_cond = None
+        if self.noise_injector is not None:
+            x_latent, noise_cond = self.noise_injector(x_latent, noise)
+        if cond is None:
+            cond = noise_cond
         if self.dense_processor:
-            x_latent_proc = self.processor(x_latent)
+            x_latent_proc = self.processor(x_latent, cond)
         else:
             x_latent_proc = self.processor(
-                x_latent, graph.processor, self._edges("processor_graph_provider", graph.processor)
+                x_latent, graph.processor, self._edges("processor_graph_provider", graph.processor),
+                cond,
             )
         if self.latent_skip:
             x_latent_proc = x_latent_proc + x_latent
@@ -264,6 +324,24 @@ class AnemoiModelEncProcDec(nn.Module):
                                   idx.num_model_output_vars).permute(0, 3, 1, 2, 4)
             add_mask = getattr(self, f"add_mask_{ds}")
             skip = x_skip[ds][..., getattr(self, f"skip_gather_{ds}")]
-            out[ds] = x_out + torch.where(add_mask, skip, torch.zeros((), dtype=skip.dtype,
-                                                                       device=skip.device))
+            x_out = x_out + torch.where(add_mask, skip, torch.zeros((), dtype=skip.dtype,
+                                                                     device=skip.device))
+            for bounding in self.boundings[ds]:
+                x_out = bounding(x_out)
+            out[ds] = x_out
         return out
+
+
+class AnemoiEnsModelEncProcDec(AnemoiModelEncProcDec):
+    """The ensemble model: every member (dim 2 of the input) runs through the
+    same weights with its own noise draw, injected between encoder and
+    processor by ``model.noise_injector`` (default ``NoiseConditioning``,
+    whose conditioning needs ``processor.conditional: true``); the encoder
+    input carries the forecast-step channel unless ``fcstep_input: false``."""
+
+    @property
+    def fcstep_input(self) -> bool:
+        return bool(self.config.get("fcstep_input", True))
+
+    def _noise_injector(self) -> nn.Module:
+        return build_noise_injector(self.config.get("noise_injector"), self.num_channels)

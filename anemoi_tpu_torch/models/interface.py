@@ -22,6 +22,12 @@ graph arrays are held in float32, and each step runs the model on compute
 copies cast by :meth:`AnemoiModelInterface.cast_parameters` (the JAX
 ``training/step.py`` ``_cast_params``); ``predict_step`` casts the same way
 to the serving type.
+
+The ensemble model (``AnemoiEnsModelEncProcDec``) draws its noise through
+:meth:`AnemoiModelInterface.apply` from an explicit ``torch.Generator``
+(default: ``context_generator("noise")``, as the JAX ``apply`` defaults to
+``context_key("noise")``); ``predict_step`` serves it, one forecast step for
+every member of the batch's ensemble dim.
 """
 
 from __future__ import annotations
@@ -34,11 +40,16 @@ from torch import nn
 
 from anemoi_tpu_torch.data_indices.collection import IndexCollection
 from anemoi_tpu_torch.graphs.graph import Graph
-from anemoi_tpu_torch.models.encoder_processor_decoder import AnemoiModelEncProcDec
+from anemoi_tpu_torch.models.encoder_processor_decoder import (
+    AnemoiEnsModelEncProcDec,
+    AnemoiModelEncProcDec,
+)
 from anemoi_tpu_torch.models.graph import build_model_graph
 from anemoi_tpu_torch.models.layers.attention import MultiHeadSelfAttention
+from anemoi_tpu_torch.models.layers import ensemble
 from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerBaseBlock
-from anemoi_tpu_torch.models.layers.normalization import LayerNorm
+from anemoi_tpu_torch.models.layers.normalization import ConditionalLayerNorm, LayerNorm, RMSNorm
+from anemoi_tpu_torch.models.layers.residual import ScalarOrnsteinConnection
 from anemoi_tpu_torch.preprocessing.processors import Processors, build_processors
 from anemoi_tpu_torch.utils.device import resolve_device
 from anemoi_tpu_torch.utils.seeding import context_generator
@@ -54,13 +65,25 @@ def initialise_parameters(model: nn.Module, generator: torch.Generator,
                           zero_extractor: bool = False) -> None:
     """Every parameter from its flax initialiser: ``Linear`` weights from
     ``lecun_normal`` (variance ``1 / fan_in``, truncated at two standard
-    deviations) and zero biases; LayerNorm scales 1 and offsets 0; the
-    trainable node and edge tensors 0; the decoder's output ``Linear``
-    (``node_data_extractor``) 0 with ``initialise_data_extractor_zero``.
-    Draws come from ``generator`` in module order, on the parameters'
-    device (the CPU when the interface builds its model)."""
+    deviations) and zero biases; LayerNorm and RMSNorm scales 1 and offsets
+    0; the trainable node and edge tensors 0; the decoder's output ``Linear``
+    (``node_data_extractor``) 0 with ``initialise_data_extractor_zero``;
+    the ``scale`` and ``bias`` Linears of a ``ConditionalLayerNorm`` 0 (so
+    every ensemble member starts equal); a ``ScalarOrnsteinConnection``'s
+    weight its theta logits over zeros.  Draws come from ``generator`` in
+    module order, on the parameters' device (the CPU when the interface
+    builds its model)."""
     covered = set()
+    for module in model.modules():
+        if isinstance(module, ConditionalLayerNorm):
+            module.zero_()
+            covered.update(id(p) for p in module.parameters())
+        elif isinstance(module, ScalarOrnsteinConnection):
+            module.reset_parameters()
+            covered.add(id(module.weight))
     for name, module in model.named_modules():
+        if isinstance(module, nn.Linear) and id(module.weight) in covered:
+            continue
         if isinstance(module, nn.Linear):
             std = (1.0 / module.in_features) ** 0.5 / _TRUNCATED_STD
             if zero_extractor and name.endswith("node_data_extractor.1"):
@@ -69,12 +92,12 @@ def initialise_parameters(model: nn.Module, generator: torch.Generator,
                 nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=generator)
             covered.add(id(module.weight))
-        elif isinstance(module, (LayerNorm, nn.LayerNorm)) and module.weight is not None:
+        elif isinstance(module, (LayerNorm, nn.LayerNorm, RMSNorm)) and module.weight is not None:
             module.weight.fill_(1.0)
             covered.add(id(module.weight))
         else:
             continue
-        if module.bias is not None:
+        if getattr(module, "bias", None) is not None:
             module.bias.zero_()
             covered.add(id(module.bias))
     for name, p in model.named_parameters():
@@ -85,6 +108,8 @@ def initialise_parameters(model: nn.Module, generator: torch.Generator,
         p.zero_()
 
 
+MODELS = {"AnemoiModelEncProcDec": AnemoiModelEncProcDec,
+          "AnemoiEnsModelEncProcDec": AnemoiEnsModelEncProcDec}
 PRECISIONS = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": torch.bfloat16,
               "fp32": torch.float32, "float32": torch.float32, "32": torch.float32}
 
@@ -111,7 +136,7 @@ class AnemoiModelInterface(nn.Module):
 
         model_cfg = dict(config["model"])
         name = model_cfg.pop("name", "AnemoiModelEncProcDec")
-        if name != "AnemoiModelEncProcDec":
+        if name not in MODELS:
             raise NotImplementedError(f"model '{name}' is not ported to anemoi_tpu_torch")
         if model_cfg.get("hidden_names"):
             raise NotImplementedError("hierarchical models are not ported to anemoi_tpu_torch")
@@ -132,9 +157,8 @@ class AnemoiModelInterface(nn.Module):
             ),
             decoder_edge_attributes=(model_cfg.get("decoder") or {}).get("sub_graph_edge_attributes"),
         )
-        model = AnemoiModelEncProcDec(
-            graph=self.model_graph, data_indices=data_indices, config=model_cfg
-        )
+        model = MODELS[name](graph=self.model_graph, data_indices=data_indices, config=model_cfg,
+                             statistics=statistics)
         initialise_parameters(
             model, context_generator("model-init"),
             zero_extractor=bool((model_cfg.get("decoder") or {}).get(
@@ -172,12 +196,46 @@ class AnemoiModelInterface(nn.Module):
             for name, p in self.model.named_parameters()
         }
 
-    def run_model(self, x: Dict[str, torch.Tensor], params: Optional[Dict[str, torch.Tensor]] = None):
+    def run_model(self, x: Dict[str, torch.Tensor], params: Optional[Dict[str, torch.Tensor]] = None,
+                  **kwargs):
         """The model on ``x``, with its own parameters or with ``params``
-        (e.g. :meth:`cast_parameters`) in their place."""
+        (e.g. :meth:`cast_parameters`) in their place; ``kwargs`` (``cond``,
+        ``noise``, ``fcstep``) go to the model's forward."""
         if params is None:
-            return self.model(x)
-        return torch.func.functional_call(self.model, params, (x,))
+            return self.model(x, **kwargs)
+        return torch.func.functional_call(self.model, params, (x,), kwargs)
+
+    @property
+    def draws_noise(self) -> bool:
+        """Whether the model injects noise (an ensemble model that draws)."""
+        injector = self.model.noise_injector
+        return injector is not None and injector.draws_noise
+
+    def require_deterministic(self, what: str) -> None:
+        """Raise ``ValueError`` if the model draws noise: ``what`` (a
+        deterministic rollout) has no noise stream, as in the JAX package."""
+        if self.draws_noise:
+            raise ValueError(
+                f"{what} cannot run a model that injects noise "
+                f"({type(self.model.noise_injector).__name__}): the JAX package's runs it "
+                "with no noise stream and fails; serve an ensemble with "
+                "AnemoiModelInterface.predict_step (or apply), which draws the noise")
+
+    def draw_noise(self, x: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+        """The standard normal draw of a noise-drawing model for inputs ``x``,
+        from ``generator`` (on the interface's device)."""
+        return ensemble.standard_normal(self.model.noise_shape(x), generator)
+
+    def apply(self, x: Dict[str, torch.Tensor], cond: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None,
+              params: Optional[Dict[str, torch.Tensor]] = None):
+        """The model's forward (the JAX ``apply``), its noise drawn from
+        ``generator`` or, without one, from ``context_generator("noise")``."""
+        noise = None
+        if self.draws_noise:
+            noise = self.draw_noise(
+                x, generator or context_generator("noise", device=self.device))
+        return self.run_model(x, params, cond=cond, noise=noise)
 
     def normalised_input(self, batch: Dict[str, torch.Tensor]):
         """Normalise raw data-space windows (float32): returns the full
@@ -191,12 +249,17 @@ class AnemoiModelInterface(nn.Module):
         return batch_norm, x
 
     @torch.no_grad()
-    def predict_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def predict_step(self, batch: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One prediction from a raw (data-space) batch ``{ds: [B, T>=m, E,
         G, V_data]}``; returns the denormalised model-space output
-        ``{ds: [B, n_step_output, E, G, V_model_out]}`` in float32."""
+        ``{ds: [B, n_step_output, E, G, V_model_out]}`` in float32.  An
+        ensemble model predicts every member of ``E`` (tile the window over
+        ``E`` for an ensemble from one state), its noise drawn as
+        :meth:`apply` draws it."""
         m = self.model.n_step_input
         _, x = self.normalised_input({ds: b[:, :m] for ds, b in batch.items()})
         cast = self.param_dtype != self.inference_dtype
-        y = self.run_model(x, self.cast_parameters(self.inference_dtype) if cast else None)
+        y = self.apply(x, generator=generator,
+                       params=self.cast_parameters(self.inference_dtype) if cast else None)
         return {ds: self.pre_processors[ds].inverse_transform(y[ds].float()) for ds in y}

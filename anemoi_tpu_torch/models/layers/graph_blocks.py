@@ -12,6 +12,12 @@ without an ``edge_pre_mlp`` the ``lin_edge`` projection is fused into the
 kernel (K1, the flagship path); with one, ``lin_edge`` runs first and the
 projected edges go to K2.  The backward takes the edge set's source-ordered
 view and its ``fused_bwd`` choice (K3 + K4, or K3 + K5).
+
+Switches, as in the JAX blocks: ``cond_dim`` (the JAX ``conditional``)
+makes every norm of the block a ``ConditionalLayerNorm`` over the
+conditioning ``cond`` (one tensor for the processor block, a ``(src, dst)``
+pair for the mapper block); ``mlp_implementation`` picks the MLP's hidden
+layer (``mlp`` or a gated variant); ``qk_norm_type`` the query/key norm.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from torch import nn
 
 from anemoi_tpu_torch.models.graph import SubGraphArrays
 from anemoi_tpu_torch.models.layers.mlp import MLP
-from anemoi_tpu_torch.models.layers.normalization import LayerNorm, QKNorm
+from anemoi_tpu_torch.models.layers.normalization import QKNorm, norm
 from anemoi_tpu_torch.ops.gt_attention import gt_attention, gt_attention_fe
 
 
@@ -38,7 +44,8 @@ class GraphTransformerBaseBlock(nn.Module):
     def __init__(
         self, in_channels: int, hidden_dim: int, out_channels: int, num_heads: int,
         edge_dim: int, attn_channels: Optional[int] = None, qk_norm: bool = False,
-        edge_pre_mlp: bool = False,
+        edge_pre_mlp: bool = False, qk_norm_type: str = "layernorm",
+        mlp_implementation: str = "mlp", cond_dim: Optional[int] = None,
     ) -> None:
         super().__init__()
         hd = attn_channels or out_channels
@@ -52,12 +59,13 @@ class GraphTransformerBaseBlock(nn.Module):
         self.lin_self = nn.Linear(in_channels, hd)
         self.lin_edge = nn.Linear(edge_dim, hd)
         self.projection = nn.Linear(hd, out_channels)
-        self.q_norm = QKNorm(hd // num_heads) if qk_norm else None
-        self.k_norm = QKNorm(hd // num_heads) if qk_norm else None
+        self.q_norm = QKNorm(hd // num_heads, qk_norm_type) if qk_norm else None
+        self.k_norm = QKNorm(hd // num_heads, qk_norm_type) if qk_norm else None
         self.edge_pre_mlp = (
             MLP(edge_dim, edge_dim, edge_dim, layer_norm=False) if edge_pre_mlp else None
         )
-        self.node_dst_mlp = MLP(out_channels, hidden_dim, out_channels, layer_norm=False)
+        self.node_dst_mlp = MLP(out_channels, hidden_dim, out_channels, layer_norm=False,
+                                implementation=mlp_implementation)
         self.plain_attention = False
 
     def _head_norm(self, norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -96,20 +104,22 @@ class GraphTransformerMapperBlock(GraphTransformerBaseBlock):
     def __init__(self, in_channels: int, hidden_dim: int, out_channels: int, num_heads: int,
                  edge_dim: int, **kwargs) -> None:
         super().__init__(in_channels, hidden_dim, out_channels, num_heads, edge_dim, **kwargs)
-        self.layer_norm_attention_src = LayerNorm(in_channels)
-        self.layer_norm_attention_dest = LayerNorm(in_channels)
-        self.layer_norm_mlp_dst = LayerNorm(out_channels)
+        cond_dim = kwargs.get("cond_dim")
+        self.layer_norm_attention_src = norm(in_channels, cond_dim)
+        self.layer_norm_attention_dest = norm(in_channels, cond_dim)
+        self.layer_norm_mlp_dst = norm(out_channels, cond_dim)
 
     def forward(
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays,
-        edge_attr: torch.Tensor,
+        edge_attr: torch.Tensor, cond: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x_src = self.layer_norm_attention_src(x[0])
-        x_dst = self.layer_norm_attention_dest(x[1])
+        cond_src, cond_dst = (None, None) if cond is None else cond
+        x_src = self.layer_norm_attention_src(x[0], cond_src)
+        x_dst = self.layer_norm_attention_dest(x[1], cond_dst)
         x_r = self.lin_self(x_dst)
         out = self.attention(x_src, x_dst, sub, edge_attr)
         out = self.projection(out + x_r) + x[1]
-        out = self.node_dst_mlp(self.layer_norm_mlp_dst(out)) + out
+        out = self.node_dst_mlp(self.layer_norm_mlp_dst(out, cond_dst)) + out
         return x[0], out
 
 
@@ -119,12 +129,14 @@ class GraphTransformerProcessorBlock(GraphTransformerBaseBlock):
     def __init__(self, in_channels: int, hidden_dim: int, out_channels: int, num_heads: int,
                  edge_dim: int, **kwargs) -> None:
         super().__init__(in_channels, hidden_dim, out_channels, num_heads, edge_dim, **kwargs)
-        self.layer_norm_attention = LayerNorm(in_channels)
-        self.layer_norm_mlp_dst = LayerNorm(out_channels)
+        cond_dim = kwargs.get("cond_dim")
+        self.layer_norm_attention = norm(in_channels, cond_dim)
+        self.layer_norm_mlp_dst = norm(out_channels, cond_dim)
 
-    def forward(self, x: torch.Tensor, sub: SubGraphArrays, edge_attr: torch.Tensor) -> torch.Tensor:
-        x_n = self.layer_norm_attention(x)
+    def forward(self, x: torch.Tensor, sub: SubGraphArrays, edge_attr: torch.Tensor,
+                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x_n = self.layer_norm_attention(x, cond)
         x_r = self.lin_self(x_n)
         out = self.attention(x_n, x_n, sub, edge_attr)
         out = self.projection(out + x_r) + x
-        return self.node_dst_mlp(self.layer_norm_mlp_dst(out)) + out
+        return self.node_dst_mlp(self.layer_norm_mlp_dst(out, cond)) + out

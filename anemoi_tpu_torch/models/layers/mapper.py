@@ -5,7 +5,10 @@ Port of ``anemoi_tpu.models.layers.mapper`` (``TrainableEdgeFeatures``,
 A mapper = node embeddings + one bipartite block + (decoder) the output
 extractor.  ``gradient_checkpointing`` (default off, as in the JAX package)
 checkpoints the block alone under ``remat_policy``; the node embeddings and
-the trainable edge features stay outside.
+the trainable edge features stay outside.  The mappers take no conditioning:
+the JAX model passes none to them, so their blocks' norms are plain; their
+query/key norm is the default LayerNorm (the JAX mappers have no
+``qk_norm_type``).
 """
 
 from __future__ import annotations
@@ -36,12 +39,10 @@ class TrainableEdgeFeatures(nn.Module):
         return torch.cat([edge_attr, self.trainable.to(edge_attr.dtype)], dim=-1)
 
 
-def _block(in_channels, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio, attn_channels,
-           qk_norm, edge_pre_mlp):
+def _block(in_channels, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio, **block_kw):
     return GraphTransformerMapperBlock(
         in_channels, compute_mlp_hidden_dim(hidden_dim, mlp_hidden_ratio), hidden_dim,
-        num_heads, edge_dim, attn_channels=attn_channels, qk_norm=qk_norm,
-        edge_pre_mlp=edge_pre_mlp,
+        num_heads, edge_dim, **block_kw,
     )
 
 
@@ -53,7 +54,7 @@ class GraphTransformerForwardMapper(BlockRemat, nn.Module):
     def __init__(
         self, in_channels_src: int, in_channels_dst: int, hidden_dim: int, num_heads: int,
         edge_dim: int, mlp_hidden_ratio: float = 4.0, attn_channels: Optional[int] = None,
-        qk_norm: bool = False, edge_pre_mlp: bool = False,
+        qk_norm: bool = False, edge_pre_mlp: bool = False, mlp_implementation: str = "mlp",
         gradient_checkpointing: bool = False, remat_policy: Optional[str] = "save_attention",
     ) -> None:
         super().__init__()
@@ -61,7 +62,8 @@ class GraphTransformerForwardMapper(BlockRemat, nn.Module):
         self.emb_nodes_src = nn.Linear(in_channels_src, hidden_dim)
         self.emb_nodes_dst = nn.Linear(in_channels_dst, hidden_dim)
         self.proc = _block(hidden_dim, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio,
-                           attn_channels, qk_norm, edge_pre_mlp)
+                           attn_channels=attn_channels, qk_norm=qk_norm,
+                           edge_pre_mlp=edge_pre_mlp, mlp_implementation=mlp_implementation)
 
     def forward(
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
@@ -79,14 +81,15 @@ class GraphTransformerBackwardMapper(BlockRemat, nn.Module):
     def __init__(
         self, in_channels_dst: int, hidden_dim: int, out_channels_dst: int, num_heads: int,
         edge_dim: int, mlp_hidden_ratio: float = 4.0, attn_channels: Optional[int] = None,
-        qk_norm: bool = False, edge_pre_mlp: bool = False,
+        qk_norm: bool = False, edge_pre_mlp: bool = False, mlp_implementation: str = "mlp",
         gradient_checkpointing: bool = False, remat_policy: Optional[str] = "save_attention",
     ) -> None:
         super().__init__()
         self._init_remat(gradient_checkpointing, remat_policy)
         self.emb_nodes_dst = nn.Linear(in_channels_dst, hidden_dim)
         self.proc = _block(hidden_dim, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio,
-                           attn_channels, qk_norm, edge_pre_mlp)
+                           attn_channels=attn_channels, qk_norm=qk_norm,
+                           edge_pre_mlp=edge_pre_mlp, mlp_implementation=mlp_implementation)
         self.node_data_extractor = nn.Sequential(
             LayerNorm(hidden_dim), nn.Linear(hidden_dim, out_channels_dst)
         )

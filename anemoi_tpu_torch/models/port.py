@@ -10,8 +10,15 @@ The port's own copy of the GraphTransformer part of the name mapping in
 ``anemoi_tpu/models/port.py`` (``_ref_name``):
 - flax ``Dense.kernel [in, out]``       -> ``Linear.weight [out, in]`` (transposed)
 - flax ``LayerNorm ln.scale / ln.bias`` -> ``LayerNorm.weight / .bias``
-- flax MLP ``ffn_in / linear_out``      -> ``mlp.0 / mlp.2``
-- the scanned processor stack (leading layer axis) -> ``processor.proc.<i>``
+- flax MLP ``ffn_in / linear_out``      -> ``mlp.0 / mlp.2`` (a gated ``ffn_in``
+  keeps its ``gate_proj`` / ``value_proj`` under ``mlp.0``)
+- the scanned processor stack (leading layer axis) -> ``processor.proc.<i>``;
+  with ``scan_unroll`` u its ``block_<j>`` at scan step k is layer ``k * u + j``
+- a ``ConditionalLayerNorm``'s ``scale`` / ``bias`` Dense -> ``<norm>.scale`` /
+  ``<norm>.bias`` Linear; the RMS qk-norm ``q_norm/rms/rms.scale`` -> ``q_norm.weight``
+- the ensemble's ``NoiseConditioning_0`` / ``NoiseInjector_0`` -> ``noise_injector``
+  (``noise_mlp`` an MLP, ``projection`` a Linear)
+- a learnable residual ``residual_<ds>.weight`` -> ``residual.<ds>.weight``
 - ``node_attributes_<name>.trainable``  -> ``node_attributes.trainable_tensors.<name>.trainable``
 - ``trainable_edges`` of a component    -> ``<component>_graph_provider[.<ds>].trainable``
 - the i-th encoder/decoder module       -> ``encoder.<ds>`` of the i-th dataset in sorted order
@@ -42,7 +49,8 @@ _NORMS = {
     "q_norm": "q_norm",
     "k_norm": "k_norm",
 }
-_MLPS = ("node_dst_mlp", "node_src_mlp", "edge_pre_mlp", "mlp")
+_MLPS = ("node_dst_mlp", "node_src_mlp", "edge_pre_mlp", "mlp", "noise_mlp")
+_INJECTORS = ("NoiseConditioning", "NoiseInjector", "NoOpNoiseInjector")
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -64,15 +72,22 @@ def _component(p: str, datasets: Sequence[str]):
             return [part, ds], [f"{part}_graph_provider", ds]
     if p.startswith("GraphTransformerProcessor") or p.startswith("TransformerProcessor"):
         return ["processor"], ["processor_graph_provider"]
+    if p.split("_")[0] in _INJECTORS:
+        return ["noise_injector"], []
+    if p.startswith("residual_"):
+        return ["residual", p[len("residual_"):]], []
     return None
 
 
-def _name(path: Tuple[str, ...], datasets: Sequence[str]) -> str:
+def _name(path: Tuple[str, ...], datasets: Sequence[str]) -> Tuple[str, int]:
     """Map one flax parameter path to the port's state-dict name; a scanned
-    processor layer index is left as ``{layer}``."""
+    processor layer index is left as ``{layer}``.  Also returns the block's
+    place ``j`` inside a scan step of ``scan_unroll`` blocks (``block_<j>``;
+    0 for a scan of one block)."""
     out: List[str] = ["model"]
     provider: List[str] = []
     keep_attention = path[0].startswith("TransformerProcessor")  # the dense block
+    sub = 0
     i = 0
     while i < len(path) - 1:
         p = path[i]
@@ -90,8 +105,10 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str]) -> str:
             out += ["proc", p[len("blocks_"):]]
         elif p == "attention" and keep_attention:
             out.append(p)
-        elif p in ("block", "attention", "ln"):
-            pass  # scan body, the inlined attention module, LayerNorm's inner module
+        elif p.startswith("block_") and p[len("block_"):].isdigit():
+            sub = int(p[len("block_"):])  # the j-th block of an unrolled scan step
+        elif p in ("block", "attention", "ln", "rms"):
+            pass  # scan body, the inlined attention module, the norms' inner modules
         elif p == "out_proj":
             out.append("projection")
         elif p == "layer_norm_mlp" and keep_attention:
@@ -101,14 +118,15 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str]) -> str:
         elif p in _MLPS and path[i + 1] in ("ffn_in", "linear_out", "norm"):
             out += [p] + {"ffn_in": ["mlp", "0"], "linear_out": ["mlp", "2"],
                           "norm": ["layer_norm"]}[path[i + 1]]
-            i += 2 if path[i + 1] == "ffn_in" else 1  # skip ffn_in's inner "linear"
+            # skip ffn_in's inner "linear" (a gated layer keeps gate_proj / value_proj)
+            i += 2 if path[i + 1] == "ffn_in" and path[i + 2] == "linear" else 1
         elif p == "extractor":
             out += ["node_data_extractor", "1"]
         else:
             out.append(p)
         i += 1
     leaf = {"kernel": "weight", "scale": "weight"}.get(path[-1], path[-1])
-    return ".".join(out + [leaf])
+    return ".".join(out + [leaf]), sub
 
 
 def state_dict_from_jax(params, dataset_names: Sequence[str] = ("data",)) -> Dict[str, torch.Tensor]:
@@ -118,10 +136,13 @@ def state_dict_from_jax(params, dataset_names: Sequence[str] = ("data",)) -> Dic
     tree = params.get("params", params)
     datasets = sorted(dataset_names)
     out: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(tree).items():
+    flat = _flatten(tree)
+    names = {path: _name(path, datasets) for path in flat}
+    unroll = 1 + max((sub for _, sub in names.values()), default=0)  # blocks a scan step
+    for path, value in flat.items():
         if path[-1] == "kernel" and value.ndim >= 2:
             value = np.swapaxes(value, -1, -2)  # [.., in, out] -> [.., out, in]
-        name = _name(path, datasets)
+        name, sub = names[path]
         parts = {name: value}
         if ".qkv." in name:  # [.., 3HD, C] or [.., 3HD] -> lin_q, lin_k, lin_v
             axis = -2 if path[-1] == "kernel" else -1
@@ -129,8 +150,9 @@ def state_dict_from_jax(params, dataset_names: Sequence[str] = ("data",)) -> Dic
                      for x, y in zip("qkv", np.split(value, 3, axis=axis))}
         for name, value in parts.items():
             if "{layer}" in name:
-                for layer in range(value.shape[0]):
-                    out[name.replace("{layer}", str(layer))] = torch.tensor(value[layer])
+                for step in range(value.shape[0]):
+                    out[name.replace("{layer}", str(step * unroll + sub))] = torch.tensor(
+                        value[step])
             else:
                 out[name] = torch.tensor(value)
     return out

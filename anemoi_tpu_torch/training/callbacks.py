@@ -170,14 +170,18 @@ class RolloutEvalCallback(Callback):
         self._fn = None
         self._n = 0
 
+    def on_train_start(self, trainer) -> None:
+        # built here, so that a model it cannot run (one that draws noise)
+        # is refused before the first step; the JAX callback fails at the
+        # first validation
+        from anemoi_tpu_torch.training.metrics import make_rollout_eval_fn
+
+        self._fn = make_rollout_eval_fn(trainer.interface, self.rollout)
+
     def on_validation(self, trainer, step, val_metrics):
         self._n += 1
         if self._n % self.every:
             return
-        from anemoi_tpu_torch.training.metrics import make_rollout_eval_fn
-
-        if self._fn is None:
-            self._fn = make_rollout_eval_fn(trainer.interface, self.rollout)
         trainer.datamodule.set_rollout(max(self.rollout, trainer.datamodule.rollout))
         val_metrics.update(_mean_over_val_batches(trainer, self._fn, self.max_batches))
 

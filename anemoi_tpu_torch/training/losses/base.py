@@ -6,7 +6,7 @@ bound to named dimensions of the prediction ``[batch, time, ensemble, grid,
 variable]``; ``scale()`` multiplies them in with broadcasting.  A loss is
 the scaler-weighted mean of a pointwise error; NaN targets drop out.
 
-Ported leaves: ``WeightedMSELoss`` (``leaves.py``).  The other leaves and the
+Ported leaves: ``WeightedMSELoss`` and ``KernelCRPS`` (``leaves.py``).  The other leaves and the
 wrappers (``MultiscaleLossWrapper``, ``LossVariableMapper``,
 ``TimeAggregateLossWrapper``) raise ``NotImplementedError``.  The
 ``ScaleTensor`` hooks that only they use (``update_scaler``, ``freeze``,

@@ -42,9 +42,11 @@ def make_rollout_eval_fn(
     model's output-time dimension (``<metric>/<ds>/<group>/t_<k>``) when the
     model predicts several steps at once.  ``batch``: raw data-space
     ``{ds: [B, m + rollout * n_out, E, G, V_data]}`` on the interface's
-    device."""
+    device.  Raises ``ValueError`` for a model that draws noise, which the
+    JAX function runs with no noise stream and fails on."""
     from anemoi_tpu_torch.training.step import advance_input, device_index_arrays
 
+    interface.require_deterministic("make_rollout_eval_fn")
     model = interface.model
     pre = interface.pre_processors
     m, n_out = model.n_step_input, model.n_step_output

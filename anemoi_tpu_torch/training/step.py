@@ -12,9 +12,16 @@ Rollout remat (``remat_rollout`` at ``rollout > 1``) checkpoints each
 rollout step's forward under ``remat_policy`` (``None``: recompute it
 whole), as the JAX step wraps it in ``jax.checkpoint``.
 
+Ensembles (``ensemble_size > 1``, the JAX ``EnsembleTraining``): the inputs
+are tiled over the member dim, the targets stay single-truth (the CRPS
+loss).  An ensemble model's noise is drawn per (training step, rollout
+step) from a generator seeded by :func:`fold_seed` of the base seed, as the
+JAX step folds its key; the draw is made outside the rollout checkpoint and
+enters it as an input, so the recompute in the backward reads the same
+noise.
+
 Not ported (``NotImplementedError``): the autoencoder and
-temporal-downscaler tasks, ensembles (``ensemble_size > 1``) and boundary
-masks.
+temporal-downscaler tasks and boundary masks.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ import torch
 from anemoi_tpu_torch.data_indices.collection import IndexCollection
 from anemoi_tpu_torch.models.layers.remat import checkpointed, resolve_remat_policy
 from anemoi_tpu_torch.training.metrics import variable_groups
+from anemoi_tpu_torch.utils.seeding import context_seed, fold_seed
 
+EVAL_NOISE_STEP = 2**31 - 1  # the validation's noise stream, as the JAX eval step folds it
 COMPUTE_TYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": torch.bfloat16,
                  "fp32": None, "float32": None, "32": None}
 
@@ -135,7 +144,9 @@ def make_step_fns(
     checkpointed under ``remat_policy`` (``None`` or ``"full"``: nothing
     kept; ``"save_attention"``, ``"save_attention_mlp"``, ``"dots"``: see
     ``models/layers/remat.py``); the compute copies are cast once per step,
-    outside the checkpoints, and enter them as inputs.
+    outside the checkpoints, and enter them as inputs.  ``ensemble_size``
+    members run per sample; the noise of an ensemble model is seeded by
+    ``context_seed("ensemble-noise")``, the train step and the rollout step.
 
     ``train_step(state, batch) -> (state, {"loss", "grad_norm"})`` updates
     ``state`` IN PLACE (the master weights, the optimizer state and the step
@@ -147,8 +158,6 @@ def make_step_fns(
     """
     if task != "forecaster":
         raise NotImplementedError(f"task '{task}' is not ported to anemoi_tpu_torch")
-    if ensemble_size != 1:
-        raise NotImplementedError("ensemble training is not ported to anemoi_tpu_torch")
     if output_masks:
         raise NotImplementedError("boundary masks are not ported to anemoi_tpu_torch")
     policy = resolve_remat_policy(remat_policy)
@@ -171,6 +180,18 @@ def make_step_fns(
     for loss in losses.values():
         if hasattr(loss, "to"):
             loss.to(interface.device)
+    noise_seed = context_seed("ensemble-noise")
+
+    def noise_for(x, noise_step: int, step: int):
+        """An ensemble model's noise for one rollout step, or None."""
+        if not interface.draws_noise:
+            return None
+        gen = torch.Generator(device=interface.device).manual_seed(
+            fold_seed(noise_seed, noise_step, step))
+        return interface.draw_noise(x, gen)
+
+    def forward(x, params, noise, fcstep):
+        return interface.run_model(x, params, noise=noise, fcstep=fcstep)
 
     def _group_metrics(out, y_pred, batch, step, t0):
         """Denormalised per-variable-group RMSE of one rollout step."""
@@ -184,20 +205,25 @@ def make_step_fns(
             for gname, idxs in groups[ds].items():
                 out[f"rmse/{ds}/{gname}/{step + 1}"] = torch.sqrt(per_var_mse[idxs].mean())
 
-    def rollout_loss(batch, with_metrics=False):
+    def rollout_loss(batch, noise_step: int, with_metrics=False):
         params = (interface.cast_parameters(compute_dtype, fp32_head)
                   if compute_dtype is not None else None)
         batch_norm = {ds: pre[ds].transform(batch[ds].float()) for ds in dataset_names}
         x = {ds: batch_norm[ds][:, :m][..., ia[ds]["data_input_full"]] for ds in dataset_names}
         if compute_dtype is not None:
             x = {ds: v.to(compute_dtype) for ds, v in x.items()}
+        if ensemble_size > 1:
+            # every member starts from the same state; the noise spreads them
+            x = {ds: v.expand(v.shape[:2] + (ensemble_size,) + v.shape[3:])
+                 for ds, v in x.items()}
         total = 0.0
         metrics: Dict[str, torch.Tensor] = {}
         for step in range(rollout):
+            noise = noise_for(x, noise_step, step)
             if remat and torch.is_grad_enabled():
-                y_pred = checkpointed(interface.run_model, policy, x, params)
+                y_pred = checkpointed(forward, policy, x, params, noise, step)
             else:
-                y_pred = interface.run_model(x, params)
+                y_pred = forward(x, params, noise, step)
             t0 = m + step * n_out
             for ds in dataset_names:
                 target = batch_norm[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]]
@@ -213,7 +239,7 @@ def make_step_fns(
 
     def compute_gradients(state: TrainState, batch) -> torch.Tensor:
         interface.zero_grad(set_to_none=True)
-        loss = rollout_loss(batch)
+        loss = rollout_loss(batch, state.step)
         loss.backward()
         return loss.detach()
 
@@ -229,7 +255,7 @@ def make_step_fns(
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
-        loss, group_metrics = rollout_loss(batch, with_metrics=True)
+        loss, group_metrics = rollout_loss(batch, EVAL_NOISE_STEP, with_metrics=True)
         return {"val_loss": loss, **group_metrics}
 
     train_step.compute_gradients = compute_gradients

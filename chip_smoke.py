@@ -11,7 +11,9 @@ Phases (any failure exits non-zero, with no result line):
                   float32 and bfloat16, and time both with CUDA events
                   (single calls, and calls back to back), each row with
                   its route and its instantiation's ptxas registers and
-                  spills;
+                  spills; then K1 and K3 + K4 at B = 4 (the ensemble's four
+                  members as batch rows) at the processor edge set, bf16,
+                  against their plain versions, timed as in phases 3-4;
   4. backward  -- at the same edge sets and types, for both edge inputs (K1's
                   raw attributes and K2's projected edges): K3 + K4 and K3
                   (no dkv) + K5 against the plain backward, per output, and
@@ -117,12 +119,28 @@ Phases (any failure exits non-zero, with no result line):
                   rollout 2 with the packaged remat defaults (3 steps:
                   finite records, exactly 72 K1, 36 K3 and 36 K4 a step);
                   ``cli evaluate --rollout 2`` on it;
- 15. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 15. ensemble  -- the ensemble CRPS preset (AIFS-ENS) at its own width:
+                  ``ensemble_crps.yaml`` (``AnemoiEnsModelEncProcDec``,
+                  ``NoiseConditioning``, conditional processor norms,
+                  ``KernelCRPS``, 512 channels, 16 layers, 16 heads, the
+                  ``multi_scale`` graph, 4 members) through ``cli train``
+                  over phase 9's store, bf16, 3 steps: finite records,
+                  exactly 18 K1, K3 and K4 and no other kernel in every step;
+                  the trained step's gradient against the plain attention
+                  (same weights and noise seed, relative L2 <= 1e-2); wall,
+                  device ms and peak memory of the step; ``predict_step`` on
+                  a window tiled to the 4 members: [1, 1, 4, 40320, 11],
+                  finite, exactly 18 K1, relative L2 <= 2e-2 against the
+                  plain attention (the same noise), members that differ
+                  once the conditional scales are nonzero; its wall, device
+                  ms and peak memory;
+ 16. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
-                  remat variant's and the YAML preset's), the card line, and last
-                  {"ok": true, "device": {...}}; with --json, the same and
-                  the serving and training details also go to PATH.
+                  remat variant's, the YAML preset's and the ensemble's
+                  training step and ``predict_step``), the card line, and
+                  last {"ok": true, "device": {...}}; with --json, the same
+                  and the serving and training details also go to PATH.
 
 Launch counts come from ``anemoi_tpu_torch.kernels.launch_counts()`` (all
 seven kernels), set to 0 just before each path runs (in the trainer phase,
@@ -224,6 +242,7 @@ STEPS = 2
 LAUNCHES_PER_STEP = 18  # encoder + 16 processor layers + decoder
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 TRAIN_STEPS = 8  # timed training steps, after 2 of warmup
+MEMBERS = 4  # the ensemble_crps preset's ensemble_size
 
 
 def card_line() -> str:
@@ -264,21 +283,23 @@ def cuda_ms_back_to_back(fn, launches: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / launches
 
 
-def attention_bound(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD):
-    """(bound_ms, bound_by) of one attention launch of width ``hd``: each
-    input read once and each output written once at the HBM rate, against
-    the float32 operations the kernel does per edge and channel (q.k, k+e,
-    v+e, the online-softmax update, and in K1 the F-term edge projection)."""
+def attention_bound(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1):
+    """(bound_ms, bound_by) of one attention launch of width ``hd`` over
+    ``batch`` rows: each input read once and each output written once at
+    the HBM rate (the edges and their projection are shared by the rows),
+    against the float32 operations the kernel does per edge, channel and row
+    (q.k, k+e, v+e, the online-softmax update, and in K1 the F-term edge
+    projection)."""
     edge_bytes = (n_edges * n_feat * elt + n_feat * hd * elt + hd * elt if fused
                   else n_edges * hd * elt)
     nbytes = (
-        2 * n_dst * hd * elt  # q in, out
-        + 2 * n_src * hd * elt  # k, v
+        batch * 2 * n_dst * hd * elt  # q in, out
+        + batch * 2 * n_src * hd * elt  # k, v
         + edge_bytes
         + 4 * (n_edges + n_dst + 1)  # src, dst_ptr (int32)
-        + 4 * n_dst * HEADS  # lse
+        + batch * 4 * n_dst * HEADS  # lse
     )
-    return bound(nbytes, n_edges * hd * (7 + (2 * n_feat if fused else 0)))
+    return bound(nbytes, batch * n_edges * hd * (7 + (2 * n_feat if fused else 0)))
 
 
 def bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -306,25 +327,27 @@ def window_bounds(b, n, h, d, w, elt):
             "K7_dkv": bound(6 * x + 2 * stats, 8 * d * pairs, rate)}
 
 
-def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD):
-    """{kernel: (bound_ms, bound_by)} of K3, K4 and K5 of width ``hd`` as the
-    training path launches them: each input read once, each output written
-    once.  K3 writes dq, the per-edge dkv [E, 2HD] and, for projected edges,
-    their float32 gradient [E, HD], or, with the projection fused, dW and
-    dbias (the flagship's raw attributes are constants: no d_attr); K4 reads
-    dkv back and writes dk, dv; K5 reads K3's inputs plus the source-ordered
-    view and writes dk, dv.  Operations per edge and channel: K3 12 (+ 4F for
-    the projection and dW), K4 2, K5 12 (+ 2F)."""
-    node_in = 2 * n_dst * hd * elt + 2 * n_src * hd * elt  # q, g; k, v
-    stats = 2 * 4 * n_dst * HEADS  # lse, delta (float32)
+def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1):
+    """{kernel: (bound_ms, bound_by)} of K3, K4 and K5 of width ``hd`` over
+    ``batch`` rows as the training path launches them: each input read once,
+    each output written once.  K3 writes dq, the per-edge dkv [B, E, 2HD]
+    and, for projected edges, their float32 gradient [E, HD] (summed over
+    the rows), or, with the projection fused, dW and dbias (the flagship's
+    raw attributes are constants: no d_attr); K4 reads dkv back and writes
+    dk, dv; K5 reads K3's inputs plus the source-ordered view and writes dk,
+    dv.  Operations per edge, channel and row: K3 12 (+ 4F for the
+    projection and dW), K4 2, K5 12 (+ 2F)."""
+    node_in = batch * (2 * n_dst * hd * elt + 2 * n_src * hd * elt)  # q, g; k, v
+    stats = batch * 2 * 4 * n_dst * HEADS  # lse, delta (float32)
     edge_in = (n_edges * n_feat * elt + n_feat * hd * elt + hd * elt) if fused \
         else n_edges * hd * elt
-    dkv = n_edges * 2 * hd * elt
-    k3 = (node_in + stats + edge_in + 4 * (n_edges + n_dst + 1) + n_dst * hd * elt + dkv
-          + ((n_feat + 1) * hd * 4 if fused else n_edges * hd * 4))
-    k4 = dkv + 4 * (n_edges + n_src + 1) + 2 * n_src * hd * elt
-    k5 = node_in + stats + edge_in + 4 * (2 * n_edges + n_src + 1) + 2 * n_src * hd * elt
-    per_edge = n_edges * hd
+    dkv = batch * n_edges * 2 * hd * elt
+    k3 = (node_in + stats + edge_in + 4 * (n_edges + n_dst + 1) + batch * n_dst * hd * elt
+          + dkv + ((n_feat + 1) * hd * 4 if fused else n_edges * hd * 4))
+    k4 = dkv + 4 * (n_edges + n_src + 1) + batch * 2 * n_src * hd * elt
+    k5 = (node_in + stats + edge_in + 4 * (2 * n_edges + n_src + 1)
+          + batch * 2 * n_src * hd * elt)
+    per_edge = batch * n_edges * hd
     return {
         "K3": bound(k3, per_edge * (12 + (4 * n_feat if fused else 0))),
         "K4": bound(k4, per_edge * 2),
@@ -415,7 +438,113 @@ def kernel_phase(graph, device) -> dict:
                 }
                 results[name].append(row)
                 print(f"[kernels] {name} {row}", flush=True)
+    for name, rows in member_batch_rows(graph, device).items():
+        results.setdefault(name, []).extend(rows)
     return results
+
+
+def member_batch_rows(graph, device) -> dict:
+    """K1 and K3 + K4 at B = 4 (the ensemble's four members folded into the
+    batch rows, as the ensemble phase runs them) at the processor edge set,
+    bf16 with the fused edge projection, against their plain versions (K4:
+    the float32 index_add_ of K3's dkv), each timed single and back to back
+    beside its bound, its plain version and (K4) one index_add_."""
+    from anemoi_tpu_torch.kernels import gt_attention as kern
+    from anemoi_tpu_torch.ops.gt_attention import (
+        SourceOrder, gt_attention_bwd_kernels, gt_attention_bwd_plain, gt_attention_fe,
+    )
+
+    b, dtype, key = MEMBERS, torch.bfloat16, ("hidden", "hidden")
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    es = graph[key]
+    n = graph["hidden"].num_nodes
+    ei = torch.as_tensor(es.edge_index, dtype=torch.int32, device=device).contiguous()
+    ptr = torch.as_tensor(es.dst_ptr, dtype=torch.int32, device=device)
+    order = SourceOrder.of(ei, n)
+    src = ei[0].long()
+    attr = torch.as_tensor(es.attribute_matrix(EDGE_ATTRIBUTES), device=device).to(dtype)
+    n_e, n_f = attr.shape
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+    q, k, v, g = rnd(b, n, HD), rnd(b, n, HD), rnd(b, n, HD), rnd(b, n, HD)
+    edge_kw = dict(edge_attr=attr, weight=rnd(HD, n_f, scale=0.3).t(), bias=rnd(HD, scale=0.1))
+    tol = TOL[dtype]
+    base = {"edge_set": "->".join(key), "dtype": "bfloat16", "batch": b, "fused_edge": True,
+            "n_dst": n, "n_src": n, "n_edges": n_e}
+
+    def k1(plain=False):
+        return gt_attention_fe(q, k, v, *edge_kw.values(), ei, ptr, HEADS, plain=plain,
+                               source=order)
+
+    before = kern.gt_attention_fused_edge.launches
+    out, lse = k1()
+    torch.cuda.synchronize()
+    if kern.gt_attention_fused_edge.launches != before + 1:
+        raise RuntimeError("K1 at B = 4: launch counter did not move")
+    ref, _ = k1(plain=True)
+    k1_err = (out.float() - ref.float()).abs().max().item()
+    if not k1_err <= tol * ref.float().abs().max().item():
+        raise RuntimeError(f"K1 at B = {b}: max abs err {k1_err:.3e}")
+    del ref
+    rows = {"K1": [{**base, "max_abs_err": k1_err, "ms": cuda_ms(k1),
+                    "ms_back_to_back": cuda_ms_back_to_back(
+                        lambda: kern.gt_attention_fused_edge(q, k, v, *edge_kw.values(), ei, ptr,
+                                                             HEADS)),
+                    "plain_ms": cuda_ms(lambda: k1(plain=True), reps=10, warmup=2),
+                    **dict(zip(("bound_ms", "bound_by"), attention_bound(
+                        n, n, n_e, n_f, 2, True, batch=b))),
+                    "library_ms": None}]}
+
+    got = gt_attention_bwd_kernels(q, k, v, ei, ptr, order.src_ptr, order.src_perm, HEADS,
+                                   out, lse, g, fused_bwd=False, **edge_kw)
+    ref = gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g, **edge_kw)
+    errs = {}
+    for name in ("dq", "dk", "dv", "d_attr", "d_weight", "d_bias"):
+        x, y = getattr(got, name).float(), getattr(ref, name).float()
+        errs[name] = (x - y).abs().max().item()
+        if not errs[name] <= tol * y.abs().max().item():
+            raise RuntimeError(f"K3 + K4 at B = {b} {name}: max abs err {errs[name]:.3e}")
+    del got, ref
+    delta = (out.float() * g.float()).reshape(b, n, HEADS, -1).sum(-1)
+
+    def k3():
+        return kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw,
+                                         edge_grad=False, weight_grad=True)
+
+    dkv = k3().dkv
+
+    def k4():
+        return kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm)
+
+    def k4_plain():
+        acc = torch.zeros(b, n, 2 * HD, device=device).index_add_(1, src, dkv.float())
+        return acc[..., :HD].to(dtype), acc[..., HD:].to(dtype)
+
+    k4_err = max((x.float() - y.float()).abs().max().item() for x, y in zip(k4(), k4_plain()))
+    bounds = backward_bounds(n, n, n_e, n_f, 2, True, batch=b)
+    plain_ms = cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g,
+                                                      **edge_kw), reps=5, warmup=1)
+    rows["K3"] = [{**base, "max_abs_err": max(v_ for n_, v_ in errs.items()
+                                              if n_ not in ("dk", "dv")), "errors": errs,
+                   "ms": cuda_ms(k3), "ms_back_to_back": cuda_ms_back_to_back(k3),
+                   "plain_ms": plain_ms, "plain_is": "gt_attention_bwd_plain",
+                   "bound_ms": bounds["K3"][0], "bound_by": bounds["K3"][1],
+                   "library_ms": None}]
+    rows["K4"] = [{**base, "max_abs_err": k4_err, "max_abs_err_dk_dv_vs_plain_backward":
+                   max(errs["dk"], errs["dv"]),
+                   "ms": cuda_ms(k4), "ms_back_to_back": cuda_ms_back_to_back(k4),
+                   "plain_ms": cuda_ms(k4_plain), "plain_is": "float32 index_add_ of dkv",
+                   "bound_ms": bounds["K4"][0], "bound_by": bounds["K4"][1],
+                   "library_ms": cuda_ms(lambda: torch.zeros(
+                       b, n, 2 * HD, device=device, dtype=dtype).index_add_(1, src, dkv)),
+                   "library_is": "index_add_ of dkv"}]
+    for name, r in rows.items():
+        print(f"[kernels] {name} at B = {b} (the ensemble's members) {r[0]}", flush=True)
+    del dkv, q, k, v, g, out, lse
+    torch.cuda.empty_cache()
+    return rows
 
 
 def backward_phase(graph, device) -> dict:
@@ -1525,8 +1654,159 @@ def presets_phase(workdir: str) -> dict:
     return result
 
 
+ENSEMBLE_STEPS = 3  # training steps of the ensemble phase, at rollout 1
+
+
+def ensemble_phase(workdir: str, device) -> dict:
+    """The ensemble CRPS preset (AIFS-ENS) at its own width: ``cli train
+    ensemble_crps.yaml`` over phase 9's store, then its step against the
+    plain attention and ``predict_step`` on the trained interface."""
+    import contextlib
+    import io
+
+    from anemoi_tpu_torch import kernels
+    from anemoi_tpu_torch.models.layers.normalization import ConditionalLayerNorm
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
+
+    preset = os.path.join(PACKAGED_CONFIG_DIR, "ensemble_crps.yaml")
+    store = os.path.join(workdir, "example_o96.zarr")
+    run_dir = os.path.join(workdir, "ensemble_run")
+    # the preset's model, graph and training at its own width (512 channels,
+    # 16 layers, 16 heads, multi_scale o96 -> ico-5, 4 members), in bf16;
+    # phase 9's store and graph (the same recipe); the rollout evaluation
+    # callback, which cannot run a noise-drawing model (the JAX package's
+    # fails on it too), left out
+    run = ["data.datasets.data.kind=zarr", f"data.datasets.data.path={store}",
+           f"graph.save_path={os.path.join(workdir, 'graph.npz')}", f"output_dir={run_dir}",
+           f"training.max_steps={ENSEMBLE_STEPS}", "training.max_epochs=1",
+           "training.precision=bf16", "diagnostics.log_interval=1",
+           "diagnostics.callbacks=[{name: LearningRateMonitor}]"]
+    composed = load_config(preset, run, search_paths=[PACKAGED_CONFIG_DIR]).to_dict()
+    model = composed["model"]
+    shape = (model["name"], model["num_channels"], model["processor"]["num_layers"],
+             model["processor"]["num_heads"], composed["training"]["ensemble_size"])
+    if shape != ("AnemoiEnsModelEncProcDec", 512, 16, 16, MEMBERS):
+        raise RuntimeError(f"ensemble: the preset composed to {shape}")
+    t0 = time.perf_counter()
+    with StepLaunches() as counted:
+        rc = cli.main(["train", preset, *run])
+    train_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"ensemble: cli train returned {rc}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "loss" in r]
+    if [r["step"] for r in steps] != list(range(1, ENSEMBLE_STEPS + 1)) or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps):
+        raise RuntimeError(f"ensemble: want {ENSEMBLE_STEPS} finite records, got {steps}")
+    val = [r for r in records if "val_loss" in r]
+    if not val or not math.isfinite(val[-1]["val_loss"]):
+        raise RuntimeError(f"ensemble: no finite validation record: {val}")
+    want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
+            "K4": LAUNCHES_PER_STEP}
+    if len(counted.per_step) != ENSEMBLE_STEPS or any(c != want for c in counted.per_step):
+        raise RuntimeError(f"ensemble: expected {want} in each of {ENSEMBLE_STEPS} steps, "
+                           f"got {counted.per_step}")
+    print(f"[ensemble] cli train ensemble_crps.yaml: {ENSEMBLE_STEPS} steps at {MEMBERS} "
+          f"members, losses {[r['loss'] for r in steps]}, launches a step "
+          f"{counted.per_step[-1]}, val_loss {val[-1]['val_loss']}", flush=True)
+
+    trainer, train_step = counted.trainer, counted.train_step
+    counted.trainer = counted.train_step = None
+    iface, state = trainer.interface, trainer.state
+    trainer.datamodule.set_rollout(1)
+    batch = trainer.put_batch(trainer.datamodule.make_batch(trainer.datamodule.train_starts[:1]))
+    # the same weights and noise seed (the state's step) on both attentions
+    grad_rel_l2 = grad_gap(iface, state, train_step, batch,
+                           f"ensemble ({MEMBERS} members) K3 + K4")
+    iface.zero_grad(set_to_none=True)
+    ms, walls, peak = timed_steps(device, state, train_step, batch)
+    device_ms, device_launches = profiled_device_ms(lambda: train_step(state, batch), 1)
+
+    # predict_step on the trained interface, the window tiled to the members
+    window = {"data": batch["data"][:, :iface.model.n_step_input].expand(
+        -1, -1, MEMBERS, -1, -1).contiguous()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    out = iface.predict_step(window)["data"]
+    torch.cuda.synchronize()
+    p_launches = kernels.launch_counts()
+    p_peak = torch.cuda.max_memory_allocated(device)
+    n_grid = trainer.datamodule.datasets["data"].num_grid_points
+    expect = (1, 1, MEMBERS, n_grid, iface.data_indices["data"].num_model_output_vars)
+    if tuple(out.shape) != expect or not torch.isfinite(out).all():
+        raise RuntimeError(f"ensemble: predict_step shape {tuple(out.shape)} (want {expect}) "
+                           "or not finite")
+    if p_launches != {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP}:
+        raise RuntimeError(f"ensemble: predict_step launches {p_launches}")
+    iface.use_plain_attention(True)
+    plain = iface.predict_step(window)["data"]  # the same noise: context_generator("noise")
+    iface.use_plain_attention(False)
+    p_rel_l2 = ((out - plain).norm() / plain.norm()).item()
+    print(f"[ensemble] predict_step vs plain attention: relative L2 {p_rel_l2:.3e} "
+          f"(tol {SERVING_TOL})", flush=True)
+    if not p_rel_l2 <= SERVING_TOL:
+        raise RuntimeError(f"ensemble: predict_step disagrees with the plain attention: "
+                           f"{p_rel_l2:.3e}")
+    del plain
+    p_walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        iface.predict_step(window)
+        torch.cuda.synchronize()
+        p_walls.append((time.perf_counter() - t1) * 1e3)
+    p_device_ms, p_device_launches = profiled_device_ms(lambda: iface.predict_step(window), 1)
+    spread_trained = (out[0, 0, 0] - out[0, 0, 1]).abs().max().item()
+    # members differ once the conditional scales are nonzero (zero at init;
+    # three steps at the preset's warmup rate move them by ~1e-7): seeded
+    # random kernels (a constant kernel would sum the zero-mean conditioning
+    # of noise_mlp's LayerNorm to 0)
+    norms = [m_ for m_ in iface.modules() if isinstance(m_, ConditionalLayerNorm)]
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    nudges = [0.1 * torch.randn(m_.scale.weight.shape, generator=gen, device=device)
+              for m_ in norms]
+    with torch.no_grad():
+        for m_, d in zip(norms, nudges):
+            m_.scale.weight.add_(d)
+        nudged = iface.predict_step(window)["data"]
+        for m_, d in zip(norms, nudges):
+            m_.scale.weight.sub_(d)
+    spread = (nudged[0, 0, 0] - nudged[0, 0, 1]).abs().max().item()
+    if not (torch.isfinite(nudged).all() and spread > 0):
+        raise RuntimeError(f"ensemble: members equal with nonzero conditional scales ({spread})")
+    del trainer, state, train_step, iface, batch, window, out, nudged
+    torch.cuda.empty_cache()
+    result = {
+        "train_s": train_s, "members": MEMBERS, "losses": [r["loss"] for r in steps],
+        "grad_norms": [r["grad_norm"] for r in steps], "val_loss": val[-1]["val_loss"],
+        "launches_per_step": counted.per_step[-1], "grad_rel_l2_vs_plain": grad_rel_l2,
+        "ms_per_step": ms, "ms_per_step_runs": walls, "peak_memory_bytes": peak,
+        "device_ms_per_step": device_ms, "device_launches_per_step": device_launches,
+        "trainer_wall_ms_steps_2_on": [(b_["elapsed_s"] - a_["elapsed_s"]) * 1e3
+                                       for a_, b_ in zip(steps, steps[1:])],
+        "predict": {"launches": p_launches, "output_shape": list(expect),
+                    "rel_l2_vs_plain": p_rel_l2, "ms": statistics.median(p_walls),
+                    "ms_runs": p_walls, "device_ms": p_device_ms,
+                    "device_launches": p_device_launches, "peak_memory_bytes": p_peak,
+                    "member_spread_trained": spread_trained,
+                    "member_spread_scales_nudged": spread},
+        "conditional_norms": len(norms),
+    }
+    print(f"[ensemble] fixed-batch step at {MEMBERS} members: wall {ms:.3f} ms, device "
+          f"{device_ms:.3f} ms ({device_launches:.1f} device launches), peak {peak} B; "
+          f"predict_step wall {result['predict']['ms']:.3f} ms, device {p_device_ms:.3f} ms, "
+          f"peak {p_peak} B; member spread trained {spread_trained:.3e}, scales nudged "
+          f"{spread:.3e}", flush=True)
+    print(f"[ensemble] {json.dumps(result)}", flush=True)
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
-           t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict) -> dict:
+           t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
+           ens: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -1545,7 +1825,9 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                "transformer_serving_2_steps": t_serving["launches"],
                "transformer_training_step": t_training["launches"],
                **{f"remat: {label}": r["launches"] for label, r in remat.items()},
-               "example_yaml_trainer_step_rollout_2": presets["launches_per_step"]}
+               "example_yaml_trainer_step_rollout_2": presets["launches_per_step"],
+               "ensemble_train": ens["launches_per_step"],
+               "ensemble_predict": ens["predict"]["launches"]}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
                "K4": "training_step", "K5": "training_step_fused_bwd",
                "K6": "transformer_serving_2_steps", "K7_dq": "transformer_training_step",
@@ -1554,7 +1836,7 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     def headline(r):
         return (r["dtype"] == "bfloat16" and r.get("edge_set", "hidden->hidden") == "hidden->hidden"
                 and r.get("fused_edge", True) and r.get("case", "main") == "main"
-                and r.get("hd", HD) == HD)
+                and r.get("hd", HD) == HD and r.get("batch", 1) == 1)
 
     entries = []
     for name, rows in kernel_rows.items():
@@ -1629,7 +1911,8 @@ def main() -> int:
         return out
 
     rows = phase("kernels", kernel_phase, graph, device)
-    rows.update(phase("backward", backward_phase, graph, device))
+    for name, extra in phase("backward", backward_phase, graph, device).items():
+        rows.setdefault(name, []).extend(extra)
     wide_rows, wide = phase("wide GT", gt_wide_phase, graph, device)
     for name, extra in wide_rows.items():
         rows[name] += extra
@@ -1646,7 +1929,9 @@ def main() -> int:
         t_training = phase("transformer training", transformer_training_phase, graph, device)
         remat = phase("remat", remat_phase, graph, device)
         presets = phase("presets", presets_phase, workdir)
-    rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets)
+        ens = phase("ensemble", ensemble_phase, workdir, device)
+    rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
+                 ens)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -1655,6 +1940,7 @@ def main() -> int:
                        "training": training, "trainer": trainer, "predict": predict,
                        "transformer_serving": t_serving,
                        "transformer_training": t_training, "remat": remat, "presets": presets,
+                       "ensemble": ens,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

@@ -52,11 +52,11 @@ DEAD_SRC = (0, 5, 299)
 
 
 def make_case(rng, num_src, num_dst, hd, f=3, empty_dst=(3, 17), dead_src=(), degree=None,
-              out_degree=None):
+              out_degree=None, batch=2):
     """A dst-sorted graph of 1-11 edges a destination (``degree``: {dst:
     in-degree} overrides; ``out_degree``: {src: n} puts each such source on
-    the first n destinations that have edges), inputs for batch 2 and an edge
-    projection."""
+    the first n destinations that have edges), inputs for ``batch`` rows
+    (default 2) and an edge projection."""
     src, dst = [], []
     alive = np.setdiff1d(np.arange(num_src), dead_src)
     placed = dict.fromkeys(out_degree or {}, 0)
@@ -75,8 +75,8 @@ def make_case(rng, num_src, num_dst, hd, f=3, empty_dst=(3, 17), dead_src=(), de
     ei = np.stack([np.concatenate(src), np.concatenate(dst)]).astype(np.int32)
     ptr = np.concatenate([[0], np.cumsum(np.bincount(ei[1], minlength=num_dst))]).astype(np.int32)
     arrays = {
-        "q": rng.normal(size=(2, num_dst, hd)), "k": rng.normal(size=(2, num_src, hd)),
-        "v": rng.normal(size=(2, num_src, hd)), "e": rng.normal(size=(ei.shape[1], hd)),
+        "q": rng.normal(size=(batch, num_dst, hd)), "k": rng.normal(size=(batch, num_src, hd)),
+        "v": rng.normal(size=(batch, num_src, hd)), "e": rng.normal(size=(ei.shape[1], hd)),
         "attr": rng.normal(size=(ei.shape[1], f)), "w": 0.3 * rng.normal(size=(f, hd)),
         "b": 0.1 * rng.normal(size=(hd,)),
     }
@@ -293,6 +293,35 @@ def test_autograd_reaches_every_input_on_the_card(card, fused_bwd):
         got = grads[False][name]
         assert got is not None and got.abs().max() > 0, name
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_a_batch_of_four_members(card, dtype):
+    """The ensemble's batch: four members fold into the batch rows (each
+    kernel's grid y), 16 heads of 32 as in the flagship.  K1, then K3 + K4
+    and K3 + K5 (K3 sums dW and dbias over the four rows) against the plain
+    versions."""
+    ei_np, ptr_np, a = make_case(np.random.default_rng(11), 300, 200, 512, dead_src=DEAD_SRC,
+                                 batch=4)
+    t = {k: torch.from_numpy(v).to(card, dtype) for k, v in a.items()}
+    ei, ptr = torch.from_numpy(ei_np).to(card), torch.from_numpy(ptr_np).to(card)
+    order = SourceOrder.of(ei, 300)
+    args = (t["q"], t["k"], t["v"], t["attr"], t["w"], t["b"], ei, ptr, 16)
+    before = kern.gt_attention_fused_edge.launches
+    out, lse = gt_attention_fe(*args, source=order)
+    torch.cuda.synchronize()
+    assert kern.gt_attention_fused_edge.launches == before + 1 and out.shape[0] == 4
+    ref, ref_lse = gt_attention_fe(*args, plain=True)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max() <= tol * ref.float().abs().max()
+    finite = ref_lse.isfinite()
+    torch.testing.assert_close(lse[finite], ref_lse[finite], rtol=1e-4, atol=1e-4)
+    g = torch.randn(out.shape, generator=torch.Generator(card).manual_seed(1), device=card)
+    edge_kw = dict(edge_attr=t["attr"], weight=t["w"], bias=t["b"])
+    for fused_bwd in (False, True):
+        check_backward_against_plain(t, ei, ptr, order, 16, out, lse, g.to(dtype), edge_kw,
+                                     True, fused_bwd, dtype)
 
 
 # K3 layouts the cases above do not reach: a destination of in-degree 75

@@ -182,11 +182,21 @@ def test_fp32_step_gradients_match_jax(tiny):
 
 
 def test_not_ported_transformer_options_raise(tiny):
-    for key, value in (("shard_strategy", "heads"), ("conditional", True),
-                       ("mlp_implementation", "swiglu"), ("qk_norm_type", "rmsnorm")):
+    """Ulysses head sharding is not ported; a conditional processor needs an
+    ensemble model's noise conditioning.  The gated MLPs are ported
+    (tests/test_torch_switches.py), and ``qk_norm_type``, which the JAX
+    ``TransformerProcessor`` has no field for, is dropped as it drops it."""
+    for key, value, error in (("shard_strategy", "heads", NotImplementedError),
+                              ("conditional", True, ValueError)):
         cfg = config()
         cfg["model"]["processor"][key] = value
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(error):
             AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
                                  data_indices=flagship_indices(), statistics=tiny["stats"],
                                  device="cpu")
+    cfg = config()
+    cfg["model"]["processor"].update(mlp_implementation="swiglu", qk_norm_type="rmsnorm")
+    iface = AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
+                                 data_indices=flagship_indices(), statistics=tiny["stats"],
+                                 device="cpu")
+    assert "model.processor.proc.0.mlp.mlp.0.gate_proj.weight" in iface.state_dict()
