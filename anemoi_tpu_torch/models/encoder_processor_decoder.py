@@ -1,8 +1,8 @@
 """Encoder-processor-decoder graph model.
 
 Port of ``anemoi_tpu.models.encoder_processor_decoder``:
-``AnemoiModelEncProcDec`` with the GraphTransformer mappers and processor,
-and the ensemble model ``AnemoiEnsModelEncProcDec``.  Data flow, per
+``AnemoiModelEncProcDec``, ``AnemoiModelAutoEncoder`` and the ensemble model
+``AnemoiEnsModelEncProcDec``.  Data flow, per
 dataset: [B,T,E,G,V] -> [(B E), G, (T V)] (member-major rows: row ``b * E +
 e`` is member ``e`` of sample ``b``), node attributes appended (and, for the
 ensemble model, the forecast-step channel ``min(1, fcstep)``) -> encoder
@@ -11,15 +11,20 @@ injector; the conditioning it returns goes to every processor block) ->
 processor over the hidden mesh -> latent skip -> decoder (hidden -> data) ->
 [B,T,E,G,V] -> residual added on the prognostic variables -> boundings.
 
-Processors: the ``GraphTransformerProcessor`` and the dense
-``TransformerProcessor`` (sliding-window attention over the hidden nodes in
-their order; its processor edge set stays in the graph, unread, as in the
-JAX package).  Ported: both models on one device.  Dynamic edge providers
-and model parallelism raise ``NotImplementedError``.  The
+Components, by the config's ``name`` (the JAX ``ENCODERS``, ``PROCESSORS``
+and ``DECODERS``, :data:`COMPONENTS`): the GraphTransformer, GNN and
+point-wise mappers; the ``GraphTransformerProcessor``, ``GNNProcessor``,
+``PointWiseMLPProcessor`` and the dense ``TransformerProcessor``
+(sliding-window attention over the hidden nodes in their order).  The
+point-wise and dense processors read no processor edges: their edge set
+stays in the graph, unread, or is empty on a graph without processor edges.
+Ported: every model on one device.  The Transformer mappers, dynamic edge
+providers and model parallelism raise ``NotImplementedError``.  The
 ``graph_attention_backend`` values of the JAX package (paged, padded,
-segment) all select the port's one CSR attention.  Its backward on each edge
-set follows the JAX package's choice between the two-pass and the fused
-backward (:func:`fused_backward`).
+segment) all select the port's one CSR attention and the GNN's one
+``index_add_`` sum.  The attention's backward on each edge set follows the
+JAX package's choice between the two-pass and the fused backward
+(:func:`fused_backward`).
 """
 
 from __future__ import annotations
@@ -36,61 +41,114 @@ from anemoi_tpu_torch.models.layers.bounding import build_boundings
 from anemoi_tpu_torch.models.layers.embed import NamedNodesAttributes
 from anemoi_tpu_torch.models.layers.ensemble import build_noise_injector
 from anemoi_tpu_torch.models.layers.mapper import (
+    GNNBackwardMapper,
+    GNNForwardMapper,
     GraphTransformerBackwardMapper,
     GraphTransformerForwardMapper,
+    PointWiseBackwardMapper,
+    PointWiseForwardMapper,
     TrainableEdgeFeatures,
 )
 from anemoi_tpu_torch.models.layers.processor import (
+    GNNProcessor,
     GraphTransformerProcessor,
+    PointWiseMLPProcessor,
     TransformerProcessor,
 )
 from anemoi_tpu_torch.models.layers.residual import build_residual
 
 LOGGER = logging.getLogger(__name__)
 BACKENDS = ("paged", "padded", "segment")
-_COMPONENT_NAMES = {
+_DEFAULT_NAMES = {
     "encoder": "GraphTransformerForwardMapper",
     "processor": "GraphTransformerProcessor",
     "decoder": "GraphTransformerBackwardMapper",
 }
-_REMAT_KEYS = ("gradient_checkpointing", "remat_policy")
-_GT_KEYS = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "edge_pre_mlp",
-            "mlp_implementation", *_REMAT_KEYS)
-_TRANSFORMER_KEYS = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "window_size",
-                     "softcap", "use_alibi_slopes", "use_rotary_embeddings", "attention_impl",
-                     "mlp_implementation", *_REMAT_KEYS)
+_REMAT = ("gradient_checkpointing", "remat_policy")
+_GT = ("num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm", "edge_pre_mlp",
+       "mlp_implementation", *_REMAT)
+# component name -> (part, the port's class, the config keys it takes, the
+# other fields of the JAX module: set by the model, or steering only the
+# TPU's execution)
+COMPONENTS = {
+    "GraphTransformerForwardMapper": (
+        "encoder", GraphTransformerForwardMapper, _GT, ("hidden_dim", "edge_trainable_size",
+                                                        "backend")),
+    "GraphTransformerBackwardMapper": (
+        "decoder", GraphTransformerBackwardMapper, _GT,
+        ("hidden_dim", "out_channels_dst", "edge_trainable_size", "backend",
+         "initialise_data_extractor_zero")),
+    "GNNForwardMapper": (
+        "encoder", GNNForwardMapper, ("mlp_extra_layers", "mlp_implementation"),
+        ("hidden_dim", "edge_trainable_size", "backend")),
+    "GNNBackwardMapper": (
+        "decoder", GNNBackwardMapper, ("mlp_extra_layers", "mlp_implementation"),
+        ("hidden_dim", "out_channels_dst", "edge_trainable_size", "backend",
+         "initialise_data_extractor_zero")),
+    "PointWiseForwardMapper": (
+        "encoder", PointWiseForwardMapper, ("mlp_hidden_ratio",),
+        ("hidden_dim", "edge_trainable_size", "backend")),
+    "PointWiseBackwardMapper": (
+        "decoder", PointWiseBackwardMapper, ("mlp_hidden_ratio",),
+        ("hidden_dim", "out_channels_dst", "edge_trainable_size", "backend",
+         "initialise_data_extractor_zero")),
+    "GraphTransformerProcessor": (
+        "processor", GraphTransformerProcessor, ("num_layers", *_GT, "scan_unroll"),
+        ("num_channels", "edge_trainable_size", "conditional", "scan_layers", "backend",
+         "shard_strategy")),
+    "TransformerProcessor": (
+        "processor", TransformerProcessor,
+        ("num_layers", "num_heads", "mlp_hidden_ratio", "attn_channels", "qk_norm",
+         "window_size", "softcap", "use_alibi_slopes", "use_rotary_embeddings",
+         "attention_impl", "mlp_implementation", *_REMAT),
+        ("num_channels", "conditional", "scan_layers", "shard_strategy")),
+    "GNNProcessor": (
+        "processor", GNNProcessor,
+        ("num_layers", "mlp_extra_layers", "mlp_hidden_ratio", "mlp_implementation", *_REMAT),
+        ("num_channels", "edge_trainable_size", "scan_layers", "backend")),
+    "PointWiseMLPProcessor": (
+        "processor", PointWiseMLPProcessor, ("num_layers", "mlp_hidden_ratio", "activation"),
+        ("num_channels", "gradient_checkpointing")),
+}
+# components that run over their sub-graph's edges (and so may carry
+# trainable edge features on a graph provider)
+EDGE_COMPONENTS = ("GraphTransformerForwardMapper", "GraphTransformerBackwardMapper",
+                   "GNNForwardMapper", "GNNBackwardMapper", "GraphTransformerProcessor",
+                   "GNNProcessor")
 
 
-def _component(config: dict, part: str) -> dict:
-    """Constructor kwargs of one component (a GraphTransformer mapper or
-    processor, or the dense ``TransformerProcessor``), the remat keys
-    included; keys that only steer the TPU's execution (scan, tables) are
-    dropped, keys that change the math and are not ported raise.  The
+def _component(config: dict, part: str):
+    """``(name, class, constructor kwargs)`` of one component by its config's
+    ``name`` (the JAX package's ``ENCODERS``, ``PROCESSORS`` and
+    ``DECODERS``).  As the JAX ``_field_filter`` does, keys that are no
+    field of the chosen JAX module (left behind by preset composition) are
+    dropped with a warning; fields that only steer the TPU's execution (scan,
+    backend) are dropped silently; a dynamic edge provider and Ulysses head
+    sharding, which change the execution and are not ported, raise.  The
     processors' ``conditional`` is applied by the model (the conditioning's
     width); the GT processor's ``scan_unroll`` is checked against its depth,
-    as the JAX processor checks it.  ``qk_norm_type`` (a field of the JAX
-    blocks, not of its mappers and processors) and the mappers'
-    ``conditional`` are dropped with a warning, as the JAX package drops
-    them: the blocks' query/key norm stays the LayerNorm."""
+    as the JAX processor checks it."""
     cfg = dict(config.get(part) or {})
-    name = cfg.get("name", _COMPONENT_NAMES[part])
-    dense = part == "processor" and name == "TransformerProcessor"
-    if name != _COMPONENT_NAMES[part] and not dense:
+    name = str(cfg.pop("name", _DEFAULT_NAMES[part]))
+    if name not in COMPONENTS or COMPONENTS[name][0] != part:
         raise NotImplementedError(f"{part} '{name}' is not ported to anemoi_tpu_torch")
-    if cfg.get("edge_provider"):
+    _, cls, ported, other = COMPONENTS[name]
+    if cfg.pop("edge_provider", None):
         raise NotImplementedError(f"{part}: dynamic edge providers are not ported")
     if cfg.get("shard_strategy", "none") != "none":
         raise NotImplementedError(f"{part}: Ulysses head sharding (shard_strategy) is not ported")
-    if "num_heads" not in cfg:
+    if "num_heads" in ported and "num_heads" not in cfg:
         raise ValueError(f"{part}: num_heads is required")
-    out = {k: cfg[k] for k in (_TRANSFORMER_KEYS if dense else _GT_KEYS) if k in cfg}
-    if part == "processor" and not dense and "scan_unroll" in cfg:
-        out["scan_unroll"] = int(cfg["scan_unroll"])
-    dropped = sorted(k for k in ("qk_norm_type", "conditional") if k in cfg
-                     and not (k == "conditional" and part == "processor"))
+    for key in ("sub_graph_edge_attributes", "trainable_size"):
+        cfg.pop(key, None)
+    dropped = sorted(k for k in cfg if k not in ported and k not in other)
     if dropped:
-        LOGGER.warning("%s: ignoring config keys %s, as the JAX package does", part, dropped)
-    return out
+        LOGGER.warning("%s %s: ignoring config keys %s, as the JAX package does", part, name,
+                       dropped)
+    kwargs = {k: cfg[k] for k in ported if k in cfg}
+    if "scan_unroll" in kwargs:
+        kwargs["scan_unroll"] = int(kwargs["scan_unroll"])
+    return name, cls, kwargs
 
 
 def fused_backward(config: dict, part: str, num_edges: int, num_channels: int) -> bool:
@@ -154,11 +212,13 @@ class AnemoiModelEncProcDec(nn.Module):
         def edge_dim(part, sub):
             return sub.edge_dim + trainable_size(part)
 
-        enc, proc, dec = (_component(config, p) for p in ("encoder", "processor", "decoder"))
-        self.dense_processor = (config["processor"] or {}).get("name") == "TransformerProcessor"
+        (enc_name, enc_cls, enc), (proc_name, proc_cls, proc), (dec_name, dec_cls, dec) = (
+            _component(config, p) for p in ("encoder", "processor", "decoder"))
+        self.processor_edges = proc_name in EDGE_COMPONENTS
         c = self.num_channels
         self.noise_injector = self._noise_injector()
-        if (config["processor"] or {}).get("conditional"):
+        if (config["processor"] or {}).get("conditional") and proc_name in (
+                "GraphTransformerProcessor", "TransformerProcessor"):
             cond_dim = getattr(self.noise_injector, "conditioning_dim", None)
             if cond_dim is None:
                 raise ValueError("processor.conditional needs the conditioning of an "
@@ -169,35 +229,33 @@ class AnemoiModelEncProcDec(nn.Module):
             for sub in subs:
                 sub.fused_bwd = fused_backward(config, part, sub.num_edges, c)
         self.encoder = nn.ModuleDict({
-            ds: GraphTransformerForwardMapper(
-                self.input_dim(ds, trainable), n_hidden_attr, c,
-                edge_dim=edge_dim("encoder", graph.encoder[ds]), **enc,
-            ) for ds in datasets
+            ds: enc_cls(self.input_dim(ds, trainable), n_hidden_attr, c,
+                        edge_dim=edge_dim("encoder", graph.encoder[ds]), **enc)
+            for ds in datasets
         })
-        if self.dense_processor:
-            self.processor = TransformerProcessor(int(config["processor"]["num_layers"]), c, **proc)
-        else:
-            self.processor = GraphTransformerProcessor(
-                int(config["processor"]["num_layers"]), c,
-                edge_dim=edge_dim("processor", graph.processor), **proc,
-            )
+        if self.processor_edges:
+            proc["edge_dim"] = edge_dim("processor", graph.processor)
+        self.processor = proc_cls(num_channels=c, **proc)
+        # the decoder's data-node input: the encoder's first output, the raw
+        # input (GT, point-wise) or its embedding, updated (GNN)
         self.decoder = nn.ModuleDict({
-            ds: GraphTransformerBackwardMapper(
-                self.input_dim(ds, trainable), c, self.output_dim(ds),
-                edge_dim=edge_dim("decoder", graph.decoder[ds]), **dec,
-            ) for ds in datasets
+            ds: dec_cls(c if enc_name == "GNNForwardMapper"
+                        else self.input_dim(ds, trainable),
+                        c, self.output_dim(ds), edge_dim=edge_dim("decoder", graph.decoder[ds]),
+                        **dec)
+            for ds in datasets
         })
         # trainable edge features live on the graph providers, as in anemoi-core
-        if trainable_size("encoder"):
+        if trainable_size("encoder") and enc_name in EDGE_COMPONENTS:
             self.encoder_graph_provider = nn.ModuleDict({
                 ds: TrainableEdgeFeatures(graph.encoder[ds].num_edges, trainable_size("encoder"))
                 for ds in datasets
             })
-        if trainable_size("processor") and not self.dense_processor:
+        if trainable_size("processor") and self.processor_edges:
             self.processor_graph_provider = TrainableEdgeFeatures(
                 graph.processor.num_edges, trainable_size("processor")
             )
-        if trainable_size("decoder"):
+        if trainable_size("decoder") and dec_name in EDGE_COMPONENTS:
             self.decoder_graph_provider = nn.ModuleDict({
                 ds: TrainableEdgeFeatures(graph.decoder[ds].num_edges, trainable_size("decoder"))
                 for ds in datasets
@@ -301,13 +359,13 @@ class AnemoiModelEncProcDec(nn.Module):
             x_latent, noise_cond = self.noise_injector(x_latent, noise)
         if cond is None:
             cond = noise_cond
-        if self.dense_processor:
-            x_latent_proc = self.processor(x_latent, cond)
-        else:
+        if self.processor_edges:
             x_latent_proc = self.processor(
                 x_latent, graph.processor, self._edges("processor_graph_provider", graph.processor),
                 cond,
             )
+        else:
+            x_latent_proc = self.processor(x_latent, cond)
         if self.latent_skip:
             x_latent_proc = x_latent_proc + x_latent
 
@@ -330,6 +388,13 @@ class AnemoiModelEncProcDec(nn.Module):
                 x_out = bounding(x_out)
             out[ds] = x_out
         return out
+
+
+class AnemoiModelAutoEncoder(AnemoiModelEncProcDec):
+    """The encoder-decoder of the autoencoder task: the same model, which the
+    ``autoencoder`` preset configures with ``NoResidualConnection`` and a
+    point-wise processor on a graph without processor edges (the JAX
+    package's subclass has no code of its own either)."""
 
 
 class AnemoiEnsModelEncProcDec(AnemoiModelEncProcDec):

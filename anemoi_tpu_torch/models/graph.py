@@ -6,6 +6,11 @@ have no counterpart: the CUDA kernels read the dst-sorted CSR directly, and
 the backward's source passes read a source-ordered view of it (``src_ptr``,
 ``src_perm``), the GPU counterpart of the TPU's page-sorted ``visit_slot`` /
 ``visit_page`` walk.
+
+A graph without processor edges (``graph/encoder_decoder_only.yaml``, for
+autoencoders and point-wise processors) gets an empty processor sub-graph,
+as in the JAX package: no edges, ``dst_ptr`` of zeros, ``len(
+processor_edge_attributes) or 1`` attribute columns.
 """
 
 from __future__ import annotations
@@ -96,8 +101,6 @@ def build_model_graph(
 ) -> ModelGraph:
     """Edge attributes are concatenated in the order the config lists them
     (the bench uses ``[edge_dirs, edge_length]``; ``None`` means sorted names)."""
-    if (hidden_name, hidden_name) not in graph.edges:
-        raise NotImplementedError("graphs without processor edges are not ported")
     node_features = {
         name: torch.as_tensor(sincos_coordinates(graph[name].coords), device=device).to(dtype)
         for name in graph.node_names()
@@ -106,11 +109,23 @@ def build_model_graph(
     def sub(src, dst, attrs):
         return extract_subgraph(graph, src, dst, attrs, device, dtype)
 
+    if (hidden_name, hidden_name) in graph.edges:
+        processor = sub(hidden_name, hidden_name, processor_edge_attributes)
+    else:
+        n_hidden = graph[hidden_name].num_nodes
+        processor = SubGraphArrays(
+            edge_index=torch.zeros((2, 0), dtype=torch.int32, device=device),
+            dst_ptr=torch.zeros(n_hidden + 1, dtype=torch.int32, device=device),
+            edge_attr=torch.zeros((0, len(processor_edge_attributes or []) or 1), device=device,
+                                  dtype=dtype),
+            num_src=n_hidden, num_dst=n_hidden,
+        )
+
     return ModelGraph(
         node_features=node_features,
         num_nodes={name: graph[name].num_nodes for name in graph.node_names()},
         encoder={ds: sub(ds, hidden_name, encoder_edge_attributes) for ds in dataset_names},
-        processor=sub(hidden_name, hidden_name, processor_edge_attributes),
+        processor=processor,
         decoder={ds: sub(hidden_name, ds, decoder_edge_attributes) for ds in dataset_names},
         hidden_name=hidden_name,
     )

@@ -42,6 +42,7 @@ from anemoi_tpu_torch.data_indices.collection import IndexCollection
 from anemoi_tpu_torch.graphs.graph import Graph
 from anemoi_tpu_torch.models.encoder_processor_decoder import (
     AnemoiEnsModelEncProcDec,
+    AnemoiModelAutoEncoder,
     AnemoiModelEncProcDec,
 )
 from anemoi_tpu_torch.models.graph import build_model_graph
@@ -66,14 +67,16 @@ def initialise_parameters(model: nn.Module, generator: torch.Generator,
     """Every parameter from its flax initialiser: ``Linear`` weights from
     ``lecun_normal`` (variance ``1 / fan_in``, truncated at two standard
     deviations) and zero biases; LayerNorm and RMSNorm scales 1 and offsets
-    0; the trainable node and edge tensors 0; the decoder's output ``Linear``
-    (``node_data_extractor``) 0 with ``initialise_data_extractor_zero``;
+    0; the trainable node and edge tensors 0; each decoder's output ``Linear``
+    (its ``output_linear``) 0 with ``initialise_data_extractor_zero``;
     the ``scale`` and ``bias`` Linears of a ``ConditionalLayerNorm`` 0 (so
     every ensemble member starts equal); a ``ScalarOrnsteinConnection``'s
     weight its theta logits over zeros.  Draws come from ``generator`` in
     module order, on the parameters' device (the CPU when the interface
     builds its model)."""
     covered = set()
+    zero = {id(dec.output_linear.weight) for dec in getattr(model, "decoder", {}).values()
+            if zero_extractor}
     for module in model.modules():
         if isinstance(module, ConditionalLayerNorm):
             module.zero_()
@@ -81,12 +84,12 @@ def initialise_parameters(model: nn.Module, generator: torch.Generator,
         elif isinstance(module, ScalarOrnsteinConnection):
             module.reset_parameters()
             covered.add(id(module.weight))
-    for name, module in model.named_modules():
+    for module in model.modules():
         if isinstance(module, nn.Linear) and id(module.weight) in covered:
             continue
         if isinstance(module, nn.Linear):
             std = (1.0 / module.in_features) ** 0.5 / _TRUNCATED_STD
-            if zero_extractor and name.endswith("node_data_extractor.1"):
+            if id(module.weight) in zero:
                 module.weight.zero_()
             else:
                 nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
@@ -109,6 +112,7 @@ def initialise_parameters(model: nn.Module, generator: torch.Generator,
 
 
 MODELS = {"AnemoiModelEncProcDec": AnemoiModelEncProcDec,
+          "AnemoiModelAutoEncoder": AnemoiModelAutoEncoder,
           "AnemoiEnsModelEncProcDec": AnemoiEnsModelEncProcDec}
 PRECISIONS = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": torch.bfloat16,
               "fp32": torch.float32, "float32": torch.float32, "32": torch.float32}

@@ -1,7 +1,9 @@
-"""Grid <-> mesh graph-transformer mappers.
+"""Grid <-> mesh mappers: graph-transformer, GNN and point-wise.
 
 Port of ``anemoi_tpu.models.layers.mapper`` (``TrainableEdgeFeatures``,
-``GraphTransformerForwardMapper``, ``GraphTransformerBackwardMapper``).
+``GraphTransformerForwardMapper``, ``GraphTransformerBackwardMapper``,
+``GNNForwardMapper``, ``GNNBackwardMapper``, ``PointWiseForwardMapper``,
+``PointWiseBackwardMapper``).
 A mapper = node embeddings + one bipartite block + (decoder) the output
 extractor.  ``gradient_checkpointing`` (default off, as in the JAX package)
 checkpoints the block alone under ``remat_policy``; the node embeddings and
@@ -9,6 +11,15 @@ the trainable edge features stay outside.  The mappers take no conditioning:
 the JAX model passes none to them, so their blocks' norms are plain; their
 query/key norm is the default LayerNorm (the JAX mappers have no
 ``qk_norm_type``).
+
+The GNN mappers embed the edges (``emb_edges``) and, in the encoder, both
+node sets (``emb_nodes_src``, ``emb_nodes_dst``) with MLPs, then run one
+``GraphConvMapperBlock``; every one of their MLPs runs ``mlp_extra_layers +
+1`` extra hidden layers, as the JAX mappers do.  The GNN encoder returns the
+UPDATED source nodes, which the decoder takes as its destinations; its
+``node_data_extractor`` is an MLP.  The point-wise mappers are one MLP over
+``[x_src, x_dst]`` and need equal source and destination node counts; they
+read no edges.
 """
 
 from __future__ import annotations
@@ -19,8 +30,12 @@ import torch
 from torch import nn
 
 from anemoi_tpu_torch.models.graph import SubGraphArrays
-from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerMapperBlock
-from anemoi_tpu_torch.models.layers.mlp import compute_mlp_hidden_dim
+from anemoi_tpu_torch.models.layers.graph_blocks import (
+    GraphConvMapperBlock,
+    GraphTransformerMapperBlock,
+    gnn_mlp,
+)
+from anemoi_tpu_torch.models.layers.mlp import MLP, compute_mlp_hidden_dim
 from anemoi_tpu_torch.models.layers.normalization import LayerNorm
 from anemoi_tpu_torch.models.layers.remat import BlockRemat
 
@@ -94,6 +109,11 @@ class GraphTransformerBackwardMapper(BlockRemat, nn.Module):
             LayerNorm(hidden_dim), nn.Linear(hidden_dim, out_channels_dst)
         )
 
+    @property
+    def output_linear(self) -> nn.Linear:
+        """The output head's Linear (zero with ``initialise_data_extractor_zero``)."""
+        return self.node_data_extractor[1]
+
     def forward(
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
     ) -> torch.Tensor:
@@ -101,6 +121,108 @@ class GraphTransformerBackwardMapper(BlockRemat, nn.Module):
         _, x_dst = self._run(self.proc, (x[0], x_dst), sub, edge_attr)
         norm, head = self.node_data_extractor
         out = norm(x_dst)
-        # a float32 head under bf16 compute (training's fp32_head) promotes its
-        # input, as the JAX package's Dense does
-        return head(out.to(torch.promote_types(out.dtype, head.weight.dtype)))
+        return head(_promoted(out, head.weight))
+
+
+def _promoted(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """A float32 head under bf16 compute (training's fp32_head) promotes its
+    input, as the JAX package's Dense does."""
+    return x.to(torch.promote_types(x.dtype, weight.dtype))
+
+
+def _broadcast_edges(mlp: nn.Module, edge_attr: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The edge embedding ``mlp(edge_attr)`` in ``like``'s type, shared by
+    its batch: ``[B, E, C]``."""
+    emb = mlp(edge_attr.to(like.dtype))
+    return emb.expand((like.shape[0],) + emb.shape)
+
+
+class GNNForwardMapper(nn.Module):
+    """GNN data -> hidden encoder: returns the updated ``(x_src, x_dst)``
+    embeddings."""
+
+    def __init__(self, in_channels_src: int, in_channels_dst: int, hidden_dim: int,
+                 edge_dim: int, mlp_extra_layers: int = 0,
+                 mlp_implementation: str = "mlp") -> None:
+        super().__init__()
+        c, kw = hidden_dim, dict(mlp_extra_layers=mlp_extra_layers,
+                                 implementation=mlp_implementation)
+        self.emb_edges = gnn_mlp(edge_dim, c, c, **kw)
+        self.emb_nodes_src = gnn_mlp(in_channels_src, c, c, **kw)
+        self.emb_nodes_dst = gnn_mlp(in_channels_dst, c, c, **kw)
+        self.proc = GraphConvMapperBlock(c, mlp_extra_layers, update_src_nodes=True,
+                                         mlp_implementation=mlp_implementation)
+
+    def forward(
+        self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        edges = _broadcast_edges(self.emb_edges, edge_attr, x[0])
+        x = (self.emb_nodes_src(x[0]), self.emb_nodes_dst(x[1]))
+        return self.proc(x, edges, sub)[0]
+
+
+class GNNBackwardMapper(nn.Module):
+    """GNN hidden -> data decoder: the block onto the data nodes (the
+    encoder's updated embeddings), then ``node_data_extractor``, an MLP."""
+
+    def __init__(self, in_channels_dst: int, hidden_dim: int, out_channels_dst: int,
+                 edge_dim: int, mlp_extra_layers: int = 0,
+                 mlp_implementation: str = "mlp") -> None:
+        super().__init__()
+        c, kw = hidden_dim, dict(mlp_extra_layers=mlp_extra_layers,
+                                 implementation=mlp_implementation)
+        self.emb_edges = gnn_mlp(edge_dim, c, c, **kw)
+        self.proc = GraphConvMapperBlock(c, mlp_extra_layers, update_src_nodes=False,
+                                         mlp_implementation=mlp_implementation)
+        self.node_data_extractor = gnn_mlp(c, c, out_channels_dst, layer_norm=False, **kw)
+
+    @property
+    def output_linear(self) -> nn.Linear:
+        return self.node_data_extractor.mlp[-1]
+
+    def forward(
+        self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
+    ) -> torch.Tensor:
+        edges = _broadcast_edges(self.emb_edges, edge_attr, x[0])
+        (_, x_dst), _ = self.proc(x, edges, sub)
+        return self.node_data_extractor(_promoted(x_dst, self.output_linear.weight))
+
+
+def _same_nodes(x_src: torch.Tensor, x_dst: torch.Tensor) -> None:
+    if x_src.shape[1] != x_dst.shape[1]:
+        raise ValueError("PointWise mappers require matching src/dst node sets, got "
+                         f"{x_src.shape[1]} and {x_dst.shape[1]} nodes")
+
+
+class PointWiseForwardMapper(nn.Module):
+    """Point-wise encoder: ``mlp([x_src, x_dst])`` per node (LayerNorm
+    last); returns ``(x_src, latent)``."""
+
+    def __init__(self, in_channels_src: int, in_channels_dst: int, hidden_dim: int,
+                 edge_dim: int = 0, mlp_hidden_ratio: float = 1.0) -> None:
+        super().__init__()
+        self.mlp = MLP(in_channels_src + in_channels_dst,
+                       compute_mlp_hidden_dim(hidden_dim, mlp_hidden_ratio), hidden_dim)
+
+    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None):
+        _same_nodes(*x)
+        return x[0], self.mlp(torch.cat(x, dim=-1))
+
+
+class PointWiseBackwardMapper(nn.Module):
+    """Point-wise decoder: ``mlp([x_src, x_dst])`` per node, no LayerNorm."""
+
+    def __init__(self, in_channels_dst: int, hidden_dim: int, out_channels_dst: int,
+                 edge_dim: int = 0, mlp_hidden_ratio: float = 1.0) -> None:
+        super().__init__()
+        self.mlp = MLP(hidden_dim + in_channels_dst,
+                       compute_mlp_hidden_dim(hidden_dim, mlp_hidden_ratio), out_channels_dst,
+                       layer_norm=False)
+
+    @property
+    def output_linear(self) -> nn.Linear:
+        return self.mlp.mlp[-1]
+
+    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None):
+        _same_nodes(*x)
+        return self.mlp(torch.cat(x, dim=-1))

@@ -1,16 +1,18 @@
 """Feed-forward layers.
 
-Port of ``anemoi_tpu.models.layers.mlp`` as the GraphTransformer uses it: one
-hidden layer, either a Linear with the exact (erf) GELU -- torch.nn.GELU's
-default and the JAX package's ``gelu`` (``nn.gelu(approximate=False)``) --
-or, with ``implementation`` glu / swiglu / geglu / reglu, the gated layer
-``act(gate_proj(x)) * value_proj(x)`` with act sigmoid / SiLU / tanh-GELU
-(flax's ``nn.gelu`` default) / ReLU, the JAX package's ``GATING``.  Linear
-layers are laid out as anemoi-core's ``MLP.mlp`` Sequential (``mlp.0`` the
-hidden layer, ``mlp.2`` the output Linear), so reference state-dict names
-load as they are; a gated hidden layer keeps its ``gate_proj`` and
-``value_proj`` under ``mlp.0``.  Extra hidden layers and other activations
-are not ported.
+Port of ``anemoi_tpu.models.layers.mlp``: a hidden layer, ``n_extra_layers``
+more of the same width (the GNN's MLPs run ``mlp_extra_layers + 1``), and
+the output Linear.  A hidden layer is either a Linear with the exact (erf)
+GELU -- torch.nn.GELU's default and the JAX package's ``gelu``
+(``nn.gelu(approximate=False)``) -- or, with ``implementation`` glu / swiglu
+/ geglu / reglu, the gated layer ``act(gate_proj(x)) * value_proj(x)`` with
+act sigmoid / SiLU / tanh-GELU (flax's ``nn.gelu`` default) / ReLU, the JAX
+package's ``GATING``.  Linear layers are laid out as anemoi-core's
+``MLP.mlp`` Sequential (``mlp.0`` the hidden layer, ``mlp.2``, ``mlp.4``, ...
+the extra ones, the output Linear last), so reference state-dict names load
+as they are; a gated hidden layer keeps its ``gate_proj`` and
+``value_proj`` under its index.  The MLP's other activations (its
+``activation`` and ``final_activation`` fields) are not ported.
 
 The hidden activation is one ``torch.library`` op, :func:`mlp_hidden` (the
 GELU, or the gated product), so that a checkpoint policy sees it:
@@ -35,6 +37,24 @@ GATING = {"glu": "sigmoid", "swiglu": "silu", "geglu": "gelu_tanh", "reglu": "re
 
 def compute_mlp_hidden_dim(dim: int, ratio: float) -> int:
     return int(dim * ratio)
+
+
+# the JAX package's ``ACTIVATIONS`` (the point-wise block's ``activation``)
+ACTIVATIONS = {
+    "gelu": F.gelu,
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "identity": lambda x: x,
+}
+
+
+def get_activation(name: str):
+    if name not in ACTIVATIONS:
+        raise ValueError(f"Unknown activation '{name}'. Known: {sorted(ACTIVATIONS)}")
+    return ACTIVATIONS[name]
 
 
 def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -127,14 +147,17 @@ def feed_forward(in_features: int, out_features: int, implementation: str = "mlp
 
 
 class MLP(nn.Module):
-    """in -> hidden layer (``implementation``) -> out, with an optional
-    trailing LayerNorm."""
+    """in -> hidden layer (``implementation``) -> ``n_extra_layers`` more ->
+    out, with an optional trailing LayerNorm."""
 
     def __init__(self, in_features: int, hidden_dim: int, out_features: int,
-                 layer_norm: bool = True, implementation: str = "mlp") -> None:
+                 layer_norm: bool = True, implementation: str = "mlp",
+                 n_extra_layers: int = 0) -> None:
         super().__init__()
         self.mlp = nn.Sequential(
             *feed_forward(in_features, hidden_dim, implementation),
+            *(layer for _ in range(n_extra_layers)
+              for layer in feed_forward(hidden_dim, hidden_dim, implementation)),
             nn.Linear(hidden_dim, out_features),
         )
         self.layer_norm = LayerNorm(out_features) if layer_norm else None

@@ -1,7 +1,8 @@
 """Hidden-mesh processors.
 
-Port of ``anemoi_tpu.models.layers.processor``: ``GraphTransformerProcessor``
-and the dense ``TransformerProcessor`` (with ``TransformerProcessorBlock``).
+Port of ``anemoi_tpu.models.layers.processor``: ``GraphTransformerProcessor``,
+the dense ``TransformerProcessor`` (with ``TransformerProcessorBlock``),
+``GNNProcessor`` and ``PointWiseMLPProcessor``.
 The JAX package runs the layers as one ``nn.scan`` over stacked parameters;
 here they are an ``nn.ModuleList`` (``proc.<i>``, anemoi-core's layout),
 run in a Python loop.  ``gradient_checkpointing`` (default on) checkpoints
@@ -23,7 +24,11 @@ from torch import nn
 
 from anemoi_tpu_torch.models.graph import SubGraphArrays
 from anemoi_tpu_torch.models.layers.attention import MultiHeadSelfAttention
-from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerProcessorBlock
+from anemoi_tpu_torch.models.layers.graph_blocks import (
+    GraphConvProcessorBlock,
+    GraphTransformerProcessorBlock,
+    PointWiseMLPBlock,
+)
 from anemoi_tpu_torch.models.layers.mlp import MLP, compute_mlp_hidden_dim
 from anemoi_tpu_torch.models.layers.normalization import norm
 from anemoi_tpu_torch.models.layers.remat import BlockRemat
@@ -100,4 +105,46 @@ class TransformerProcessor(BlockRemat, nn.Module):
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         for block in self.proc:
             x = self._run(block, x, cond)
+        return x
+
+
+class GNNProcessor(BlockRemat, nn.Module):
+    """Stack of GNN blocks over the hidden mesh; the first embeds the raw
+    edge attributes, the updated edge features thread through the rest."""
+
+    def __init__(
+        self, num_layers: int, num_channels: int, edge_dim: int, mlp_extra_layers: int = 0,
+        mlp_hidden_ratio: float = 1.0, mlp_implementation: str = "mlp",
+        gradient_checkpointing: bool = True, remat_policy: Optional[str] = "save_attention",
+    ) -> None:
+        super().__init__()
+        self._init_remat(gradient_checkpointing, remat_policy)
+        kw = dict(mlp_extra_layers=mlp_extra_layers, mlp_hidden_ratio=mlp_hidden_ratio,
+                  mlp_implementation=mlp_implementation)
+        self.proc = nn.ModuleList(
+            GraphConvProcessorBlock(num_channels, edge_dim=edge_dim if i == 0 else None, **kw)
+            for i in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor, sub: SubGraphArrays, edge_attr: torch.Tensor,
+                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for block in self.proc:
+            x, edge_attr = self._run(block, x, edge_attr, sub)
+        return x
+
+
+class PointWiseMLPProcessor(nn.Module):
+    """Stack of point-wise MLP blocks; no message passing."""
+
+    def __init__(self, num_layers: int, num_channels: int, mlp_hidden_ratio: float = 1.0,
+                 activation: str = "gelu") -> None:
+        super().__init__()
+        hidden = compute_mlp_hidden_dim(num_channels, mlp_hidden_ratio)
+        self.proc = nn.ModuleList(
+            PointWiseMLPBlock(num_channels, hidden, activation) for _ in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for block in self.proc:
+            x = block(x)
         return x

@@ -1,7 +1,8 @@
 """Weights from the JAX package into the port.
 
-``state_dict_from_jax(params)`` takes the flax parameter tree of a
-GraphTransformer ``AnemoiModelEncProcDec`` as nested dicts of numpy arrays
+``state_dict_from_jax(params)`` takes the flax parameter tree of an
+``AnemoiModelEncProcDec`` (GraphTransformer, Transformer, GNN or point-wise
+components) as nested dicts of numpy arrays
 and returns the port's ``state_dict`` (anemoi-core names, ``model.``
 prefixed, as the interface holds the model), ready for
 ``AnemoiModelInterface.load_state_dict(..., strict=True)``.
@@ -10,8 +11,9 @@ The port's own copy of the GraphTransformer part of the name mapping in
 ``anemoi_tpu/models/port.py`` (``_ref_name``):
 - flax ``Dense.kernel [in, out]``       -> ``Linear.weight [out, in]`` (transposed)
 - flax ``LayerNorm ln.scale / ln.bias`` -> ``LayerNorm.weight / .bias``
-- flax MLP ``ffn_in / linear_out``      -> ``mlp.0 / mlp.2`` (a gated ``ffn_in``
-  keeps its ``gate_proj`` / ``value_proj`` under ``mlp.0``)
+- flax MLP ``ffn_in / ffn_<i> / linear_out / norm`` -> ``mlp.0 / mlp.<2(i+1)> /
+  mlp.<2(1+n)> / layer_norm`` with n the MLP's ``ffn_<i>`` count (a gated layer
+  keeps its ``gate_proj`` / ``value_proj`` under its index)
 - the scanned processor stack (leading layer axis) -> ``processor.proc.<i>``;
   with ``scan_unroll`` u its ``block_<j>`` at scan step k is layer ``k * u + j``
 - a ``ConditionalLayerNorm``'s ``scale`` / ``bias`` Dense -> ``<norm>.scale`` /
@@ -23,7 +25,22 @@ The port's own copy of the GraphTransformer part of the name mapping in
 - ``trainable_edges`` of a component    -> ``<component>_graph_provider[.<ds>].trainable``
 - the i-th encoder/decoder module       -> ``encoder.<ds>`` of the i-th dataset in sorted order
 
-and of its dense ``TransformerProcessor`` part (``keep_attention`` there):
+and of its GNN part: ``GNNForwardMapper`` / ``GNNBackwardMapper`` ->
+``encoder.<ds>`` / ``decoder.<ds>``; ``GNNProcessor``'s standalone
+``blocks_0`` -> ``processor.proc.0`` and its scanned ``blocks`` ->
+``processor.proc.<i+1>``; the MLPs ``edge_mlp``, ``node_mlp``, ``emb_edges``,
+``emb_nodes_src``, ``emb_nodes_dst``, ``node_data_extractor`` as above (the
+``_DecomposedEdgeMLP``'s ``ffn_in`` is laid out as an MLP's); the block's
+``conv`` keeps its name.
+
+The point-wise components, for which the JAX export keeps the flax module
+names (``PointWiseMLPProcessor_0``, ``PointWiseForwardMapper_0``, the blocks'
+LayerNorm ``norm.ln``), take anemoi-core's component layout instead:
+``encoder.<ds>`` / ``decoder.<ds>`` (``mlp`` an MLP), ``processor.proc.<i>``
+with the block's own names ``linear_in``, ``norm`` (a LayerNorm),
+``linear_out``.
+
+And of its dense ``TransformerProcessor`` part (``keep_attention`` there):
 the block keeps its ``attention`` submodule, flax's fused ``qkv`` kernel
 ``[C, 3HD]`` becomes the separate ``lin_q``, ``lin_k``, ``lin_v`` weights
 ``[HD, C]`` (anemoi-core's names; the JAX export synthesises ``qkv`` from
@@ -49,7 +66,8 @@ _NORMS = {
     "q_norm": "q_norm",
     "k_norm": "k_norm",
 }
-_MLPS = ("node_dst_mlp", "node_src_mlp", "edge_pre_mlp", "mlp", "noise_mlp")
+_MLPS = ("node_dst_mlp", "node_src_mlp", "edge_pre_mlp", "mlp", "noise_mlp", "edge_mlp",
+         "node_mlp", "emb_edges", "emb_nodes_src", "emb_nodes_dst", "node_data_extractor")
 _INJECTORS = ("NoiseConditioning", "NoiseInjector", "NoOpNoiseInjector")
 
 
@@ -66,11 +84,15 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.nda
 def _component(p: str, datasets: Sequence[str]):
     """flax module name of a top-level component -> (name parts, provider parts)."""
     for cls, part in (("GraphTransformerForwardMapper", "encoder"),
-                      ("GraphTransformerBackwardMapper", "decoder")):
+                      ("GraphTransformerBackwardMapper", "decoder"),
+                      ("GNNForwardMapper", "encoder"), ("GNNBackwardMapper", "decoder"),
+                      ("PointWiseForwardMapper", "encoder"),
+                      ("PointWiseBackwardMapper", "decoder")):
         if p.startswith(cls):
             ds = datasets[int(p.rsplit("_", 1)[1]) if "_" in p else 0]
             return [part, ds], [f"{part}_graph_provider", ds]
-    if p.startswith("GraphTransformerProcessor") or p.startswith("TransformerProcessor"):
+    if p.startswith(("GraphTransformerProcessor", "TransformerProcessor", "GNNProcessor",
+                     "PointWiseMLPProcessor")):
         return ["processor"], ["processor_graph_provider"]
     if p.split("_")[0] in _INJECTORS:
         return ["noise_injector"], []
@@ -79,14 +101,23 @@ def _component(p: str, datasets: Sequence[str]):
     return None
 
 
-def _name(path: Tuple[str, ...], datasets: Sequence[str]) -> Tuple[str, int]:
+def _extra_layers(flat, parent: Tuple[str, ...]) -> int:
+    """The ``ffn_<i>`` layers of the flax MLP at ``parent``."""
+    n = len(parent)
+    return len({p[n] for p in flat if p[:n] == parent and p[n].startswith("ffn_")
+                and p[n][len("ffn_"):].isdigit()})
+
+
+def _name(path: Tuple[str, ...], datasets: Sequence[str], flat) -> Tuple[str, int, int]:
     """Map one flax parameter path to the port's state-dict name; a scanned
     processor layer index is left as ``{layer}``.  Also returns the block's
     place ``j`` inside a scan step of ``scan_unroll`` blocks (``block_<j>``;
-    0 for a scan of one block)."""
+    0 for a scan of one block) and the index of the scan's first layer (1
+    for the GNN, whose layer 0 stands alone)."""
     out: List[str] = ["model"]
     provider: List[str] = []
     keep_attention = path[0].startswith("TransformerProcessor")  # the dense block
+    first = 1 if path[0].startswith("GNNProcessor") else 0
     sub = 0
     i = 0
     while i < len(path) - 1:
@@ -115,18 +146,25 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str]) -> Tuple[str, int]:
             out.append(p)
         elif p in _NORMS:
             out += _NORMS[p].split(".")
-        elif p in _MLPS and path[i + 1] in ("ffn_in", "linear_out", "norm"):
-            out += [p] + {"ffn_in": ["mlp", "0"], "linear_out": ["mlp", "2"],
-                          "norm": ["layer_norm"]}[path[i + 1]]
-            # skip ffn_in's inner "linear" (a gated layer keeps gate_proj / value_proj)
-            i += 2 if path[i + 1] == "ffn_in" and path[i + 2] == "linear" else 1
+        elif p in _MLPS and (path[i + 1] in ("ffn_in", "linear_out", "norm")
+                             or path[i + 1].startswith("ffn_")):
+            nxt = path[i + 1]
+            if nxt == "norm":
+                out += [p, "layer_norm"]
+            elif nxt == "linear_out":
+                out += [p, "mlp", str(2 * (1 + _extra_layers(flat, path[:i + 1])))]
+            else:  # ffn_in -> mlp.0, ffn_<j> -> mlp.<2(j+1)>
+                index = 0 if nxt == "ffn_in" else 2 * (int(nxt[len("ffn_"):]) + 1)
+                out += [p, "mlp", str(index)]
+            # skip a hidden layer's inner "linear" (a gated one keeps gate_proj / value_proj)
+            i += 2 if nxt.startswith("ffn_") and path[i + 2] == "linear" else 1
         elif p == "extractor":
             out += ["node_data_extractor", "1"]
         else:
             out.append(p)
         i += 1
     leaf = {"kernel": "weight", "scale": "weight"}.get(path[-1], path[-1])
-    return ".".join(out + [leaf]), sub
+    return ".".join(out + [leaf]), sub, first
 
 
 def state_dict_from_jax(params, dataset_names: Sequence[str] = ("data",)) -> Dict[str, torch.Tensor]:
@@ -137,12 +175,12 @@ def state_dict_from_jax(params, dataset_names: Sequence[str] = ("data",)) -> Dic
     datasets = sorted(dataset_names)
     out: Dict[str, torch.Tensor] = {}
     flat = _flatten(tree)
-    names = {path: _name(path, datasets) for path in flat}
-    unroll = 1 + max((sub for _, sub in names.values()), default=0)  # blocks a scan step
+    names = {path: _name(path, datasets, flat) for path in flat}
+    unroll = 1 + max((sub for _, sub, _ in names.values()), default=0)  # blocks a scan step
     for path, value in flat.items():
         if path[-1] == "kernel" and value.ndim >= 2:
             value = np.swapaxes(value, -1, -2)  # [.., in, out] -> [.., out, in]
-        name, sub = names[path]
+        name, sub, first = names[path]
         parts = {name: value}
         if ".qkv." in name:  # [.., 3HD, C] or [.., 3HD] -> lin_q, lin_k, lin_v
             axis = -2 if path[-1] == "kernel" else -1
@@ -151,8 +189,8 @@ def state_dict_from_jax(params, dataset_names: Sequence[str] = ("data",)) -> Dic
         for name, value in parts.items():
             if "{layer}" in name:
                 for step in range(value.shape[0]):
-                    out[name.replace("{layer}", str(step * unroll + sub))] = torch.tensor(
-                        value[step])
+                    layer = first + step * unroll + sub
+                    out[name.replace("{layer}", str(layer))] = torch.tensor(value[step])
             else:
                 out[name] = torch.tensor(value)
     return out

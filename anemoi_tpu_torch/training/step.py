@@ -1,7 +1,7 @@
 """The training and validation step with autoregressive rollout.
 
 Port of ``anemoi_tpu.training.step``: ``TrainState``, ``_index_arrays``,
-``advance_input`` and ``make_step_fns`` for the forecaster task.  The JAX
+``advance_input`` and ``make_step_fns`` for its three tasks.  The JAX
 step is one jitted pure function; here the step runs eagerly and updates
 the master weights and the optimizer state in place.
 
@@ -20,8 +20,15 @@ JAX step folds its key; the draw is made outside the rollout checkpoint and
 enters it as an input, so the recompute in the backward reads the same
 noise.
 
-Not ported (``NotImplementedError``): the autoencoder and
-temporal-downscaler tasks and boundary masks.
+Tasks (the JAX step's time-offset algebra): ``forecaster`` (inputs the
+first ``n_step_input`` steps, targets each rollout step's next
+``n_step_output``); ``autoencoder`` (targets ``t0 = n_step_input -
+n_step_output``, inside the input window); ``temporal_downscaler`` (inputs
+the window's endpoints ``0`` and ``n_step_output + 1``, so ``n_step_input``
+must be 2, targets the interior ``t0 = 1``).  The last two run one model
+step whatever the rollout, with no rollout remat.
+
+Not ported (``NotImplementedError``): boundary masks.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from anemoi_tpu_torch.models.layers.remat import checkpointed, resolve_remat_pol
 from anemoi_tpu_torch.training.metrics import variable_groups
 from anemoi_tpu_torch.utils.seeding import context_seed, fold_seed
 
+TASKS = ("forecaster", "autoencoder", "temporal_downscaler")
 EVAL_NOISE_STEP = 2**31 - 1  # the validation's noise stream, as the JAX eval step folds it
 COMPUTE_TYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": torch.bfloat16,
                  "fp32": None, "float32": None, "32": None}
@@ -156,14 +164,16 @@ def make_step_fns(
     the loss, without an update.  ``eval_step(state, batch) -> {"val_loss",
     "rmse/<ds>/<group>/<step>", ...}`` runs without gradients.
     """
-    if task != "forecaster":
+    if task not in TASKS:
         raise NotImplementedError(f"task '{task}' is not ported to anemoi_tpu_torch")
     if output_masks:
         raise NotImplementedError("boundary masks are not ported to anemoi_tpu_torch")
     policy = resolve_remat_policy(remat_policy)
     # at rollout 1 there is nothing between rollout steps to free: the outer
     # checkpoint would only add a recompute (the JAX step's rule)
-    remat = remat_rollout and rollout > 1
+    remat = remat_rollout and rollout > 1 and task == "forecaster"
+    # the autoencoder and the downscaler run one model step
+    steps = rollout if task == "forecaster" else 1
     if precision not in COMPUTE_TYPES:
         raise ValueError(f"unknown precision '{precision}'")
     if any(p.dtype != torch.float32 for p in interface.parameters()):
@@ -173,7 +183,14 @@ def make_step_fns(
     model = interface.model
     pre = interface.pre_processors
     m, n_out = model.n_step_input, model.n_step_output
+    if task == "temporal_downscaler" and m != 2:
+        raise ValueError("temporal_downscaler needs n_step_input=2 (the window's endpoints)")
     dataset_names = sorted(interface.data_indices)
+    # the input steps of the window, and each model step's first target step
+    inputs = [0, n_out + 1] if task == "temporal_downscaler" else list(range(m))
+    first_target = {"forecaster": lambda step: m + step * n_out,
+                    "autoencoder": lambda step: m - n_out,
+                    "temporal_downscaler": lambda step: 1}[task]
     ia = device_index_arrays(interface)
     groups = {ds: variable_groups(idx.model.output.ordered_names)
               for ds, idx in interface.data_indices.items()}
@@ -209,7 +226,8 @@ def make_step_fns(
         params = (interface.cast_parameters(compute_dtype, fp32_head)
                   if compute_dtype is not None else None)
         batch_norm = {ds: pre[ds].transform(batch[ds].float()) for ds in dataset_names}
-        x = {ds: batch_norm[ds][:, :m][..., ia[ds]["data_input_full"]] for ds in dataset_names}
+        x = {ds: batch_norm[ds][:, inputs][..., ia[ds]["data_input_full"]]
+             for ds in dataset_names}
         if compute_dtype is not None:
             x = {ds: v.to(compute_dtype) for ds, v in x.items()}
         if ensemble_size > 1:
@@ -218,23 +236,23 @@ def make_step_fns(
                  for ds, v in x.items()}
         total = 0.0
         metrics: Dict[str, torch.Tensor] = {}
-        for step in range(rollout):
+        for step in range(steps):
             noise = noise_for(x, noise_step, step)
             if remat and torch.is_grad_enabled():
                 y_pred = checkpointed(forward, policy, x, params, noise, step)
             else:
                 y_pred = forward(x, params, noise, step)
-            t0 = m + step * n_out
+            t0 = first_target(step)
             for ds in dataset_names:
                 target = batch_norm[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]]
                 # the loss in float32 whatever the compute type
                 total = total + losses[ds](y_pred[ds].float(), target)
             if with_metrics:
                 _group_metrics(metrics, y_pred, batch, step, t0)
-            if step + 1 < rollout:
+            if step + 1 < steps:
                 x = {ds: advance_input(x[ds], y_pred[ds], batch_norm[ds], t0, ia[ds])
                      for ds in dataset_names}
-        loss = total / (rollout * len(dataset_names))
+        loss = total / (steps * len(dataset_names))
         return (loss, metrics) if with_metrics else loss
 
     def compute_gradients(state: TrainState, batch) -> torch.Tensor:

@@ -28,7 +28,11 @@ Phases (any failure exits non-zero, with no result line):
   5. wide GT   -- K1, K3 + K4 and K3 + K5 against their plain versions at HD
                   = 1024 (16 heads of 64, the Transformer preset's mappers:
                   K4 in blocks of 1024 threads) on the data->hidden and
-                  hidden->data edge sets, float32 and bfloat16; K1, K3, K4
+                  hidden->data edge sets, and on the ``multi_scale`` graph's
+                  hidden->hidden set (ico-5 ``MultiScaleEdges`` sorted by
+                  incoming degree: the processor of ``temporal_downscaler``,
+                  the ``graphtransformer`` model at 1024 channels), float32
+                  and bfloat16; K1, K3, K4
                   and K5 each timed beside its byte bound, its plain version
                   and (K4) one index_add_, K1 as in phase 3, K3, K4 and K5
                   as in phase 4;
@@ -134,11 +138,43 @@ Phases (any failure exits non-zero, with no result line):
                   plain attention (the same noise), members that differ
                   once the conditional scales are nonzero; its wall, device
                   ms and peak memory;
- 16. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 16. point_wise -- ``point_wise.yaml`` at its width (GT mappers of 16
+                  heads, 4 point-wise layers, 512 channels) on the
+                  ``encoder_decoder_only`` graph (no processor edges) through
+                  ``cli train`` over phase 9's store, bf16, 3 steps: finite
+                  records, exactly 2 K1, 2 K3 and 2 K4 or K5 (the
+                  ``fused_backward`` rule at the mapper edge counts) in every
+                  step and no other kernel; the trained step's gradient
+                  against the plain attention (relative L2 <= 1e-2); ``cli
+                  predict`` on its bundle, 2 steps: exactly 2 K1 a step, a
+                  finite forecast within relative L2 2e-2 of the plain
+                  attention's; wall and device ms and peak memory of the
+                  step and of the forecast;
+ 17. autoencoder -- ``autoencoder.yaml`` (``AnemoiModelAutoEncoder``, 2
+                  point-wise layers, one input step, the ``autoencoder``
+                  task) as phase 16;
+ 18. downscaler -- ``temporal_downscaler.yaml`` at its width (1024
+                  channels, 16 layers, 16 heads, the ``multi_scale`` graph,
+                  2 output steps) through ``cli train``, 3 steps: exactly 18
+                  K1, 18 K3 and the K4/K5 of the ``fused_backward`` rule a
+                  step; the gradient gate; a validation record with
+                  ``PerTimestepMetrics``' ``t_1`` and ``t_2`` keys; then
+                  ``temporal_downscaler_ensemble.yaml`` (512 channels, 4
+                  members: B·M = 4 rows), 2 steps, the same counts and gate;
+ 19. gnn       -- the GNN model (``model: gnn`` on ``graph: multi_scale``
+                  from a config file's ``defaults:`` list) at ``gnn.yaml``'s
+                  width (512 channels, 16 layers): ``cli train`` 3 steps and
+                  ``cli predict`` 2 steps, finite, none of the seven kernels
+                  launched; then at 2 layers of 64 channels on the same
+                  graph, its float32 forward and gradient on the card
+                  against the CPU's (same weights and batch, relative L2
+                  <= 1e-4);
+ 20. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
-                  remat variant's, the YAML preset's and the ensemble's
-                  training step and ``predict_step``), the card line, and
+                  remat variant's, the YAML preset's, the ensemble's
+                  training step and ``predict_step``, and phases 16-19's
+                  training steps and forecasts), the card line, and
                   last {"ok": true, "device": {...}}; with --json, the same
                   and the serving and training details also go to PATH.
 
@@ -709,11 +745,28 @@ def backward_phase(graph, device) -> dict:
     return rows
 
 
+def multi_scale_processor_graph():
+    """The ``multi_scale`` graph's processor edge set alone: ico-5 hidden
+    nodes, ``MultiScaleEdges`` with ``[edge_length, edge_dirs]``, the nodes
+    sorted by incoming degree of that set (as in the whole graph, whose sort
+    reads the self-edges only)."""
+    from anemoi_tpu_torch.graphs.create import GraphCreator
+
+    ea = {"edge_length": {"name": "EdgeLength"}, "edge_dirs": {"name": "EdgeDirection"}}
+    return GraphCreator({
+        "nodes": {"hidden": {"node_builder": {"name": "TriNodes", "resolution": 5}}},
+        "edges": [{"source_name": "hidden", "target_name": "hidden",
+                   "edge_builder": {"name": "MultiScaleEdges", "x_hops": 1}, "attributes": ea}],
+        "post_processors": [{"name": "SortNodesByIncomingDegree", "nodes_name": "hidden"}],
+    }).create()
+
+
 def gt_wide_phase(graph, device):
     """K1, K3 + K4 and K3 + K5 at HD = 1024 (16 heads of 64) against their
     plain versions, at the Transformer preset's mapper edge sets and edge
-    attributes; each of K1, K3, K4 and K5 timed beside its byte bound, its
-    plain version and (K4) one index_add_.
+    attributes and at the ``multi_scale`` processor set of the
+    ``temporal_downscaler`` preset; each of K1, K3, K4 and K5 timed beside
+    its byte bound, its plain version and (K4) one index_add_.
     Returns ({kernel: rows}, {check: max abs error})."""
     from anemoi_tpu_torch.kernels import gt_attention as kern
     from anemoi_tpu_torch.ops.gt_attention import (
@@ -723,9 +776,11 @@ def gt_wide_phase(graph, device):
     attrs = transformer_config()["model"]["encoder"]["sub_graph_edge_attributes"]
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     errors, rows = {}, {"K1": [], "K3": [], "K4": [], "K5": []}
-    for key in (("data", "hidden"), ("hidden", "data")):
-        es = graph[key]
-        n_src, n_dst = graph[key[0]].num_nodes, graph[key[1]].num_nodes
+    multi_scale = multi_scale_processor_graph()
+    for edge_graph, key in ((graph, ("data", "hidden")), (graph, ("hidden", "data")),
+                            (multi_scale, ("hidden", "hidden"))):
+        es = edge_graph[key]
+        n_src, n_dst = edge_graph[key[0]].num_nodes, edge_graph[key[1]].num_nodes
         ei = torch.as_tensor(es.edge_index, dtype=torch.int32, device=device).contiguous()
         ptr = torch.as_tensor(es.dst_ptr, dtype=torch.int32, device=device)
         order = SourceOrder.of(ei, n_src)
@@ -812,7 +867,8 @@ def gt_wide_phase(graph, device):
                       **backward_bounds(n_dst, n_src, n_e, n_f, q.element_size(), True, WIDE_HD)}
             base = {"edge_set": "->".join(key), "dtype": str(dtype).split(".")[-1],
                     "hd": WIDE_HD, "fused_edge": True, "n_dst": n_dst, "n_src": n_src,
-                    "n_edges": n_e}
+                    "n_edges": n_e,
+                    "graph": "multi_scale" if edge_graph is multi_scale else "flagship"}
             per_kernel = {
                 "K1": dict(max_abs_err=errs["out"], plain_is="gt_attention_fe(plain=True)",
                            library_ms=None, ms_back_to_back=ms["K1_b2b"],
@@ -1457,11 +1513,12 @@ def remat_launches(rollout, layer_policy, remat_rollout, rollout_policy) -> dict
             "K4": f * rollout}
 
 
-def profiled_device_ms(fn, steps: int):
+def profiled_device_ms(fn, steps: int, split: int = 0):
     """(device ms a step, device launches a step) of ``steps`` calls of
     ``fn`` under ``torch.profiler`` (kernels and copies on the card; the
     card's activity only: host ops would multiply the trace's parse
-    time)."""
+    time).  With ``split`` > 0 also the ``split`` device kernels that took
+    the most time, ``{name: ms a step}``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1469,15 +1526,26 @@ def profiled_device_ms(fn, steps: int):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    ms, n = 0.0, 0
+    ms, n, by_name = 0.0, 0, {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(
                 evt, "is_user_annotation", False):
             ms += evt.device_time / 1e3
             n += 1
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.device_time / 1e3 / steps
     if n == 0:
         raise RuntimeError("torch.profiler recorded no device activity")
-    return ms / steps, n / steps
+    if not split:
+        return ms / steps, n / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:split]
+    return ms / steps, n / steps, {short_kernel_name(k): v for k, v in top}
+
+
+def short_kernel_name(name: str, width: int = 120) -> str:
+    """A device kernel's name without its namespaces, cut to ``width``."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::", "c10::"):
+        name = name.replace(noise, "")
+    return name[:width]
 
 
 def remat_phase(graph, device) -> dict:
@@ -1804,9 +1872,343 @@ def ensemble_phase(workdir: str, device) -> dict:
     return result
 
 
+FAMILY_STEPS = 3  # cli train steps of phases 16-19 (2 for the ensemble downscaler)
+FAMILY_TIMED = 3  # fixed-batch steps timed after the run, after 1 of warmup
+LR_ONLY = "diagnostics.callbacks=[{name: LearningRateMonitor}]"
+CARD_CPU_TOL = 1e-4  # relative L2, the GNN's float32 forward and gradient, card against CPU
+GNN_DEFAULTS = """defaults:
+  - data: synthetic
+  - dataloader: default
+  - diagnostics: default
+  - graph: multi_scale
+  - model: gnn
+  - task: forecaster
+  - training: default
+  - _self_
+"""
+
+
+def expected_launches(config: dict, graph, processor_layers: int) -> dict:
+    """A training step's launches from the edge counts: K1 and K3 once a GT
+    block (the two mappers and ``processor_layers`` processor layers), and
+    on each of those edge sets K5 where the JAX package's rule
+    (``fused_backward``: 2 GB of estimated two-pass transient) picks the
+    fused backward, else K4."""
+    from anemoi_tpu_torch.models.encoder_processor_decoder import fused_backward
+
+    model = config["model"]
+    c = int(model["num_channels"])
+    sets = [("encoder", graph[("data", "hidden")].num_edges),
+            ("decoder", graph[("hidden", "data")].num_edges)]
+    if processor_layers:
+        sets += [("processor", graph[("hidden", "hidden")].num_edges)] * processor_layers
+    fused = [fused_backward(model, part, n, c) for part, n in sets]
+    return {**NO_LAUNCHES, "K1": len(sets), "K3": len(sets), "K4": fused.count(False),
+            "K5": fused.count(True)}
+
+
+def family_train(workdir: str, device, label: str, path: str, overrides: list, steps: int,
+                 want, attention: bool = True, split: int = 0) -> tuple:
+    """``cli train`` on ``path`` over phase 9's store, bf16: exit 0, ``steps``
+    finite records, a finite validation record, exactly ``want(trainer)``
+    launches in every step; then, on a batch of the store, the trained
+    step's gradient against the plain attention (``attention``), wall ms a
+    step (median of ``FAMILY_TIMED`` after 1 of warmup), device ms and
+    launches a step (``torch.profiler``; with ``split``, its kernels that
+    took the most device time) and peak memory.  Returns (result, run
+    directory, last validation record)."""
+    from anemoi_tpu_torch.training import cli
+
+    store = os.path.join(workdir, "example_o96.zarr")
+    run_dir = os.path.join(workdir, f"{label}_run")
+    run = ["data.datasets.data.kind=zarr", f"data.datasets.data.path={store}",
+           f"output_dir={run_dir}", f"training.max_steps={steps}", "training.max_epochs=1",
+           "training.precision=bf16", "diagnostics.log_interval=1", *overrides]
+    t0 = time.perf_counter()
+    with StepLaunches() as counted:
+        rc = cli.main(["train", path, *run])
+    train_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{label}: cli train returned {rc}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    done = [r for r in records if "loss" in r]
+    if [r["step"] for r in done] != list(range(1, steps + 1)) or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in done):
+        raise RuntimeError(f"{label}: want {steps} finite records, got {done}")
+    val = [r for r in records if "val_loss" in r]
+    if not val or not all(math.isfinite(v) for k, v in val[-1].items()
+                          if k == "val_loss" or k.startswith("rmse/")):
+        raise RuntimeError(f"{label}: no finite validation record: {val}")
+    trainer, train_step = counted.trainer, counted.train_step
+    counted.trainer = counted.train_step = None
+    want = want(trainer)
+    if len(counted.per_step) != steps or any(c != want for c in counted.per_step):
+        raise RuntimeError(f"{label}: expected {want} in each of {steps} steps, got "
+                           f"{counted.per_step}")
+    print(f"[{label}] cli train: {steps} steps in {train_s:.2f} s, losses "
+          f"{[r['loss'] for r in done]}, launches a step {counted.per_step[-1]}, val_loss "
+          f"{val[-1]['val_loss']}", flush=True)
+
+    iface, state = trainer.interface, trainer.state
+    trainer.datamodule.set_rollout(1)
+    batch = trainer.put_batch(trainer.datamodule.make_batch(trainer.datamodule.train_starts[:1]))
+    grad_rel_l2 = (grad_gap(iface, state, train_step, batch, f"{label} K3 + K4/K5")
+                   if attention else None)
+    iface.zero_grad(set_to_none=True)
+    train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    walls = []
+    for _ in range(FAMILY_TIMED):
+        t1 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated(device)
+    device_ms, device_launches, *top = profiled_device_ms(lambda: train_step(state, batch), 1,
+                                                          split)
+    result = {
+        "train_s": train_s, "losses": [r["loss"] for r in done],
+        "grad_norms": [r["grad_norm"] for r in done], "val_loss": val[-1]["val_loss"],
+        "launches_per_step": counted.per_step[-1], "grad_rel_l2_vs_plain": grad_rel_l2,
+        "ms_per_step": statistics.median(walls), "ms_per_step_runs": walls,
+        "device_ms_per_step": device_ms, "device_launches_per_step": device_launches,
+        "peak_memory_bytes": peak,
+        "trainer_wall_ms_steps_2_on": [(b["elapsed_s"] - a["elapsed_s"]) * 1e3
+                                       for a, b in zip(done, done[1:])],
+        "edges": {f"{s}->{d}": es.num_edges for (s, d), es in trainer.graph.edges.items()},
+        **({"device_ms_by_kernel": top[0]} if top else {}),
+    }
+    print(f"[{label}] fixed-batch step: wall {result['ms_per_step']:.3f} ms, device "
+          f"{device_ms:.3f} ms ({device_launches:.1f} device launches), peak {peak} B; "
+          f"edges {result['edges']}", flush=True)
+    del trainer, state, train_step, iface, batch
+    torch.cuda.empty_cache()
+    return result, run_dir, val[-1]
+
+
+def family_predict(workdir: str, device, label: str, run_dir: str, k1_per_step: int,
+                   split: int = 0) -> dict:
+    """``cli predict`` on the bundle of ``run_dir``, ``STEPS`` steps: exit 0,
+    exactly ``k1_per_step`` K1 a step and no other kernel, a finite forecast
+    of the right shape, within relative L2 2e-2 of the same bundle served
+    in-process on the plain attention (on the kernels, for a model with no
+    attention: the sums' atomics vary the last bits); the in-process
+    forecast's wall and device ms a step and peak memory."""
+    import numpy as np
+
+    from anemoi_tpu_torch import kernels
+    from anemoi_tpu_torch.data.dataset import open_dataset
+    from anemoi_tpu_torch.inference import make_forecast_fn
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.training.checkpoint import load_inference_checkpoint
+
+    bundle = os.path.join(run_dir, "inference")
+    output = os.path.join(workdir, f"{label}_forecast.npz")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["predict", bundle, "--steps", str(STEPS), "--output", output])
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if rc != 0:
+        raise RuntimeError(f"{label}: cli predict returned {rc}")
+    want = {**NO_LAUNCHES, "K1": k1_per_step * STEPS}
+    if launches != want:
+        raise RuntimeError(f"{label}: predict launches {launches}, want {want}")
+    with open(os.path.join(bundle, "checkpoint.json")) as f:
+        dataset = open_dataset(dict(json.load(f)["config"]["data"]["datasets"]["data"]))
+    out = np.load(output)["data|forecast"]
+    expect = (1, STEPS, 1, dataset.num_grid_points, 11)
+    if out.shape != expect or not np.isfinite(out).all():
+        raise RuntimeError(f"{label}: forecast shape {out.shape} (want {expect}) or not finite")
+    iface = load_inference_checkpoint(bundle)
+    window = dataset.get_window(0, iface.model.n_step_input + STEPS)
+    batch = {"data": torch.from_numpy(window[None]).to(iface.device)}
+    forecast = make_forecast_fn(iface, steps=STEPS)
+    iface.use_plain_attention(bool(k1_per_step))
+    ref = forecast(batch)["data"].cpu().numpy()
+    iface.use_plain_attention(False)
+    rel_l2 = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+    against = "the plain attention" if k1_per_step else "the in-process forecast"
+    print(f"[{label}] cli predict vs {against}: relative L2 {rel_l2:.3e} (tol {SERVING_TOL})",
+          flush=True)
+    if not rel_l2 <= SERVING_TOL:
+        raise RuntimeError(f"{label}: forecast disagrees with {against}: {rel_l2:.3e}")
+    forecast(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        forecast(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3 / STEPS)
+    peak = torch.cuda.max_memory_allocated(device)
+    device_ms, device_launches, *top = profiled_device_ms(lambda: forecast(batch), 1, split)
+    result = {"seconds": seconds, "launches": launches, "output_shape": list(out.shape),
+              "rel_l2": rel_l2, "rel_l2_against": against,
+              "ms_per_step": statistics.median(walls), "ms_per_step_runs": walls,
+              "device_ms_per_step": device_ms / STEPS,
+              "device_launches_per_step": device_launches / STEPS, "peak_memory_bytes": peak,
+              **({"device_ms_by_kernel_2_steps": top[0]} if top else {})}
+    print(f"[{label}] in-process forecast: wall {result['ms_per_step']:.3f} ms a step, device "
+          f"{result['device_ms_per_step']:.3f} ms a step, peak {peak} B", flush=True)
+    del iface, forecast, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def composed_preset(path: str, overrides: list, expect: dict) -> dict:
+    """The preset composed by the port; ``expect``: dotted keys it must hold."""
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
+
+    cfg = load_config(path, overrides, search_paths=[PACKAGED_CONFIG_DIR]).to_dict()
+    for key, value in expect.items():
+        node = cfg
+        for part in key.split("."):
+            node = node[part]
+        if node != value:
+            raise RuntimeError(f"{os.path.basename(path)} composed to {key}={node}, want {value}")
+    return cfg
+
+
+def point_wise_phase(workdir: str, device, preset: str) -> dict:
+    """``point_wise.yaml`` or ``autoencoder.yaml`` at its width (512
+    channels, GT mappers of 16 heads, a point-wise processor) on the
+    ``encoder_decoder_only`` graph (no processor edges): ``cli train`` 3
+    steps and ``cli predict`` 2 steps."""
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    path = os.path.join(PACKAGED_CONFIG_DIR, f"{preset}.yaml")
+    graph_file = os.path.join(workdir, "graph_encoder_decoder_only.npz")
+    overrides = [f"graph.save_path={graph_file}", LR_ONLY]
+    layers = {"point_wise": 4, "autoencoder": 2}[preset]
+    composed_preset(path, overrides, {
+        "model.num_channels": 512, "model.processor.name": "PointWiseMLPProcessor",
+        "model.processor.num_layers": layers, "model.encoder.num_heads": 16,
+        "model.decoder.num_heads": 16, "task.name": {"point_wise": "forecaster",
+                                                     "autoencoder": "autoencoder"}[preset]})
+    train, run_dir, _ = family_train(
+        workdir, device, preset, path, overrides, FAMILY_STEPS,
+        lambda t: expected_launches(t.config, t.graph, 0))
+    if "hidden->hidden" in train["edges"]:
+        raise RuntimeError(f"{preset}: the graph has processor edges: {train['edges']}")
+    predict = family_predict(workdir, device, preset, run_dir, 2)
+    result = {"train": train, "predict": predict}
+    print(f"[{preset}] {json.dumps(result)}", flush=True)
+    return result
+
+
+def downscaler_phase(workdir: str, device) -> dict:
+    """``temporal_downscaler.yaml`` at its width (the ``graphtransformer``
+    model: 1024 channels, 16 layers, 16 heads, ``n_step_output`` 2, the
+    ``multi_scale`` graph) through ``cli train``, 3 steps, with
+    ``PerTimestepMetrics`` (the ``t_1``, ``t_2`` records); then
+    ``temporal_downscaler_ensemble.yaml`` (512 channels, 4 members), 2
+    steps."""
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    graph_file = os.path.join(workdir, "graph.npz")  # phase 9's multi_scale graph
+    path = os.path.join(PACKAGED_CONFIG_DIR, "temporal_downscaler.yaml")
+    overrides = [f"graph.save_path={graph_file}",
+                 "diagnostics.callbacks=[{name: LearningRateMonitor}, {name: PerTimestepMetrics}]"]
+    composed_preset(path, overrides, {
+        "model.num_channels": 1024, "model.processor.num_layers": 16,
+        "model.processor.num_heads": 16, "model.n_step_input": 2, "model.n_step_output": 2,
+        "training.task": "temporal_downscaler"})
+    train, _, val = family_train(workdir, device, "downscaler", path, overrides, FAMILY_STEPS,
+                                 lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS))
+    per_timestep = {k: v for k, v in val.items() if "/t_" in k}
+    if not per_timestep or {k.rsplit("/", 1)[1] for k in per_timestep} != {"t_1", "t_2"}:
+        raise RuntimeError(f"downscaler: the validation record has no t_1/t_2 keys: {val}")
+    print(f"[downscaler] validation by output step: {json.dumps(per_timestep)}", flush=True)
+
+    path = os.path.join(PACKAGED_CONFIG_DIR, "temporal_downscaler_ensemble.yaml")
+    overrides = [f"graph.save_path={graph_file}", LR_ONLY]
+    composed_preset(path, overrides, {
+        "model.name": "AnemoiEnsModelEncProcDec", "model.num_channels": 512,
+        "model.processor.num_layers": 16, "model.n_step_output": 2,
+        "training.ensemble_size": MEMBERS, "training.task": "temporal_downscaler"})
+    ens, _, _ = family_train(workdir, device, "downscaler ensemble", path, overrides,
+                             FAMILY_STEPS - 1,
+                             lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS))
+    result = {"train": train, "per_timestep_metrics": per_timestep, "ensemble": ens}
+    print(f"[downscaler] {json.dumps(result)}", flush=True)
+    return result
+
+
+def gnn_phase(workdir: str, device) -> dict:
+    """The GNN model (``model: gnn`` on ``graph: multi_scale``, from a config
+    file's ``defaults:`` list) at ``gnn.yaml``'s width (512 channels, 16
+    layers): ``cli train`` 3 steps and ``cli predict`` 2 steps, none of the
+    seven kernels launched, the device time of both split by kernel; then, cut to 2 layers of 64 channels on the same
+    graph, its float32 forward and gradient on the card against the same on
+    the CPU (the same weights and batch)."""
+    cfg_path = os.path.join(workdir, "gnn.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(GNN_DEFAULTS)
+    overrides = [f"graph.save_path={os.path.join(workdir, 'graph.npz')}", LR_ONLY]
+    composed_preset(cfg_path, overrides, {
+        "model.num_channels": 512, "model.processor.name": "GNNProcessor",
+        "model.processor.num_layers": 16, "model.encoder.name": "GNNForwardMapper"})
+    train, run_dir, _ = family_train(workdir, device, "gnn", cfg_path, overrides, FAMILY_STEPS,
+                                     lambda t: dict(NO_LAUNCHES), attention=False, split=12)
+    predict = family_predict(workdir, device, "gnn", run_dir, 0, split=12)
+    card_cpu = gnn_card_against_cpu(cfg_path, overrides, device)
+    result = {"train": train, "predict": predict, "card_vs_cpu": card_cpu}
+    print(f"[gnn] {json.dumps(result)}", flush=True)
+    return result
+
+
+def gnn_card_against_cpu(cfg_path: str, overrides: list, device) -> dict:
+    """The GNN at 2 layers of 64 channels on the ``multi_scale`` graph, float32:
+    one forward and one step's gradient on the card against the CPU's, the
+    same weights and batch (relative L2 <= ``CARD_CPU_TOL``): the card's
+    gathers and float32 ``index_add_`` sums against their CPU path."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.models.interface import AnemoiModelInterface
+    from anemoi_tpu_torch.training.step import TrainState, make_step_fns
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
+
+    cfg = load_config(cfg_path, overrides + ["model.num_channels=64",
+                                             "model.processor.num_layers=2",
+                                             "model.inference_precision=fp32"],
+                      search_paths=[PACKAGED_CONFIG_DIR]).to_dict()
+    graph = Graph.load(cfg["graph"]["save_path"])
+    batch = training_batch(graph, device)
+    out, grads, losses = {}, {}, {}
+    state_dict = None
+    for where in (torch.device("cpu"), device):
+        iface = AnemoiModelInterface(config=cfg, graph=graph, data_indices=flagship_indices(),
+                                     statistics=flagship_statistics(SEED), device=where,
+                                     training=True)
+        if state_dict is None:
+            state_dict = {k: v.clone() for k, v in iface.state_dict().items()}
+        iface.load_state_dict(state_dict, strict=True)
+        data = {"data": batch["data"].to(where)}
+        with torch.no_grad():
+            _, x = iface.normalised_input(data)
+            out[where.type] = iface.run_model(x)["data"].cpu()
+        train_step, _ = make_step_fns(iface, training_losses(graph), rollout=1, precision="fp32")
+        losses[where.type] = float(train_step.compute_gradients(TrainState(0, iface, None), data))
+        grads[where.type] = flat_grads(iface).cpu()
+        del iface, train_step
+    gaps = {"forward": ((out["cuda"] - out["cpu"]).norm() / out["cpu"].norm()).item(),
+            "gradient": ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()}
+    print(f"[gnn] 2 layers, 64 channels, float32, card vs CPU: relative L2 forward "
+          f"{gaps['forward']:.3e}, gradient {gaps['gradient']:.3e} (tol {CARD_CPU_TOL}); loss "
+          f"{losses['cuda']} / {losses['cpu']}", flush=True)
+    if not all(g <= CARD_CPU_TOL for g in gaps.values()):
+        raise RuntimeError(f"gnn: the card disagrees with the CPU: {gaps}")
+    torch.cuda.empty_cache()
+    return {**gaps, "losses": losses}
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
-           ens: dict) -> dict:
+           ens: dict, families: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -1817,7 +2219,9 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     forecast for K6 and its training step for K7; ``launches_by_path`` has
     these five, the packaged example's trainer step and 2-step
     ``predict``, each remat variant's flagship step (``remat: <variant>``)
-    and the YAML preset's trainer step at rollout 2."""
+    the YAML preset's trainer step at rollout 2, the ensemble's step and
+    ``predict_step``, and each family path's training step and 2-step
+    ``cli predict`` (phases 16-19)."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
                "example_trainer_step": trainer["launches_per_step"],
@@ -1827,7 +2231,16 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                **{f"remat: {label}": r["launches"] for label, r in remat.items()},
                "example_yaml_trainer_step_rollout_2": presets["launches_per_step"],
                "ensemble_train": ens["launches_per_step"],
-               "ensemble_predict": ens["predict"]["launches"]}
+               "ensemble_predict": ens["predict"]["launches"],
+               "point_wise_train": families["point_wise"]["train"]["launches_per_step"],
+               "point_wise_predict_2_steps": families["point_wise"]["predict"]["launches"],
+               "autoencoder_train": families["autoencoder"]["train"]["launches_per_step"],
+               "autoencoder_predict_2_steps": families["autoencoder"]["predict"]["launches"],
+               "downscaler_train": families["downscaler"]["train"]["launches_per_step"],
+               "downscaler_ensemble_train":
+                   families["downscaler"]["ensemble"]["launches_per_step"],
+               "gnn_train": families["gnn"]["train"]["launches_per_step"],
+               "gnn_predict_2_steps": families["gnn"]["predict"]["launches"]}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
                "K4": "training_step", "K5": "training_step_fused_bwd",
                "K6": "transformer_serving_2_steps", "K7_dq": "transformer_training_step",
@@ -1930,8 +2343,15 @@ def main() -> int:
         remat = phase("remat", remat_phase, graph, device)
         presets = phase("presets", presets_phase, workdir)
         ens = phase("ensemble", ensemble_phase, workdir, device)
+        families = {
+            "point_wise": phase("point_wise", point_wise_phase, workdir, device, "point_wise"),
+            "autoencoder": phase("autoencoder", point_wise_phase, workdir, device,
+                                 "autoencoder"),
+            "downscaler": phase("downscaler", downscaler_phase, workdir, device),
+            "gnn": phase("gnn", gnn_phase, workdir, device),
+        }
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
-                 ens)
+                 ens, families)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -1940,7 +2360,7 @@ def main() -> int:
                        "training": training, "trainer": trainer, "predict": predict,
                        "transformer_serving": t_serving,
                        "transformer_training": t_training, "remat": remat, "presets": presets,
-                       "ensemble": ens,
+                       "ensemble": ens, "families": families,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

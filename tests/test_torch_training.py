@@ -297,7 +297,7 @@ def test_not_ported_pieces_raise(tiny):
         build_optimizer({"optimizer": {"name": "ademamix"}})
     iface, _, _, _ = port_setup(tiny)
     losses = {"data": get_loss_function(LOSS, {})}
-    for kw in ({"task": "autoencoder"}, {"output_masks": {"data": np.ones(3, bool)}}):
+    for kw in ({"task": "transport"}, {"output_masks": {"data": np.ones(3, bool)}}):
         with pytest.raises(NotImplementedError):
             make_step_fns(iface, losses, **{"rollout": 1, **kw})
     make_step_fns(iface, losses, rollout=1, ensemble_size=2)  # ported: tests/test_torch_ensemble.py
