@@ -38,7 +38,7 @@ class GraphCreator:
 
     def update_graph(self, graph: Graph) -> Graph:
         for nodes_name, node_cfg in self.config.get("nodes", {}).items():
-            coords = build_nodes(node_cfg["node_builder"])
+            coords = build_nodes(node_cfg["node_builder"], graph=graph)
             graph[nodes_name] = NodeSet(coords=np.asarray(coords, dtype=np.float64))
             for attr_name, attr_cfg in (node_cfg.get("attributes") or {}).items():
                 graph[nodes_name].attributes[attr_name] = build_node_attribute(

@@ -28,6 +28,13 @@ The ensemble model (``AnemoiEnsModelEncProcDec``) draws its noise through
 (default: ``context_generator("noise")``, as the JAX ``apply`` defaults to
 ``context_key("noise")``); ``predict_step`` serves it, one forecast step for
 every member of the batch's ensemble dim.
+
+A variable-expanding ``Remapper`` among ``data.processors`` rewrites the
+index collections and the statistics before the model and the rest of the
+chain are built, so that everything downstream lives in the remapped
+variable space, and it goes first in each chain.  ``predict_step`` computes
+the imputer's NaN bookkeeping from the raw inputs and puts the NaNs back on
+the way out; ``make_forecast_fn`` does not, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerBaseBloc
 from anemoi_tpu_torch.models.layers.normalization import ConditionalLayerNorm, LayerNorm, RMSNorm
 from anemoi_tpu_torch.models.layers.residual import ScalarOrnsteinConnection
 from anemoi_tpu_torch.preprocessing.processors import Processors, build_processors
+from anemoi_tpu_torch.preprocessing.remapper import Remapper
 from anemoi_tpu_torch.utils.device import resolve_device
 from anemoi_tpu_torch.utils.seeding import context_generator
 
@@ -136,6 +144,19 @@ class AnemoiModelInterface(nn.Module):
         self.device = resolve_device(device)
         self.config = config
         self.metadata = metadata or {}
+        processors_cfg = list((config.get("data") or {}).get("processors") or [])
+        remap_cfg = next((dict(c) for c in processors_cfg if c.get("name") == "Remapper"), None)
+        self.remappers: Dict[str, Remapper] = {}
+        if remap_cfg is not None:
+            remap_cfg.pop("name")
+            data_indices, statistics = dict(data_indices), dict(statistics)
+            for ds in data_indices:
+                rm = Remapper(data_indices[ds], remap_cfg.get("config", remap_cfg),
+                              device=self.device)
+                self.remappers[ds] = rm
+                data_indices[ds] = rm.data_indices
+                statistics[ds] = rm.remap_statistics(statistics[ds])
+            processors_cfg = [c for c in processors_cfg if c.get("name") != "Remapper"]
         self.data_indices = data_indices
 
         model_cfg = dict(config["model"])
@@ -169,11 +190,13 @@ class AnemoiModelInterface(nn.Module):
                 "initialise_data_extractor_zero", False)),
         )
         self.model = model.to(device=self.device, dtype=self.param_dtype)
-        processors_cfg = (config.get("data") or {}).get("processors")
-        self.pre_processors: Dict[str, Processors] = {
-            ds: build_processors(processors_cfg, idx, statistics[ds], device=self.device)
-            for ds, idx in data_indices.items()
-        }
+        self.pre_processors: Dict[str, Processors] = {}
+        for ds, idx in data_indices.items():
+            chain = build_processors(processors_cfg, idx, statistics[ds], device=self.device)
+            if ds in self.remappers:
+                # first: its transform takes the raw data space, its inverse runs last
+                chain.processors.insert(0, self.remappers[ds])
+            self.pre_processors[ds] = chain
         self._input_full = {
             ds: torch.as_tensor(idx.data.input.full, dtype=torch.long, device=self.device)
             for ds, idx in data_indices.items()
@@ -260,10 +283,14 @@ class AnemoiModelInterface(nn.Module):
         ``{ds: [B, n_step_output, E, G, V_model_out]}`` in float32.  An
         ensemble model predicts every member of ``E`` (tile the window over
         ``E`` for an ensemble from one state), its noise drawn as
-        :meth:`apply` draws it."""
+        :meth:`apply` draws it.  An imputed output variable is NaN where its
+        input was NaN."""
         m = self.model.n_step_input
-        _, x = self.normalised_input({ds: b[:, :m] for ds, b in batch.items()})
+        raw = {ds: b[:, :m] for ds, b in batch.items()}
+        aux = {ds: self.pre_processors[ds].compute_aux(raw[ds]) for ds in self.data_indices}
+        _, x = self.normalised_input(raw)
         cast = self.param_dtype != self.inference_dtype
         y = self.apply(x, generator=generator,
                        params=self.cast_parameters(self.inference_dtype) if cast else None)
-        return {ds: self.pre_processors[ds].inverse_transform(y[ds].float()) for ds in y}
+        return {ds: self.pre_processors[ds].inverse_transform(y[ds].float(), aux=aux[ds])
+                for ds in y}

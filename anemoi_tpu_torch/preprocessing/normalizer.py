@@ -89,7 +89,7 @@ class InputNormalizer:
             return x * self._norm_mul[idx] + self._norm_add[idx]
         return x * self._norm_mul + self._norm_add
 
-    def inverse_transform(self, x: torch.Tensor) -> torch.Tensor:
+    def inverse_transform(self, x: torch.Tensor, aux=None) -> torch.Tensor:
         if x.shape[-1] == self._model_output_idx.shape[0]:
             idx = self._model_output_idx
         elif x.shape[-1] == self._output_idx.shape[0]:

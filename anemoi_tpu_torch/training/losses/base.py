@@ -6,11 +6,12 @@ bound to named dimensions of the prediction ``[batch, time, ensemble, grid,
 variable]``; ``scale()`` multiplies them in with broadcasting.  A loss is
 the scaler-weighted mean of a pointwise error; NaN targets drop out.
 
-Ported leaves: ``WeightedMSELoss`` and ``KernelCRPS`` (``leaves.py``).  The other leaves and the
-wrappers (``MultiscaleLossWrapper``, ``LossVariableMapper``,
-``TimeAggregateLossWrapper``) raise ``NotImplementedError``.  The
-``ScaleTensor`` hooks that only they use (``update_scaler``, ``freeze``,
-``validate``, the by-dimension selections) are not ported either.
+The leaves and ``CombinedLoss`` are in ``leaves.py``, the wrappers
+``LossVariableMapper`` and ``TimeAggregateLossWrapper`` in ``wrappers.py``.
+``MultiscaleLossWrapper`` and the spectral losses raise
+``NotImplementedError`` (they need the sparse projector and the spectral
+ops).  The ``ScaleTensor`` hooks that only they use (``update_scaler``,
+``freeze``, ``validate``, the by-dimension selections) are not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 
 # canonical prediction layout
 DIMS = {"batch": 0, "time": 1, "ensemble": 2, "grid": 3, "variable": 4}
-LOSSES: Dict[str, Callable] = {}  # name -> loss class, filled by leaves.py
+LOSSES: Dict[str, Callable] = {}  # name -> loss class, filled by leaves.py and wrappers.py
+WRAPPERS = ("LossVariableMapper", "TimeAggregateLossWrapper")
 
 
 def register_loss(name: str):
@@ -33,14 +35,19 @@ def register_loss(name: str):
     return deco
 
 
+def _float32(array) -> torch.Tensor:
+    if not isinstance(array, torch.Tensor):
+        array = np.asarray(array)
+    return torch.as_tensor(array, dtype=torch.float32)
+
+
 class ScaleTensor:
     """Named scalers bound to named dims of ``[B, T, E, G, V]`` tensors.
     Arrays are kept as float32 tensors; :meth:`to` moves them to a device."""
 
     def __init__(self, scalers: Optional[Dict[str, Tuple[Tuple[str, ...], object]]] = None):
         self.scalers: Dict[str, Tuple[Tuple[str, ...], torch.Tensor]] = {
-            name: (tuple(dims), torch.as_tensor(np.asarray(arr), dtype=torch.float32))
-            for name, (dims, arr) in (scalers or {}).items()
+            name: (tuple(dims), _float32(arr)) for name, (dims, arr) in (scalers or {}).items()
         }
 
     def add_scaler(self, dims, array, name: str) -> "ScaleTensor":
@@ -48,7 +55,7 @@ class ScaleTensor:
         for d in dims:
             if d not in DIMS:
                 raise ValueError(f"Unknown dim '{d}' (valid: {sorted(DIMS)})")
-        array = torch.as_tensor(np.asarray(array), dtype=torch.float32)
+        array = _float32(array)
         if array.dim() != len(dims):
             raise ValueError(f"scaler '{name}' has {array.dim()} axes for dims {dims}")
         if name in self.scalers:
@@ -173,14 +180,38 @@ class BaseLoss:
 def get_loss_function(
     config: dict,
     scalers: Optional[Dict[str, Tuple[Tuple[str, ...], object]]] = None,
-    **_,
+    data_indices=None,
+    variables_metadata: Optional[dict] = None,
 ) -> BaseLoss:
     """Build a loss from ``{"name": "WeightedMSELoss", "scalers": [...],
     ...}``, attaching the named subset (``"*"`` = all) of pre-built
-    ``scalers``."""
+    ``scalers``.  A wrapper's config holds the wrapped loss under ``loss``;
+    a ``scalers`` list on the wrapper goes to the wrapped loss.
+    ``LossVariableMapper`` needs ``data_indices``, and checks the units of
+    each predicted/target pair it maps against ``variables_metadata``."""
     cfg = dict(config)
     name = cfg.pop("name", "WeightedMSELoss")
-    if name not in LOSSES:  # the other leaves and every wrapper
+    if name in WRAPPERS:
+        inner_cfg = dict(cfg.pop("loss", {"name": "WeightedMSELoss"}))
+        wrapper_scalers = cfg.pop("scalers", None)
+        if wrapper_scalers is not None and "scalers" not in inner_cfg:
+            inner_cfg["scalers"] = wrapper_scalers
+        inner = get_loss_function(inner_cfg, scalers, data_indices=data_indices,
+                                  variables_metadata=variables_metadata)
+        if name == "TimeAggregateLossWrapper":
+            return LOSSES[name](inner, **cfg)
+        if data_indices is None:
+            raise ValueError("LossVariableMapper needs data_indices")
+        wrapped = LOSSES[name](inner, data_indices, **cfg)
+        if wrapped.predicted_variables != wrapped.target_variables:
+            from anemoi_tpu_torch.utils.variables_metadata import (
+                check_loss_variable_units_compatibility,
+            )
+
+            check_loss_variable_units_compatibility(
+                wrapped.predicted_variables, wrapped.target_variables, variables_metadata)
+        return wrapped
+    if name not in LOSSES:  # MultiscaleLossWrapper and the spectral losses
         raise NotImplementedError(f"loss '{name}' is not ported to anemoi_tpu_torch")
     wanted = cfg.pop("scalers", ["*"])
     available = scalers or {}

@@ -1,20 +1,57 @@
 """Leaf losses.
 
-Port of ``anemoi_tpu.training.losses.leaves``: ``WeightedMSELoss`` and the
-ensemble's ``KernelCRPS``.  The other leaves (MAE, RMSE, Huber, LogCosh,
-CombinedLoss) are not ported; ``get_loss_function`` raises
-``NotImplementedError`` for them.
+Port of ``anemoi_tpu.training.losses.leaves``: pointwise errors (MSE, MAE,
+RMSE, Huber, log-cosh) in ``BaseLoss``'s scaler-weighted reduction, the
+ensemble's ``KernelCRPS`` and the weighted sum ``CombinedLoss``.
 """
 
 from __future__ import annotations
 
-from anemoi_tpu_torch.training.losses.base import BaseLoss, register_loss
+import math
+
+import torch
+
+from anemoi_tpu_torch.training.losses.base import BaseLoss, get_loss_function, register_loss
 
 
 @register_loss("WeightedMSELoss")
 class WeightedMSELoss(BaseLoss):
     def error(self, pred, target):
         return (pred - target) ** 2
+
+
+@register_loss("WeightedMAELoss")
+class WeightedMAELoss(BaseLoss):
+    def error(self, pred, target):
+        return (pred - target).abs()
+
+
+@register_loss("WeightedRMSELoss")
+class WeightedRMSELoss(WeightedMSELoss):
+    """The square root of the weighted MSE."""
+
+    def __call__(self, pred, target, squash: bool = True, **kwargs):
+        return torch.sqrt(super().__call__(pred, target, squash=squash, **kwargs))
+
+
+@register_loss("WeightedHuberLoss")
+class WeightedHuberLoss(BaseLoss):
+    def __init__(self, scalers=None, ignore_nans: bool = True, delta: float = 1.0):
+        super().__init__(scalers, ignore_nans)
+        self.delta = delta
+
+    def error(self, pred, target):
+        diff = (pred - target).abs()
+        quad = torch.clamp(diff, max=self.delta)
+        return 0.5 * quad**2 + self.delta * (diff - quad)
+
+
+@register_loss("WeightedLogCoshLoss")
+class WeightedLogCoshLoss(BaseLoss):
+    def error(self, pred, target):
+        # log(cosh(d)) on |d|: d + log1p(exp(-2d)) overflows for d << 0
+        a = (pred - target).abs()
+        return a + torch.log1p(torch.exp(-2.0 * a)) - math.log(2.0)
 
 
 @register_loss("KernelCRPS")
@@ -43,3 +80,29 @@ class KernelCRPS(BaseLoss):
             raise ValueError("KernelCRPS expects a single-truth target with ensemble dim 1, "
                              f"got {tuple(target.shape)}")
         return super().__call__(pred, target, squash=squash, **kwargs)
+
+
+@register_loss("CombinedLoss")
+class CombinedLoss(BaseLoss):
+    """The weighted sum of member losses.  ``losses``: member configs (or
+    built losses); each member selects its own scalers, by its ``scalers``
+    list, among those this loss was given."""
+
+    def __init__(self, losses, loss_weights=None, scalers=None, ignore_nans: bool = True):
+        super().__init__(scalers, ignore_nans)
+        available = dict(scalers.scalers) if scalers else {}
+        self.members = [cfg if isinstance(cfg, BaseLoss) else get_loss_function(dict(cfg), available)
+                        for cfg in losses]
+        self.weights = list(loss_weights) if loss_weights else [1.0] * len(self.members)
+
+    def to(self, device) -> "CombinedLoss":
+        super().to(device)
+        for member in self.members:
+            member.to(device)
+        return self
+
+    def __call__(self, pred, target, squash: bool = True, **kwargs):
+        total = 0.0
+        for w, loss in zip(self.weights, self.members):
+            total = total + w * loss(pred, target, squash=squash, **kwargs)
+        return total

@@ -2,8 +2,9 @@
 
 Port of ``anemoi_tpu.training.optimizers``: ``build_lr_schedule`` (optax's
 ``warmup_cosine_decay_schedule``, in plain Python) and ``build_optimizer``
-(``adamw``/``adam`` on ``torch.optim`` with the JAX registry's defaults,
-after value or global-norm gradient clipping).  AdEMAMix is not ported.
+(``adamw``/``adam`` on ``torch.optim`` with the JAX registry's defaults, and
+``ademamix``, :class:`AdEMAMix`, after value or global-norm gradient
+clipping).
 
 As in optax, the schedule is read at the update count *before* it is
 incremented: the first update uses ``schedule(0)``, which is 0 with warmup.
@@ -64,7 +65,81 @@ def _adam(params, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, **_):
     return torch.optim.Adam(params, lr=0.0, betas=(b1, b2), eps=eps)
 
 
-OPTIMIZERS = {"adamw": _adamw, "adam": _adam}
+class AdEMAMix(torch.optim.Optimizer):
+    """AdEMAMix (Pagliardini et al. 2024), as the JAX package chains it in
+    optax: Adam with a slow EMA ``m2`` mixed into the update,
+
+        u = (m1_hat + alpha_t * m2) / (sqrt(nu_hat) + eps)
+
+    with ``alpha_t`` warmed up linearly from 0 over ``alpha_warmup`` updates
+    and ``b3_t`` from ``b1`` to ``b3`` over ``b3_warmup`` updates (linear in
+    the log half-life); then ``u + weight_decay * p``, scaled by the rate.
+    The state of each parameter: ``m1``, ``m2``, ``nu`` (float32) and the
+    update ``count``."""
+
+    def __init__(self, params, lr: float = 0.0, b1: float = 0.9, b2: float = 0.999,
+                 b3: float = 0.9999, alpha: float = 5.0, b3_warmup: Optional[int] = None,
+                 alpha_warmup: Optional[int] = None, eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, b3=b3, alpha=alpha,
+                                      b3_warmup=b3_warmup, alpha_warmup=alpha_warmup, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @staticmethod
+    def _b3(count: int, b1: float, b3: float, warmup: Optional[int]) -> float:
+        if warmup is None:
+            return b3
+
+        def log_half_life(beta):
+            return math.log(0.5) / math.log(beta) - 1.0
+
+        frac = min(max(count / warmup, 0.0), 1.0)
+        hl = (1.0 - frac) * log_half_life(b1) + frac * log_half_life(b3)
+        return math.exp(math.log(0.5) / (hl + 1.0))
+
+    @staticmethod
+    def _alpha(count: int, alpha: float, warmup: Optional[int]) -> float:
+        if warmup is None:
+            return alpha
+        return min(max(count / warmup, 0.0), 1.0) * alpha
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2, eps = group["b1"], group["b2"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.float()
+                state = self.state[p]
+                if not state:
+                    state["count"] = 0
+                    for key in ("m1", "m2", "nu"):
+                        state[key] = torch.zeros_like(p, dtype=torch.float32)
+                state["count"] += 1
+                count = state["count"]
+                b3 = self._b3(count, b1, group["b3"], group["b3_warmup"])
+                alpha = self._alpha(count, group["alpha"], group["alpha_warmup"])
+                m1, m2, nu = state["m1"], state["m2"], state["nu"]
+                m1.mul_(b1).add_(g, alpha=1 - b1)
+                m2.mul_(b3).add_(g, alpha=1 - b3)
+                nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+                denom = (nu / (1 - b2**count)).sqrt_().add_(eps)
+                update = (m1 / (1 - b1**count)).add_(m2, alpha=alpha).div_(denom)
+                if group["weight_decay"]:
+                    update.add_(p, alpha=group["weight_decay"])
+                p.add_(update.to(p.dtype), alpha=-group["lr"])
+        return None
+
+
+def _ademamix(params, weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999,
+              b3: float = 0.9999, alpha: float = 5.0, b3_warmup: Optional[int] = None,
+              alpha_warmup: Optional[int] = None, **_):
+    return AdEMAMix(params, lr=0.0, b1=b1, b2=b2, b3=b3, alpha=alpha, b3_warmup=b3_warmup,
+                    alpha_warmup=alpha_warmup, weight_decay=weight_decay)
+
+
+OPTIMIZERS = {"adamw": _adamw, "adam": _adam, "ademamix": _ademamix}
 
 
 class Optimizer:

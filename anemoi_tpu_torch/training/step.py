@@ -28,7 +28,14 @@ the window's endpoints ``0`` and ``n_step_output + 1``, so ``n_step_input``
 must be 2, targets the interior ``t0 = 1``).  The last two run one model
 step whatever the rollout, with no rollout remat.
 
-Not ported (``NotImplementedError``): boundary masks.
+Limited-area models (``output_masks``, ``training/masks.py``): at each
+rollout step the prognostics outside the area are re-forced from the
+normalised truth (``advance_input``'s ``boundary_mask``); the loss is
+masked to the area by the trainer's ``output_mask`` scaler.  An imputer's
+NaN bookkeeping (``Processors.compute_aux``) is computed from the raw batch
+before it is normalised: its loss mask zeroes the loss where an imputed
+variable was NaN, and the validation metrics put those NaNs back.  Both
+masks are step inputs that enter no rollout checkpoint.
 """
 
 from __future__ import annotations
@@ -106,13 +113,19 @@ def advance_input(
     batch_norm: torch.Tensor,  # [B, W, E, G, V_data] normalised
     time_offset: int,
     ia: Dict[str, torch.Tensor],
+    boundary_mask: Optional[torch.Tensor] = None,  # [G] True inside the area
 ) -> torch.Tensor:
     """Roll the input window one model step forward: shift time, insert the
-    predicted prognostics, re-read the forcings from the batch."""
+    predicted prognostics, re-read the forcings from the batch.  With a
+    ``boundary_mask`` (limited area), the prognostics outside the area are
+    re-read from the batch too."""
     n_out = y_pred.shape[1]
     from_pred = y_pred[..., ia["from_pred"]]
     from_data = batch_norm[:, time_offset : time_offset + n_out][..., ia["from_data"]]
-    new_steps = torch.where(ia["is_prog"], from_pred, from_data).to(x.dtype)
+    use_pred = ia["is_prog"]
+    if boundary_mask is not None:
+        use_pred = use_pred & boundary_mask[:, None]
+    new_steps = torch.where(use_pred, from_pred, from_data).to(x.dtype)
     return torch.cat([x[:, n_out:], new_steps], dim=1)
 
 
@@ -155,6 +168,8 @@ def make_step_fns(
     outside the checkpoints, and enter them as inputs.  ``ensemble_size``
     members run per sample; the noise of an ensemble model is seeded by
     ``context_seed("ensemble-noise")``, the train step and the rollout step.
+    ``output_masks``: ``{ds: Boolean1DMask}`` of the limited-area datasets,
+    whose boundary is re-forced from the truth at each rollout step.
 
     ``train_step(state, batch) -> (state, {"loss", "grad_norm"})`` updates
     ``state`` IN PLACE (the master weights, the optimizer state and the step
@@ -166,8 +181,6 @@ def make_step_fns(
     """
     if task not in TASKS:
         raise NotImplementedError(f"task '{task}' is not ported to anemoi_tpu_torch")
-    if output_masks:
-        raise NotImplementedError("boundary masks are not ported to anemoi_tpu_torch")
     policy = resolve_remat_policy(remat_policy)
     # at rollout 1 there is nothing between rollout steps to free: the outer
     # checkpoint would only add a recompute (the JAX step's rule)
@@ -198,6 +211,8 @@ def make_step_fns(
         if hasattr(loss, "to"):
             loss.to(interface.device)
     noise_seed = context_seed("ensemble-noise")
+    boundary = {ds: output_masks[ds].as_tensor(interface.device)
+                if output_masks and ds in output_masks else None for ds in dataset_names}
 
     def noise_for(x, noise_step: int, step: int):
         """An ensemble model's noise for one rollout step, or None."""
@@ -210,10 +225,10 @@ def make_step_fns(
     def forward(x, params, noise, fcstep):
         return interface.run_model(x, params, noise=noise, fcstep=fcstep)
 
-    def _group_metrics(out, y_pred, batch, step, t0):
+    def _group_metrics(out, y_pred, batch, step, t0, pre_aux):
         """Denormalised per-variable-group RMSE of one rollout step."""
         for ds in dataset_names:
-            y_phys = pre[ds].inverse_transform(y_pred[ds].float())
+            y_phys = pre[ds].inverse_transform(y_pred[ds].float(), aux=pre_aux[ds])
             truth = batch[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]]
             valid = ~torch.isnan(truth) & ~torch.isnan(y_phys)
             sq = torch.where(valid, (y_phys - truth) ** 2, 0.0)
@@ -225,6 +240,9 @@ def make_step_fns(
     def rollout_loss(batch, noise_step: int, with_metrics=False):
         params = (interface.cast_parameters(compute_dtype, fp32_head)
                   if compute_dtype is not None else None)
+        # the imputer's NaN bookkeeping, from the raw batch
+        pre_aux = {ds: pre[ds].compute_aux(batch[ds]) for ds in dataset_names}
+        loss_masks = {ds: pre[ds].loss_mask(pre_aux[ds]) for ds in dataset_names}
         batch_norm = {ds: pre[ds].transform(batch[ds].float()) for ds in dataset_names}
         x = {ds: batch_norm[ds][:, inputs][..., ia[ds]["data_input_full"]]
              for ds in dataset_names}
@@ -246,11 +264,12 @@ def make_step_fns(
             for ds in dataset_names:
                 target = batch_norm[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]]
                 # the loss in float32 whatever the compute type
-                total = total + losses[ds](y_pred[ds].float(), target)
+                total = total + losses[ds](y_pred[ds].float(), target, mask=loss_masks[ds])
             if with_metrics:
-                _group_metrics(metrics, y_pred, batch, step, t0)
+                _group_metrics(metrics, y_pred, batch, step, t0, pre_aux)
             if step + 1 < steps:
-                x = {ds: advance_input(x[ds], y_pred[ds], batch_norm[ds], t0, ia[ds])
+                x = {ds: advance_input(x[ds], y_pred[ds], batch_norm[ds], t0, ia[ds],
+                                       boundary_mask=boundary[ds])
                      for ds in dataset_names}
         loss = total / (steps * len(dataset_names))
         return (loss, metrics) if with_metrics else loss

@@ -22,8 +22,13 @@ program to compile ahead) and ``training.donate_state`` (the step updates
 the state in place).  Not ported (``NotImplementedError``): more than one
 device (``hardware.num_devices``, ``num_devices_per_model``,
 ``num_devices_per_ensemble``; ``ROADMAP.md`` Queue 1, item 9),
-``training.checkpoint_pipeline`` (item 10), ``training.output_mask``
-(item 7) and the transport task (item 8).
+``training.checkpoint_pipeline`` (item 10) and the transport task (item 8).
+
+Limited-area and stretched-grid training (``training.output_mask``: a
+boolean node attribute per dataset): the loss is scored inside the area
+only (an ``output_mask`` grid scaler appended to the loss's scalers) and the
+rollout re-forces the boundary from the truth (``make_step_fns``'s
+``output_masks``).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from anemoi_tpu_torch.models.interface import AnemoiModelInterface
 from anemoi_tpu_torch.training.callbacks import build_callbacks
 from anemoi_tpu_torch.training.checkpoint import CheckpointManager, save_inference_checkpoint
 from anemoi_tpu_torch.training.loggers import build_loggers
+from anemoi_tpu_torch.training.masks import build_output_masks
 from anemoi_tpu_torch.training.losses import get_loss_function
 from anemoi_tpu_torch.training.losses.scalers import create_scalers
 from anemoi_tpu_torch.training.optimizers import build_lr_schedule, build_optimizer
@@ -115,9 +121,6 @@ class AnemoiTrainer:
         if training_cfg.get("checkpoint_pipeline"):
             raise NotImplementedError("training.checkpoint_pipeline is not ported to "
                                       "anemoi_tpu_torch (ROADMAP.md Queue 1, item 10)")
-        if training_cfg.get("output_mask"):
-            raise NotImplementedError("training.output_mask (boundary masks) is not ported to "
-                                      "anemoi_tpu_torch (ROADMAP.md Queue 1, item 7)")
         self.device = trainer_device(config.get("hardware"))
 
         # --- graph ----------------------------------------------------
@@ -160,17 +163,28 @@ class AnemoiTrainer:
             statistics=self.datamodule.statistics, device=self.device, training=True,
         )
 
+        # --- output masks (limited area, stretched grid) ------------
+        self.output_masks = build_output_masks(training_cfg.get("output_mask"), self.graph)
+
         # --- losses ---------------------------------------------------
         self.losses = {}
         for name, ds in datasets.items():
             scalers = create_scalers(
                 training_cfg.get("scalers"), graph=self.graph,
                 data_indices=self.data_indices[name], statistics=ds.statistics,
+                statistics_tendencies=ds.statistics_tendencies,
                 variable_groups=training_cfg.get("variable_groups"),
                 metadata_variables=getattr(ds, "variables_metadata", None),
             )
+            loss_cfg = dict(training_cfg.get("loss", {"name": "WeightedMSELoss"}))
+            if name in self.output_masks:
+                # scored inside the area of interest only
+                scalers["output_mask"] = (("grid",), self.output_masks[name].loss_scaler())
+                if "scalers" in loss_cfg:
+                    loss_cfg["scalers"] = list(loss_cfg["scalers"]) + ["output_mask"]
             self.losses[name] = get_loss_function(
-                dict(training_cfg.get("loss", {"name": "WeightedMSELoss"})), scalers,
+                loss_cfg, scalers, data_indices=self.data_indices[name],
+                variables_metadata=getattr(ds, "variables_metadata", None),
             )
 
         # --- optimizer / state ---------------------------------------
@@ -211,6 +225,7 @@ class AnemoiTrainer:
                 remat_rollout=bool(cfg.get("remat_rollout", True)),
                 remat_policy=cfg.get("remat_policy"),
                 ensemble_size=int(cfg.get("ensemble_size", 1)),
+                output_masks=self.output_masks or None,
                 precision=str(cfg.get("precision", "fp32")),
                 fp32_head=bool(cfg.get("fp32_head", False)),
                 task=str(cfg.get("task", "forecaster")),

@@ -4,14 +4,19 @@ The port's copy of the part of ``anemoi_tpu.utils.variables_metadata`` that
 the loss scalers use: :func:`crack_variable_name`, :class:`VariableMetadata`
 (param, level and surface flag from a dataset's per-variable metadata,
 mars keys or plain keys) and :class:`ExtractVariableGroupAndLevel`, which
-resolves a variable's group from ``training.variable_groups``.  The
-checkpoint-versus-dataset compatibility checks are not ported.
+resolves a variable's group from ``training.variable_groups``, and
+:func:`check_loss_variable_units_compatibility`, which a loss that scores
+one variable against another runs.  The checkpoint-versus-dataset
+compatibility checks are not ported.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple, Union
+
+LOGGER = logging.getLogger(__name__)
 
 GROUP_SPEC = Union[str, List[str], bool, dict]
 
@@ -30,10 +35,14 @@ def crack_variable_name(variable_name: str) -> Tuple[str, Optional[int]]:
 
 @dataclass
 class VariableMetadata:
-    """Per-variable metadata: param, level, surface flag."""
+    """Per-variable metadata: param, level, surface flag, units."""
 
     name: str
     raw: dict = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, name: str, data: Optional[dict]) -> "VariableMetadata":
+        return cls(name=name, raw=dict(data or {}))
 
     @property
     def _mars(self) -> dict:
@@ -55,6 +64,25 @@ class VariableMetadata:
         if levtype is not None:
             return str(levtype) in _SURFACE_LEVTYPES
         return self.level is None
+
+    @property
+    def units(self) -> Optional[str]:
+        return self.raw.get("units")
+
+    @property
+    def processing(self) -> Optional[list]:
+        """Accumulation or processing period descriptors, if recorded."""
+        return self.raw.get("process", self.raw.get("processing"))
+
+    def incompatibility(self, other: "VariableMetadata") -> Optional[str]:
+        """Why the two disagree on units or processing period (where both
+        record them), or None."""
+        if self.units and other.units and self.units != other.units:
+            return f"units differ: {self.units!r} vs {other.units!r}"
+        if (self.processing is not None and other.processing is not None
+                and self.processing != other.processing):
+            return f"processing differs: {self.processing!r} vs {other.processing!r}"
+        return None
 
     def __getattr__(self, key: str):
         # complex variable_groups specs match arbitrary metadata keys
@@ -139,3 +167,31 @@ class ExtractVariableGroupAndLevel:
             self.get_param(variable_name),
             self.get_level(variable_name),
         )
+
+
+def check_loss_variable_units_compatibility(
+    predicted_variables: List[str],
+    target_variables: List[str],
+    variables_metadata: Optional[Dict[str, dict]],
+) -> None:
+    """Raise ``ValueError`` where a loss scores a predicted variable against
+    a target variable whose units (or processing period) differ; pairs
+    without metadata are skipped with a warning."""
+    if variables_metadata is None:
+        LOGGER.warning("No variables_metadata available; skipping loss variable unit check.")
+        return
+    if len(predicted_variables) != len(target_variables):
+        raise ValueError("predicted and target variable lists differ in length")
+    for pred, target in zip(predicted_variables, target_variables):
+        if pred == target:
+            continue
+        if pred not in variables_metadata or target not in variables_metadata:
+            LOGGER.warning("Variable pair (%s, %s) missing metadata; skipping unit check.",
+                           pred, target)
+            continue
+        a = VariableMetadata.from_dict(pred, variables_metadata[pred])
+        b = VariableMetadata.from_dict(pred, variables_metadata[target])
+        reason = a.incompatibility(b)
+        if reason is not None:
+            raise ValueError(f"Loss variable mismatch: predicted {pred!r} and target "
+                             f"{target!r} are not compatible: {reason}")

@@ -169,12 +169,39 @@ Phases (any failure exits non-zero, with no result line):
                   graph, its float32 forward and gradient on the card
                   against the CPU's (same weights and batch, relative L2
                   <= 1e-4);
- 20. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 20. lam       -- ``lam.yaml`` at its width (the ``graphtransformer`` model:
+                  1024 channels, 16 layers, 16 heads; the ``limited_area``
+                  graph: ``LimitedAreaTriNodes`` ico-5 clipped to the o96
+                  grid with a 300 km margin; the loss masked to the
+                  ``cutout_mask`` area) through ``cli train`` over phase 9's
+                  store, 3 steps: the hidden node count and each edge set's
+                  count and degree ranges, exactly 18 K1, 18 K3 and the K4/K5
+                  of the ``fused_backward`` rule a step, the gradient gate;
+                  then one rollout-2 step under the packaged rollout remat
+                  (exactly twice the launches, K1 twice more: the rollout
+                  checkpoint recomputes the forward) and, through the port's
+                  ``advance_input`` on the card, the second model step's
+                  input: outside the area the normalised truth bit for bit,
+                  inside the prediction; ``cli predict`` 2 steps (18 K1 a
+                  step, relative L2 <= 2e-2 against the plain attention);
+                  wall, device ms and peak memory of each;
+ 21. stretched -- ``stretched.yaml`` at its width (1024 channels, 16 layers,
+                  the ``stretched_grid`` graph: ico-4 outside and ico-6
+                  inside a 20 degree cap, KNN-8 processor edges) with
+                  AdEMAMix and ``[InputImputer (mean), InputNormalizer]``
+                  over phase 9's fields written in the npy layout with
+                  ``t_850`` NaN on a lat/lon box partly inside the area
+                  (statistics from ``np.nanmean``/``np.nanstd``): as phase
+                  20, and the imputer's loss mask 0 at exactly the NaN
+                  points and 1 elsewhere, AdEMAMix's three float32 moments
+                  per parameter; the device time of the step by kernel;
+ 22. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
-                  training step and ``predict_step``, and phases 16-19's
-                  training steps and forecasts), the card line, and
+                  training step and ``predict_step``, phases 16-19's
+                  training steps and forecasts, and phases 20-21's
+                  training steps, rollout-2 steps and forecasts), the card line, and
                   last {"ok": true, "device": {...}}; with --json, the same
                   and the serving and training details also go to PATH.
 
@@ -1908,20 +1935,22 @@ def expected_launches(config: dict, graph, processor_layers: int) -> dict:
 
 
 def family_train(workdir: str, device, label: str, path: str, overrides: list, steps: int,
-                 want, attention: bool = True, split: int = 0) -> tuple:
-    """``cli train`` on ``path`` over phase 9's store, bf16: exit 0, ``steps``
-    finite records, a finite validation record, exactly ``want(trainer)``
-    launches in every step; then, on a batch of the store, the trained
-    step's gradient against the plain attention (``attention``), wall ms a
-    step (median of ``FAMILY_TIMED`` after 1 of warmup), device ms and
-    launches a step (``torch.profiler``; with ``split``, its kernels that
-    took the most device time) and peak memory.  Returns (result, run
-    directory, last validation record)."""
+                 want, attention: bool = True, split: int = 0, dataset=None,
+                 after=None) -> tuple:
+    """``cli train`` on ``path`` over phase 9's store (or ``dataset``, a
+    ``(kind, path)``), bf16: exit 0, ``steps`` finite records, a finite
+    validation record, exactly ``want(trainer)`` launches in every step;
+    then, on a batch of the store, the trained step's gradient against the
+    plain attention (``attention``), ``after(trainer, state, want)`` (its
+    result under ``"after"``), wall ms a step (median of ``FAMILY_TIMED``
+    after 1 of warmup), device ms and launches a step (``torch.profiler``;
+    with ``split``, its kernels that took the most device time) and peak
+    memory.  Returns (result, run directory, last validation record)."""
     from anemoi_tpu_torch.training import cli
 
-    store = os.path.join(workdir, "example_o96.zarr")
+    kind, store = dataset or ("zarr", os.path.join(workdir, "example_o96.zarr"))
     run_dir = os.path.join(workdir, f"{label}_run")
-    run = ["data.datasets.data.kind=zarr", f"data.datasets.data.path={store}",
+    run = [f"data.datasets.data.kind={kind}", f"data.datasets.data.path={store}",
            f"output_dir={run_dir}", f"training.max_steps={steps}", "training.max_epochs=1",
            "training.precision=bf16", "diagnostics.log_interval=1", *overrides]
     t0 = time.perf_counter()
@@ -1955,6 +1984,7 @@ def family_train(workdir: str, device, label: str, path: str, overrides: list, s
     batch = trainer.put_batch(trainer.datamodule.make_batch(trainer.datamodule.train_starts[:1]))
     grad_rel_l2 = (grad_gap(iface, state, train_step, batch, f"{label} K3 + K4/K5")
                    if attention else None)
+    extra = after(trainer, state, want) if after is not None else None
     iface.zero_grad(set_to_none=True)
     train_step(state, batch)
     torch.cuda.synchronize()
@@ -1979,6 +2009,7 @@ def family_train(workdir: str, device, label: str, path: str, overrides: list, s
                                        for a, b in zip(done, done[1:])],
         "edges": {f"{s}->{d}": es.num_edges for (s, d), es in trainer.graph.edges.items()},
         **({"device_ms_by_kernel": top[0]} if top else {}),
+        **({"after": extra} if extra is not None else {}),
     }
     print(f"[{label}] fixed-batch step: wall {result['ms_per_step']:.3f} ms, device "
           f"{device_ms:.3f} ms ({device_launches:.1f} device launches), peak {peak} B; "
@@ -2206,6 +2237,225 @@ def gnn_card_against_cpu(cfg_path: str, overrides: list, device) -> dict:
     return {**gaps, "losses": losses}
 
 
+NAN_VARIABLE = "t_850"  # the stretched phase's prognostic variable with a NaN box
+NAN_BOX = (45.0, 70.0, 30.0, 60.0)  # lat min/max, lon min/max (degrees): partly in the area
+
+
+def graph_summary(label: str, graph) -> dict:
+    """The hidden node count, each edge set's count and its sources' and
+    destinations' degree ranges, printed and returned."""
+    import numpy as np
+
+    out = {"hidden_nodes": graph["hidden"].num_nodes,
+           "area_nodes": int(graph["data"].attributes["cutout_mask"].sum())}
+    for (src, dst), es in graph.edges.items():
+        out_deg = np.bincount(es.edge_index[0], minlength=graph[src].num_nodes)
+        in_deg = np.diff(es.dst_ptr)
+        out[f"{src}->{dst}"] = {
+            "edges": es.num_edges, "source_degree": [int(out_deg.min()), int(out_deg.max())],
+            "sources_without_edges": int((out_deg == 0).sum()),
+            "destination_degree": [int(in_deg.min()), int(in_deg.max())]}
+    print(f"[{label}] graph: {json.dumps(out)}", flush=True)
+    return out
+
+
+def rollout_2_and_boundary(label: str, trainer, state, want_1: dict) -> dict:
+    """One rollout-2 step of the trained model under the packaged rollout
+    remat: exactly the launches ``want_1`` gives a rollout-1 step, twice,
+    K1 once more where the rollout checkpoint recomputes the forward; its
+    wall, device ms and peak memory.  Then the second model step's input,
+    built by the port's ``advance_input`` on the card from the trained
+    interface's prediction: outside the area the normalised truth bit for
+    bit, inside the prediction (prognostics) and the truth (forcings)."""
+    from anemoi_tpu_torch import kernels
+    from anemoi_tpu_torch.training.step import advance_input, device_index_arrays
+
+    device = trainer.device
+    cfg = trainer.config["training"]
+    trainer.datamodule.set_rollout(2)
+    batch = trainer.put_batch(trainer.datamodule.make_batch(trainer.datamodule.train_starts[:1]))
+    trainer.datamodule.set_rollout(1)
+    train_step, _ = trainer._get_step_fns(2)
+    recompute = bool(cfg.get("remat_rollout", True)) and cfg.get("remat_policy") not in \
+        KEEPS_ATTENTION
+    want = {k: 2 * n for k, n in want_1.items()}
+    want["K1"] *= 1 + recompute
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches != want or not math.isfinite(float(metrics["loss"])):
+        raise RuntimeError(f"{label}: rollout-2 step launches {launches} (want {want}), loss "
+                           f"{float(metrics['loss'])}")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    train_step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(device)
+    device_ms, device_launches = profiled_device_ms(lambda: train_step(state, batch), 1)
+
+    iface = trainer.interface
+    ia = device_index_arrays(iface)["data"]
+    area = trainer.output_masks["data"].as_tensor(device)
+    m = iface.model.n_step_input
+    with torch.no_grad():
+        batch_norm = iface.pre_processors["data"].transform(batch["data"].float())
+        x = batch_norm[:, :m][..., ia["data_input_full"]].to(torch.bfloat16)
+        y = iface.run_model({"data": x}, iface.cast_parameters(torch.bfloat16))["data"]
+        new = advance_input(x, y, batch_norm, m, ia, boundary_mask=area)[:, -1]
+    truth = batch_norm[:, m][..., ia["from_data"]].to(x.dtype)
+    pred = y[:, 0][..., ia["from_pred"]]
+    prog = ia["is_prog"]
+    inside = new[:, :, area]
+    checks = {
+        "outside_equals_truth": torch.equal(new[:, :, ~area], truth[:, :, ~area]),
+        "inside_prognostics_equal_prediction": torch.equal(inside[..., prog],
+                                                           pred[:, :, area][..., prog]),
+        "inside_forcings_equal_truth": torch.equal(inside[..., ~prog],
+                                                   truth[:, :, area][..., ~prog]),
+        # not vacuous: outside the area the prediction differs from the truth
+        "prediction_differs_outside": not torch.equal(pred[:, :, ~area][..., prog],
+                                                      truth[:, :, ~area][..., prog]),
+        "finite": bool(torch.isfinite(new).all()),
+    }
+    print(f"[{label}] rollout-2 step: launches {launches}, loss {float(metrics['loss']):.6f}, "
+          f"wall {wall:.3f} ms, device {device_ms:.3f} ms ({device_launches:.1f} launches), "
+          f"peak {peak} B; boundary of the second step's input ({int(area.sum())} of "
+          f"{area.numel()} points inside): {checks}", flush=True)
+    if not all(checks.values()):
+        raise RuntimeError(f"{label}: the boundary forcing failed its checks: {checks}")
+    del batch, batch_norm, x, y, new, train_step
+    return {"launches": launches, "loss": float(metrics["loss"]), "wall_ms": wall,
+            "device_ms": device_ms, "device_launches": device_launches,
+            "peak_memory_bytes": peak, "boundary": checks}
+
+
+def lam_phase(workdir: str, device) -> dict:
+    """``lam.yaml`` at its width (the ``graphtransformer`` model: 1024
+    channels, 16 layers, 16 heads; the ``limited_area`` graph; the loss
+    masked to ``cutout_mask``) through ``cli train`` over phase 9's store, 3
+    steps; a rollout-2 step with the boundary check; ``cli predict`` 2 steps."""
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    path = os.path.join(PACKAGED_CONFIG_DIR, "lam.yaml")
+    overrides = [f"graph.save_path={os.path.join(workdir, 'graph_lam.npz')}", LR_ONLY]
+    composed_preset(path, overrides, {
+        "model.num_channels": 1024, "model.processor.num_layers": FLAGSHIP_LAYERS,
+        "model.processor.num_heads": 16, "training.output_mask.data.attribute_name": "cutout_mask",
+        "graph.recipe.nodes.hidden.node_builder.name": "LimitedAreaTriNodes"})
+    summary = {}
+
+    def after(trainer, state, want):
+        summary.update(graph_summary("lam", trainer.graph))
+        return rollout_2_and_boundary("lam", trainer, state, want)
+
+    train, run_dir, _ = family_train(
+        workdir, device, "lam", path, overrides, FAMILY_STEPS,
+        lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS), after=after)
+    predict = family_predict(workdir, device, "lam", run_dir, LAUNCHES_PER_STEP)
+    result = {"graph": summary, "train": train, "predict": predict}
+    print(f"[lam] {json.dumps(result)}", flush=True)
+    return result
+
+
+def write_nan_store(workdir: str) -> tuple:
+    """Phase 9's fields written in the npy layout (``save_dataset``) with
+    ``NAN_VARIABLE`` NaN on ``NAN_BOX`` at every time; the statistics
+    rewritten from ``np.nanmean`` and ``np.nanstd`` (and ``nanmin``,
+    ``nanmax``), as anemoi-datasets computes them (the writer's plain
+    ``mean``/``std`` are NaN over a NaN field).  Returns (path, box mask)."""
+    import numpy as np
+
+    from anemoi_tpu_torch.data.dataset import open_dataset, save_dataset
+
+    src = open_dataset({"kind": "zarr", "path": os.path.join(workdir, "example_o96.zarr")})
+    data = src.get_window(0, len(src)).transpose(0, 3, 1, 2).copy()  # [T, V, E, G]
+    lat, lon = np.rad2deg(src.latitudes), np.rad2deg(src.longitudes) % 360.0
+    box = (lat >= NAN_BOX[0]) & (lat <= NAN_BOX[1]) & (lon >= NAN_BOX[2]) & (lon <= NAN_BOX[3])
+    data[:, src.variables.index(NAN_VARIABLE), :, box] = np.nan
+    path = os.path.join(workdir, "example_o96_nan")
+    save_dataset(path, data, src.variables, np.rad2deg(src.latitudes),
+                 np.rad2deg(src.longitudes), timestep_hours=src.timestep_hours,
+                 missing=sorted(src.missing))
+    for name, values in (("statistics", data), ("statistics_tendencies", np.diff(data, axis=0))):
+        flat = values.reshape(values.shape[0], values.shape[1], -1)
+        np.savez(os.path.join(path, f"{name}.npz"),
+                 mean=np.nanmean(flat, axis=(0, 2)).astype(np.float32),
+                 stdev=(np.nanstd(flat, axis=(0, 2)) + 1e-12).astype(np.float32),
+                 minimum=np.nanmin(flat, axis=(0, 2)).astype(np.float32),
+                 maximum=np.nanmax(flat, axis=(0, 2)).astype(np.float32))
+    return path, box
+
+
+def imputer_and_optimizer_checks(trainer, box) -> dict:
+    """The imputer's loss mask on a batch of the NaN store: 0 at exactly the
+    NaN points of ``NAN_VARIABLE``, 1 everywhere else; AdEMAMix's state:
+    three float32 moments of each parameter's shape, and its update count."""
+    from anemoi_tpu_torch.training.optimizers import AdEMAMix
+
+    trainer.datamodule.set_rollout(1)
+    batch = trainer.put_batch(trainer.datamodule.make_batch(trainer.datamodule.train_starts[:1]))
+    pre = trainer.interface.pre_processors["data"]
+    mask = pre.loss_mask(pre.compute_aux(batch["data"]))  # [B, G, V_out]
+    j = trainer.interface.data_indices["data"].model.output.name_to_index[NAN_VARIABLE]
+    want = torch.ones_like(mask)
+    want[:, torch.as_tensor(box, device=mask.device), j] = 0.0
+    opt = trainer.state.optimizer.opt
+    params = [p for p in trainer.interface.parameters() if p.requires_grad]
+    moments = all(
+        opt.state[p][k].dtype == torch.float32 and opt.state[p][k].shape == p.shape
+        for p in params for k in ("m1", "m2", "nu"))
+    counts = sorted({opt.state[p]["count"] for p in params})
+    checks = {"loss_mask_exact": torch.equal(mask, want), "nan_points": int(box.sum()),
+              "mask_zeros": int((mask == 0).sum()), "ademamix": isinstance(opt, AdEMAMix),
+              "float32_moments": moments, "update_counts": counts}
+    print(f"[stretched] imputer loss mask and AdEMAMix state: {checks}", flush=True)
+    if not (checks["loss_mask_exact"] and checks["ademamix"] and moments
+            and counts == [FAMILY_STEPS]):
+        raise RuntimeError(f"stretched: the imputer or optimizer check failed: {checks}")
+    return checks
+
+
+def stretched_phase(workdir: str, device) -> dict:
+    """``stretched.yaml`` at its width (1024 channels, 16 layers, the
+    ``stretched_grid`` graph: ico-4 outside, ico-6 inside a 20 degree cap,
+    KNN-8 processor edges) with AdEMAMix and ``[InputImputer (mean),
+    InputNormalizer]`` over phase 9's fields in the npy layout with a NaN
+    box: ``cli train`` 3 steps, the imputer and optimizer checks, a
+    rollout-2 step with the boundary check; ``cli predict`` 2 steps."""
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    store, box = write_nan_store(workdir)
+    path = os.path.join(PACKAGED_CONFIG_DIR, "stretched.yaml")
+    overrides = [f"graph.save_path={os.path.join(workdir, 'graph_stretched.npz')}", LR_ONLY,
+                 "training.optimizer={name: ademamix}",
+                 "data.processors=[{name: InputImputer, default: mean}, "
+                 "{name: InputNormalizer, default: mean-std}]"]
+    composed_preset(path, overrides, {
+        "model.num_channels": 1024, "model.processor.num_layers": FLAGSHIP_LAYERS,
+        "graph.recipe.nodes.hidden.node_builder.name": "StretchedTriNodes",
+        "graph.recipe.nodes.hidden.node_builder.lam_resolution": 6,
+        "training.optimizer.name": "ademamix"})
+    summary = {}
+
+    def after(trainer, state, want):
+        summary.update(graph_summary("stretched", trainer.graph))
+        checks = imputer_and_optimizer_checks(trainer, box)
+        return {**rollout_2_and_boundary("stretched", trainer, state, want), "checks": checks}
+
+    train, run_dir, _ = family_train(
+        workdir, device, "stretched", path, overrides, FAMILY_STEPS,
+        lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS), split=12,
+        dataset=("npy", store), after=after)
+    predict = family_predict(workdir, device, "stretched", run_dir, LAUNCHES_PER_STEP)
+    result = {"graph": summary, "nan_points": int(box.sum()), "train": train,
+              "predict": predict}
+    print(f"[stretched] {json.dumps(result)}", flush=True)
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
            ens: dict, families: dict) -> dict:
@@ -2240,7 +2490,13 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                "downscaler_ensemble_train":
                    families["downscaler"]["ensemble"]["launches_per_step"],
                "gnn_train": families["gnn"]["train"]["launches_per_step"],
-               "gnn_predict_2_steps": families["gnn"]["predict"]["launches"]}
+               "gnn_predict_2_steps": families["gnn"]["predict"]["launches"],
+               **{f"{area}_{kind}": counts
+                  for area in ("lam", "stretched")
+                  for kind, counts in (
+                      ("train", families[area]["train"]["launches_per_step"]),
+                      ("rollout_2_step", families[area]["train"]["after"]["launches"]),
+                      ("predict_2_steps", families[area]["predict"]["launches"]))}}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
                "K4": "training_step", "K5": "training_step_fused_bwd",
                "K6": "transformer_serving_2_steps", "K7_dq": "transformer_training_step",
@@ -2349,6 +2605,8 @@ def main() -> int:
                                  "autoencoder"),
             "downscaler": phase("downscaler", downscaler_phase, workdir, device),
             "gnn": phase("gnn", gnn_phase, workdir, device),
+            "lam": phase("lam", lam_phase, workdir, device),
+            "stretched": phase("stretched", stretched_phase, workdir, device),
         }
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
                  ens, families)

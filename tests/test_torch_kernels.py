@@ -324,6 +324,61 @@ def test_kernels_at_a_batch_of_four_members(card, dtype):
                                      True, fused_bwd, dtype)
 
 
+def stretched_decoder_case(rng, num_src=300, num_dst=600, hd=1024):
+    """A mapper of the ``stretched_grid`` kind (KNN-3 into the data nodes)
+    at small size, its source degrees spread wider than the packaged
+    graph's (1 to 104 at o96): each destination has 3 sources; 10 hub
+    sources (coarse mesh nodes) have about 50 edges each, 80 more a few,
+    and every other source (``DEAD_SRC`` among them) none; destinations 3
+    and 17 have no edge."""
+    src, dst = [], []
+    for d in range(num_dst):
+        if d in (3, 17):
+            continue
+        pool = rng.choice(np.arange(20, 100), size=2, replace=False)
+        chosen = [10 + (d % 10)] + list(pool) if d < 520 else list(
+            rng.choice(np.arange(20, 100), size=3, replace=False))
+        src.append(chosen)
+        dst.append([d] * 3)
+    ei = np.stack([np.concatenate(src), np.concatenate(dst)]).astype(np.int32)
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(ei[1], minlength=num_dst))]).astype(np.int32)
+    f = 3
+    arrays = {"q": rng.normal(size=(1, num_dst, hd)), "k": rng.normal(size=(1, num_src, hd)),
+              "v": rng.normal(size=(1, num_src, hd)), "attr": rng.normal(size=(ei.shape[1], f)),
+              "w": 0.3 * rng.normal(size=(f, hd)), "b": 0.1 * rng.normal(size=(hd,))}
+    return ei, ptr, {k: v.astype(np.float32) for k, v in arrays.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_the_stretched_decoder_degrees(card, dtype):
+    """K1, then K3 + K4 and K3 + K5, against the plain versions where most
+    sources have no edge and a few about 50 (16 heads of 64: the
+    ``stretched`` preset's 1024 channels)."""
+    ei_np, ptr_np, a = stretched_decoder_case(np.random.default_rng(13))
+    out_degree = np.bincount(ei_np[0], minlength=300)
+    assert out_degree.max() >= 50 and (out_degree == 0).sum() >= 200
+    assert (out_degree[list(DEAD_SRC)] == 0).all()
+    t = {k: torch.from_numpy(v).to(card, dtype) for k, v in a.items()}
+    ei, ptr = torch.from_numpy(ei_np).to(card), torch.from_numpy(ptr_np).to(card)
+    order = SourceOrder.of(ei, 300)
+    args = (t["q"], t["k"], t["v"], t["attr"], t["w"], t["b"], ei, ptr, 16)
+    before = kern.gt_attention_fused_edge.launches
+    out, lse = gt_attention_fe(*args, source=order)
+    torch.cuda.synchronize()
+    assert kern.gt_attention_fused_edge.launches == before + 1
+    ref, ref_lse = gt_attention_fe(*args, plain=True)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max() <= tol * ref.float().abs().max()
+    finite = ref_lse.isfinite()
+    torch.testing.assert_close(lse[finite], ref_lse[finite], rtol=1e-4, atol=1e-4)
+    g = torch.randn(out.shape, generator=torch.Generator(card).manual_seed(2), device=card)
+    edge_kw = dict(edge_attr=t["attr"], weight=t["w"], bias=t["b"])
+    for fused_bwd in (False, True):
+        check_backward_against_plain(t, ei, ptr, order, 16, out, lse, g.to(dtype), edge_kw,
+                                     True, fused_bwd, dtype)
+
+
 # K3 layouts the cases above do not reach: a destination of in-degree 75
 # (its edge sources come in three 32-edge chunks), and 2 heads of 512
 # channels (64 bf16 or 128 float32 lanes a head: the head sum crosses warps)
