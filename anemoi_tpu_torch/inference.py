@@ -5,8 +5,12 @@ data-space window holding the initial conditions and the future forcings,
 roll the model forward ``steps`` times and return denormalised model-space
 forecasts; the rollout helpers are the port's ``training/step.py``; an
 interface that holds float32 training weights serves on copies cast to its
-serving type) and ``run_forecast_cli``, the ``predict`` command.  The
-generative forecasts of transport models are not ported.
+serving type), ``make_transport_forecast_fn`` (the generative forecast of a
+transport model: each step sampled by ``training/transport_step.make_sampler``
+conditioned on the window) and ``run_forecast_cli``, the ``predict``
+command, which serves both (a transport bundle with the objective, sampler,
+sampling steps, tendency and EDM settings of its ``training.transport``
+config, its noise drawn from a generator seeded with ``--seed``).
 
 An ensemble model that draws noise is served by
 ``AnemoiModelInterface.predict_step`` (or ``apply``), not here: the JAX
@@ -25,6 +29,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from anemoi_tpu_torch.models.transport.objectives import EDMConfig
 from anemoi_tpu_torch.training.step import advance_input, device_index_arrays
 
 
@@ -62,6 +67,67 @@ def make_forecast_fn(interface, steps: int) -> Callable[[Dict[str, torch.Tensor]
     return forecast
 
 
+def make_transport_forecast_fn(interface, steps: int, objective: str = "edm",
+                               sampler: str = "edm_heun", num_steps: int = 20,
+                               tendency: bool = False, edm: EDMConfig = EDMConfig()) -> Callable:
+    """fn(batch, generator) -> {ds: [B, steps*n_out, E, G, V_out]} physical,
+    float32: per step, sample the next state conditioned on the window
+    (``num_steps`` steps of ``sampler``, EDM's preconditioning and sigma
+    range from ``edm``; the initial states drawn from ``generator`` in
+    turn), add the last state to it for a ``tendency`` model, denormalise
+    it and advance the window.  ``batch`` as for :func:`make_forecast_fn`."""
+    from anemoi_tpu_torch.training.transport_step import make_sampler
+
+    generate = make_sampler(interface, objective=objective, sampler=sampler,
+                            num_steps=num_steps, edm=edm)
+    model = interface.model
+    pre = interface.pre_processors
+    m, n_out = model.n_step_input, model.n_step_output
+    dataset_names = sorted(interface.data_indices)
+    ia = device_index_arrays(interface)
+
+    @torch.no_grad()
+    def forecast(batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        batch_norm = {ds: pre[ds].transform(batch[ds].float()) for ds in dataset_names}
+        x = {ds: batch_norm[ds][:, :m][..., ia[ds]["data_input_full"]] for ds in dataset_names}
+        # a tendency model samples the increment over the last state
+        prev = {ds: batch_norm[ds][:, m - 1 : m - 1 + n_out][..., ia[ds]["model_out_in_data"]]
+                for ds in dataset_names}
+        outputs = {ds: [] for ds in dataset_names}
+        for step in range(steps):
+            y = generate(x, generator)
+            if tendency:
+                y = {ds: prev[ds] + y[ds] for ds in dataset_names}
+            prev = y
+            t0 = m + step * n_out
+            for ds in dataset_names:
+                outputs[ds].append(pre[ds].inverse_transform(y[ds]))
+            if step + 1 < steps:
+                x = {ds: advance_input(x[ds], y[ds], batch_norm[ds], t0, ia[ds])
+                     for ds in dataset_names}
+        return {ds: torch.cat(v, dim=1) for ds, v in outputs.items()}
+
+    forecast.schedule = generate.schedule
+    return forecast
+
+
+def transport_settings(config: dict) -> dict:
+    """The ``make_transport_forecast_fn`` keywords of a bundle's config
+    (its ``training.transport``), with the JAX ``run_forecast_cli``'s
+    defaults.  Unlike that function, it also reads the ``edm`` mapping the
+    model was trained with, so a bundle with a non-default ``sigma_data``
+    or sigma range is sampled with the preconditioning it learnt."""
+    tcfg = dict(((config or {}).get("training") or {}).get("transport") or {})
+    objective = str(tcfg.get("objective", "edm"))
+    return {
+        "objective": objective,
+        "sampler": str(tcfg.get("sampler", "edm_heun" if objective == "edm" else "vf_heun")),
+        "num_steps": int(tcfg.get("sampling_steps", 20)),
+        "tendency": bool(tcfg.get("tendency", False)),
+        "edm": EDMConfig.from_config(tcfg.get("edm")),
+    }
+
+
 def run_forecast_cli(args) -> int:
     """``predict``: load the inference bundle ``args.checkpoint`` (the
     port's or the JAX package's) on the card, or on the CPU with
@@ -72,7 +138,8 @@ def run_forecast_cli(args) -> int:
     ``args.steps`` steps and write ``<ds>|forecast`` ``[1, steps * n_out, E,
     G, V_out]`` and ``<ds>|variables`` to the ``.npz`` ``args.output``.
     ``args.aot_cache`` is accepted and has no effect (nothing is compiled
-    ahead)."""
+    ahead).  A transport bundle is sampled (:func:`transport_settings`), its
+    noise from a generator on the serving device seeded with ``args.seed``."""
     from anemoi_tpu_torch.data.dataset import open_dataset
     from anemoi_tpu_torch.training.checkpoint import load_inference_checkpoint
     from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
@@ -82,13 +149,17 @@ def run_forecast_cli(args) -> int:
         raise ValueError(f"--platform {platform}: anemoi_tpu_torch serves on cpu or gpu")
     device = "cpu" if platform == "cpu" else None
     iface = load_inference_checkpoint(args.checkpoint, device=device)
-    model_name = str((iface.config or {}).get("model", {}).get("name", ""))
-    if model_name.startswith("AnemoiTransport"):
-        raise NotImplementedError("transport (generative) forecasts are not ported to "
-                                  "anemoi_tpu_torch")
     steps = args.steps
     try:
-        forecast = make_forecast_fn(iface, steps)
+        if iface.is_transport:
+            sample = make_transport_forecast_fn(iface, steps, **transport_settings(iface.config))
+            generator = torch.Generator(device=iface.device).manual_seed(
+                int(getattr(args, "seed", 0) or 0))
+
+            def forecast(batch):
+                return sample(batch, generator)
+        else:
+            forecast = make_forecast_fn(iface, steps)
     except ValueError as err:
         print(f"predict: {err}")
         return 1

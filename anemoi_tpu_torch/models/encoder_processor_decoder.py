@@ -217,13 +217,16 @@ class AnemoiModelEncProcDec(nn.Module):
         self.processor_edges = proc_name in EDGE_COMPONENTS
         c = self.num_channels
         self.noise_injector = self._noise_injector()
-        if (config["processor"] or {}).get("conditional") and proc_name in (
+        if self._processor_conditional() and proc_name in (
                 "GraphTransformerProcessor", "TransformerProcessor"):
-            cond_dim = getattr(self.noise_injector, "conditioning_dim", None)
+            cond_dim = self._conditioning_dim()
             if cond_dim is None:
                 raise ValueError("processor.conditional needs the conditioning of an "
-                                 "AnemoiEnsModelEncProcDec with the NoiseConditioning injector")
+                                 "AnemoiEnsModelEncProcDec with the NoiseConditioning injector "
+                                 "or of a transport model")
             proc["cond_dim"] = cond_dim
+        if self._mapper_conditioning_dim() is not None:
+            enc["cond_dim"] = dec["cond_dim"] = self._mapper_conditioning_dim()
         for part, subs in (("encoder", graph.encoder.values()), ("processor", [graph.processor]),
                            ("decoder", graph.decoder.values())):
             for sub in subs:
@@ -286,6 +289,17 @@ class AnemoiModelEncProcDec(nn.Module):
 
     def _noise_injector(self) -> Optional[nn.Module]:
         """The noise injector between encoder and processor: none here."""
+        return None
+
+    def _processor_conditional(self) -> bool:
+        return bool((self.config["processor"] or {}).get("conditional"))
+
+    def _conditioning_dim(self) -> Optional[int]:
+        """The width of the processor's conditioning: the noise injector's."""
+        return getattr(self.noise_injector, "conditioning_dim", None)
+
+    def _mapper_conditioning_dim(self) -> Optional[int]:
+        """The width of the mappers' conditioning: none here."""
         return None
 
     def noise_shape(self, x: Dict[str, torch.Tensor]):

@@ -23,6 +23,13 @@ copies cast by :meth:`AnemoiModelInterface.cast_parameters` (the JAX
 ``training/step.py`` ``_cast_params``); ``predict_step`` casts the same way
 to the serving type.
 
+The transport models (``AnemoiTransportModelEncProcDec``,
+``AnemoiTransportTendModelEncProcDec``) run through :meth:`run_model` with
+the noised target and its noise level (``y_noised=``, ``noise_level=``):
+``training/transport_step.py`` trains and samples them;
+:meth:`require_deterministic` refuses them to the deterministic rollouts and
+:meth:`apply` refuses them.
+
 The ensemble model (``AnemoiEnsModelEncProcDec``) draws its noise through
 :meth:`AnemoiModelInterface.apply` from an explicit ``torch.Generator``
 (default: ``context_generator("noise")``, as the JAX ``apply`` defaults to
@@ -58,6 +65,10 @@ from anemoi_tpu_torch.models.layers import ensemble
 from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerBaseBlock
 from anemoi_tpu_torch.models.layers.normalization import ConditionalLayerNorm, LayerNorm, RMSNorm
 from anemoi_tpu_torch.models.layers.residual import ScalarOrnsteinConnection
+from anemoi_tpu_torch.models.transport_model import (
+    AnemoiTransportModelEncProcDec,
+    AnemoiTransportTendModelEncProcDec,
+)
 from anemoi_tpu_torch.preprocessing.processors import Processors, build_processors
 from anemoi_tpu_torch.preprocessing.remapper import Remapper
 from anemoi_tpu_torch.utils.device import resolve_device
@@ -121,7 +132,9 @@ def initialise_parameters(model: nn.Module, generator: torch.Generator,
 
 MODELS = {"AnemoiModelEncProcDec": AnemoiModelEncProcDec,
           "AnemoiModelAutoEncoder": AnemoiModelAutoEncoder,
-          "AnemoiEnsModelEncProcDec": AnemoiEnsModelEncProcDec}
+          "AnemoiEnsModelEncProcDec": AnemoiEnsModelEncProcDec,
+          "AnemoiTransportModelEncProcDec": AnemoiTransportModelEncProcDec,
+          "AnemoiTransportTendModelEncProcDec": AnemoiTransportTendModelEncProcDec}
 PRECISIONS = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": torch.bfloat16,
               "fp32": torch.float32, "float32": torch.float32, "32": torch.float32}
 
@@ -227,7 +240,8 @@ class AnemoiModelInterface(nn.Module):
                   **kwargs):
         """The model on ``x``, with its own parameters or with ``params``
         (e.g. :meth:`cast_parameters`) in their place; ``kwargs`` (``cond``,
-        ``noise``, ``fcstep``) go to the model's forward."""
+        ``noise``, ``fcstep``; a transport model's ``y_noised`` and
+        ``noise_level``) go to the model's forward."""
         if params is None:
             return self.model(x, **kwargs)
         return torch.func.functional_call(self.model, params, (x,), kwargs)
@@ -238,9 +252,23 @@ class AnemoiModelInterface(nn.Module):
         injector = self.model.noise_injector
         return injector is not None and injector.draws_noise
 
+    @property
+    def is_transport(self) -> bool:
+        """Whether the model is a transport (generative) model."""
+        return bool(getattr(self.model, "is_transport", False))
+
     def require_deterministic(self, what: str) -> None:
         """Raise ``ValueError`` if the model draws noise: ``what`` (a
-        deterministic rollout) has no noise stream, as in the JAX package."""
+        deterministic rollout) has no noise stream, as in the JAX package;
+        or if it is a transport model, whose forward takes a noised target
+        and a noise level that a deterministic rollout does not have (the
+        JAX package's fails on it)."""
+        if self.is_transport:
+            raise ValueError(
+                f"{what} cannot run the transport model {type(self.model).__name__}: its "
+                "forward takes a noised target and a noise level; sample it with "
+                "training/transport_step.make_sampler or inference.make_transport_forecast_fn "
+                "(`predict` serves a transport bundle)")
         if self.draws_noise:
             raise ValueError(
                 f"{what} cannot run a model that injects noise "
@@ -258,6 +286,9 @@ class AnemoiModelInterface(nn.Module):
               params: Optional[Dict[str, torch.Tensor]] = None):
         """The model's forward (the JAX ``apply``), its noise drawn from
         ``generator`` or, without one, from ``context_generator("noise")``."""
+        if self.is_transport:
+            raise ValueError("a transport model is sampled, not applied: see "
+                             "training/transport_step.make_sampler")
         noise = None
         if self.draws_noise:
             noise = self.draw_noise(

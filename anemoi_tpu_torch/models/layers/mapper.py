@@ -7,10 +7,13 @@ Port of ``anemoi_tpu.models.layers.mapper`` (``TrainableEdgeFeatures``,
 A mapper = node embeddings + one bipartite block + (decoder) the output
 extractor.  ``gradient_checkpointing`` (default off, as in the JAX package)
 checkpoints the block alone under ``remat_policy``; the node embeddings and
-the trainable edge features stay outside.  The mappers take no conditioning:
-the JAX model passes none to them, so their blocks' norms are plain; their
-query/key norm is the default LayerNorm (the JAX mappers have no
-``qk_norm_type``).
+the trainable edge features stay outside.  The graph-transformer mappers
+take the conditioning ``cond = (cond_src, cond_dst)`` of a transport model
+with conditional mappers: built with ``cond_dim``, every norm of their block
+is a ``ConditionalLayerNorm``; without it (every other model) the norms are
+plain.  Their query/key norm is the default LayerNorm (the JAX mappers have
+no ``qk_norm_type``).  The GNN and point-wise mappers accept ``cond_dim``
+and ``cond`` and ignore them, as the JAX ones do.
 
 The GNN mappers embed the edges (``emb_edges``) and, in the encoder, both
 node sets (``emb_nodes_src``, ``emb_nodes_dst``) with MLPs, then run one
@@ -71,6 +74,7 @@ class GraphTransformerForwardMapper(BlockRemat, nn.Module):
         edge_dim: int, mlp_hidden_ratio: float = 4.0, attn_channels: Optional[int] = None,
         qk_norm: bool = False, edge_pre_mlp: bool = False, mlp_implementation: str = "mlp",
         gradient_checkpointing: bool = False, remat_policy: Optional[str] = "save_attention",
+        cond_dim: Optional[int] = None,
     ) -> None:
         super().__init__()
         self._init_remat(gradient_checkpointing, remat_policy)
@@ -78,14 +82,16 @@ class GraphTransformerForwardMapper(BlockRemat, nn.Module):
         self.emb_nodes_dst = nn.Linear(in_channels_dst, hidden_dim)
         self.proc = _block(hidden_dim, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio,
                            attn_channels=attn_channels, qk_norm=qk_norm,
-                           edge_pre_mlp=edge_pre_mlp, mlp_implementation=mlp_implementation)
+                           edge_pre_mlp=edge_pre_mlp, mlp_implementation=mlp_implementation,
+                           cond_dim=cond_dim)
 
     def forward(
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
+        cond: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         x_src = self.emb_nodes_src(x[0])
         x_dst = self.emb_nodes_dst(x[1])
-        _, x_dst = self._run(self.proc, (x_src, x_dst), sub, edge_attr)
+        _, x_dst = self._run(self.proc, (x_src, x_dst), sub, edge_attr, cond)
         return x[0], x_dst
 
 
@@ -98,13 +104,15 @@ class GraphTransformerBackwardMapper(BlockRemat, nn.Module):
         edge_dim: int, mlp_hidden_ratio: float = 4.0, attn_channels: Optional[int] = None,
         qk_norm: bool = False, edge_pre_mlp: bool = False, mlp_implementation: str = "mlp",
         gradient_checkpointing: bool = False, remat_policy: Optional[str] = "save_attention",
+        cond_dim: Optional[int] = None,
     ) -> None:
         super().__init__()
         self._init_remat(gradient_checkpointing, remat_policy)
         self.emb_nodes_dst = nn.Linear(in_channels_dst, hidden_dim)
         self.proc = _block(hidden_dim, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio,
                            attn_channels=attn_channels, qk_norm=qk_norm,
-                           edge_pre_mlp=edge_pre_mlp, mlp_implementation=mlp_implementation)
+                           edge_pre_mlp=edge_pre_mlp, mlp_implementation=mlp_implementation,
+                           cond_dim=cond_dim)
         self.node_data_extractor = nn.Sequential(
             LayerNorm(hidden_dim), nn.Linear(hidden_dim, out_channels_dst)
         )
@@ -116,9 +124,10 @@ class GraphTransformerBackwardMapper(BlockRemat, nn.Module):
 
     def forward(
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
+        cond: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
         x_dst = self.emb_nodes_dst(x[1])
-        _, x_dst = self._run(self.proc, (x[0], x_dst), sub, edge_attr)
+        _, x_dst = self._run(self.proc, (x[0], x_dst), sub, edge_attr, cond)
         norm, head = self.node_data_extractor
         out = norm(x_dst)
         return head(_promoted(out, head.weight))
@@ -143,7 +152,7 @@ class GNNForwardMapper(nn.Module):
 
     def __init__(self, in_channels_src: int, in_channels_dst: int, hidden_dim: int,
                  edge_dim: int, mlp_extra_layers: int = 0,
-                 mlp_implementation: str = "mlp") -> None:
+                 mlp_implementation: str = "mlp", cond_dim: Optional[int] = None) -> None:
         super().__init__()
         c, kw = hidden_dim, dict(mlp_extra_layers=mlp_extra_layers,
                                  implementation=mlp_implementation)
@@ -155,6 +164,7 @@ class GNNForwardMapper(nn.Module):
 
     def forward(
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
+        cond=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         edges = _broadcast_edges(self.emb_edges, edge_attr, x[0])
         x = (self.emb_nodes_src(x[0]), self.emb_nodes_dst(x[1]))
@@ -167,7 +177,7 @@ class GNNBackwardMapper(nn.Module):
 
     def __init__(self, in_channels_dst: int, hidden_dim: int, out_channels_dst: int,
                  edge_dim: int, mlp_extra_layers: int = 0,
-                 mlp_implementation: str = "mlp") -> None:
+                 mlp_implementation: str = "mlp", cond_dim: Optional[int] = None) -> None:
         super().__init__()
         c, kw = hidden_dim, dict(mlp_extra_layers=mlp_extra_layers,
                                  implementation=mlp_implementation)
@@ -182,6 +192,7 @@ class GNNBackwardMapper(nn.Module):
 
     def forward(
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
+        cond=None,
     ) -> torch.Tensor:
         edges = _broadcast_edges(self.emb_edges, edge_attr, x[0])
         (_, x_dst), _ = self.proc(x, edges, sub)
@@ -199,12 +210,13 @@ class PointWiseForwardMapper(nn.Module):
     last); returns ``(x_src, latent)``."""
 
     def __init__(self, in_channels_src: int, in_channels_dst: int, hidden_dim: int,
-                 edge_dim: int = 0, mlp_hidden_ratio: float = 1.0) -> None:
+                 edge_dim: int = 0, mlp_hidden_ratio: float = 1.0,
+                 cond_dim: Optional[int] = None) -> None:
         super().__init__()
         self.mlp = MLP(in_channels_src + in_channels_dst,
                        compute_mlp_hidden_dim(hidden_dim, mlp_hidden_ratio), hidden_dim)
 
-    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None):
+    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None, cond=None):
         _same_nodes(*x)
         return x[0], self.mlp(torch.cat(x, dim=-1))
 
@@ -213,7 +225,8 @@ class PointWiseBackwardMapper(nn.Module):
     """Point-wise decoder: ``mlp([x_src, x_dst])`` per node, no LayerNorm."""
 
     def __init__(self, in_channels_dst: int, hidden_dim: int, out_channels_dst: int,
-                 edge_dim: int = 0, mlp_hidden_ratio: float = 1.0) -> None:
+                 edge_dim: int = 0, mlp_hidden_ratio: float = 1.0,
+                 cond_dim: Optional[int] = None) -> None:
         super().__init__()
         self.mlp = MLP(hidden_dim + in_channels_dst,
                        compute_mlp_hidden_dim(hidden_dim, mlp_hidden_ratio), out_channels_dst,
@@ -223,6 +236,6 @@ class PointWiseBackwardMapper(nn.Module):
     def output_linear(self) -> nn.Linear:
         return self.mlp.mlp[-1]
 
-    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None):
+    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None, cond=None):
         _same_nodes(*x)
         return self.mlp(torch.cat(x, dim=-1))

@@ -11,8 +11,10 @@ package remats its scan body of one block; only while autograd records, so
 forecasts and evaluation run as before.  ``scan_layers`` has no counterpart;
 ``scan_unroll`` (blocks per scan iteration) changes only the JAX package's
 parameter stacking, which ``state_dict_from_jax`` undoes.  The conditioning
-``cond`` (``[B·M, N, cond_dim]``, the ensemble's noise conditioning) goes
-to every block, an input of each block's checkpoint as its parameters are.
+``cond`` (``[B·M, N, cond_dim]``, the ensemble's noise conditioning, or
+``[B·E, 1, cond_dim]``, a transport model's noise level broadcast over the
+nodes) goes to every block, an input of each block's checkpoint as its
+parameters are.
 """
 
 from __future__ import annotations

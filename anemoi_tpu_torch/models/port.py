@@ -1,9 +1,9 @@
 """Weights from the JAX package into the port.
 
 ``state_dict_from_jax(params)`` takes the flax parameter tree of an
-``AnemoiModelEncProcDec`` (GraphTransformer, Transformer, GNN or point-wise
-components) as nested dicts of numpy arrays
-and returns the port's ``state_dict`` (anemoi-core names, ``model.``
+``AnemoiModelEncProcDec`` or of one of its subclasses (ensemble, autoencoder,
+transport; GraphTransformer, Transformer, GNN or point-wise components) as
+nested dicts of numpy arrays and returns the port's ``state_dict`` (anemoi-core names, ``model.``
 prefixed, as the interface holds the model), ready for
 ``AnemoiModelInterface.load_state_dict(..., strict=True)``.
 
@@ -22,6 +22,7 @@ The port's own copy of the GraphTransformer part of the name mapping in
   (``noise_mlp`` an MLP, ``projection`` a Linear)
 - a learnable residual ``residual_<ds>.weight`` -> ``residual.<ds>.weight``
 - ``node_attributes_<name>.trainable``  -> ``node_attributes.trainable_tensors.<name>.trainable``
+- a transport model's ``noise_cond_mlp_linear<k>`` -> ``noise_cond_mlp.linear<k>_no_gradscaling``
 - ``trainable_edges`` of a component    -> ``<component>_graph_provider[.<ds>].trainable``
 - the i-th encoder/decoder module       -> ``encoder.<ds>`` of the i-th dataset in sorted order
 
@@ -125,6 +126,8 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str], flat) -> Tuple[str, in
         comp = _component(p, datasets) if i == 0 else None
         if p.startswith("node_attributes_"):
             out += ["node_attributes", "trainable_tensors", p[len("node_attributes_"):]]
+        elif i == 0 and p.startswith("noise_cond_mlp_"):
+            out += ["noise_cond_mlp", p[len("noise_cond_mlp_"):] + "_no_gradscaling"]
         elif comp is not None:
             parts, provider = comp
             out += parts

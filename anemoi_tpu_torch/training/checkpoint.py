@@ -14,7 +14,11 @@ Port of ``anemoi_tpu.training.checkpoint``.
   ``format_version``, ``migrations`` and ``provenance``),
   ``statistics.npz`` (``<dataset>|<statistic>``) and, in place of flax's
   ``params.msgpack``, ``params.pt``: the model's state dict with
-  anemoi-core names in float32.
+  anemoi-core names in float32.  The bundle's ``config`` is the run's
+  whole config, so a transport model's carries ``training.transport``: the
+  objective, sampler, sampling steps, tendency and EDM settings that
+  ``predict`` reads (``inference.transport_settings``), as the JAX bundle
+  carries them.
 - :func:`load_inference_checkpoint` reads the port's bundles and the JAX
   package's (``params.msgpack``, decoded by ``_msgpack.py`` and converted by
   ``models/port.py:state_dict_from_jax``).  A bundle with migrations pending

@@ -15,7 +15,11 @@ Configs are YAML (or JSON) files composed with their ``defaults:`` by
 the packaged presets (``anemoi_tpu_torch/config``, which ``config list``
 lists).  ``config generate`` prints or writes the composed config as YAML.
 ``hardware.platform=cpu`` (train, evaluate) or ``--platform cpu`` (predict)
-runs on the CPU; otherwise the CUDA card, which must be visible.  Configs
+runs on the CPU; otherwise the CUDA card, which must be visible.
+``predict`` samples a transport bundle's generative forecast, its noise
+drawn from a ``torch.Generator`` seeded with ``--seed``; ``evaluate``
+refuses a model that the deterministic rollout cannot run (an ensemble that
+draws noise, a transport model) before any step and returns 1.  Configs
 are not schema-validated (``schemas.py`` needs pydantic and is not ported).
 The subcommands ``validate``, ``mlflow``, ``profile`` and ``checkpoint
 migrate`` are not ported: they print so and return 2.
@@ -86,7 +90,8 @@ def _parser() -> argparse.ArgumentParser:
     p_pred.add_argument("--start-index", type=int, default=0)
     p_pred.add_argument("--output", default="forecast.npz")
     p_pred.add_argument("--seed", type=int, default=0,
-                        help="RNG seed of generative forecasts (not ported; unused)")
+                        help="Seed of the torch.Generator that draws a generative (transport) "
+                             "forecast's noise; unused by other models")
     p_pred.add_argument("--platform", default=None,
                         help="cpu to serve on the CPU; default: the CUDA card")
     p_pred.add_argument("--aot-cache", default=None, help="accepted; no effect")
@@ -127,9 +132,13 @@ def _evaluate(conf: dict, output_dir, rollout) -> int:
     conf.setdefault("training", {})["resume"] = True
     trainer = AnemoiTrainer(conf, output_dir=output_dir)
     rollout = rollout or trainer.rollout_schedule.maximum
+    try:  # refuses a model the deterministic rollout cannot run, before any step
+        fn = make_rollout_eval_fn(trainer.interface, rollout)
+    except ValueError as err:
+        print(f"evaluate: {err}")
+        return 1
     trainer.datamodule.set_rollout(rollout)
     val = trainer.validate(rollout)
-    fn = make_rollout_eval_fn(trainer.interface, rollout)
     agg: dict = {}
     for i, batch_np in enumerate(trainer.datamodule.val_batches()):
         for k, v in fn(trainer.put_batch(batch_np)).items():

@@ -179,6 +179,9 @@ def make_step_fns(
     the loss, without an update.  ``eval_step(state, batch) -> {"val_loss",
     "rmse/<ds>/<group>/<step>", ...}`` runs without gradients.
     """
+    if task == "transport":
+        raise ValueError("the transport task trains with "
+                         "training/transport_step.make_transport_step_fns")
     if task not in TASKS:
         raise NotImplementedError(f"task '{task}' is not ported to anemoi_tpu_torch")
     policy = resolve_remat_policy(remat_policy)

@@ -21,8 +21,19 @@ Accepted with no effect: ``training.precompile_rollouts`` (there is no
 program to compile ahead) and ``training.donate_state`` (the step updates
 the state in place).  Not ported (``NotImplementedError``): more than one
 device (``hardware.num_devices``, ``num_devices_per_model``,
-``num_devices_per_ensemble``; ``ROADMAP.md`` Queue 1, item 9),
-``training.checkpoint_pipeline`` (item 10) and the transport task (item 8).
+``num_devices_per_ensemble``; ``ROADMAP.md`` Queue 1, item 9) and
+``training.checkpoint_pipeline`` (item 10).
+
+The transport task (``training.task: transport``, the presets
+``transport_*.yaml``) trains with ``training/transport_step.py``'s
+``make_transport_step_fns``, configured by ``training.transport``
+(``objective``, ``edm``, ``tendency``, ``interpolant_gamma``, ``source``,
+``sigma_dist``, ``beta_schedule``, ``sigma_schedule``), as the JAX trainer
+routes it; its bundle carries that config for ``predict``.  The
+``RolloutEvalCallback`` of the default diagnostics runs the deterministic
+rollout, which a transport model cannot take: it refuses the model before
+the first step (the JAX callback fails at the first validation), so a
+transport preset trains with ``diagnostics.callbacks`` set without it.
 
 Limited-area and stretched-grid training (``training.output_mask``: a
 boolean node attribute per dataset): the loss is scored inside the area
@@ -56,6 +67,7 @@ from anemoi_tpu_torch.training.losses import get_loss_function
 from anemoi_tpu_torch.training.losses.scalers import create_scalers
 from anemoi_tpu_torch.training.optimizers import build_lr_schedule, build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, make_step_fns
+from anemoi_tpu_torch.training.transport_step import make_transport_step_fns
 from anemoi_tpu_torch.utils.device import resolve_device
 
 LOGGER = logging.getLogger(__name__)
@@ -115,9 +127,6 @@ class AnemoiTrainer:
             config = dict(config)
             config["training"] = training_cfg
             self.config = config
-        if str(training_cfg.get("task", "forecaster")) == "transport":
-            raise NotImplementedError("the transport task is not ported to anemoi_tpu_torch "
-                                      "(ROADMAP.md Queue 1, item 8)")
         if training_cfg.get("checkpoint_pipeline"):
             raise NotImplementedError("training.checkpoint_pipeline is not ported to "
                                       "anemoi_tpu_torch (ROADMAP.md Queue 1, item 10)")
@@ -218,6 +227,9 @@ class AnemoiTrainer:
     def _get_step_fns(self, rollout: int):
         if rollout not in self._step_fns:
             cfg = self.config.get("training", {})
+            if str(cfg.get("task", "forecaster")) == "transport":
+                self._step_fns[rollout] = self._transport_step_fns(cfg)
+                return self._step_fns[rollout]
             self._step_fns[rollout] = make_step_fns(
                 self.interface,
                 self.losses,
@@ -232,6 +244,24 @@ class AnemoiTrainer:
                 with_grad_norm=bool(cfg.get("log_grad_norm", True)),
             )
         return self._step_fns[rollout]
+
+    def _transport_step_fns(self, cfg: dict):
+        from anemoi_tpu_torch.models.transport.objectives import EDMConfig
+
+        tcfg = dict(cfg.get("transport") or {})
+        return make_transport_step_fns(
+            self.interface,
+            self.losses,
+            objective=str(tcfg.get("objective", "edm")),
+            edm=EDMConfig.from_config(tcfg.get("edm")),
+            tendency=bool(tcfg.get("tendency", False)),
+            interpolant_gamma=float(tcfg.get("interpolant_gamma", 0.0)),
+            source=str(tcfg.get("source", "gaussian")),
+            sigma_dist=tcfg.get("sigma_dist"),
+            beta_schedule=str(tcfg.get("beta_schedule", "linear")),
+            sigma_schedule=str(tcfg.get("sigma_schedule", "brownian_bridge")),
+            precision=str(cfg.get("precision", "fp32")),
+        )
 
     def _log(self, record: Dict[str, Any]) -> None:
         self._log_file.write(json.dumps(record, default=float) + "\n")

@@ -195,13 +195,32 @@ Phases (any failure exits non-zero, with no result line):
                   20, and the imputer's loss mask 0 at exactly the NaN
                   points and 1 elsewhere, AdEMAMix's three float32 moments
                   per parameter; the device time of the step by kernel;
- 22. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 22. transport -- the transport family at the presets' width (512
+                  channels, 16 layers, 16 heads, phase 9's ``multi_scale``
+                  graph and store, bf16): ``transport_edm_diffusion.yaml``
+                  and ``transport_stochastic_interpolant_tendency.yaml``
+                  through ``cli train``, 3 steps each with no callbacks:
+                  finite records, exactly 18 K1, 18 K3 and the K4/K5 of the
+                  ``fused_backward`` rule a step, the gradient gate; on the
+                  trained model in bf16, one evaluation at each end of the
+                  noise range (sigma_max and sigma_min; t = 0 and 1) and a
+                  4-step sample from one generator, each within relative L2
+                  2e-2 of the plain attention; one evaluation's launches (18
+                  K1) and times; then ``cli predict --seed 7`` at the
+                  presets' 20 sampling steps: 2 forecast steps of
+                  ``edm_heun`` (39 evaluations, 702 K1 a step) and 1 of
+                  ``vf_heun`` (40, 720 K1), finite, equal bit for bit to an
+                  in-process ``make_transport_forecast_fn`` with a generator
+                  seeded 7, the gap to the plain attention's forecast
+                  printed; wall and device ms and peak memory of each;
+ 23. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
                   training step and ``predict_step``, phases 16-19's
-                  training steps and forecasts, and phases 20-21's
-                  training steps, rollout-2 steps and forecasts), the card line, and
+                  training steps and forecasts, phases 20-21's training
+                  steps, rollout-2 steps and forecasts, and phase 22's
+                  training steps and generative forecasts), the card line, and
                   last {"ok": true, "device": {...}}; with --json, the same
                   and the serving and training details also go to PATH.
 
@@ -214,6 +233,7 @@ kernel, the ones it must not launch at 0.  Every phase prints its seconds.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1273,10 +1293,13 @@ def write_example_store(path: str, config: dict) -> float:
 
 class StepLaunches:
     """Counts each training step's launches inside the trainer: wraps the
-    ``train_step`` that ``make_step_fns`` builds so that the counts are set
-    to 0 just before each step and read just after it (validation and the
-    rollout evaluation run outside it), and keeps the trainer it ran in and
-    the unwrapped ``train_step``."""
+    ``train_step`` that ``make_step_fns`` (or, for the transport task,
+    ``make_transport_step_fns``) builds so that the counts are set to 0 just
+    before each step and read just after it (validation and the rollout
+    evaluation run outside it), and keeps the trainer it ran in and the
+    unwrapped ``train_step``."""
+
+    BUILDERS = ("make_step_fns", "make_transport_step_fns")
 
     def __init__(self):
         self.per_step, self.trainer, self.train_step = [], None, None
@@ -1285,32 +1308,37 @@ class StepLaunches:
         from anemoi_tpu_torch import kernels
         from anemoi_tpu_torch.training import trainer as trainer_mod
 
-        self._mod, self._make, self._train = (trainer_mod, trainer_mod.make_step_fns,
-                                              trainer_mod.AnemoiTrainer.train)
+        self._mod, self._train = trainer_mod, trainer_mod.AnemoiTrainer.train
+        self._made = {name: getattr(trainer_mod, name) for name in self.BUILDERS}
         counter = self
 
-        def make_step_fns(*args, **kwargs):
-            train_step, eval_step = counter._make(*args, **kwargs)
-            counter.train_step = train_step
+        def wrapped(make):
+            def make_fns(*args, **kwargs):
+                train_step, eval_step = make(*args, **kwargs)
+                counter.train_step = train_step
 
-            def counted(state, batch):
-                kernels.reset_launches()
-                out = train_step(state, batch)
-                counter.per_step.append(kernels.launch_counts())
-                return out
+                def counted(state, batch):
+                    kernels.reset_launches()
+                    out = train_step(state, batch)
+                    counter.per_step.append(kernels.launch_counts())
+                    return out
 
-            return counted, eval_step
+                return counted, eval_step
+
+            return make_fns
 
         def train(trainer):
             counter.trainer = trainer
             return counter._train(trainer)
 
-        trainer_mod.make_step_fns = make_step_fns
+        for name, make in self._made.items():
+            setattr(trainer_mod, name, wrapped(make))
         trainer_mod.AnemoiTrainer.train = train
         return self
 
     def __exit__(self, *exc):
-        self._mod.make_step_fns = self._make
+        for name, make in self._made.items():
+            setattr(self._mod, name, make)
         self._mod.AnemoiTrainer.train = self._train
 
 
@@ -2456,9 +2484,251 @@ def stretched_phase(workdir: str, device) -> dict:
     return result
 
 
+TRANSPORT_STEPS = 3  # cli train steps of each transport preset in phase 22
+TRANSPORT_SEED = 7  # predict --seed, and the generators of the in-process samples
+TRANSPORT_GATE_STEPS = 4  # sampler steps of the sample held against the plain attention
+TRANSPORT_PRESETS = {  # label -> (preset, objective, forecast steps of cli predict)
+    "transport_edm": ("transport_edm_diffusion", "edm", 2),
+    "transport_interpolant": ("transport_stochastic_interpolant_tendency", "interpolant", 1),
+}
+
+
+def rel_gap(ours: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((ours.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def transport_window(trainer, device):
+    """The normalised model-space window (float32) of the store's first
+    training sample."""
+    dm = trainer.datamodule
+    dm.set_rollout(1)
+    batch = trainer.put_batch(dm.make_batch(dm.train_starts[:1]))
+    iface = trainer.interface
+    m = iface.model.n_step_input
+    norm = iface.pre_processors["data"].transform(batch["data"].float())
+    x = norm[:, :m][..., torch.as_tensor(iface.data_indices["data"].data.input.full,
+                                         device=device)]
+    return {"data": x}
+
+
+def transport_gates(label: str, objective: str, device):
+    """``after`` of ``family_train`` for a transport preset: on the trained
+    interface, in its serving type (bf16), one model evaluation at each end
+    of the noise range (EDM: sigma_max and sigma_min; interpolant: t = 0 and
+    1) and a ``TRANSPORT_GATE_STEPS``-step sample from the same generator,
+    each on the kernels against the plain attention (relative L2 <=
+    ``SERVING_TOL``); the device ms, wall ms and K1 launches of one model
+    evaluation."""
+    from anemoi_tpu_torch import kernels
+    from anemoi_tpu_torch.models.transport.objectives import (
+        EDMConfig, edm_denoise, edm_preconditioning)
+    from anemoi_tpu_torch.training.transport_step import make_sampler
+
+    def gates(trainer, state, want):
+        iface = trainer.interface
+        x = transport_window(trainer, device)
+        params = iface.cast_parameters(iface.inference_dtype)
+        xc = {"data": x["data"].to(iface.inference_dtype)}
+        b, _, e, g = x["data"].shape[:4]
+        v_out = iface.data_indices["data"].num_model_output_vars
+        gen = torch.Generator(device=device).manual_seed(TRANSPORT_SEED)
+        y = torch.randn((b, 1, e, g, v_out), generator=gen, device=device)
+        edm = EDMConfig.from_config(trainer.config["training"]["transport"].get("edm"))
+        levels = ({"sigma_max": edm.sigma_max, "sigma_min": edm.sigma_min} if objective == "edm"
+                  else {"t_0": 0.0, "t_1": 1.0})
+        out = {}
+
+        @torch.no_grad()
+        def evaluate(level: float):
+            if objective == "edm":
+                sig = torch.full((b, 1, e, 1, 1), level, device=device)
+                _, _, c_in, c_noise = edm_preconditioning(sig, edm.sigma_data)
+                noised, noise_level = (y * level) * c_in, c_noise[:, 0, :, 0, 0]
+            else:
+                noised, noise_level = y, torch.full((b, e), level, device=device)
+            f = iface.run_model(xc, params, y_noised={"data": noised.to(iface.inference_dtype)},
+                                noise_level=noise_level)["data"].float()
+            if objective == "edm":
+                return f, edm_denoise(f, y * level, sig, edm)
+            return f, f
+
+        for name, level in levels.items():
+            f, d = evaluate(level)
+            iface.use_plain_attention(True)
+            f_ref, d_ref = evaluate(level)
+            iface.use_plain_attention(False)
+            out[name] = {"network_rel_l2": rel_gap(f, f_ref), "output_rel_l2": rel_gap(d, d_ref),
+                         "finite": bool(torch.isfinite(f).all())}
+            print(f"[{label}] one model evaluation at {name} ({level}) vs the plain attention: "
+                  f"network output relative L2 {out[name]['network_rel_l2']:.3e}, "
+                  f"{'denoised' if objective == 'edm' else 'velocity'} "
+                  f"{out[name]['output_rel_l2']:.3e} (tol {SERVING_TOL})", flush=True)
+            if not (out[name]["finite"] and out[name]["network_rel_l2"] <= SERVING_TOL):
+                raise RuntimeError(f"{label}: the evaluation at {name} disagrees with the plain "
+                                   f"attention: {out[name]}")
+
+        sampler = "edm_heun" if objective == "edm" else "vf_heun"
+        generate = make_sampler(iface, objective=objective, sampler=sampler,
+                                num_steps=TRANSPORT_GATE_STEPS, edm=edm)
+        samples = {}
+        for plain in (False, True):
+            iface.use_plain_attention(plain)
+            samples[plain] = generate(x, torch.Generator(device=device).manual_seed(
+                TRANSPORT_SEED))["data"]
+        iface.use_plain_attention(False)
+        out["sample_4_steps_rel_l2"] = rel_gap(samples[False], samples[True])
+        print(f"[{label}] {TRANSPORT_GATE_STEPS}-step {sampler} sample vs the plain attention "
+              f"(same generator): relative L2 {out['sample_4_steps_rel_l2']:.3e} "
+              f"(tol {SERVING_TOL})", flush=True)
+        if not (torch.isfinite(samples[False]).all()
+                and out["sample_4_steps_rel_l2"] <= SERVING_TOL):
+            raise RuntimeError(f"{label}: the 4-step sample disagrees with the plain attention")
+
+        level = next(iter(levels.values()))
+        evaluate(level)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        evaluate(level)
+        torch.cuda.synchronize()
+        out["evaluation_launches"] = kernels.launch_counts()
+        if out["evaluation_launches"] != {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP}:
+            raise RuntimeError(f"{label}: one evaluation launched {out['evaluation_launches']}")
+        out["evaluation_ms"] = cuda_ms(lambda: evaluate(level), reps=10, warmup=2)
+        out["evaluation_device_ms"], _ = profiled_device_ms(lambda: evaluate(level), 1)
+        print(f"[{label}] one bf16 model evaluation: {out['evaluation_ms']:.3f} ms a single call "
+              f"(CUDA events), device "
+              f"{out['evaluation_device_ms']:.3f} ms, launches {out['evaluation_launches']}",
+              flush=True)
+        del params, samples
+        return out
+
+    return gates
+
+
+def transport_predict(workdir: str, device, label: str, run_dir: str, steps: int) -> dict:
+    """``cli predict <bundle> --steps <steps> --seed TRANSPORT_SEED`` on a
+    transport bundle at its ``sampling_steps`` (20): exit 0, exactly 18 K1
+    a model evaluation and no other kernel, a finite forecast of the right
+    shape, equal bit for bit to an in-process ``make_transport_forecast_fn``
+    with a generator seeded alike; its gap to the plain attention's forecast
+    from the same generator (printed: 20 chained steps, not gated); the
+    in-process forecast's wall and device ms a forecast step and peak
+    memory."""
+    import numpy as np
+
+    from anemoi_tpu_torch import kernels
+    from anemoi_tpu_torch.data.dataset import open_dataset
+    from anemoi_tpu_torch.inference import make_transport_forecast_fn, transport_settings
+    from anemoi_tpu_torch.models.transport.samplers import evaluations
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.training.checkpoint import load_inference_checkpoint
+
+    bundle = os.path.join(run_dir, "inference")
+    output = os.path.join(workdir, f"{label}_forecast.npz")
+    with open(os.path.join(bundle, "checkpoint.json")) as f:
+        config = json.load(f)["config"]
+    settings = transport_settings(config)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["predict", bundle, "--steps", str(steps), "--seed", str(TRANSPORT_SEED),
+                   "--output", output])
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if rc != 0:
+        raise RuntimeError(f"{label}: cli predict returned {rc}")
+    dataset = open_dataset(dict(config["data"]["datasets"]["data"]))
+    out = np.load(output)["data|forecast"]
+    expect = (1, steps, 1, dataset.num_grid_points, 11)
+    if out.shape != expect or not np.isfinite(out).all():
+        raise RuntimeError(f"{label}: forecast shape {out.shape} (want {expect}) or not finite")
+
+    iface = load_inference_checkpoint(bundle)
+    forecast = make_transport_forecast_fn(iface, steps, **settings)
+    n_eval = evaluations(settings["sampler"], settings["num_steps"], forecast.schedule)
+    want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP * n_eval * steps}
+    print(f"[{label}] cli predict: {settings}, {n_eval} model evaluations a forecast step, "
+          f"launches {launches}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"{label}: predict launches {launches}, want {want}")
+    window = dataset.get_window(0, iface.model.n_step_input + steps)
+    batch = {"data": torch.from_numpy(window[None]).to(iface.device)}
+
+    def run():
+        return forecast(batch, torch.Generator(device=iface.device).manual_seed(TRANSPORT_SEED))
+
+    ref = run()["data"].cpu().numpy()
+    max_abs = float(np.abs(out - ref).max())
+    print(f"[{label}] cli predict vs make_transport_forecast_fn in-process (seed "
+          f"{TRANSPORT_SEED}): max |diff| {max_abs:.3e} (want 0)", flush=True)
+    if not np.array_equal(out, ref):
+        raise RuntimeError(f"{label}: the CLI's forecast differs from the in-process one")
+    iface.use_plain_attention(True)
+    plain = run()["data"].cpu().numpy()
+    iface.use_plain_attention(False)
+    plain_gap = float(np.linalg.norm(out - plain) / np.linalg.norm(plain))
+    print(f"[{label}] the {settings['num_steps']}-step forecast vs the plain attention's (same "
+          f"generator): relative L2 {plain_gap:.3e} (printed, not gated)", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    walls = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3 / steps)
+    peak = torch.cuda.max_memory_allocated(device)
+    device_ms, device_launches = profiled_device_ms(run, 1)
+    result = {"seconds": seconds,
+              "settings": {**settings, "edm": dataclasses.asdict(settings["edm"])},
+              "evaluations_per_step": n_eval,
+              "launches": launches, "output_shape": list(out.shape),
+              "max_abs_diff_vs_in_process": max_abs, "rel_l2_vs_plain": plain_gap,
+              "ms_per_step": statistics.median(walls), "ms_per_step_runs": walls,
+              "device_ms_per_step": device_ms / steps,
+              "device_launches_per_step": device_launches / steps, "peak_memory_bytes": peak}
+    print(f"[{label}] in-process forecast: wall {result['ms_per_step']:.3f} ms a step, device "
+          f"{result['device_ms_per_step']:.3f} ms a step ({n_eval} evaluations), peak {peak} B",
+          flush=True)
+    del iface, forecast, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def transport_phase(workdir: str, device) -> dict:
+    """Phase 22: the transport presets at their width (512 channels, 16
+    layers, 16 heads, phase 9's ``multi_scale`` graph and store), bf16:
+    ``cli train`` ``TRANSPORT_STEPS`` steps with no callbacks, exactly 18 K1
+    and K3 and the K4/K5 of the ``fused_backward`` rule a step, the
+    gradient gate, the evaluation and 4-step sample gates
+    (``transport_gates``), then ``cli predict`` (``transport_predict``):
+    EDM diffusion 2 forecast steps of ``edm_heun``, the tendency
+    interpolant 1 of ``vf_heun``, each at 20 sampling steps."""
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    overrides = [f"graph.save_path={os.path.join(workdir, 'graph.npz')}",  # phase 9's
+                 "diagnostics.callbacks=[]"]
+    result = {}
+    for label, (preset, objective, steps) in TRANSPORT_PRESETS.items():
+        path = os.path.join(PACKAGED_CONFIG_DIR, f"{preset}.yaml")
+        composed_preset(path, overrides, {
+            "model.num_channels": 512, "model.processor.num_layers": 16,
+            "model.processor.num_heads": 16, "training.task": "transport",
+            "training.transport.objective": objective,
+            "graph.recipe.nodes.hidden.node_builder.resolution": 5})
+        train, run_dir, _ = family_train(
+            workdir, device, label, path, overrides, TRANSPORT_STEPS,
+            lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS),
+            after=transport_gates(label, objective, device))
+        result[label] = {"train": train,
+                         "predict": transport_predict(workdir, device, label, run_dir, steps)}
+        print(f"[{label}] {json.dumps(result[label])}", flush=True)
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
-           ens: dict, families: dict) -> dict:
+           ens: dict, families: dict, transport: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -2470,8 +2740,9 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     these five, the packaged example's trainer step and 2-step
     ``predict``, each remat variant's flagship step (``remat: <variant>``)
     the YAML preset's trainer step at rollout 2, the ensemble's step and
-    ``predict_step``, and each family path's training step and 2-step
-    ``cli predict`` (phases 16-19)."""
+    ``predict_step``, each family path's training step and 2-step
+    ``cli predict`` (phases 16-21), and each transport preset's training
+    step and generative ``cli predict`` (phase 22)."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
                "example_trainer_step": trainer["launches_per_step"],
@@ -2496,7 +2767,12 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                   for kind, counts in (
                       ("train", families[area]["train"]["launches_per_step"]),
                       ("rollout_2_step", families[area]["train"]["after"]["launches"]),
-                      ("predict_2_steps", families[area]["predict"]["launches"]))}}
+                      ("predict_2_steps", families[area]["predict"]["launches"]))},
+               **{f"{label}_{kind}": counts
+                  for label, (_, _, steps) in TRANSPORT_PRESETS.items()
+                  for kind, counts in (
+                      ("train", transport[label]["train"]["launches_per_step"]),
+                      (f"predict_{steps}_steps", transport[label]["predict"]["launches"]))}}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
                "K4": "training_step", "K5": "training_step_fused_bwd",
                "K6": "transformer_serving_2_steps", "K7_dq": "transformer_training_step",
@@ -2608,8 +2884,9 @@ def main() -> int:
             "lam": phase("lam", lam_phase, workdir, device),
             "stretched": phase("stretched", stretched_phase, workdir, device),
         }
+        transport = phase("transport", transport_phase, workdir, device)
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
-                 ens, families)
+                 ens, families, transport)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -2618,7 +2895,7 @@ def main() -> int:
                        "training": training, "trainer": trainer, "predict": predict,
                        "transformer_serving": t_serving,
                        "transformer_training": t_training, "remat": remat, "presets": presets,
-                       "ensemble": ens, "families": families,
+                       "ensemble": ens, "families": families, "transport": transport,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

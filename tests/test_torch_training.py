@@ -291,10 +291,15 @@ def test_not_ported_pieces_raise(tiny):
     for name in ("MultiscaleLossWrapper", "SpectralAMSELoss"):
         with pytest.raises(NotImplementedError):
             get_loss_function({"name": name}, {})
+    # the hierarchical family (the transport task is ported: tests/test_torch_transport.py)
+    hierarchical = config()
+    hierarchical["model"]["hidden_names"] = ["hidden", "hidden_2"]
+    with pytest.raises(NotImplementedError, match="hierarchical"):
+        AnemoiModelInterface(config=hierarchical, graph=tiny["port_graph"],
+                             data_indices=flagship_indices(), statistics=tiny["stats"],
+                             device="cpu", training=True)
     iface, _, _, _ = port_setup(tiny)
     losses = {"data": get_loss_function(LOSS, {})}
-    with pytest.raises(NotImplementedError):
-        make_step_fns(iface, losses, rollout=1, task="transport")
     make_step_fns(iface, losses, rollout=1, ensemble_size=2)  # ported: tests/test_torch_ensemble.py
     serving = AnemoiModelInterface(  # bf16 serving weights cannot be master weights
         config=config("bf16"), graph=tiny["port_graph"], data_indices=flagship_indices(),
