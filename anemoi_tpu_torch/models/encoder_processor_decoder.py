@@ -183,20 +183,7 @@ class AnemoiModelEncProcDec(nn.Module):
         statistics: Optional[Dict[str, dict]] = None,
     ) -> None:
         super().__init__()
-        self.config = config
-        if str(config.get("graph_attention_backend", "padded")) not in BACKENDS:
-            raise ValueError(f"unknown graph_attention_backend {config['graph_attention_backend']}")
-        strategy = str(config.get("shard_strategy", "none"))
-        if strategy != "none" or int(config.get("num_model_shards", 1)) > 1 or config.get(
-            "shard_over_mesh"
-        ):
-            raise NotImplementedError("model parallelism is not ported to anemoi_tpu_torch")
-        self.graph = graph
-        self.data_indices = data_indices
-        self.num_channels = int(config["num_channels"])
-        self.n_step_input = int(config.get("n_step_input", 2))
-        self.n_step_output = int(config.get("n_step_output", 1))
-        self.latent_skip = bool(config.get("latent_skip", True))
+        self._init_common(graph, data_indices, config)
         hidden = graph.hidden_name
         trainable = config.get("trainable_parameters") or {}
         datasets = sorted(data_indices)
@@ -264,10 +251,38 @@ class AnemoiModelEncProcDec(nn.Module):
                 for ds in datasets
             })
 
+        self._init_output(statistics)
+
+    def _init_common(self, graph: ModelGraph, data_indices: Dict[str, IndexCollection],
+                     config: dict) -> None:
+        """The config's checks and the settings every model of the family
+        reads."""
+        self.config = config
+        if str(config.get("graph_attention_backend", "padded")) not in BACKENDS:
+            raise ValueError(f"unknown graph_attention_backend {config['graph_attention_backend']}")
+        strategy = str(config.get("shard_strategy", "none"))
+        if strategy != "none" or int(config.get("num_model_shards", 1)) > 1 or config.get(
+            "shard_over_mesh"
+        ):
+            raise NotImplementedError("model parallelism is not ported to anemoi_tpu_torch")
+        self.graph = graph
+        self.data_indices = data_indices
+        self.num_channels = int(config["num_channels"])
+        self.n_step_input = int(config.get("n_step_input", 2))
+        self.n_step_output = int(config.get("n_step_output", 1))
+        self.latent_skip = bool(config.get("latent_skip", True))
+
+    def _build_residual(self, ds: str, statistics: Optional[dict]) -> nn.Module:
+        return build_residual(self.config.get("residual"), self.data_indices[ds], statistics)
+
+    def _init_output(self, statistics: Optional[Dict[str, dict]]) -> None:
+        """Per dataset: the residual, the boundings and the prognostic
+        residual's gather."""
+        config, data_indices = self.config, self.data_indices
+        datasets = sorted(data_indices)
         statistics = statistics or {}
         self.residual = nn.ModuleDict({
-            ds: build_residual(config.get("residual"), data_indices[ds], statistics.get(ds))
-            for ds in datasets
+            ds: self._build_residual(ds, statistics.get(ds)) for ds in datasets
         })
         self.boundings = nn.ModuleDict({
             ds: build_boundings(config.get("bounding"),

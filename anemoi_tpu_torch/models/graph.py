@@ -11,12 +11,19 @@ A graph without processor edges (``graph/encoder_decoder_only.yaml``, for
 autoencoders and point-wise processors) gets an empty processor sub-graph,
 as in the JAX package: no edges, ``dst_ptr`` of zeros, ``len(
 processor_edge_attributes) or 1`` attribute columns.
+
+The hierarchical V-cycle (``hidden_names``: its levels, finest first) also
+reads, from the JAX ``AnemoiModelEncProcDecHierarchical.build_graph_inputs``:
+``level[h]`` (``h -> h``, the processor's attributes) for every level that
+has such edges, ``down[h_i]`` (``h_i -> h_{i+1}``, the encoder's attributes)
+and ``up[h_{i+1}]`` (``h_{i+1} -> h_i``, the decoder's attributes);
+``hidden_name`` is the finest level, the one the encoder and decoder map to.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -69,6 +76,19 @@ class ModelGraph:
     processor: SubGraphArrays  # hidden -> hidden
     decoder: Dict[str, SubGraphArrays]  # dataset name -> (hidden -> data)
     hidden_name: str = "hidden"
+    # the hierarchical levels, finest first, and their sub-graphs
+    hidden_names: List[str] = field(default_factory=list)
+    level: Dict[str, SubGraphArrays] = field(default_factory=dict)  # h -> (h -> h)
+    down: Dict[str, SubGraphArrays] = field(default_factory=dict)  # h_i -> (h_i -> h_i+1)
+    up: Dict[str, SubGraphArrays] = field(default_factory=dict)  # h_i+1 -> (h_i+1 -> h_i)
+
+
+def infer_hidden_names(node_names: Sequence[str]) -> List[str]:
+    """The hierarchy's levels from a graph's ``hidden*`` node sets, sorted by
+    the number after ``_`` (a bare ``hidden`` counts as 1), as the JAX
+    ``AnemoiModelEncProcDecHierarchical.hidden_names`` infers them."""
+    return sorted((n for n in node_names if n.startswith("hidden")),
+                  key=lambda s: int(s.split("_")[1]) if "_" in s else 1)
 
 
 def extract_subgraph(
@@ -98,9 +118,12 @@ def build_model_graph(
     encoder_edge_attributes: Optional[List[str]] = None,
     processor_edge_attributes: Optional[List[str]] = None,
     decoder_edge_attributes: Optional[List[str]] = None,
+    hidden_names: Optional[List[str]] = None,
 ) -> ModelGraph:
     """Edge attributes are concatenated in the order the config lists them
-    (the bench uses ``[edge_dirs, edge_length]``; ``None`` means sorted names)."""
+    (the bench uses ``[edge_dirs, edge_length]``; ``None`` means sorted names).
+    With ``hidden_names`` (a hierarchy, finest level first, which must be
+    ``hidden_name``), the V-cycle's level, down and up sub-graphs too."""
     node_features = {
         name: torch.as_tensor(sincos_coordinates(graph[name].coords), device=device).to(dtype)
         for name in graph.node_names()
@@ -121,6 +144,18 @@ def build_model_graph(
             num_src=n_hidden, num_dst=n_hidden,
         )
 
+    levels = list(hidden_names or [])
+    if levels and levels[0] != hidden_name:
+        raise ValueError(f"the finest level {levels[0]} must be the hidden node set "
+                         f"{hidden_name}")
+    level, down, up = {}, {}, {}
+    for h, nxt in zip(levels, levels[1:] + [None]):
+        if (h, h) in graph.edges:
+            # the finest level's set is the processor's: the same edges and attributes
+            level[h] = processor if h == hidden_name else sub(h, h, processor_edge_attributes)
+        if nxt is not None:
+            down[h] = sub(h, nxt, encoder_edge_attributes)
+            up[nxt] = sub(nxt, h, decoder_edge_attributes)
     return ModelGraph(
         node_features=node_features,
         num_nodes={name: graph[name].num_nodes for name in graph.node_names()},
@@ -128,4 +163,8 @@ def build_model_graph(
         processor=processor,
         decoder={ds: sub(hidden_name, ds, decoder_edge_attributes) for ds in dataset_names},
         hidden_name=hidden_name,
+        hidden_names=levels,
+        level=level,
+        down=down,
+        up=up,
     )

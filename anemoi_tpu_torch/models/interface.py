@@ -23,6 +23,11 @@ copies cast by :meth:`AnemoiModelInterface.cast_parameters` (the JAX
 ``training/step.py`` ``_cast_params``); ``predict_step`` casts the same way
 to the serving type.
 
+The hierarchical V-cycle models (``AnemoiModelEncProcDecHierarchical``,
+``AnemoiModelHierarchicalAutoEncoder``) get the model graph of their levels
+(``hidden_names``, or the graph's ``hidden*`` sets); every level's trainable
+node attributes are ``node_attributes.trainable_tensors.<level>``.
+
 The transport models (``AnemoiTransportModelEncProcDec``,
 ``AnemoiTransportTendModelEncProcDec``) run through :meth:`run_model` with
 the noised target and its noise level (``y_noised=``, ``noise_level=``):
@@ -46,7 +51,7 @@ the way out; ``make_forecast_fn`` does not, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,12 +64,19 @@ from anemoi_tpu_torch.models.encoder_processor_decoder import (
     AnemoiModelAutoEncoder,
     AnemoiModelEncProcDec,
 )
-from anemoi_tpu_torch.models.graph import build_model_graph
+from anemoi_tpu_torch.models.graph import build_model_graph, infer_hidden_names
+from anemoi_tpu_torch.models.hierarchical import (
+    AnemoiModelEncProcDecHierarchical,
+    AnemoiModelHierarchicalAutoEncoder,
+)
 from anemoi_tpu_torch.models.layers.attention import MultiHeadSelfAttention
 from anemoi_tpu_torch.models.layers import ensemble
 from anemoi_tpu_torch.models.layers.graph_blocks import GraphTransformerBaseBlock
 from anemoi_tpu_torch.models.layers.normalization import ConditionalLayerNorm, LayerNorm, RMSNorm
-from anemoi_tpu_torch.models.layers.residual import ScalarOrnsteinConnection
+from anemoi_tpu_torch.models.layers.residual import (
+    ScalarOrnsteinConnection,
+    SpectralOrnsteinConnection,
+)
 from anemoi_tpu_torch.models.transport_model import (
     AnemoiTransportModelEncProcDec,
     AnemoiTransportTendModelEncProcDec,
@@ -82,20 +94,21 @@ _TRUNCATED_STD = 0.87962566103423978
 
 @torch.no_grad()
 def initialise_parameters(model: nn.Module, generator: torch.Generator,
-                          zero_extractor: bool = False) -> None:
+                          zero_heads: Sequence[nn.Module] = ()) -> None:
     """Every parameter from its flax initialiser: ``Linear`` weights from
     ``lecun_normal`` (variance ``1 / fan_in``, truncated at two standard
     deviations) and zero biases; LayerNorm and RMSNorm scales 1 and offsets
-    0; the trainable node and edge tensors 0; each decoder's output ``Linear``
-    (its ``output_linear``) 0 with ``initialise_data_extractor_zero``;
+    0; the trainable node and edge tensors 0; the output ``Linear`` (its
+    ``output_linear``) of each mapper of ``zero_heads`` (those configured with
+    ``initialise_data_extractor_zero``) 0;
     the ``scale`` and ``bias`` Linears of a ``ConditionalLayerNorm`` 0 (so
     every ensemble member starts equal); a ``ScalarOrnsteinConnection``'s
-    weight its theta logits over zeros.  Draws come from ``generator`` in
+    weight its theta logits over zeros, a ``SpectralOrnsteinConnection``'s
+    theta logits ``theta_init`` and mu 0.  Draws come from ``generator`` in
     module order, on the parameters' device (the CPU when the interface
     builds its model)."""
     covered = set()
-    zero = {id(dec.output_linear.weight) for dec in getattr(model, "decoder", {}).values()
-            if zero_extractor}
+    zero = {id(head.output_linear.weight) for head in zero_heads}
     for module in model.modules():
         if isinstance(module, ConditionalLayerNorm):
             module.zero_()
@@ -103,6 +116,9 @@ def initialise_parameters(model: nn.Module, generator: torch.Generator,
         elif isinstance(module, ScalarOrnsteinConnection):
             module.reset_parameters()
             covered.add(id(module.weight))
+        elif isinstance(module, SpectralOrnsteinConnection):
+            module.reset_parameters()
+            covered.update(id(p) for p in module.parameters())
     for module in model.modules():
         if isinstance(module, nn.Linear) and id(module.weight) in covered:
             continue
@@ -134,7 +150,9 @@ MODELS = {"AnemoiModelEncProcDec": AnemoiModelEncProcDec,
           "AnemoiModelAutoEncoder": AnemoiModelAutoEncoder,
           "AnemoiEnsModelEncProcDec": AnemoiEnsModelEncProcDec,
           "AnemoiTransportModelEncProcDec": AnemoiTransportModelEncProcDec,
-          "AnemoiTransportTendModelEncProcDec": AnemoiTransportTendModelEncProcDec}
+          "AnemoiTransportTendModelEncProcDec": AnemoiTransportTendModelEncProcDec,
+          "AnemoiModelEncProcDecHierarchical": AnemoiModelEncProcDecHierarchical,
+          "AnemoiModelHierarchicalAutoEncoder": AnemoiModelHierarchicalAutoEncoder}
 PRECISIONS = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": torch.bfloat16,
               "fp32": torch.float32, "float32": torch.float32, "32": torch.float32}
 
@@ -176,8 +194,18 @@ class AnemoiModelInterface(nn.Module):
         name = model_cfg.pop("name", "AnemoiModelEncProcDec")
         if name not in MODELS:
             raise NotImplementedError(f"model '{name}' is not ported to anemoi_tpu_torch")
-        if model_cfg.get("hidden_names"):
-            raise NotImplementedError("hierarchical models are not ported to anemoi_tpu_torch")
+        # the hidden node set the encoder and decoder map to: the hierarchy's
+        # finest level, else "hidden", else the first hidden* set
+        hidden_names, hidden_name = None, "hidden"
+        hiddens = sorted(n for n in graph.node_names() if n.startswith("hidden"))
+        if issubclass(MODELS[name], AnemoiModelEncProcDecHierarchical):
+            hidden_names = list(model_cfg.get("hidden_names") or
+                                infer_hidden_names(graph.node_names()))
+            hidden_name = hidden_names[0]
+        elif model_cfg.get("hidden_names"):
+            hidden_name = model_cfg["hidden_names"][0]
+        elif "hidden" not in hiddens and hiddens:
+            hidden_name = hiddens[0]
         prec = str(model_cfg.get("inference_precision", "bf16"))
         if prec not in PRECISIONS:
             raise ValueError(f"unknown inference_precision '{prec}'")
@@ -194,14 +222,19 @@ class AnemoiModelInterface(nn.Module):
                 "sub_graph_edge_attributes"
             ),
             decoder_edge_attributes=(model_cfg.get("decoder") or {}).get("sub_graph_edge_attributes"),
+            hidden_name=hidden_name,
+            hidden_names=hidden_names,
         )
         model = MODELS[name](graph=self.model_graph, data_indices=data_indices, config=model_cfg,
                              statistics=statistics)
-        initialise_parameters(
-            model, context_generator("model-init"),
-            zero_extractor=bool((model_cfg.get("decoder") or {}).get(
-                "initialise_data_extractor_zero", False)),
-        )
+        # the mappers whose output head starts at zero: the decoders and a
+        # hierarchy's up mappers (built from ``up_mapper`` or the decoder's config)
+        zero_heads = []
+        for part, modules in (("decoder", "decoder"),
+                              ("up_mapper" if "up_mapper" in model_cfg else "decoder", "upscale")):
+            if (model_cfg.get(part) or {}).get("initialise_data_extractor_zero", False):
+                zero_heads += list(getattr(model, modules, {}).values())
+        initialise_parameters(model, context_generator("model-init"), zero_heads)
         self.model = model.to(device=self.device, dtype=self.param_dtype)
         self.pre_processors: Dict[str, Processors] = {}
         for ds, idx in data_indices.items():

@@ -1,11 +1,12 @@
 """Residual connection between the input state and the predicted output.
 
 Port of ``anemoi_tpu.models.layers.residual``: ``SkipConnection``,
-``NoResidualConnection`` and the learnable ``ScalarOrnsteinConnection``
-(with ``ornstein_init_theta``).  Each maps ``x [B, T, E, G, V]`` to the
-skip state ``[B, n_step_output, E, G, V]``.  ``TruncatedConnection`` (it
-needs ``ops/sparse_projector.py``) and ``SpectralOrnsteinConnection`` (it
-needs ``ops/spectral.py``) raise ``NotImplementedError``.
+``NoResidualConnection``, the learnable ``ScalarOrnsteinConnection`` (with
+``ornstein_init_theta``) and ``SpectralOrnsteinConnection`` (a learnable
+damping per spherical-harmonic degree, through ``ops/spectral.py``).  Each
+maps ``x [B, T, E, G, V]`` to the skip state ``[B, n_step_output, E, G,
+V]``.  ``TruncatedConnection`` (it needs ``ops/sparse_projector.py``) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+
+from anemoi_tpu_torch.ops.spectral import GaussianSHT, ReducedSHT
 
 
 def _expand_time(x_skip: torch.Tensor, n_step_output: int) -> torch.Tensor:
@@ -95,6 +98,64 @@ class ScalarOrnsteinConnection(nn.Module):
         return _expand_time(full, n_step_output)
 
 
+class SpectralOrnsteinConnection(nn.Module):
+    """Per-degree Ornstein-Uhlenbeck skip: ``ISHT((1 - theta_l) * SHT(x_prog))
+    + mu``, theta a sigmoid into ``(theta_buff, 1)`` per spherical-harmonic
+    degree l, so that small scales relax faster than large ones.
+    ``theta_logit [lmax + 1]`` starts at ``theta_init``, ``mu [n_prog]`` at 0.
+    ``grid_kind``: ``full`` (F<n>, rings of 4n points), ``octahedral``
+    (O<n>) or ``reduced`` (N<n>); the grid's points in ring order, north to
+    south.  The transform runs in float32 whatever the input's type."""
+
+    def __init__(self, prog_idx: Sequence[int], num_vars: int, gaussian_n: int,
+                 grid_kind: str = "full", lmax: int = 0, theta_init: float = 0.0,
+                 theta_buff: float = 0.0, theta_train: bool = True) -> None:
+        super().__init__()
+        self.prog_idx = [int(i) for i in prog_idx]
+        self.num_vars = int(num_vars)
+        self.grid_kind = grid_kind
+        self.gaussian_n = int(gaussian_n)
+        self.theta_init = float(theta_init)
+        self.theta_buff = float(theta_buff)
+        self.theta_train = bool(theta_train)
+        lmax_or_none = int(lmax) if lmax else None
+        if grid_kind == "full":
+            self.sht = GaussianSHT.create(self.gaussian_n, lmax_or_none)
+            self.n_points = self.sht.nlat * self.sht.nlon
+        else:
+            self.sht = ReducedSHT.create(self.gaussian_n, lmax_or_none, kind=grid_kind)
+            self.n_points = self.sht.n_points
+        self.theta_logit = nn.Parameter(torch.empty(self.sht.lmax + 1))
+        self.mu = nn.Parameter(torch.empty(len(self.prog_idx)))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        """The JAX package's initial weights: theta_init everywhere, mu 0."""
+        self.theta_logit.fill_(self.theta_init)
+        self.mu.zero_()
+
+    def forward(self, x: torch.Tensor, n_step_output: int = 1) -> torch.Tensor:
+        x_last = x[:, -1]  # [B, E, G, V]
+        n_grid = x_last.shape[-2]
+        if n_grid != self.n_points:
+            raise ValueError(f"SpectralOrnsteinConnection: {self.grid_kind} grid n="
+                             f"{self.gaussian_n} has {self.n_points} points, got {n_grid}")
+        theta = self.theta_logit if self.theta_train else self.theta_logit.detach()
+        gain = 1.0 - torch.sigmoid(theta) * (1.0 - self.theta_buff) - self.theta_buff
+        prog = x_last[..., self.prog_idx]
+        field = prog.movedim(-1, -2).float()  # [B, E, n_prog, G]
+        if self.grid_kind == "full":
+            field = field.reshape(field.shape[:-1] + (self.sht.nlat, self.sht.nlon))
+        coeffs = self.sht.analysis(field) * gain.float()[:, None]  # per degree, over m
+        damped = self.sht.synthesis(coeffs).reshape(prog.shape[:-2] + (len(self.prog_idx),
+                                                                       n_grid))
+        out = damped.movedim(-2, -1).to(x_last.dtype) + self.mu.to(x_last.dtype)
+        full = out.new_zeros(out.shape[:-1] + (self.num_vars,))
+        full[..., self.prog_idx] = out
+        return _expand_time(full, n_step_output)
+
+
 def build_residual(config: Optional[dict], data_indices=None,
                    statistics: Optional[dict] = None) -> nn.Module:
     """The residual of ``model.residual`` (default ``SkipConnection``) for
@@ -124,5 +185,16 @@ def build_residual(config: Optional[dict], data_indices=None,
             prog_idx, len(mi.full), regressor_idx,
             [float(t) for t in np.broadcast_to(logits, (len(prog_idx),))],
             theta_buff, bool(cfg.get("theta_train", True)),
+        )
+    if name == "SpectralOrnsteinConnection":
+        if data_indices is None:
+            raise ValueError("SpectralOrnsteinConnection needs data_indices")
+        mi = data_indices.model.input
+        return SpectralOrnsteinConnection(
+            [int(i) for i in mi.prognostic], len(mi.full), int(cfg["gaussian_n"]),
+            grid_kind=str(cfg.get("grid_kind", "full")), lmax=int(cfg.get("lmax", 0)),
+            theta_init=float(cfg.get("theta_init", 0.0)),
+            theta_buff=float(cfg.get("theta_buff", 0.0)),
+            theta_train=bool(cfg.get("theta_train", True)),
         )
     raise NotImplementedError(f"residual '{name}' is not ported to anemoi_tpu_torch")

@@ -25,6 +25,13 @@ The port's own copy of the GraphTransformer part of the name mapping in
 - a transport model's ``noise_cond_mlp_linear<k>`` -> ``noise_cond_mlp.linear<k>_no_gradscaling``
 - ``trainable_edges`` of a component    -> ``<component>_graph_provider[.<ds>].trainable``
 - the i-th encoder/decoder module       -> ``encoder.<ds>`` of the i-th dataset in sorted order
+- the hierarchical model's ``encoder_<ds>``, ``proc_down_<h>``, ``down_<h>``,
+  ``processor``, ``up_<h>``, ``proc_up_<h>``, ``decoder_<ds>`` -> ``encoder.<ds>``,
+  ``down_level_processor.<h>``, ``downscale.<h>``, ``processor``, ``upscale.<h>``,
+  ``up_level_processor.<h>``, ``decoder.<ds>``, their trainable edges on
+  ``<module>_graph_provider(s).<key>`` (``processor_graph_provider``)
+- a ``SpectralOrnsteinConnection``'s ``residual_<ds>.theta_logit`` / ``.mu``
+  -> ``residual.<ds>.theta_logit`` / ``.mu``
 
 and of its GNN part: ``GNNForwardMapper`` / ``GNNBackwardMapper`` ->
 ``encoder.<ds>`` / ``decoder.<ds>``; ``GNNProcessor``'s standalone
@@ -70,6 +77,17 @@ _NORMS = {
 _MLPS = ("node_dst_mlp", "node_src_mlp", "edge_pre_mlp", "mlp", "noise_mlp", "edge_mlp",
          "node_mlp", "emb_edges", "emb_nodes_src", "emb_nodes_dst", "node_data_extractor")
 _INJECTORS = ("NoiseConditioning", "NoiseInjector", "NoOpNoiseInjector")
+# the hierarchical model's explicit module names: prefix -> (anemoi-core
+# module, its graph provider); the longer prefixes first, so that
+# ``proc_down_<h>`` never reads as ``down_``
+_HIERARCHICAL = (
+    ("proc_down_", "down_level_processor", "down_level_processor_graph_providers"),
+    ("proc_up_", "up_level_processor", "up_level_processor_graph_providers"),
+    ("encoder_", "encoder", "encoder_graph_provider"),
+    ("decoder_", "decoder", "decoder_graph_provider"),
+    ("down_", "downscale", "downscale_graph_providers"),
+    ("up_", "upscale", "upscale_graph_providers"),
+)
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -99,6 +117,12 @@ def _component(p: str, datasets: Sequence[str]):
         return ["noise_injector"], []
     if p.startswith("residual_"):
         return ["residual", p[len("residual_"):]], []
+    if p == "processor":  # the hierarchical model's deepest level
+        return ["processor"], ["processor_graph_provider"]
+    for prefix, module, provider in _HIERARCHICAL:
+        if p.startswith(prefix):
+            key = p[len(prefix):]
+            return [module, key], [provider, key]
     return None
 
 
@@ -109,7 +133,8 @@ def _extra_layers(flat, parent: Tuple[str, ...]) -> int:
                 and p[n][len("ffn_"):].isdigit()})
 
 
-def _name(path: Tuple[str, ...], datasets: Sequence[str], flat) -> Tuple[str, int, int]:
+def _name(path: Tuple[str, ...], datasets: Sequence[str], flat,
+          layer_0_alone: bool = False) -> Tuple[str, int, int]:
     """Map one flax parameter path to the port's state-dict name; a scanned
     processor layer index is left as ``{layer}``.  Also returns the block's
     place ``j`` inside a scan step of ``scan_unroll`` blocks (``block_<j>``;
@@ -118,7 +143,7 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str], flat) -> Tuple[str, in
     out: List[str] = ["model"]
     provider: List[str] = []
     keep_attention = path[0].startswith("TransformerProcessor")  # the dense block
-    first = 1 if path[0].startswith("GNNProcessor") else 0
+    first = int(layer_0_alone)
     sub = 0
     i = 0
     while i < len(path) - 1:
@@ -178,7 +203,9 @@ def state_dict_from_jax(params, dataset_names: Sequence[str] = ("data",)) -> Dic
     datasets = sorted(dataset_names)
     out: Dict[str, torch.Tensor] = {}
     flat = _flatten(tree)
-    names = {path: _name(path, datasets, flat) for path in flat}
+    # a GNN processor's layer 0 stands alone (``blocks_0``) beside its scan
+    layer_0_alone = {p[0] for p in flat if p[1:2] == ("blocks_0",)}
+    names = {path: _name(path, datasets, flat, path[0] in layer_0_alone) for path in flat}
     unroll = 1 + max((sub for _, sub, _ in names.values()), default=0)  # blocks a scan step
     for path, value in flat.items():
         if path[-1] == "kernel" and value.ndim >= 2:

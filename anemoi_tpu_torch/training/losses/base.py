@@ -6,12 +6,12 @@ bound to named dimensions of the prediction ``[batch, time, ensemble, grid,
 variable]``; ``scale()`` multiplies them in with broadcasting.  A loss is
 the scaler-weighted mean of a pointwise error; NaN targets drop out.
 
-The leaves and ``CombinedLoss`` are in ``leaves.py``, the wrappers
-``LossVariableMapper`` and ``TimeAggregateLossWrapper`` in ``wrappers.py``.
-``MultiscaleLossWrapper`` and the spectral losses raise
-``NotImplementedError`` (they need the sparse projector and the spectral
-ops).  The ``ScaleTensor`` hooks that only they use (``update_scaler``,
-``freeze``, ``validate``, the by-dimension selections) are not ported.
+The leaves and ``CombinedLoss`` are in ``leaves.py``, the spectral losses
+in ``spectral.py``, the wrappers ``LossVariableMapper`` and
+``TimeAggregateLossWrapper`` in ``wrappers.py``.  ``MultiscaleLossWrapper``
+raises ``NotImplementedError`` (it needs the sparse projector).  The
+``ScaleTensor`` hooks that only it uses (``update_scaler``, ``freeze``,
+``validate``, the by-dimension selections) are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 
 # canonical prediction layout
 DIMS = {"batch": 0, "time": 1, "ensemble": 2, "grid": 3, "variable": 4}
-LOSSES: Dict[str, Callable] = {}  # name -> loss class, filled by leaves.py and wrappers.py
+LOSSES: Dict[str, Callable] = {}  # name -> loss class, filled by leaves.py, spectral.py, wrappers.py
 WRAPPERS = ("LossVariableMapper", "TimeAggregateLossWrapper")
 
 
@@ -211,7 +211,7 @@ def get_loss_function(
             check_loss_variable_units_compatibility(
                 wrapped.predicted_variables, wrapped.target_variables, variables_metadata)
         return wrapped
-    if name not in LOSSES:  # MultiscaleLossWrapper and the spectral losses
+    if name not in LOSSES:  # MultiscaleLossWrapper
         raise NotImplementedError(f"loss '{name}' is not ported to anemoi_tpu_torch")
     wanted = cfg.pop("scalers", ["*"])
     available = scalers or {}

@@ -56,13 +56,14 @@ def build_lr_schedule(config: dict) -> Schedule:
     )
 
 
-def _adamw(params, weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.95,
-           eps: float = 1e-8, **_):
-    return torch.optim.AdamW(params, lr=0.0, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+# ``eps`` (and every other key) is swallowed as the JAX factories swallow it:
+# optax keeps its 1e-8, torch's default is the same
+def _adamw(params, weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.95, **_):
+    return torch.optim.AdamW(params, lr=0.0, betas=(b1, b2), weight_decay=weight_decay)
 
 
-def _adam(params, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, **_):
-    return torch.optim.Adam(params, lr=0.0, betas=(b1, b2), eps=eps)
+def _adam(params, b1: float = 0.9, b2: float = 0.95, **_):
+    return torch.optim.Adam(params, lr=0.0, betas=(b1, b2))
 
 
 class AdEMAMix(torch.optim.Optimizer):

@@ -213,14 +213,48 @@ Phases (any failure exits non-zero, with no result line):
                   in-process ``make_transport_forecast_fn`` with a generator
                   seeded 7, the gap to the plain attention's forecast
                   printed; wall and device ms and peak memory of each;
- 23. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 23. hierarchical -- ``hierarchical.yaml`` and
+                  ``hierarchical_autoencoder.yaml`` at their width (the
+                  V-cycle: 512 channels, 16 heads, 2 layers a level, the
+                  packaged o96 -> ico-5 -> ico-3 graph) through ``cli train``
+                  over phase 9's store, bf16, 3 steps each (the forecaster
+                  with the default diagnostics, the autoencoder with the
+                  rate monitor alone, as phase 17): finite records, exactly
+                  the 10 K1, 10 K3, 10 K4 and no K5 a step that
+                  ``hierarchical_launches`` computes from the config and the
+                  graph, the gradient gate; ``cli predict`` 2 steps (10 K1
+                  a step), equal bit for bit to the in-process forecast and
+                  within relative L2 2e-2 of the plain attention; the
+                  graph's edge counts and degree ranges; K3 + K4 at the
+                  down set (hidden_1 -> hidden_2, 1 926 edges: 8 316 of the
+                  10 242 sources have none) against the plain backward,
+                  float32 and bfloat16, the dk and dv rows of those sources
+                  exactly 0, timed as in phase 4; a fixed-batch step at
+                  ``level_channel_ratio`` 2 (hidden_2 and the down and up
+                  mappers at 1024 channels): the same counts, the gradient
+                  gate; wall, device ms and peak memory of each;
+ 24. spectral  -- ``ReducedSHT`` octahedral at n = 96 (``lmax`` 95) on the
+                  card: a band-limited field (l <= 95, m <= 9) through
+                  synthesis, analysis and synthesis within rtol 1e-4 / atol
+                  1e-5, the coefficients of 12 random fields against the
+                  port's CPU transform (<= 1e-4 of the largest), analysis
+                  and synthesis timed; then the example (phase 9's graph)
+                  in a fixed-batch bf16 step with ``CombinedLoss`` (MSE +
+                  ``SpectralAMSELoss`` on ``octahedral_sht``, n 96) and
+                  ``residual: SpectralOrnsteinConnection`` (octahedral, 96),
+                  the store's points checked to be the O96 rings in order:
+                  exactly 18 K1, K3 and K4, the gradient gate, device ms
+                  beside the same step with the MSE and the plain skip;
+ 25. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
                   training step and ``predict_step``, phases 16-19's
                   training steps and forecasts, phases 20-21's training
-                  steps, rollout-2 steps and forecasts, and phase 22's
-                  training steps and generative forecasts), the card line, and
+                  steps, rollout-2 steps and forecasts, phase 22's
+                  training steps and generative forecasts, phase 23's
+                  training steps, forecasts and ratio-2 step and phase 24's
+                  two steps; the K3 and K4 rows also the down set's), the card line, and
                   last {"ok": true, "device": {...}}; with --json, the same
                   and the serving and training details also go to PATH.
 
@@ -1152,11 +1186,11 @@ def training_losses(graph):
                                       scalers)}
 
 
-def build_training(graph, device, config):
+def build_training(graph, device, config, losses=None):
     """(interface, TrainState, train_step) of the bench's training setup:
-    bf16 over float32 masters, area-weighted MSE, AdamW, value clipping at
-    32, rollout 1; the processor's per-layer remat as configured (default:
-    ``save_attention``)."""
+    bf16 over float32 masters, area-weighted MSE (or ``losses``), AdamW,
+    value clipping at 32, rollout 1; the processor's per-layer remat as
+    configured (default: ``save_attention``)."""
     from anemoi_tpu_torch.models.interface import AnemoiModelInterface
     from anemoi_tpu_torch.training.optimizers import build_optimizer
     from anemoi_tpu_torch.training.step import TrainState, make_step_fns
@@ -1167,7 +1201,8 @@ def build_training(graph, device, config):
                                  training=True)
     tx = build_optimizer({"lr": {"rate": 1e-4, "warmup": 10, "iterations": 1000},
                           "gradient_clip": {"val": 32.0, "algorithm": "value"}})
-    train_step, _ = make_step_fns(iface, training_losses(graph), rollout=1, precision="bf16")
+    train_step, _ = make_step_fns(iface, losses or training_losses(graph), rollout=1,
+                                  precision="bf16")
     return iface, TrainState.create(iface, tx), train_step
 
 
@@ -2048,13 +2083,14 @@ def family_train(workdir: str, device, label: str, path: str, overrides: list, s
 
 
 def family_predict(workdir: str, device, label: str, run_dir: str, k1_per_step: int,
-                   split: int = 0) -> dict:
+                   split: int = 0, bitwise: bool = False) -> dict:
     """``cli predict`` on the bundle of ``run_dir``, ``STEPS`` steps: exit 0,
     exactly ``k1_per_step`` K1 a step and no other kernel, a finite forecast
     of the right shape, within relative L2 2e-2 of the same bundle served
     in-process on the plain attention (on the kernels, for a model with no
-    attention: the sums' atomics vary the last bits); the in-process
-    forecast's wall and device ms a step and peak memory."""
+    attention: the sums' atomics vary the last bits); with ``bitwise``, also
+    equal bit for bit to the in-process forecast on the kernels; the
+    in-process forecast's wall and device ms a step and peak memory."""
     import numpy as np
 
     from anemoi_tpu_torch import kernels
@@ -2086,6 +2122,14 @@ def family_predict(workdir: str, device, label: str, run_dir: str, k1_per_step: 
     window = dataset.get_window(0, iface.model.n_step_input + STEPS)
     batch = {"data": torch.from_numpy(window[None]).to(iface.device)}
     forecast = make_forecast_fn(iface, steps=STEPS)
+    if bitwise:
+        same = forecast(batch)["data"].cpu().numpy()
+        max_abs = float(np.abs(out - same).max())
+        print(f"[{label}] cli predict vs make_forecast_fn in-process: max |diff| {max_abs:.3e} "
+              "(want 0: same bundle, window and kernels)", flush=True)
+        if not np.array_equal(out, same):
+            raise RuntimeError(f"{label}: the CLI's forecast differs from the in-process one "
+                               f"(max |diff| {max_abs:.3e})")
     iface.use_plain_attention(bool(k1_per_step))
     ref = forecast(batch)["data"].cpu().numpy()
     iface.use_plain_attention(False)
@@ -2269,13 +2313,15 @@ NAN_VARIABLE = "t_850"  # the stretched phase's prognostic variable with a NaN b
 NAN_BOX = (45.0, 70.0, 30.0, 60.0)  # lat min/max, lon min/max (degrees): partly in the area
 
 
-def graph_summary(label: str, graph) -> dict:
-    """The hidden node count, each edge set's count and its sources' and
-    destinations' degree ranges, printed and returned."""
+def graph_summary(label: str, graph, hidden: str = "hidden") -> dict:
+    """The ``hidden`` node count (and the area's, on a limited-area graph),
+    each edge set's count and its sources' and destinations' degree ranges,
+    printed and returned."""
     import numpy as np
 
-    out = {"hidden_nodes": graph["hidden"].num_nodes,
-           "area_nodes": int(graph["data"].attributes["cutout_mask"].sum())}
+    out = {"hidden_nodes": graph[hidden].num_nodes}
+    if "cutout_mask" in graph["data"].attributes:
+        out["area_nodes"] = int(graph["data"].attributes["cutout_mask"].sum())
     for (src, dst), es in graph.edges.items():
         out_deg = np.bincount(es.edge_index[0], minlength=graph[src].num_nodes)
         in_deg = np.diff(es.dst_ptr)
@@ -2726,9 +2772,365 @@ def transport_phase(workdir: str, device) -> dict:
     return result
 
 
+HIERARCHICAL_PRESETS = {  # label -> (preset, callbacks: the flat model's phase of the task)
+    "hierarchical": ("hierarchical", None),  # the default diagnostics (the rollout evaluation)
+    "hierarchical_autoencoder": ("hierarchical_autoencoder", LR_ONLY),  # as phase 17
+}
+DOWN_SET = ("hidden_1", "hidden_2")  # the V-cycle's down mapper: KNN-3 from each hidden_2 node
+
+
+def hierarchical_launches(config: dict, graph) -> dict:
+    """A hierarchical training step's launches from the config and the graph:
+    K1 and K3 once a GraphTransformer block -- the encoder and the decoder,
+    the down and up mappers between levels (the up mappers from
+    ``up_mapper`` where the config has it) and the layers of each level's
+    processor that has edges (below the deepest level twice, down and up, at
+    ``level_process_num_layers``); on each block's edge set K5 where the JAX
+    hierarchical model picks the fused backward (``paged_fused_bwd`` on the
+    level sets, ``paged_mapper_fused_bwd``, default ``paged_fused_bwd``, on
+    the mappers'), else K4.  A forecast step launches the same K1."""
+    from anemoi_tpu_torch.models.graph import infer_hidden_names
+
+    model = config["model"]
+    levels = list(model.get("hidden_names") or infer_hidden_names(graph.node_names()))
+    fused = bool(model.get("paged_fused_bwd", False))
+    mapper_key = model.get("paged_mapper_fused_bwd")
+    mapper_fused = fused if mapper_key is None else bool(mapper_key)
+
+    def gt(cfg):
+        return str((cfg or {}).get("name", "")).startswith("GraphTransformer")
+
+    between = len(levels) - 1
+    blocks = [mapper_fused] * (gt(model["encoder"]) * (1 + between) + gt(model["decoder"])
+                               + gt(model.get("up_mapper", model["decoder"])) * between)
+    process = model.get("enable_hierarchical_level_processing", model.get("level_process", True))
+    proc = model["processor"]
+    if process and gt(proc):
+        for i, h in enumerate(levels):
+            if (h, h) not in graph.edges:
+                continue
+            if i == len(levels) - 1:
+                blocks += [fused] * int(proc["num_layers"])
+            else:
+                layers = model.get("level_process_num_layers") or proc["num_layers"]
+                blocks += [fused] * 2 * int(layers)
+    return {**NO_LAUNCHES, "K1": len(blocks), "K3": len(blocks), "K4": blocks.count(False),
+            "K5": blocks.count(True)}
+
+
+def down_set_backward(graph, device) -> dict:
+    """K3 + K4 at the V-cycle's down set (``hidden_1 -> hidden_2``, KNN-3 from
+    each ico-3 node: most ico-5 sources have no edge) against the plain
+    backward, the flagship's fused edge projection, HD 512, float32 and
+    bfloat16, within the phase-4 gates; the dk and dv rows of the sources
+    with no edge exactly 0.  Rows for K3 and K4, timed as in phase 4."""
+    from anemoi_tpu_torch.kernels import gt_attention as kern
+    from anemoi_tpu_torch.ops.gt_attention import (
+        SourceOrder, gt_attention_bwd_kernels, gt_attention_bwd_plain,
+    )
+
+    es = graph[DOWN_SET]
+    n_src, n_dst = graph[DOWN_SET[0]].num_nodes, graph[DOWN_SET[1]].num_nodes
+    ei = torch.as_tensor(es.edge_index, dtype=torch.int32, device=device).contiguous()
+    ptr = torch.as_tensor(es.dst_ptr, dtype=torch.int32, device=device)
+    order = SourceOrder.of(ei, n_src)
+    no_edge = torch.bincount(ei[0].long(), minlength=n_src) == 0
+    attr32 = torch.as_tensor(es.attribute_matrix(["edge_length", "edge_dirs"]), device=device)
+    n_e, n_f = attr32.shape
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    rows = {"K3": [], "K4": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+        q, k, v, g = rnd(1, n_dst, HD), rnd(1, n_src, HD), rnd(1, n_src, HD), rnd(1, n_dst, HD)
+        edge_kw = dict(edge_attr=attr32.to(dtype), weight=rnd(HD, n_f, scale=0.3).t(),
+                       bias=rnd(HD, scale=0.1))
+        out, lse = kern.gt_attention_fused_edge(q, k, v, *edge_kw.values(), ei, ptr, HEADS)
+        ref = gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g, **edge_kw)
+        kern.reset_launches()
+        got = gt_attention_bwd_kernels(q, k, v, ei, ptr, order.src_ptr, order.src_perm, HEADS,
+                                       out, lse, g, fused_bwd=False, **edge_kw)
+        torch.cuda.synchronize()
+        launches = kern.launch_counts()  # the graph attention's K1-K5
+        if launches != {name: int(name in ("K3", "K4")) for name in launches}:
+            raise RuntimeError(f"down set backward: launches {launches}, want one K3 and one K4")
+        errs = {}
+        for name in ("dq", "dk", "dv", "d_attr", "d_weight", "d_bias"):
+            x, y = getattr(got, name).float(), getattr(ref, name).float()
+            errs[name] = (x - y).abs().max().item()
+            if not (errs[name] <= TOL[dtype] * y.abs().max().item() and torch.isfinite(x).all()):
+                raise RuntimeError(f"down set backward {dtype} {name}: max abs err "
+                                   f"{errs[name]:.3e}, max|ref| {y.abs().max().item():.3e}")
+        zero_rows = [name for name in ("dk", "dv")
+                     if getattr(got, name)[:, no_edge].count_nonzero().item()]
+        if zero_rows:
+            raise RuntimeError(f"down set backward {dtype}: {zero_rows} not exactly 0 at the "
+                               f"{int(no_edge.sum())} sources with no edge")
+        print(f"[hierarchical] K3 + K4 at the down set ({n_e} edges, {int(no_edge.sum())} of "
+              f"{n_src} sources with no edge), {dtype}: max abs errors {errs}; dk and dv "
+              "exactly 0 at the sources with no edge", flush=True)
+        delta = (out.float() * g.float()).reshape(1, n_dst, HEADS, -1).sum(-1)
+        path_kw = dict(edge_grad=False, weight_grad=True)
+        dkv = kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw,
+                                        **path_kw).dkv
+        ms = {"K3": cuda_ms(lambda: kern.gt_attention_bwd_dst(
+                  q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
+              "K4": cuda_ms(lambda: kern.gt_attention_bwd_src(dkv, order.src_ptr,
+                                                              order.src_perm))}
+        src = ei[0].long()
+        k4_plain_ms = cuda_ms(lambda: torch.zeros(1, n_src, 2 * HD, device=device).index_add_(
+            1, src, dkv.float()))
+        k4_library_ms = cuda_ms(lambda: torch.zeros(1, n_src, 2 * HD, device=device,
+                                                    dtype=dtype).index_add_(1, src, dkv))
+        plain_ms = cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g,
+                                                          **edge_kw), reps=10, warmup=2)
+        bounds = backward_bounds(n_dst, n_src, n_e, n_f, q.element_size(), True)
+        base = {"edge_set": "->".join(DOWN_SET), "dtype": str(dtype).split(".")[-1],
+                "fused_edge": True, "n_dst": n_dst, "n_src": n_src, "n_edges": n_e,
+                "sources_without_edges": int(no_edge.sum()), "no_edge_rows_exactly_0": True}
+        rows["K3"].append({**base, "ms": ms["K3"], "plain_ms": plain_ms,
+                           "plain_is": "gt_attention_bwd_plain", "library_ms": None,
+                           "bound_ms": bounds["K3"][0], "bound_by": bounds["K3"][1],
+                           "max_abs_err": max(errs[n] for n in errs if n not in ("dk", "dv")),
+                           "errors": errs})
+        rows["K4"].append({**base, "ms": ms["K4"], "plain_ms": k4_plain_ms,
+                           "plain_is": "float32 index_add_ of dkv", "library_ms": k4_library_ms,
+                           "library_is": "index_add_ of dkv", "bound_ms": bounds["K4"][0],
+                           "bound_by": bounds["K4"][1],
+                           "max_abs_err": max(errs["dk"], errs["dv"])})
+        for name in rows:
+            print(f"[hierarchical] {name} {rows[name][-1]}", flush=True)
+        del q, k, v, g, out, lse, ref, got, dkv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hierarchical_ratio_2_step(cfg: dict, graph, device) -> dict:
+    """One fixed-batch training step of the preset at ``level_channel_ratio``
+    2 (hidden_2, the down and the up mappers at 1024 channels, HD 1024):
+    exactly ``hierarchical_launches``, the gradient gate, wall and device ms
+    a step and peak memory."""
+    cfg = json.loads(json.dumps(cfg))
+    cfg["model"]["level_channel_ratio"] = 2
+    batch = training_batch(graph, device)
+    iface, state, train_step = build_training(graph, device, cfg)
+    c = int(cfg["model"]["num_channels"])
+    if iface.model.dims != [c, 2 * c]:
+        raise RuntimeError(f"hierarchical ratio 2: level widths {iface.model.dims}")
+    launches, loss, _ = one_step(state, train_step, batch)
+    want = hierarchical_launches(cfg, graph)
+    if launches != want:
+        raise RuntimeError(f"hierarchical ratio 2: launches {launches}, want {want}")
+    gap = grad_gap(iface, state, train_step, batch, "hierarchical ratio 2 K3 + K4")
+    ms, runs, peak = timed_steps(device, state, train_step, batch)
+    device_ms, device_launches = profiled_device_ms(lambda: train_step(state, batch), 1)
+    result = {"level_dims": iface.model.dims, "launches": launches, "first_loss": loss,
+              "grad_rel_l2_vs_plain": gap, "ms_per_step": ms, "ms_per_step_runs": runs,
+              "device_ms_per_step": device_ms, "device_launches_per_step": device_launches,
+              "peak_memory_bytes": peak}
+    print(f"[hierarchical] ratio 2 fixed-batch step: {json.dumps(result)}", flush=True)
+    del iface, state, train_step
+    torch.cuda.empty_cache()
+    return result
+
+
+def hierarchical_phase(workdir: str, device) -> dict:
+    """Phase 23: ``hierarchical.yaml`` and ``hierarchical_autoencoder.yaml``
+    at their width (512 channels, 16 heads, 2 layers a level, the packaged
+    o96 -> ico-5 -> ico-3 graph) over phase 9's store, bf16: ``cli train``
+    ``FAMILY_STEPS`` steps, exactly ``hierarchical_launches`` a step, the
+    gradient gate; ``cli predict`` 2 steps, equal bit for bit to the
+    in-process forecast and within the serving gate of the plain
+    attention; then K3 + K4 at the down set (``down_set_backward``) and a
+    fixed-batch step at ``level_channel_ratio`` 2."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    graph_file = os.path.join(workdir, "graph_hierarchical.npz")
+    result = {}
+    for label, (preset, callbacks) in HIERARCHICAL_PRESETS.items():
+        path = os.path.join(PACKAGED_CONFIG_DIR, f"{preset}.yaml")
+        overrides = [f"graph.save_path={graph_file}"] + ([callbacks] if callbacks else [])
+        cfg = composed_preset(path, overrides, {
+            "model.num_channels": 512, "model.hidden_names": ["hidden_1", "hidden_2"],
+            "model.processor.num_layers": 2, "model.processor.num_heads": 16,
+            "graph.recipe.nodes.hidden_1.node_builder.resolution": 5,
+            "graph.recipe.nodes.hidden_2.node_builder.resolution": 3})
+        train, run_dir, _ = family_train(
+            workdir, device, label, path, overrides, FAMILY_STEPS,
+            lambda t: hierarchical_launches(t.config, t.graph), split=8)
+        want = hierarchical_launches(cfg, Graph.load(graph_file))
+        predict = family_predict(workdir, device, label, run_dir, want["K1"], split=8,
+                                 bitwise=True)
+        result[label] = {"train": train, "predict": predict}
+        print(f"[{label}] {json.dumps(result[label])}", flush=True)
+    graph = Graph.load(graph_file)
+    result["graph"] = graph_summary("hierarchical", graph, "hidden_1")
+    result["down_set_rows"] = down_set_backward(graph, device)
+    result["ratio_2"] = hierarchical_ratio_2_step(
+        composed_preset(os.path.join(PACKAGED_CONFIG_DIR, "hierarchical.yaml"),
+                        [f"graph.save_path={graph_file}"], {}), graph, device)
+    return result
+
+
+SHT_N = 96  # the o96 grid of every packaged preset
+SHT_FIELDS = 12  # B * V of the timed transform
+SHT_BAND_M = 9  # the shortest O96 ring (20 points) resolves m <= 9
+SHT_CPU_TOL = 1e-4  # max |card - CPU| / max |CPU| of the coefficients
+
+
+def sht_checks(device) -> dict:
+    """``ReducedSHT`` octahedral at n = 96 (``lmax`` 95) on the card: a
+    band-limited field (l <= 95, m <= 9) survives synthesis, analysis and
+    synthesis again within the tolerance of the JAX package's own round
+    trip (rtol 1e-4, atol 1e-5); the card's coefficients of a random field
+    against the port's CPU transform; analysis + synthesis of 12 fields
+    timed (CUDA events) beside the bytes and operations they need."""
+    import numpy as np
+
+    from anemoi_tpu_torch.ops.spectral import ReducedSHT
+
+    sht = ReducedSHT.create(SHT_N, kind="octahedral")
+    rng = np.random.default_rng(SEED + 6)
+    L = sht.lmax + 1
+    l_idx, m_idx = np.meshgrid(np.arange(L), np.arange(L), indexing="ij")
+    coeffs = (rng.normal(size=(L, L)) + 1j * rng.normal(size=(L, L))).astype(np.complex64)
+    coeffs = np.where((m_idx <= l_idx) & (m_idx <= SHT_BAND_M), coeffs, 0).astype(np.complex64)
+    coeffs[:, 0] = coeffs[:, 0].real
+    c = torch.from_numpy(coeffs).to(device)
+    field = sht.synthesis(c)
+    back = sht.analysis(field)
+    field2 = sht.synthesis(back)
+    torch.cuda.synchronize()
+    gaps = {"coeffs": (back - c).abs().max().item(), "field": (field2 - field).abs().max().item()}
+    ok = (torch.allclose(back, c, rtol=1e-4, atol=1e-5)
+          and torch.allclose(field2, field, rtol=1e-4, atol=1e-5))
+    print(f"[spectral] O96 band-limited (l <= {L - 1}, m <= {SHT_BAND_M}) round trip on the card: "
+          f"max |diff| {gaps} (rtol 1e-4, atol 1e-5)", flush=True)
+    if not ok:
+        raise RuntimeError(f"spectral: the O96 round trip fails its tolerance: {gaps}")
+
+    x = torch.from_numpy(rng.normal(size=(SHT_FIELDS, sht.n_points)).astype(np.float32))
+    cpu = sht.analysis(x)
+    card = sht.analysis(x.to(device)).cpu()
+    cpu_gap = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    print(f"[spectral] O96 analysis of {SHT_FIELDS} fields, card vs CPU: max |diff| / max|CPU| "
+          f"{cpu_gap:.3e} (tol {SHT_CPU_TOL})", flush=True)
+    if not cpu_gap <= SHT_CPU_TOL:
+        raise RuntimeError(f"spectral: the card's coefficients disagree with the CPU's: {cpu_gap}")
+
+    xd = x.to(device)
+    ms = {"analysis": cuda_ms(lambda: sht.analysis(xd)),
+          "synthesis": cuda_ms(lambda: sht.synthesis(back.expand(SHT_FIELDS, L, L))),
+          "analysis_and_synthesis": cuda_ms(lambda: sht.synthesis(sht.analysis(xd)))}
+    # the ring products and the Legendre products each way, as the tables lay them out
+    nlat, nmax = sht.nlat, int(sht.ring_lengths.max())
+    flops = 2 * SHT_FIELDS * (2 * 2 * nlat * nmax * L + 2 * 2 * nlat * L * L)
+    table_bytes = 4 * (4 * nlat * nmax * L + 2 * L * L * nlat)
+    io_bytes = 4 * 2 * SHT_FIELDS * sht.n_points
+    bound_ms, bound_by = bound(table_bytes + io_bytes, flops)
+    result = {"n_points": sht.n_points, "lmax": sht.lmax, "fields": SHT_FIELDS,
+              "round_trip_max_abs": gaps, "card_vs_cpu": cpu_gap, "ms": ms,
+              "bound_ms_analysis_and_synthesis": bound_ms, "bound_by": bound_by,
+              "flops_analysis_and_synthesis": flops,
+              "table_bytes_on_device": sum(t.numel() * t.element_size()
+                                           for t in sht.tables(device).values())}
+    print(f"[spectral] O96 SHT: {json.dumps(result)}", flush=True)
+    return result
+
+
+def spectral_step(graph, device, store) -> dict:
+    """The example (phase 9's ``multi_scale`` graph, 512 channels, 16
+    layers) in one fixed-batch bf16 training step with ``CombinedLoss``
+    (area-weighted MSE + ``SpectralAMSELoss``, ``octahedral_sht``,
+    ``gaussian_n`` 96: the spectral leaf takes no grid scaler) and
+    ``residual: SpectralOrnsteinConnection`` (octahedral, 96): the store's
+    points first checked to be the O96 rings, north to south, from longitude
+    0; exactly 18 K1, K3 and K4; the gradient gate; wall and device ms a
+    step, and the same step with the area-weighted MSE and the plain skip:
+    the difference is what the transforms take."""
+    import numpy as np
+
+    from anemoi_tpu_torch.data.dataset import open_dataset
+    from anemoi_tpu_torch.flagship import example_o96_gt_config
+    from anemoi_tpu_torch.graphs.generate.gaussian import octahedral_gaussian_grid
+    from anemoi_tpu_torch.training.losses import get_loss_function
+    from anemoi_tpu_torch.training.losses.scalers import create_scalers
+
+    dataset = open_dataset({"kind": "zarr", "path": store})
+    rings = octahedral_gaussian_grid(SHT_N)
+    lon = np.where(rings[:, 1] < 0, rings[:, 1] + 2 * np.pi, rings[:, 1])
+    ds_lon = np.mod(dataset.longitudes, 2 * np.pi)
+    if not (np.allclose(dataset.latitudes, rings[:, 0], atol=1e-6)
+            and np.allclose(ds_lon, lon, atol=1e-6)
+            and np.allclose(graph["data"].coords, rings, atol=1e-6)):
+        raise RuntimeError("spectral: the store's or the graph's points are not the O96 rings "
+                           "in order")
+    print("[spectral] the store's and the graph's 40 320 points are the O96 rings, north to "
+          "south, each from longitude 0", flush=True)
+
+    scalers = create_scalers({"area": {"name": "GraphNodeAttributeScaler", "nodes_name": "data",
+                                       "attribute_name": "area_weight"}}, graph=graph)
+    spectral_loss = {"data": get_loss_function({
+        "name": "CombinedLoss", "loss_weights": [1.0, 0.5], "losses": [
+            {"name": "WeightedMSELoss", "scalers": ["area"]},
+            {"name": "SpectralAMSELoss", "transform": "octahedral_sht", "gaussian_n": SHT_N,
+             "scalers": []}]}, scalers)}
+    batch = training_batch(graph, device)
+    result = {}
+    for label, residual, losses in (
+            ("spectral", {"name": "SpectralOrnsteinConnection", "gaussian_n": SHT_N,
+                          "grid_kind": "octahedral", "theta_init": 0.3}, spectral_loss),
+            ("plain", None, None)):
+        cfg = example_o96_gt_config()
+        if residual is not None:
+            cfg["model"]["residual"] = residual
+        iface, state, train_step = build_training(graph, device, cfg, losses)
+        launches, loss, _ = one_step(state, train_step, batch)
+        want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
+                "K4": LAUNCHES_PER_STEP}
+        if launches != want:
+            raise RuntimeError(f"spectral {label} step: launches {launches}, want {want}")
+        gap = (grad_gap(iface, state, train_step, batch, f"spectral {label} K3 + K4")
+               if label == "spectral" else None)
+        ms, runs, peak = timed_steps(device, state, train_step, batch)
+        device_ms, device_launches, top = profiled_device_ms(
+            lambda: train_step(state, batch), 1, 8)
+        result[label] = {"launches": launches, "first_loss": loss, "grad_rel_l2_vs_plain": gap,
+                         "ms_per_step": ms, "ms_per_step_runs": runs,
+                         "device_ms_per_step": device_ms,
+                         "device_launches_per_step": device_launches,
+                         "device_ms_by_kernel": top, "peak_memory_bytes": peak}
+        print(f"[spectral] {label} fixed-batch step: {json.dumps(result[label])}", flush=True)
+        del iface, state, train_step
+        torch.cuda.empty_cache()
+    result["transforms_device_ms"] = (result["spectral"]["device_ms_per_step"]
+                                      - result["plain"]["device_ms_per_step"])
+    result["transforms_share"] = (result["transforms_device_ms"]
+                                  / result["spectral"]["device_ms_per_step"])
+    print(f"[spectral] the loss's and the residual's transforms: "
+          f"{result['transforms_device_ms']:.3f} device ms a step, "
+          f"{100 * result['transforms_share']:.1f} % of the step", flush=True)
+    return result
+
+
+def spectral_phase(workdir: str, device) -> dict:
+    """Phase 24: the spherical-harmonic transform at O96 on the card
+    (``sht_checks``) and the example's training step with the spectral loss
+    and the spectral Ornstein residual (``spectral_step``)."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+
+    result = {"sht": sht_checks(device)}
+    graph = Graph.load(os.path.join(workdir, "graph.npz"))  # phase 9's
+    result["step"] = spectral_step(graph, device, os.path.join(workdir, "example_o96.zarr"))
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
-           ens: dict, families: dict, transport: dict) -> dict:
+           ens: dict, families: dict, transport: dict, hierarchy: dict,
+           spectral: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -2741,8 +3143,10 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     ``predict``, each remat variant's flagship step (``remat: <variant>``)
     the YAML preset's trainer step at rollout 2, the ensemble's step and
     ``predict_step``, each family path's training step and 2-step
-    ``cli predict`` (phases 16-21), and each transport preset's training
-    step and generative ``cli predict`` (phase 22)."""
+    ``cli predict`` (phases 16-21), each transport preset's training
+    step and generative ``cli predict`` (phase 22), each hierarchical
+    preset's training step and ``cli predict`` and the ratio-2 step (phase
+    23), and the spectral and plain steps of phase 24."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
                "example_trainer_step": trainer["launches_per_step"],
@@ -2772,7 +3176,15 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                   for label, (_, _, steps) in TRANSPORT_PRESETS.items()
                   for kind, counts in (
                       ("train", transport[label]["train"]["launches_per_step"]),
-                      (f"predict_{steps}_steps", transport[label]["predict"]["launches"]))}}
+                      (f"predict_{steps}_steps", transport[label]["predict"]["launches"]))},
+               **{f"{label}_{kind}": counts
+                  for label in HIERARCHICAL_PRESETS
+                  for kind, counts in (
+                      ("train", hierarchy[label]["train"]["launches_per_step"]),
+                      ("predict_2_steps", hierarchy[label]["predict"]["launches"]))},
+               "hierarchical_ratio_2_step": hierarchy["ratio_2"]["launches"],
+               "spectral_loss_and_residual_step": spectral["step"]["spectral"]["launches"],
+               "spectral_plain_step": spectral["step"]["plain"]["launches"]}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
                "K4": "training_step", "K5": "training_step_fused_bwd",
                "K6": "transformer_serving_2_steps", "K7_dq": "transformer_training_step",
@@ -2885,8 +3297,12 @@ def main() -> int:
             "stretched": phase("stretched", stretched_phase, workdir, device),
         }
         transport = phase("transport", transport_phase, workdir, device)
+        hierarchy = phase("hierarchical", hierarchical_phase, workdir, device)
+        spectral = phase("spectral", spectral_phase, workdir, device)
+    for name, extra in hierarchy["down_set_rows"].items():
+        rows[name] += extra
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
-                 ens, families, transport)
+                 ens, families, transport, hierarchy, spectral)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -2896,6 +3312,7 @@ def main() -> int:
                        "transformer_serving": t_serving,
                        "transformer_training": t_training, "remat": remat, "presets": presets,
                        "ensemble": ens, "families": families, "transport": transport,
+                       "hierarchical": hierarchy, "spectral": spectral,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

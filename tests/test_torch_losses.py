@@ -294,3 +294,29 @@ def test_ademamix_trajectory_matches_jax(options):
         assert st["count"] == 10
         assert all(st[k].dtype == torch.float32 and st[k].shape == p.shape
                    for k in ("m1", "m2", "nu"))
+
+
+@pytest.mark.parametrize("name", ["adamw", "adam"])
+def test_adam_ignores_eps_as_jax_does(name):
+    """``training.optimizer.eps`` is swallowed by the JAX factories (optax
+    keeps 1e-8); the port's must swallow it too: with ``eps: 0.1`` both
+    packages' four float32 steps agree to 1e-6."""
+    cfg = {"optimizer": {"name": name, "eps": 0.1, "b1": 0.9, "b2": 0.95,
+                         **({"weight_decay": 0.01} if name == "adamw" else {})},
+           "lr": {"rate": 1e-2, "min": 1e-4, "warmup": 1, "iterations": 20}}
+    rng = np.random.default_rng(4)
+    init = rng.normal(size=(5, 7)).astype(np.float32)
+    grads = [rng.normal(size=init.shape).astype(np.float32) * 1e-3 for _ in range(4)]
+    tx = jax_build_optimizer(cfg)
+    params = jnp.asarray(init)
+    state = tx.init(params)
+    ours = torch.nn.Parameter(torch.from_numpy(init.copy()))
+    opt = build_optimizer(cfg)([ours])
+    for step, g in enumerate(grads):
+        updates, state = tx.update(jnp.asarray(g), state, params)
+        params = params + updates
+        ours.grad = torch.from_numpy(g.copy())
+        opt.step()
+        np.testing.assert_allclose(ours.detach().numpy(), np.asarray(params), rtol=0, atol=1e-6,
+                                   err_msg=f"step {step + 1}")
+    assert float(np.abs(np.asarray(params) - init).max()) > 1e-3  # the steps moved the weights

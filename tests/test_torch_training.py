@@ -287,17 +287,23 @@ def test_fused_backward_choice():
 
 
 def test_not_ported_pieces_raise(tiny):
-    # the losses that need the sparse projector or the spectral ops
-    for name in ("MultiscaleLossWrapper", "SpectralAMSELoss"):
-        with pytest.raises(NotImplementedError):
-            get_loss_function({"name": name}, {})
-    # the hierarchical family (the transport task is ported: tests/test_torch_transport.py)
-    hierarchical = config()
-    hierarchical["model"]["hidden_names"] = ["hidden", "hidden_2"]
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        AnemoiModelInterface(config=hierarchical, graph=tiny["port_graph"],
-                             data_indices=flagship_indices(), statistics=tiny["stats"],
-                             device="cpu", training=True)
+    # the loss that needs the sparse projector (the spectral losses are
+    # ported: tests/test_torch_spectral.py)
+    with pytest.raises(NotImplementedError):
+        get_loss_function({"name": "MultiscaleLossWrapper"}, {})
+    # the Transformer mappers and the dynamic edge providers (the hierarchical
+    # family is ported: tests/test_torch_hierarchical.py)
+    transformer_mapper = config()
+    transformer_mapper["model"]["encoder"] = {"name": "TransformerForwardMapper",
+                                              "num_heads": 4}
+    edge_provider = config()
+    edge_provider["model"]["decoder"] = {**edge_provider["model"]["decoder"],
+                                         "edge_provider": {"num_nearest_neighbours": 3}}
+    for cfg, match in ((transformer_mapper, "not ported"), (edge_provider, "edge provider")):
+        with pytest.raises(NotImplementedError, match=match):
+            AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
+                                 data_indices=flagship_indices(), statistics=tiny["stats"],
+                                 device="cpu", training=True)
     iface, _, _, _ = port_setup(tiny)
     losses = {"data": get_loss_function(LOSS, {})}
     make_step_fns(iface, losses, rollout=1, ensemble_size=2)  # ported: tests/test_torch_ensemble.py
