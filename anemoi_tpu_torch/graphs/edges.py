@@ -1,7 +1,8 @@
 """Edge builders and edge attributes.
 
 Copy of ``anemoi_tpu.graphs.edges``, trimmed to the builders the flagship
-recipe uses.  Distance queries run on unit-sphere cartesian coordinates with
+recipe uses, and ``GaussianDistanceWeights`` (the projection weights of
+``graphs/builders.py``).  Distance queries run on unit-sphere cartesian coordinates with
 ``scipy.spatial.cKDTree`` (the JAX package uses scikit-learn, which the GPU
 machine does not have).  Neighbours come back sorted by distance in both, so
 the edge order within a destination agrees except where two distances tie.
@@ -140,12 +141,35 @@ def edge_direction(
     return normalise(d.astype(np.float32), norm)
 
 
+def gaussian_distance_weights(
+    graph: Graph, source_name: str, target_name: str, edge_index: np.ndarray,
+    sigma_factor: Optional[float] = None, sigma: Optional[float] = None,
+    norm: Optional[str] = None,
+) -> np.ndarray:
+    """``exp(-d^2 / (2 sigma^2))`` of the haversine edge length ``d``.
+    ``sigma`` is absolute; ``sigma_factor`` (default 1) scales the mean edge
+    length instead.  ``norm: l1`` normalises per target node in float64 (a
+    projection's rows sum to 1); other norms act on the whole set."""
+    src, dst = _edge_coords(graph, source_name, target_name, edge_index)
+    d = great_circle_distance(src, dst)
+    if sigma is None:
+        sigma = (sigma_factor if sigma_factor is not None else 1.0) * max(float(d.mean()), 1e-12)
+    w = np.exp(-0.5 * (d / sigma) ** 2).astype(np.float64)
+    if norm == "l1":
+        target = edge_index[1]
+        sums = np.zeros(graph[target_name].num_nodes, dtype=np.float64)
+        np.add.at(sums, target, w)
+        return (w / np.maximum(sums[target], 1e-30)).astype(np.float32)[:, None]
+    return normalise(w.astype(np.float32)[:, None], norm)
+
+
 EDGE_BUILDERS = {
     "CutOffEdges": cutoff_edges,
     "KNNEdges": knn_edges,
     "MultiScaleEdges": multi_scale_edges,
 }
-EDGE_ATTRIBUTES = {"EdgeLength": edge_length, "EdgeDirection": edge_direction}
+EDGE_ATTRIBUTES = {"EdgeLength": edge_length, "EdgeDirection": edge_direction,
+                   "GaussianDistanceWeights": gaussian_distance_weights}
 
 
 def build_edges(graph: Graph, config: Dict) -> np.ndarray:

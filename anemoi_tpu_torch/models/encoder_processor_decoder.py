@@ -12,14 +12,24 @@ processor over the hidden mesh -> latent skip -> decoder (hidden -> data) ->
 [B,T,E,G,V] -> residual added on the prognostic variables -> boundings.
 
 Components, by the config's ``name`` (the JAX ``ENCODERS``, ``PROCESSORS``
-and ``DECODERS``, :data:`COMPONENTS`): the GraphTransformer, GNN and
-point-wise mappers; the ``GraphTransformerProcessor``, ``GNNProcessor``,
-``PointWiseMLPProcessor`` and the dense ``TransformerProcessor``
-(sliding-window attention over the hidden nodes in their order).  The
-point-wise and dense processors read no processor edges: their edge set
-stays in the graph, unread, or is empty on a graph without processor edges.
-Ported: every model on one device.  The Transformer mappers, dynamic edge
-providers and model parallelism raise ``NotImplementedError``.  The
+and ``DECODERS``, :data:`COMPONENTS`): the GraphTransformer, GNN,
+point-wise and dense cross-attention Transformer mappers; the
+``GraphTransformerProcessor``, ``GNNProcessor``, ``PointWiseMLPProcessor``
+and the dense ``TransformerProcessor`` (sliding-window attention over the
+hidden nodes in their order).  The point-wise and dense processors read no
+processor edges: their edge set stays in the graph, unread, or is empty on
+a graph without processor edges.
+
+A mapper's ``edge_provider`` named ``DynamicKNN`` (``num_nearest_neighbours``
+k, default 3; ``attributes``, default ``[edge_dirs, edge_length]``;
+``max_out_degree``, the JAX package's transpose-table width, read and
+unused: the port's source order is exact) replaces its static edge set, in
+this model and its ensemble and autoencoder subclasses, by the kNN set of
+its node sets' coordinates, built on the device every forward
+(``ops/dynamic.py``; JAX ``_dynamic_edge_data``).  Any other provider is
+dropped, as the JAX package drops it.
+Ported: every model on one device.  Model parallelism raises
+``NotImplementedError``.  The
 ``graph_attention_backend`` values of the JAX package (paged, padded,
 segment) all select the port's one CSR attention and the GNN's one
 ``index_add_`` sum.  The attention's backward on each edge set follows the
@@ -36,7 +46,7 @@ import torch
 from torch import nn
 
 from anemoi_tpu_torch.data_indices.collection import IndexCollection
-from anemoi_tpu_torch.models.graph import ModelGraph
+from anemoi_tpu_torch.models.graph import ModelGraph, SubGraphArrays
 from anemoi_tpu_torch.models.layers.bounding import build_boundings
 from anemoi_tpu_torch.models.layers.embed import NamedNodesAttributes
 from anemoi_tpu_torch.models.layers.ensemble import build_noise_injector
@@ -48,6 +58,8 @@ from anemoi_tpu_torch.models.layers.mapper import (
     PointWiseBackwardMapper,
     PointWiseForwardMapper,
     TrainableEdgeFeatures,
+    TransformerBackwardMapper,
+    TransformerForwardMapper,
 )
 from anemoi_tpu_torch.models.layers.processor import (
     GNNProcessor,
@@ -56,6 +68,11 @@ from anemoi_tpu_torch.models.layers.processor import (
     TransformerProcessor,
 )
 from anemoi_tpu_torch.models.layers.residual import build_residual
+from anemoi_tpu_torch.ops.dynamic import (
+    ATTRIBUTE_WIDTHS,
+    runtime_edge_attributes,
+    runtime_knn,
+)
 
 LOGGER = logging.getLogger(__name__)
 BACKENDS = ("paged", "padded", "segment")
@@ -92,6 +109,13 @@ COMPONENTS = {
         "decoder", PointWiseBackwardMapper, ("mlp_hidden_ratio",),
         ("hidden_dim", "out_channels_dst", "edge_trainable_size", "backend",
          "initialise_data_extractor_zero")),
+    "TransformerForwardMapper": (
+        "encoder", TransformerForwardMapper, ("num_heads", "mlp_hidden_ratio"),
+        ("hidden_dim", "edge_trainable_size", "backend")),
+    "TransformerBackwardMapper": (
+        "decoder", TransformerBackwardMapper, ("num_heads", "mlp_hidden_ratio"),
+        ("hidden_dim", "out_channels_dst", "edge_trainable_size", "backend",
+         "initialise_data_extractor_zero")),
     "GraphTransformerProcessor": (
         "processor", GraphTransformerProcessor, ("num_layers", *_GT, "scan_unroll"),
         ("num_channels", "edge_trainable_size", "conditional", "scan_layers", "backend",
@@ -123,8 +147,9 @@ def _component(config: dict, part: str):
     ``DECODERS``).  As the JAX ``_field_filter`` does, keys that are no
     field of the chosen JAX module (left behind by preset composition) are
     dropped with a warning; fields that only steer the TPU's execution (scan,
-    backend) are dropped silently; a dynamic edge provider and Ulysses head
-    sharding, which change the execution and are not ported, raise.  The
+    backend) and the edge provider (read by the model, :func:`dynamic_knn`)
+    are dropped silently; Ulysses head sharding, which is not ported,
+    raises.  The
     processors' ``conditional`` is applied by the model (the conditioning's
     width); the GT processor's ``scan_unroll`` is checked against its depth,
     as the JAX processor checks it."""
@@ -133,8 +158,7 @@ def _component(config: dict, part: str):
     if name not in COMPONENTS or COMPONENTS[name][0] != part:
         raise NotImplementedError(f"{part} '{name}' is not ported to anemoi_tpu_torch")
     _, cls, ported, other = COMPONENTS[name]
-    if cfg.pop("edge_provider", None):
-        raise NotImplementedError(f"{part}: dynamic edge providers are not ported")
+    cfg.pop("edge_provider", None)
     if cfg.get("shard_strategy", "none") != "none":
         raise NotImplementedError(f"{part}: Ulysses head sharding (shard_strategy) is not ported")
     if "num_heads" in ported and "num_heads" not in cfg:
@@ -171,12 +195,45 @@ def fused_backward(config: dict, part: str, num_edges: int, num_channels: int) -
     return fused or (auto and num_edges * 1.7 * 3 * num_channels * 2 > 2e9)
 
 
+def dynamic_knn(config: dict, part: str) -> Optional[dict]:
+    """The ``DynamicKNN`` edge provider of the ``encoder`` or ``decoder``
+    config, or None (no provider, or another one, which the JAX package
+    drops)."""
+    provider = (config.get(part) or {}).get("edge_provider")
+    if not provider or provider.get("name") != "DynamicKNN":
+        return None
+    provider = dict(provider)
+    attrs = tuple(provider.get("attributes", ("edge_dirs", "edge_length")))
+    unknown = [a for a in attrs if a not in ATTRIBUTE_WIDTHS]
+    if unknown:
+        raise ValueError(f"{part}: unsupported runtime edge attributes {unknown} "
+                         f"(known: {sorted(ATTRIBUTE_WIDTHS)})")
+    provider["attributes"] = attrs
+    provider["k"] = int(provider.get("num_nearest_neighbours", 3))
+    return provider
+
+
+def dynamic_subgraph(provider: dict, src_feat: torch.Tensor, dst_feat: torch.Tensor,
+                     dtype: torch.dtype, fused_bwd: bool) -> SubGraphArrays:
+    """The runtime kNN sub-graph of one mapper from its node sets' float32
+    sincos features: edges, device source order and attributes (in
+    ``dtype``, the static sets' type), as K1 / K3 / K4 take them."""
+    edges = runtime_knn(src_feat, dst_feat, provider["k"])
+    attr = runtime_edge_attributes(src_feat, dst_feat, edges.edge_index, provider["attributes"])
+    return SubGraphArrays(
+        edge_index=edges.edge_index, dst_ptr=edges.dst_ptr, edge_attr=attr.to(dtype),
+        num_src=edges.num_src, num_dst=edges.num_dst, src_ptr=edges.source.src_ptr,
+        src_perm=edges.source.src_perm, fused_bwd=fused_bwd,
+    )
+
+
 class AnemoiModelEncProcDec(nn.Module):
     """The deterministic encoder-processor-decoder.  ``statistics`` (per
     dataset) seeds a ``ScalarOrnsteinConnection``'s theta, as in the JAX
     package."""
 
     fcstep_input = False  # the ensemble model's forecast-step input channel
+    runtime_edges = True  # a DynamicKNN provider replaces a mapper's edges
 
     def __init__(
         self, *, graph: ModelGraph, data_indices: Dict[str, IndexCollection], config: dict,
@@ -196,8 +253,20 @@ class AnemoiModelEncProcDec(nn.Module):
         def trainable_size(part):
             return int((config.get(part) or {}).get("trainable_size", 0))
 
+        self.dynamic = {part: dynamic_knn(config, part) if self.runtime_edges else None
+                        for part in ("encoder", "decoder")}
+
         def edge_dim(part, sub):
-            return sub.edge_dim + trainable_size(part)
+            provider = self.dynamic.get(part)
+            if provider is None:
+                return sub.edge_dim + trainable_size(part)
+            return sum(ATTRIBUTE_WIDTHS[a] for a in provider["attributes"]) + trainable_size(part)
+
+        def num_edges(part, ds):
+            provider = self.dynamic[part]
+            if provider is None:
+                return getattr(graph, part)[ds].num_edges
+            return graph.num_nodes[hidden if part == "encoder" else ds] * provider["k"]
 
         (enc_name, enc_cls, enc), (proc_name, proc_cls, proc), (dec_name, dec_cls, dec) = (
             _component(config, p) for p in ("encoder", "processor", "decoder"))
@@ -238,7 +307,7 @@ class AnemoiModelEncProcDec(nn.Module):
         # trainable edge features live on the graph providers, as in anemoi-core
         if trainable_size("encoder") and enc_name in EDGE_COMPONENTS:
             self.encoder_graph_provider = nn.ModuleDict({
-                ds: TrainableEdgeFeatures(graph.encoder[ds].num_edges, trainable_size("encoder"))
+                ds: TrainableEdgeFeatures(num_edges("encoder", ds), trainable_size("encoder"))
                 for ds in datasets
             })
         if trainable_size("processor") and self.processor_edges:
@@ -247,7 +316,7 @@ class AnemoiModelEncProcDec(nn.Module):
             )
         if trainable_size("decoder") and dec_name in EDGE_COMPONENTS:
             self.decoder_graph_provider = nn.ModuleDict({
-                ds: TrainableEdgeFeatures(graph.decoder[ds].num_edges, trainable_size("decoder"))
+                ds: TrainableEdgeFeatures(num_edges("decoder", ds), trainable_size("decoder"))
                 for ds in datasets
             })
 
@@ -273,7 +342,8 @@ class AnemoiModelEncProcDec(nn.Module):
         self.latent_skip = bool(config.get("latent_skip", True))
 
     def _build_residual(self, ds: str, statistics: Optional[dict]) -> nn.Module:
-        return build_residual(self.config.get("residual"), self.data_indices[ds], statistics)
+        return build_residual(self.config.get("residual"), self.data_indices[ds], statistics,
+                              graph=self.graph.source_graph, dataset=ds)
 
     def _init_output(self, statistics: Optional[Dict[str, dict]]) -> None:
         """Per dataset: the residual, the boundings and the prognostic
@@ -338,6 +408,17 @@ class AnemoiModelEncProcDec(nn.Module):
     def output_dim(self, ds: str) -> int:
         return self.n_step_output * self.data_indices[ds].num_model_output_vars
 
+    def _mapper_edges(self, part: str, src: str, dst: str, static) -> SubGraphArrays:
+        """The mapper's edge set: the static one, or its ``DynamicKNN``
+        provider's, built now from the node sets' coordinates."""
+        provider = self.dynamic[part]
+        if provider is None:
+            return static
+        feats = self.graph.node_features_f32
+        fused = fused_backward(self.config, part, self.graph.num_nodes[dst] * provider["k"],
+                               self.num_channels)
+        return dynamic_subgraph(provider, feats[src], feats[dst], static.edge_attr.dtype, fused)
+
     def _edges(self, provider: str, sub, ds: str | None = None) -> torch.Tensor:
         trainable = getattr(self, provider, None)
         if trainable is None:
@@ -376,7 +457,7 @@ class AnemoiModelEncProcDec(nn.Module):
                 # [x, node attrs, fcstep], the step clamped to min(1, fcstep)
                 parts.append(flat.new_full((bflat, xd.shape[3], 1), float(min(1, fcstep))))
             x_latent_in = torch.cat(parts, dim=-1)
-            sub = graph.encoder[ds]
+            sub = self._mapper_edges("encoder", ds, hidden, graph.encoder[ds])
             x_data_latent[ds], x_latent = self.encoder[ds](
                 (x_latent_in, x_hidden_latent), sub, self._edges("encoder_graph_provider", sub, ds)
             )
@@ -401,7 +482,7 @@ class AnemoiModelEncProcDec(nn.Module):
         out = {}
         for ds in datasets:
             idx = self.data_indices[ds]
-            sub = graph.decoder[ds]
+            sub = self._mapper_edges("decoder", hidden, ds, graph.decoder[ds])
             x_out = self.decoder[ds](
                 (x_latent_proc, x_data_latent[ds]), sub,
                 self._edges("decoder_graph_provider", sub, ds),

@@ -81,6 +81,11 @@ class ModelGraph:
     level: Dict[str, SubGraphArrays] = field(default_factory=dict)  # h -> (h -> h)
     down: Dict[str, SubGraphArrays] = field(default_factory=dict)  # h_i -> (h_i -> h_i+1)
     up: Dict[str, SubGraphArrays] = field(default_factory=dict)  # h_i+1 -> (h_i+1 -> h_i)
+    # the host graph (the truncated residual's projections) and every node
+    # set's sincos features in float32 whatever the compute type (the
+    # dynamic edge providers' coordinates)
+    source_graph: Optional[Graph] = None
+    node_features_f32: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 def infer_hidden_names(node_names: Sequence[str]) -> List[str]:
@@ -124,10 +129,11 @@ def build_model_graph(
     (the bench uses ``[edge_dirs, edge_length]``; ``None`` means sorted names).
     With ``hidden_names`` (a hierarchy, finest level first, which must be
     ``hidden_name``), the V-cycle's level, down and up sub-graphs too."""
-    node_features = {
-        name: torch.as_tensor(sincos_coordinates(graph[name].coords), device=device).to(dtype)
+    node_features_f32 = {
+        name: torch.as_tensor(sincos_coordinates(graph[name].coords), device=device).float()
         for name in graph.node_names()
     }
+    node_features = {name: feat.to(dtype) for name, feat in node_features_f32.items()}
 
     def sub(src, dst, attrs):
         return extract_subgraph(graph, src, dst, attrs, device, dtype)
@@ -167,4 +173,6 @@ def build_model_graph(
         level=level,
         down=down,
         up=up,
+        source_graph=graph,
+        node_features_f32=node_features_f32,
     )

@@ -188,7 +188,8 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
         self._init_output(statistics)
 
     def _build_residual(self, ds: str, statistics: Optional[dict]) -> nn.Module:
-        return build_residual(self.config.get("residual"))
+        return build_residual(self.config.get("residual"), graph=self.graph.source_graph,
+                              dataset=ds)
 
     def _attrs(self, name: str, bflat: int, dt: torch.dtype) -> torch.Tensor:
         attrs = self.node_attributes(name, self.graph.node_features[name].to(dt))

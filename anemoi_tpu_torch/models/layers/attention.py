@@ -1,15 +1,26 @@
-"""Dense multi-head self-attention with sliding windows.
+"""Dense multi-head self-attention with sliding windows, and cross attention.
 
 Port of ``anemoi_tpu.models.layers.attention``: ``get_alibi_slopes``,
 ``apply_rotary_embeddings``, ``window_attention_plain`` (the port's copy of
-``_window_attention``) and ``MultiHeadSelfAttention``.  The projections are
-anemoi-core's separate ``lin_q``, ``lin_k``, ``lin_v`` and ``projection``
-(the JAX package fuses the first three into one ``qkv`` Dense and names the
-last ``out_proj``; ``models/port.py`` maps the names).
+``_window_attention``), ``MultiHeadSelfAttention`` and
+``MultiHeadCrossAttention``.  The projections are anemoi-core's separate
+``lin_q``, ``lin_k``, ``lin_v`` and ``projection`` (the JAX package fuses
+the self-attention's first three into one ``qkv`` Dense, names the cross
+attention's ``q``, ``k``, ``v``, and both last ones ``out_proj``;
+``models/port.py`` maps the names).
 
 The band runs through ``anemoi_tpu_torch.ops.window_attention`` (K6 forward
-and K7 backward on the card).  ``MultiHeadCrossAttention`` and Ulysses
-sequence parallelism (``shard_strategy: heads``) are not ported.
+and K7 backward on the card).  The cross attention is dense: every query
+attends to every key.  The JAX package computes it with ``einsum`` ->
+softmax -> ``einsum``, outside any Pallas kernel, so it is no kernel port:
+its plain version (:func:`cross_attention_plain`, float32 arithmetic) runs
+on the CPU, and on CUDA tensors :func:`cross_attention` calls
+``scaled_dot_product_attention`` restricted to its flash and
+memory-efficient backends, which never form the ``[B, H, Nq, Nk]`` logits
+(at o96 -> ico-5 with 16 heads the plain version's logits alone take 26 GB
+in float32).  A shape neither backend takes raises; the math backend is
+never picked.  Ulysses sequence parallelism (``shard_strategy: heads``) is
+not ported.
 """
 
 from __future__ import annotations
@@ -153,3 +164,60 @@ class MultiHeadSelfAttention(nn.Module):
         out = self_attention(q, k, v, self.window_size, self.softcap, slopes,
                              self.attention_impl, self.plain_attention)
         return self.projection(out.reshape(b, n, self.attn_channels))
+
+
+def cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Every query attends to every key: ``q [B, Nq, H, D]``, ``k``, ``v [B,
+    Nk, H, D]`` -> ``[B, Nq, H, D]``; float32 arithmetic, the output rounded
+    once to the input type."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.to(acc), k.to(acc)) / math.sqrt(q.shape[-1])
+    alpha = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhnm,bmhd->bnhd", alpha, v.to(acc)).to(q.dtype)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Dense cross attention, ``[B, Nq, H, D]``: the plain version on CPU
+    tensors, ``scaled_dot_product_attention`` on its flash or
+    memory-efficient backend on CUDA tensors; any other device raises."""
+    if q.device.type == "cpu":
+        return cross_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no cross attention for device {q.device}")
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        out = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    return out.transpose(1, 2)
+
+
+class MultiHeadCrossAttention(nn.Module):
+    """Cross attention of ``[B, Nq, C]`` queries (``x_dst``) over ``[B, Nk,
+    C]`` keys and values (``x_src``), through :func:`cross_attention`, which
+    picks its version by the device alone
+    (``AnemoiModelInterface.use_plain_attention`` does not reach it: at the
+    mappers' full size the plain version does not fit on the card).  The JAX
+    module's query/key norm, which no mapper sets, is not ported."""
+
+    def __init__(self, num_channels: int, num_heads: int, attn_channels: Optional[int] = None,
+                 qkv_bias: bool = False) -> None:
+        super().__init__()
+        hd = attn_channels or num_channels
+        if hd % num_heads:
+            raise ValueError(f"attn_channels {hd} not divisible by num_heads {num_heads}")
+        self.num_heads, self.attn_channels = num_heads, hd
+        self.lin_q = nn.Linear(num_channels, hd, bias=qkv_bias)
+        self.lin_k = nn.Linear(num_channels, hd, bias=qkv_bias)
+        self.lin_v = nn.Linear(num_channels, hd, bias=qkv_bias)
+        self.projection = nn.Linear(hd, num_channels)
+
+    def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor) -> torch.Tensor:
+        b, nq, _ = x_dst.shape
+        nk = x_src.shape[1]
+        h, d = self.num_heads, self.attn_channels // self.num_heads
+        q = self.lin_q(x_dst).view(b, nq, h, d)
+        k = self.lin_k(x_src).view(b, nk, h, d)
+        v = self.lin_v(x_src).view(b, nk, h, d)
+        out = cross_attention(q, k, v)
+        return self.projection(out.reshape(b, nq, self.attn_channels))

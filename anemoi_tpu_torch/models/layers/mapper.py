@@ -3,7 +3,8 @@
 Port of ``anemoi_tpu.models.layers.mapper`` (``TrainableEdgeFeatures``,
 ``GraphTransformerForwardMapper``, ``GraphTransformerBackwardMapper``,
 ``GNNForwardMapper``, ``GNNBackwardMapper``, ``PointWiseForwardMapper``,
-``PointWiseBackwardMapper``).
+``PointWiseBackwardMapper``, ``TransformerForwardMapper``,
+``TransformerBackwardMapper``).
 A mapper = node embeddings + one bipartite block + (decoder) the output
 extractor.  ``gradient_checkpointing`` (default off, as in the JAX package)
 checkpoints the block alone under ``remat_policy``; the node embeddings and
@@ -22,7 +23,11 @@ node sets (``emb_nodes_src``, ``emb_nodes_dst``) with MLPs, then run one
 UPDATED source nodes, which the decoder takes as its destinations; its
 ``node_data_extractor`` is an MLP.  The point-wise mappers are one MLP over
 ``[x_src, x_dst]`` and need equal source and destination node counts; they
-read no edges.
+read no edges.  The Transformer mappers embed their nodes and run one
+``TransformerMapperBlock``: dense cross attention of every destination over
+every source (``MultiHeadCrossAttention``, flash / memory-efficient SDPA on
+the card), then an MLP, each behind a LayerNorm and a residual; they read no
+edges and carry no trainable edge features, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from torch import nn
 
 from anemoi_tpu_torch.models.graph import SubGraphArrays
+from anemoi_tpu_torch.models.layers.attention import MultiHeadCrossAttention
 from anemoi_tpu_torch.models.layers.graph_blocks import (
     GraphConvMapperBlock,
     GraphTransformerMapperBlock,
@@ -239,3 +245,64 @@ class PointWiseBackwardMapper(nn.Module):
     def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None, cond=None):
         _same_nodes(*x)
         return self.mlp(torch.cat(x, dim=-1))
+
+
+class TransformerMapperBlock(nn.Module):
+    """``x_dst + attention(LN(x_src), LN(x_dst))``, then ``+ mlp(LN(.))``
+    (anemoi-core's names; the JAX mapper's ``ln_src``, ``ln_dst``,
+    ``cross_attention``, ``ln_mlp`` and ``mlp``)."""
+
+    def __init__(self, hidden_dim: int, num_heads: int, mlp_hidden_ratio: float) -> None:
+        super().__init__()
+        self.layer_norm_attention_src = LayerNorm(hidden_dim)
+        self.layer_norm_attention_dst = LayerNorm(hidden_dim)
+        self.attention = MultiHeadCrossAttention(hidden_dim, num_heads)
+        self.layer_norm_mlp = LayerNorm(hidden_dim)
+        self.mlp = MLP(hidden_dim, compute_mlp_hidden_dim(hidden_dim, mlp_hidden_ratio),
+                       hidden_dim, layer_norm=False)
+
+    def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor) -> torch.Tensor:
+        x_dst = x_dst + self.attention(self.layer_norm_attention_src(x_src),
+                                       self.layer_norm_attention_dst(x_dst))
+        return x_dst + self.mlp(self.layer_norm_mlp(x_dst))
+
+
+class TransformerForwardMapper(nn.Module):
+    """Dense cross-attention encoder (data -> hidden): every hidden node
+    attends to every data node.  Returns ``(x[0], latent)``, as the
+    graph-transformer encoder does."""
+
+    def __init__(self, in_channels_src: int, in_channels_dst: int, hidden_dim: int,
+                 num_heads: int, edge_dim: int = 0, mlp_hidden_ratio: float = 4.0,
+                 cond_dim: Optional[int] = None) -> None:
+        super().__init__()
+        self.emb_nodes_src = nn.Linear(in_channels_src, hidden_dim)
+        self.emb_nodes_dst = nn.Linear(in_channels_dst, hidden_dim)
+        self.proc = TransformerMapperBlock(hidden_dim, num_heads, mlp_hidden_ratio)
+
+    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None, cond=None):
+        return x[0], self.proc(self.emb_nodes_src(x[0]), self.emb_nodes_dst(x[1]))
+
+
+class TransformerBackwardMapper(nn.Module):
+    """Dense cross-attention decoder (hidden -> data), then
+    ``node_data_extractor`` = LayerNorm -> Linear(out)."""
+
+    def __init__(self, in_channels_dst: int, hidden_dim: int, out_channels_dst: int,
+                 num_heads: int, edge_dim: int = 0, mlp_hidden_ratio: float = 4.0,
+                 cond_dim: Optional[int] = None) -> None:
+        super().__init__()
+        self.emb_nodes_dst = nn.Linear(in_channels_dst, hidden_dim)
+        self.proc = TransformerMapperBlock(hidden_dim, num_heads, mlp_hidden_ratio)
+        self.node_data_extractor = nn.Sequential(
+            LayerNorm(hidden_dim), nn.Linear(hidden_dim, out_channels_dst)
+        )
+
+    @property
+    def output_linear(self) -> nn.Linear:
+        return self.node_data_extractor[1]
+
+    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None, cond=None):
+        x_dst = self.proc(x[0], self.emb_nodes_dst(x[1]))
+        norm, head = self.node_data_extractor
+        return head(_promoted(norm(x_dst), head.weight))

@@ -1,12 +1,12 @@
 """Residual connection between the input state and the predicted output.
 
 Port of ``anemoi_tpu.models.layers.residual``: ``SkipConnection``,
-``NoResidualConnection``, the learnable ``ScalarOrnsteinConnection`` (with
-``ornstein_init_theta``) and ``SpectralOrnsteinConnection`` (a learnable
-damping per spherical-harmonic degree, through ``ops/spectral.py``).  Each
-maps ``x [B, T, E, G, V]`` to the skip state ``[B, n_step_output, E, G,
-V]``.  ``TruncatedConnection`` (it needs ``ops/sparse_projector.py``) raises
-``NotImplementedError``.
+``NoResidualConnection``, ``TruncatedConnection`` (the skip state projected
+down to a coarser node set and back through ``ops/sparse_projector.py``),
+the learnable ``ScalarOrnsteinConnection`` (with ``ornstein_init_theta``)
+and ``SpectralOrnsteinConnection`` (a learnable damping per
+spherical-harmonic degree, through ``ops/spectral.py``).  Each maps ``x [B,
+T, E, G, V]`` to the skip state ``[B, n_step_output, E, G, V]``.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from anemoi_tpu_torch.ops.sparse_projector import SparseProjector
 from anemoi_tpu_torch.ops.spectral import GaussianSHT, ReducedSHT
 
 
@@ -41,6 +42,26 @@ class NoResidualConnection(nn.Module):
 
     def forward(self, x: torch.Tensor, n_step_output: int = 1) -> torch.Tensor:
         return torch.zeros_like(_expand_time(x[:, -1], n_step_output))
+
+
+class TruncatedConnection(nn.Module):
+    """The input's timestep ``step`` with its small scales removed: projected
+    onto a coarse node set (``down``) and back onto the grid (``up``), both
+    row-normalised by default.  The projections' weights are float32, so the
+    skip state is float32 under bf16, as in the JAX package."""
+
+    def __init__(self, down_edge_index, down_weights, up_edge_index, up_weights,
+                 num_coarse: int, num_data: int, step: int = -1,
+                 row_normalize: bool = True) -> None:
+        super().__init__()
+        self.down = SparseProjector(down_edge_index, down_weights, num_coarse,
+                                    row_normalize=row_normalize)
+        self.up = SparseProjector(up_edge_index, up_weights, num_data,
+                                  row_normalize=row_normalize)
+        self.num_coarse, self.num_data, self.step = int(num_coarse), int(num_data), step
+
+    def forward(self, x: torch.Tensor, n_step_output: int = 1) -> torch.Tensor:
+        return _expand_time(self.up(self.down(x[:, self.step])), n_step_output)
 
 
 def ornstein_init_theta(theta_init, theta_buff: float, statistics: Optional[dict]) -> np.ndarray:
@@ -157,10 +178,15 @@ class SpectralOrnsteinConnection(nn.Module):
 
 
 def build_residual(config: Optional[dict], data_indices=None,
-                   statistics: Optional[dict] = None) -> nn.Module:
+                   statistics: Optional[dict] = None, graph=None,
+                   dataset: str = "data") -> nn.Module:
     """The residual of ``model.residual`` (default ``SkipConnection``) for
     one dataset; ``ScalarOrnsteinConnection`` needs its ``data_indices`` and
-    takes its ``statistics`` (data-space order) for theta's start."""
+    takes its ``statistics`` (data-space order) for theta's start;
+    ``TruncatedConnection`` reads its projections from the source ``graph``
+    (``(dataset, truncation_nodes)`` down, the reverse up, default nodes
+    ``truncation`` and weights ``gauss_weight``) unless its config gives the
+    arrays."""
     if config is None:
         return SkipConnection()
     cfg = dict(config)
@@ -169,6 +195,17 @@ def build_residual(config: Optional[dict], data_indices=None,
         return SkipConnection(**cfg)
     if name == "NoResidualConnection":
         return NoResidualConnection()
+    if name == "TruncatedConnection":
+        if "down_edge_index" not in cfg:
+            if graph is None:
+                raise ValueError("TruncatedConnection needs the source graph")
+            trunc = cfg.pop("truncation_nodes", "truncation")
+            weight_attr = cfg.pop("edge_weight_attribute", "gauss_weight")
+            down, up = graph[(dataset, trunc)], graph[(trunc, dataset)]
+            cfg.update(down_edge_index=down.edge_index, down_weights=down.attributes[weight_attr],
+                       up_edge_index=up.edge_index, up_weights=up.attributes[weight_attr],
+                       num_coarse=graph[trunc].num_nodes, num_data=graph[dataset].num_nodes)
+        return TruncatedConnection(**cfg)
     if name == "ScalarOrnsteinConnection":
         if data_indices is None:
             raise ValueError("ScalarOrnsteinConnection needs data_indices")

@@ -48,6 +48,15 @@ LayerNorm ``norm.ln``), take anemoi-core's component layout instead:
 with the block's own names ``linear_in``, ``norm`` (a LayerNorm),
 ``linear_out``.
 
+The dense cross-attention mappers ``TransformerForwardMapper`` /
+``TransformerBackwardMapper`` -> ``encoder.<ds>`` / ``decoder.<ds>``: their
+``emb_nodes_src``, ``emb_nodes_dst``, ``extractor_norm`` and ``extractor``
+as the GraphTransformer mappers'; the block's parts under ``proc``:
+``cross_attention/{q,k,v,out_proj}`` -> ``proc.attention.{lin_q,lin_k,lin_v,
+projection}``, ``ln_src`` / ``ln_dst`` / ``ln_mlp`` ->
+``proc.layer_norm_attention_src`` / ``_dst`` / ``proc.layer_norm_mlp``, and
+the MLP ``mlp`` -> ``proc.mlp``.
+
 And of its dense ``TransformerProcessor`` part (``keep_attention`` there):
 the block keeps its ``attention`` submodule, flax's fused ``qkv`` kernel
 ``[C, 3HD]`` becomes the separate ``lin_q``, ``lin_k``, ``lin_v`` weights
@@ -77,6 +86,11 @@ _NORMS = {
 _MLPS = ("node_dst_mlp", "node_src_mlp", "edge_pre_mlp", "mlp", "noise_mlp", "edge_mlp",
          "node_mlp", "emb_edges", "emb_nodes_src", "emb_nodes_dst", "node_data_extractor")
 _INJECTORS = ("NoiseConditioning", "NoiseInjector", "NoOpNoiseInjector")
+_CROSS_MAPPERS = ("TransformerForwardMapper", "TransformerBackwardMapper")
+# a cross-attention mapper's block parts (under ``proc``) and their names
+_CROSS_BLOCK = {"cross_attention": "attention", "ln_src": "layer_norm_attention_src",
+                "ln_dst": "layer_norm_attention_dst", "ln_mlp": "layer_norm_mlp", "mlp": "mlp"}
+_CROSS_QKV = {"q": "lin_q", "k": "lin_k", "v": "lin_v"}
 # the hierarchical model's explicit module names: prefix -> (anemoi-core
 # module, its graph provider); the longer prefixes first, so that
 # ``proc_down_<h>`` never reads as ``down_``
@@ -106,7 +120,9 @@ def _component(p: str, datasets: Sequence[str]):
                       ("GraphTransformerBackwardMapper", "decoder"),
                       ("GNNForwardMapper", "encoder"), ("GNNBackwardMapper", "decoder"),
                       ("PointWiseForwardMapper", "encoder"),
-                      ("PointWiseBackwardMapper", "decoder")):
+                      ("PointWiseBackwardMapper", "decoder"),
+                      ("TransformerForwardMapper", "encoder"),
+                      ("TransformerBackwardMapper", "decoder")):
         if p.startswith(cls):
             ds = datasets[int(p.rsplit("_", 1)[1]) if "_" in p else 0]
             return [part, ds], [f"{part}_graph_provider", ds]
@@ -143,6 +159,7 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str], flat,
     out: List[str] = ["model"]
     provider: List[str] = []
     keep_attention = path[0].startswith("TransformerProcessor")  # the dense block
+    cross = path[0].startswith(_CROSS_MAPPERS)
     first = int(layer_0_alone)
     sub = 0
     i = 0
@@ -156,6 +173,10 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str], flat,
         elif comp is not None:
             parts, provider = comp
             out += parts
+        elif cross and i == 1 and p in _CROSS_BLOCK and p != "mlp":
+            out += ["proc", _CROSS_BLOCK[p]]
+        elif cross and i == 2 and path[1] == "cross_attention" and p in _CROSS_QKV:
+            out.append(_CROSS_QKV[p])
         elif p == "trainable_edges":
             out = ["model"] + provider
         elif p == "blocks":
@@ -177,6 +198,8 @@ def _name(path: Tuple[str, ...], datasets: Sequence[str], flat,
         elif p in _MLPS and (path[i + 1] in ("ffn_in", "linear_out", "norm")
                              or path[i + 1].startswith("ffn_")):
             nxt = path[i + 1]
+            if cross and i == 1:
+                out.append("proc")
             if nxt == "norm":
                 out += [p, "layer_norm"]
             elif nxt == "linear_out":

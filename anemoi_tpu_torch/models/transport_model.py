@@ -48,6 +48,7 @@ class AnemoiTransportModelEncProcDec(AnemoiModelEncProcDec):
     """Denoiser / velocity network over the grid -> mesh -> grid model."""
 
     is_transport = True
+    runtime_edges = False  # the JAX transport model keeps the static edges
 
     def __init__(self, *, graph, data_indices, config: dict, statistics=None) -> None:
         super().__init__(graph=graph, data_indices=data_indices, config=config,

@@ -201,9 +201,21 @@ class SourceOrder(NamedTuple):
 
     @classmethod
     def of(cls, edge_index: torch.Tensor, num_src: int) -> "SourceOrder":
+        """Built on the host (:func:`source_order`), for static edge sets."""
         ptr, perm = source_order(edge_index, num_src)
         dev = edge_index.device
         return cls(torch.as_tensor(ptr, device=dev), torch.as_tensor(perm, device=dev))
+
+    @classmethod
+    def on_device(cls, edge_index: torch.Tensor, num_src: int) -> "SourceOrder":
+        """The same view built on ``edge_index``'s device with no host round
+        trip (edge sets built inside a step): a stable ``argsort`` of the
+        sources and a ``searchsorted`` of each source's first edge."""
+        src = edge_index[0].long()
+        perm = torch.argsort(src, stable=True)
+        bounds = torch.arange(num_src + 1, dtype=torch.long, device=src.device)
+        ptr = torch.searchsorted(src[perm], bounds)
+        return cls(ptr.to(torch.int32), perm.to(torch.int32))
 
 
 @torch.library.custom_op("anemoi_tpu_torch::gt_attention_fwd", mutates_args=())

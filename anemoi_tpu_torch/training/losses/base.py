@@ -8,10 +8,8 @@ the scaler-weighted mean of a pointwise error; NaN targets drop out.
 
 The leaves and ``CombinedLoss`` are in ``leaves.py``, the spectral losses
 in ``spectral.py``, the wrappers ``LossVariableMapper`` and
-``TimeAggregateLossWrapper`` in ``wrappers.py``.  ``MultiscaleLossWrapper``
-raises ``NotImplementedError`` (it needs the sparse projector).  The
-``ScaleTensor`` hooks that only it uses (``update_scaler``, ``freeze``,
-``validate``, the by-dimension selections) are not ported.
+``TimeAggregateLossWrapper`` in ``wrappers.py``, ``MultiscaleLossWrapper``
+in ``multiscale.py``.
 """
 
 from __future__ import annotations
@@ -49,6 +47,7 @@ class ScaleTensor:
         self.scalers: Dict[str, Tuple[Tuple[str, ...], torch.Tensor]] = {
             name: (tuple(dims), _float32(arr)) for name, (dims, arr) in (scalers or {}).items()
         }
+        self._frozen: set = set()
 
     def add_scaler(self, dims, array, name: str) -> "ScaleTensor":
         dims = (dims,) if isinstance(dims, str) else tuple(dims)
@@ -66,6 +65,52 @@ class ScaleTensor:
             array = old * array.to(old.device)
         self.scalers[name] = (dims, array)
         return self
+
+    def update_scaler(self, name: str, array, override: bool = False) -> "ScaleTensor":
+        """Replace an existing scaler's values (same shape); a frozen scaler
+        refuses unless ``override``."""
+        if name not in self.scalers:
+            raise KeyError(f"unknown scaler '{name}'")
+        if name in self._frozen and not override:
+            raise ValueError(f"scaler '{name}' is frozen (pass override=True)")
+        dims, old = self.scalers[name]
+        array = _float32(array).to(old.device)
+        if array.shape != old.shape:
+            raise ValueError(f"updating scaler '{name}': shape {tuple(array.shape)} != "
+                             f"{tuple(old.shape)}")
+        self.scalers[name] = (dims, array)
+        return self
+
+    def freeze(self, names: Optional[Sequence[str]] = None) -> "ScaleTensor":
+        """Make scalers (default: all) refuse :meth:`update_scaler`."""
+        self._frozen.update(names if names is not None else self.scalers)
+        return self
+
+    def validate(self, shape: Sequence[int]) -> None:
+        """Raise unless every scaler broadcasts against a ``[B, T, E, G, V]``
+        tensor of ``shape``: each bound dim matches or is 1."""
+        for name, (dims, array) in self.scalers.items():
+            for d, size in zip(dims, array.shape):
+                want = shape[DIMS[d]]
+                if size not in (1, want):
+                    raise ValueError(f"scaler '{name}' dim '{d}' has size {size}, tensor has "
+                                     f"{want}")
+
+    @staticmethod
+    def _dims_set(dimensions) -> set:
+        if isinstance(dimensions, (int, str)):
+            dimensions = [dimensions]
+        return {n for n in DIMS if n in dimensions or DIMS[n] in dimensions}
+
+    def subset_by_dim(self, dimensions) -> "ScaleTensor":
+        """The scalers bound to any of ``dimensions`` (names or axis indices)."""
+        keep = self._dims_set(dimensions)
+        return self._of({n: s for n, s in self.scalers.items() if set(s[0]) & keep})
+
+    def without_by_dim(self, dimensions) -> "ScaleTensor":
+        """The scalers bound to none of ``dimensions``."""
+        drop = self._dims_set(dimensions)
+        return self._of({n: s for n, s in self.scalers.items() if not set(s[0]) & drop})
 
     def subset(self, names: Sequence[str]) -> "ScaleTensor":
         return self._of({n: self.scalers[n] for n in names if n in self.scalers})
@@ -180,6 +225,8 @@ class BaseLoss:
 def get_loss_function(
     config: dict,
     scalers: Optional[Dict[str, Tuple[Tuple[str, ...], object]]] = None,
+    graph=None,
+    dataset: str = "data",
     data_indices=None,
     variables_metadata: Optional[dict] = None,
 ) -> BaseLoss:
@@ -187,16 +234,23 @@ def get_loss_function(
     ...}``, attaching the named subset (``"*"`` = all) of pre-built
     ``scalers``.  A wrapper's config holds the wrapped loss under ``loss``;
     a ``scalers`` list on the wrapper goes to the wrapped loss.
-    ``LossVariableMapper`` needs ``data_indices``, and checks the units of
-    each predicted/target pair it maps against ``variables_metadata``."""
+    ``MultiscaleLossWrapper`` reads its projections from ``graph`` (the
+    ``dataset -> nodes`` edge sets); ``LossVariableMapper`` needs
+    ``data_indices``, and checks the units of each predicted/target pair it
+    maps against ``variables_metadata``."""
     cfg = dict(config)
     name = cfg.pop("name", "WeightedMSELoss")
+    if name == "MultiscaleLossWrapper":
+        from anemoi_tpu_torch.training.losses.multiscale import build_multiscale_loss
+
+        return build_multiscale_loss(config, scalers, graph=graph, dataset=dataset)
     if name in WRAPPERS:
         inner_cfg = dict(cfg.pop("loss", {"name": "WeightedMSELoss"}))
         wrapper_scalers = cfg.pop("scalers", None)
         if wrapper_scalers is not None and "scalers" not in inner_cfg:
             inner_cfg["scalers"] = wrapper_scalers
-        inner = get_loss_function(inner_cfg, scalers, data_indices=data_indices,
+        inner = get_loss_function(inner_cfg, scalers, graph=graph, dataset=dataset,
+                                  data_indices=data_indices,
                                   variables_metadata=variables_metadata)
         if name == "TimeAggregateLossWrapper":
             return LOSSES[name](inner, **cfg)
@@ -211,7 +265,7 @@ def get_loss_function(
             check_loss_variable_units_compatibility(
                 wrapped.predicted_variables, wrapped.target_variables, variables_metadata)
         return wrapped
-    if name not in LOSSES:  # MultiscaleLossWrapper
+    if name not in LOSSES:
         raise NotImplementedError(f"loss '{name}' is not ported to anemoi_tpu_torch")
     wanted = cfg.pop("scalers", ["*"])
     available = scalers or {}

@@ -48,6 +48,7 @@ import torch
 
 from anemoi_tpu_torch.data_indices.collection import IndexCollection
 from anemoi_tpu_torch.models.layers.remat import checkpointed, resolve_remat_policy
+from anemoi_tpu_torch.training.losses.multiscale import MultiscaleLossWrapper
 from anemoi_tpu_torch.training.metrics import variable_groups
 from anemoi_tpu_torch.utils.seeding import context_seed, fold_seed
 
@@ -202,6 +203,11 @@ def make_step_fns(
     if task == "temporal_downscaler" and m != 2:
         raise ValueError("temporal_downscaler needs n_step_input=2 (the window's endpoints)")
     dataset_names = sorted(interface.data_indices)
+    for ds in dataset_names:
+        if pre[ds].has_imputer and isinstance(losses[ds], MultiscaleLossWrapper):
+            # the JAX wrapper takes no imputer mask: no reference to follow
+            raise ValueError(f"dataset '{ds}': MultiscaleLossWrapper with an imputer is not "
+                             "supported (ROADMAP Queue 3)")
     # the input steps of the window, and each model step's first target step
     inputs = [0, n_out + 1] if task == "temporal_downscaler" else list(range(m))
     first_target = {"forecaster": lambda step: m + step * n_out,

@@ -192,7 +192,8 @@ class AnemoiTrainer:
                 if "scalers" in loss_cfg:
                     loss_cfg["scalers"] = list(loss_cfg["scalers"]) + ["output_mask"]
             self.losses[name] = get_loss_function(
-                loss_cfg, scalers, data_indices=self.data_indices[name],
+                loss_cfg, scalers, graph=self.graph, dataset=name,
+                data_indices=self.data_indices[name],
                 variables_metadata=getattr(ds, "variables_metadata", None),
             )
 

@@ -245,7 +245,45 @@ Phases (any failure exits non-zero, with no result line):
                   the store's points checked to be the O96 rings in order:
                   exactly 18 K1, K3 and K4, the gradient gate, device ms
                   beside the same step with the MSE and the plain skip;
- 25. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 25. projections -- the example at its width with a ``truncation`` node set
+                  (o32, 5 248 nodes, KNN-3 both ways weighted by
+                  ``GaussianDistanceWeights`` l1) in its graph, ``residual:
+                  TruncatedConnection`` and ``MultiscaleLossWrapper`` (the
+                  preset's area- and variable-weighted MSE, native weight 1,
+                  one scale onto ``hidden`` through the data -> hidden set
+                  at 0.5) through ``cli train`` over phase 9's store, bf16, 3
+                  steps: 18/18/18/0 a step, the gradient gate; the trained
+                  model's three projectors on the card against the CPU
+                  (float32 and bf16 inputs, <= 1e-5 of the largest value,
+                  projection and input gradient), twice bit for bit, timed;
+                  ``cli predict`` 2 steps, bit for bit with the in-process
+                  forecast; a fixed-batch step with the projections beside
+                  the same step with the MSE and the plain skip (device ms);
+ 26. dynamic   -- the example with ``DynamicKNN`` (k 3) on the encoder and
+                  the decoder (runtime sets of 30 726 and 120 960 edges,
+                  built on the card every forward): ``cli train`` 3 steps,
+                  18/18/18/0 a step, the gradient gate; the runtime sets
+                  against a host KNN of the same coordinates (destinations
+                  that differ, each a near tie), the device ``SourceOrder``
+                  equal to the host one, the tables' build ms; K3 + K4 at the
+                  encoder's runtime set (9 978 of the 40 320 sources
+                  edgeless) against the plain backward and ``index_add_``,
+                  as phase 23's down set; ``cli predict`` 2 steps bit for
+                  bit with the in-process forecast, and within the serving
+                  gate of the same weights on a static graph holding the
+                  runtime sets (the gap to the static KNN-3 graph, whose
+                  sets differ at ties, printed);
+ 27. transformer mappers -- the example with ``TransformerForwardMapper``
+                  / ``TransformerBackwardMapper`` (dense cross attention, 16
+                  heads) around its GT processor: SDPA (flash /
+                  memory-efficient) against the plain cross attention at
+                  o32 -> ico-3 both ways (forward relative L2 <= 1e-4 in
+                  float32, 2e-2 in bf16; dq, dk, dv <= 1e-2); ``cli train`` 3
+                  steps, 16/16/16/0 a step, the gradient gate, each mapper's
+                  bf16 forward and forward + backward at full shape with its
+                  peak memory; ``cli predict`` 2 steps (16 K1 a step) bit for
+                  bit with the in-process forecast;
+ 28. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
@@ -254,7 +292,9 @@ Phases (any failure exits non-zero, with no result line):
                   steps, rollout-2 steps and forecasts, phase 22's
                   training steps and generative forecasts, phase 23's
                   training steps, forecasts and ratio-2 step and phase 24's
-                  two steps; the K3 and K4 rows also the down set's), the card line, and
+                  two steps, phases 25-27's training steps and forecasts;
+                  the K3 and K4 rows also the down set's and the dynamic
+                  encoder set's), the card line, and
                   last {"ok": true, "device": {...}}; with --json, the same
                   and the serving and training details also go to PATH.
 
@@ -2820,22 +2860,29 @@ def hierarchical_launches(config: dict, graph) -> dict:
 
 def down_set_backward(graph, device) -> dict:
     """K3 + K4 at the V-cycle's down set (``hidden_1 -> hidden_2``, KNN-3 from
-    each ico-3 node: most ico-5 sources have no edge) against the plain
-    backward, the flagship's fused edge projection, HD 512, float32 and
-    bfloat16, within the phase-4 gates; the dk and dv rows of the sources
-    with no edge exactly 0.  Rows for K3 and K4, timed as in phase 4."""
-    from anemoi_tpu_torch.kernels import gt_attention as kern
-    from anemoi_tpu_torch.ops.gt_attention import (
-        SourceOrder, gt_attention_bwd_kernels, gt_attention_bwd_plain,
-    )
+    each ico-3 node: most ico-5 sources have no edge): :func:`sparse_set_backward`
+    on the host-built set."""
+    from anemoi_tpu_torch.ops.gt_attention import SourceOrder
 
     es = graph[DOWN_SET]
     n_src, n_dst = graph[DOWN_SET[0]].num_nodes, graph[DOWN_SET[1]].num_nodes
     ei = torch.as_tensor(es.edge_index, dtype=torch.int32, device=device).contiguous()
     ptr = torch.as_tensor(es.dst_ptr, dtype=torch.int32, device=device)
-    order = SourceOrder.of(ei, n_src)
-    no_edge = torch.bincount(ei[0].long(), minlength=n_src) == 0
     attr32 = torch.as_tensor(es.attribute_matrix(["edge_length", "edge_dirs"]), device=device)
+    return sparse_set_backward("hierarchical", "->".join(DOWN_SET), ei, ptr,
+                               SourceOrder.of(ei, n_src), attr32, n_src, n_dst, device)
+
+
+def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, device) -> dict:
+    """K3 + K4 at an edge set with edgeless sources, against the plain
+    backward, the flagship's fused edge projection, HD 512, float32
+    and bfloat16, within the phase-4 gates; the dk and dv rows of the
+    sources with no edge exactly 0.  Rows for K3 and K4, timed as in phase
+    4, K4 beside one ``index_add_``."""
+    from anemoi_tpu_torch.kernels import gt_attention as kern
+    from anemoi_tpu_torch.ops.gt_attention import gt_attention_bwd_kernels, gt_attention_bwd_plain
+
+    no_edge = torch.bincount(ei[0].long(), minlength=n_src) == 0
     n_e, n_f = attr32.shape
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     rows = {"K3": [], "K4": []}
@@ -2854,20 +2901,20 @@ def down_set_backward(graph, device) -> dict:
         torch.cuda.synchronize()
         launches = kern.launch_counts()  # the graph attention's K1-K5
         if launches != {name: int(name in ("K3", "K4")) for name in launches}:
-            raise RuntimeError(f"down set backward: launches {launches}, want one K3 and one K4")
+            raise RuntimeError(f"{label} {edge_set} backward: launches {launches}, want one K3 and one K4")
         errs = {}
         for name in ("dq", "dk", "dv", "d_attr", "d_weight", "d_bias"):
             x, y = getattr(got, name).float(), getattr(ref, name).float()
             errs[name] = (x - y).abs().max().item()
             if not (errs[name] <= TOL[dtype] * y.abs().max().item() and torch.isfinite(x).all()):
-                raise RuntimeError(f"down set backward {dtype} {name}: max abs err "
+                raise RuntimeError(f"{label} {edge_set} backward {dtype} {name}: max abs err "
                                    f"{errs[name]:.3e}, max|ref| {y.abs().max().item():.3e}")
         zero_rows = [name for name in ("dk", "dv")
                      if getattr(got, name)[:, no_edge].count_nonzero().item()]
         if zero_rows:
-            raise RuntimeError(f"down set backward {dtype}: {zero_rows} not exactly 0 at the "
+            raise RuntimeError(f"{label} {edge_set} backward {dtype}: {zero_rows} not exactly 0 at the "
                                f"{int(no_edge.sum())} sources with no edge")
-        print(f"[hierarchical] K3 + K4 at the down set ({n_e} edges, {int(no_edge.sum())} of "
+        print(f"[{label}] K3 + K4 at {edge_set} ({n_e} edges, {int(no_edge.sum())} of "
               f"{n_src} sources with no edge), {dtype}: max abs errors {errs}; dk and dv "
               "exactly 0 at the sources with no edge", flush=True)
         delta = (out.float() * g.float()).reshape(1, n_dst, HEADS, -1).sum(-1)
@@ -2886,7 +2933,7 @@ def down_set_backward(graph, device) -> dict:
         plain_ms = cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g,
                                                           **edge_kw), reps=10, warmup=2)
         bounds = backward_bounds(n_dst, n_src, n_e, n_f, q.element_size(), True)
-        base = {"edge_set": "->".join(DOWN_SET), "dtype": str(dtype).split(".")[-1],
+        base = {"edge_set": edge_set, "dtype": str(dtype).split(".")[-1],
                 "fused_edge": True, "n_dst": n_dst, "n_src": n_src, "n_edges": n_e,
                 "sources_without_edges": int(no_edge.sum()), "no_edge_rows_exactly_0": True}
         rows["K3"].append({**base, "ms": ms["K3"], "plain_ms": plain_ms,
@@ -2900,7 +2947,7 @@ def down_set_backward(graph, device) -> dict:
                            "bound_by": bounds["K4"][1],
                            "max_abs_err": max(errs["dk"], errs["dv"])})
         for name in rows:
-            print(f"[hierarchical] {name} {rows[name][-1]}", flush=True)
+            print(f"[{label}] {name} {rows[name][-1]}", flush=True)
         del q, k, v, g, out, lse, ref, got, dkv
     torch.cuda.empty_cache()
     return rows
@@ -3127,10 +3174,482 @@ def spectral_phase(workdir: str, device) -> dict:
     return result
 
 
+PROJECTION_GRID = "o32"  # the truncation set of phase 25: 5 248 nodes
+PROJECTOR_CARD_TOL = 1e-5  # max |card - CPU| / max |CPU| of a projection and its gradient
+DYNAMIC_K = 3  # phase 26's runtime kNN, encoder and decoder
+NEAR_TIE_RAD = 1e-5  # float32 similarities resolve arcs to ~4e-6 rad at the o96 spacing
+CROSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # relative L2, SDPA against plain
+CROSS_GRAD_TOL = 1e-2  # relative L2 of dq, dk, dv, SDPA against plain
+CROSS_CHECK = (("o32", 5248), ("ico-3", 642))  # where the plain cross attention fits
+
+
+def example_json(workdir: str, label: str, edit) -> str:
+    """The packaged example at its width (512 channels, 16 layers, 16 heads,
+    the ``multi_scale`` o96 -> ico-5 graph saved in the work directory),
+    changed by ``edit(config)``, as a JSON file for ``cli train``."""
+    from anemoi_tpu_torch.flagship import example_o96_gt_config
+
+    cfg = example_o96_gt_config()
+    cfg["graph"]["save_path"] = os.path.join(workdir, f"graph_{label}.npz")
+    edit(cfg)
+    path = os.path.join(workdir, f"{label}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def with_projections(cfg: dict) -> None:
+    """A ``truncation`` node set (o32) with KNN-3 both ways weighted by
+    ``GaussianDistanceWeights`` l1, ``residual: TruncatedConnection``, and
+    ``MultiscaleLossWrapper`` around the preset's loss (native weight 1,
+    one scale onto ``hidden`` through the data -> hidden set at 0.5)."""
+    recipe = cfg["graph"]["recipe"]
+    recipe["nodes"]["truncation"] = {"node_builder": {"name": "ReducedGaussianGridNodes",
+                                                      "grid": PROJECTION_GRID}}
+    recipe["edges"] += [
+        {"source_name": src, "target_name": dst,
+         "edge_builder": {"name": "KNNEdges", "num_nearest_neighbours": 3},
+         "attributes": {"gauss_weight": {"name": "GaussianDistanceWeights", "norm": "l1"}}}
+        for src, dst in (("data", "truncation"), ("truncation", "data"))]
+    cfg["model"]["residual"] = {"name": "TruncatedConnection"}
+    cfg["training"]["loss"] = {"name": "MultiscaleLossWrapper", "native_weight": 1.0,
+                               "loss": dict(cfg["training"]["loss"]),
+                               "scales": [{"nodes": "hidden", "weight": 0.5}]}
+
+
+def projector_checks(trainer, device) -> dict:
+    """The trained model's truncated residual (down, up) and the loss's
+    projection on the card: against the CPU (float32 and bf16 inputs, the
+    projection and its input gradient, within ``PROJECTOR_CARD_TOL``), two
+    runs equal bit for bit, forward and forward + backward timed."""
+    residual, loss = trainer.interface.model.residual["data"], trainer.losses["data"]
+    if type(residual).__name__ != "TruncatedConnection" or type(
+            loss).__name__ != "MultiscaleLossWrapper":
+        raise RuntimeError(f"projections: residual {type(residual).__name__}, loss "
+                           f"{type(loss).__name__}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    result = {}
+    for name, proj, n_src in (("residual_down", residual.down, residual.num_data),
+                              ("residual_up", residual.up, residual.num_coarse),
+                              ("loss_data_to_hidden", loss.projections[0], residual.num_data)):
+        x32 = torch.randn(1, 1, n_src, 12, generator=gen, device=device)
+        g = torch.randn(1, 1, proj.num_dst, 12, generator=gen, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            runs = []
+            for dev in (device, device, torch.device("cpu")):
+                x = x32.to(dev, dtype).clone().requires_grad_()
+                out = proj(x)
+                out.backward(g.to(dev))
+                runs.append((out.detach(), x.grad))
+            (o1, g1), (o2, g2), (oc, gc) = runs
+            if o1.dtype != torch.float32 or not (torch.equal(o1, o2) and torch.equal(g1, g2)):
+                raise RuntimeError(f"projections {name} {dtype}: output {o1.dtype}, not "
+                                   "bit for bit repeatable")
+            errs = [float((a.cpu().float() - b.float()).abs().max() / b.float().abs().max())
+                    for a, b in ((o1, oc), (g1, gc))]
+            if not max(errs) <= PROJECTOR_CARD_TOL:
+                raise RuntimeError(f"projections {name} {dtype}: card against CPU {errs}")
+            x = x32.to(dtype).clone().requires_grad_()
+            row = {"n_src": n_src, "n_dst": proj.num_dst, "n_edges": int(proj.src.shape[0]),
+                   "card_vs_cpu_out": errs[0], "card_vs_cpu_grad": errs[1], "bitwise": True,
+                   "forward_ms": cuda_ms(lambda: proj(x.detach())),
+                   "forward_backward_ms": cuda_ms(lambda: proj(x).backward(g))}
+            result[f"{name}_{str(dtype).split('.')[-1]}"] = row
+            print(f"[projections] {name} {dtype}: {json.dumps(row)}", flush=True)
+    return result
+
+
+def projection_step(graph, device) -> dict:
+    """One fixed-batch bf16 step of the example on phase 25's graph with
+    ``residual: TruncatedConnection`` and the multiscale loss (area-weighted
+    MSE inside), beside the same step with the area-weighted MSE and the
+    plain skip: exactly 18 K1, K3 and K4 each, the gradient gate on the
+    first, device ms of both; the difference is what the projections take."""
+    from anemoi_tpu_torch.flagship import example_o96_gt_config
+    from anemoi_tpu_torch.training.losses import get_loss_function
+    from anemoi_tpu_torch.training.losses.scalers import create_scalers
+
+    scalers = create_scalers({"area": {"name": "GraphNodeAttributeScaler", "nodes_name": "data",
+                                       "attribute_name": "area_weight"}}, graph=graph)
+    multiscale = {"data": get_loss_function({
+        "name": "MultiscaleLossWrapper", "native_weight": 1.0,
+        "loss": {"name": "WeightedMSELoss", "scalers": ["area"]},
+        "scales": [{"nodes": "hidden", "weight": 0.5}]}, scalers, graph=graph)}
+    batch = training_batch(graph, device)
+    result = {}
+    for label, residual, losses in (("projections", {"name": "TruncatedConnection"}, multiscale),
+                                    ("plain", None, None)):
+        cfg = example_o96_gt_config()
+        if residual is not None:
+            cfg["model"]["residual"] = residual
+        iface, state, train_step = build_training(graph, device, cfg, losses)
+        launches, loss, _ = one_step(state, train_step, batch)
+        want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
+                "K4": LAUNCHES_PER_STEP}
+        if launches != want:
+            raise RuntimeError(f"projections {label} step: launches {launches}, want {want}")
+        gap = (grad_gap(iface, state, train_step, batch, f"projections {label} K3 + K4")
+               if residual is not None else None)
+        ms, runs, peak = timed_steps(device, state, train_step, batch)
+        device_ms, device_launches = profiled_device_ms(lambda: train_step(state, batch), 1)
+        result[label] = {"launches": launches, "first_loss": loss, "grad_rel_l2_vs_plain": gap,
+                         "ms_per_step": ms, "ms_per_step_runs": runs,
+                         "device_ms_per_step": device_ms,
+                         "device_launches_per_step": device_launches, "peak_memory_bytes": peak}
+        print(f"[projections] {label} fixed-batch step: {json.dumps(result[label])}", flush=True)
+        del iface, state, train_step
+        torch.cuda.empty_cache()
+    result["projections_device_ms"] = (result["projections"]["device_ms_per_step"]
+                                       - result["plain"]["device_ms_per_step"])
+    result["projections_share"] = (result["projections_device_ms"]
+                                   / result["projections"]["device_ms_per_step"])
+    print(f"[projections] the residual's and the loss's projections: "
+          f"{result['projections_device_ms']:.3f} device ms a step, "
+          f"{100 * result['projections_share']:.1f} % of the step ({card_line()})", flush=True)
+    return result
+
+
+def projections_phase(workdir: str, device) -> dict:
+    """Phase 25: the example with a ``truncation`` set in its graph,
+    ``TruncatedConnection`` and ``MultiscaleLossWrapper`` through ``cli
+    train`` (3 steps: 18/18/18/0 a step, the gradient gate, the projectors
+    on the card against the CPU and bit for bit repeatable) and ``cli
+    predict`` (2 steps, bit for bit with the in-process forecast); then the
+    step beside the same step with the MSE and the plain skip."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+
+    path = example_json(workdir, "projections", with_projections)
+    checks = {}
+
+    def after(trainer, state, want):
+        checks.update(projector_checks(trainer, device))
+        return {"truncation_nodes": trainer.graph["truncation"].num_nodes}
+
+    train, run_dir, _ = family_train(
+        workdir, device, "projections", path, [LR_ONLY], FAMILY_STEPS,
+        lambda t: expected_launches(t.config, t.graph, int(t.config["model"]["processor"]["num_layers"])), split=8, after=after)
+    predict = family_predict(workdir, device, "projections", run_dir, LAUNCHES_PER_STEP,
+                             split=8, bitwise=True)
+    graph = Graph.load(os.path.join(workdir, "graph_projections.npz"))
+    result = {"train": train, "predict": predict, "projectors": checks,
+              "step": projection_step(graph, device)}
+    print(f"[projections] {json.dumps(result)}", flush=True)
+    return result
+
+
+def with_dynamic_knn(cfg: dict) -> None:
+    """``DynamicKNN`` (k 3) on the encoder and the decoder, with the static
+    sets' attribute order."""
+    for part in ("encoder", "decoder"):
+        cfg["model"][part]["edge_provider"] = {
+            "name": "DynamicKNN", "num_nearest_neighbours": DYNAMIC_K,
+            "attributes": list(cfg["model"][part]["sub_graph_edge_attributes"])}
+
+
+def runtime_set_checks(trainer, device) -> dict:
+    """The trained model's runtime sets on the card: against a host KNN set
+    of the same coordinates (destinations whose neighbour sets differ, each
+    a near tie), the device ``SourceOrder`` equal to the host one, the
+    tables' build time, and K3 + K4 at the encoder's runtime set (a quarter
+    of its sources edgeless) against the plain backward and
+    ``index_add_``."""
+    import numpy as np
+
+    from anemoi_tpu_torch.graphs.edges import knn_edges
+    from anemoi_tpu_torch.graphs.transforms import great_circle_distance
+    from anemoi_tpu_torch.ops.gt_attention import SourceOrder
+
+    model, graph = trainer.interface.model, trainer.graph
+    mg = model.graph
+    result, subs = {}, {}
+    for part, src, dst in (("encoder", "data", "hidden"), ("decoder", "hidden", "data")):
+        sub = model._mapper_edges(part, src, dst, getattr(mg, part)["data"])
+        subs[part] = sub
+        ei = sub.edge_index.cpu().numpy().astype(np.int64)
+        host = knn_edges(graph, src, dst, DYNAMIC_K)
+        mine_k = np.sort(ei[0].reshape(-1, DYNAMIC_K), 1)
+        host_k = np.sort(host[0].reshape(-1, DYNAMIC_K), 1)
+        differ = np.flatnonzero((mine_k != host_k).any(1))
+        dist = [np.sort(great_circle_distance(graph[src].coords[e[0]],
+                                              graph[dst].coords[e[1]]).reshape(-1, DYNAMIC_K), 1)
+                for e in (ei, host)]
+        gap = float(np.abs(dist[0] - dist[1]).max())
+        if gap > NEAR_TIE_RAD:
+            raise RuntimeError(f"dynamic {part}: runtime neighbours farther than the host's by "
+                               f"{gap:.3e} rad")
+        device_order = SourceOrder.on_device(sub.edge_index, sub.num_src)
+        host_order = SourceOrder.of(sub.edge_index, sub.num_src)
+        if not all(torch.equal(a, b) for a, b in zip(device_order, host_order)):
+            raise RuntimeError(f"dynamic {part}: the device source order differs from the host's")
+        build_ms = cuda_ms(lambda: model._mapper_edges(part, src, dst, getattr(mg, part)["data"]),
+                           reps=10, warmup=2)
+        result[part] = {"edges": sub.num_edges, "destinations_differing_from_host_knn":
+                        int(differ.size), "max_arc_gap_rad": gap,
+                        "source_order_equal_to_host": True, "table_build_ms": build_ms,
+                        "max_out_degree": int((sub.src_ptr[1:] - sub.src_ptr[:-1]).max())}
+        print(f"[dynamic] {part} runtime set: {json.dumps(result[part])} ({card_line()})",
+              flush=True)
+    result["table_build_ms_per_step"] = sum(result[p]["table_build_ms"] for p in subs)
+    enc = subs["encoder"]
+    result["encoder_rows"] = sparse_set_backward(
+        "dynamic", f"data->hidden (runtime kNN-{DYNAMIC_K})", enc.edge_index, enc.dst_ptr,
+        enc.source, enc.edge_attr.float(), enc.num_src, enc.num_dst, device)
+    return result
+
+
+def tie_regions(runtime: dict, knn_graph) -> dict:
+    """Grid points by how a tie broken the other way reaches them: the data
+    nodes whose decoder set differs between the runtime and the static KNN
+    sets (``decoder_tied``), those whose decoder reads a hidden node whose
+    encoder set differs (``reads_encoder_tied``), and the ``rest``."""
+    import numpy as np
+
+    def differing(a, b):
+        """[Nd] True where the k sources of a destination differ."""
+        rows = [e[0][np.lexsort((e[0], e[1]))].reshape(-1, DYNAMIC_K) for e in (a, b)]
+        return (rows[0] != rows[1]).any(1)
+
+    enc_tied = differing(runtime[("data", "hidden")], knn_graph[("data", "hidden")].edge_index)
+    dec = runtime[("hidden", "data")]
+    dec_tied = differing(dec, knn_graph[("hidden", "data")].edge_index)
+    reads = np.zeros_like(dec_tied)
+    reads[dec[1][enc_tied[dec[0]]]] = True
+    return {"decoder_tied": dec_tied, "reads_encoder_tied": reads & ~dec_tied,
+            "rest": ~(dec_tied | reads)}
+
+
+def split_gap(out, ref, regions: dict) -> dict:
+    """Per forecast step and region of ``tie_regions``: the relative L2 of
+    ``out`` against ``ref`` ``[B, T, E, G, V]`` over the region's grid
+    points, and the region's share of the squared difference."""
+    import numpy as np
+
+    split = {}
+    for t in range(ref.shape[1]):
+        d, r = out[:, t] - ref[:, t], ref[:, t]
+        total = float((d ** 2).sum())
+        split[f"step_{t + 1}"] = {
+            name: {"rel_l2": float(np.linalg.norm(d[..., m, :]) / np.linalg.norm(r[..., m, :])),
+                   "share": float((d[..., m, :] ** 2).sum()) / max(total, 1e-30)}
+            for name, m in regions.items() if m.any()}
+    return split
+
+
+def dynamic_against_static(workdir: str, run_dir: str, device) -> dict:
+    """The dynamic bundle's forecast against the same weights on static
+    graphs of the same nodes (copies of the bundle without the edge
+    providers): the static KNN-3 graph (``KNNEdges`` on both mappers), whose
+    sets differ from the runtime ones at near ties, and the graph holding
+    the runtime sets themselves with their attributes from the host
+    builders.  The second is gated by the serving tolerance; the first
+    differs wherever a tie was broken the other way (tens of destinations
+    at o96 -> ico-5), and is printed, also split by grid point
+    (``tie_regions``)."""
+    import shutil
+
+    import numpy as np
+
+    from anemoi_tpu_torch.data.dataset import open_dataset
+    from anemoi_tpu_torch.graphs.create import GraphCreator
+    from anemoi_tpu_torch.graphs.edges import edge_direction, edge_length
+    from anemoi_tpu_torch.graphs.graph import EdgeSet
+    from anemoi_tpu_torch.inference import make_forecast_fn
+    from anemoi_tpu_torch.training.checkpoint import load_inference_checkpoint
+
+    bundle = os.path.join(run_dir, "inference")
+    iface = load_inference_checkpoint(bundle, device)
+    with open(os.path.join(bundle, "checkpoint.json")) as f:
+        meta = json.load(f)
+    cfg = meta["config"]
+    dataset = open_dataset(dict(cfg["data"]["datasets"]["data"]))
+    window = dataset.get_window(0, iface.model.n_step_input + STEPS)
+    batch = {"data": torch.from_numpy(window[None]).to(device)}
+    out = {"dynamic": make_forecast_fn(iface, steps=STEPS)(batch)["data"].float().cpu().numpy()}
+    runtime = {(src, dst): iface.model._mapper_edges(
+        part, src, dst, getattr(iface.model.graph, part)["data"]).edge_index.cpu().numpy()
+        for part, src, dst in (("encoder", "data", "hidden"), ("decoder", "hidden", "data"))}
+    del iface
+    for part in ("encoder", "decoder"):
+        cfg["model"][part].pop("edge_provider")
+    cfg["graph"]["recipe"]["edges"][0]["edge_builder"] = {
+        "name": "KNNEdges", "num_nearest_neighbours": DYNAMIC_K}
+    knn_graph = GraphCreator(cfg["graph"]["recipe"]).create()
+    regions = tie_regions(runtime, knn_graph)
+    result = {"tie_regions": {name: int(m.sum()) for name, m in regions.items()}}
+    for label in ("static_knn", "static_runtime_sets"):
+        graph_path = os.path.join(workdir, f"graph_dynamic_{label}.npz")
+        if label == "static_runtime_sets":
+            for (src, dst), ei in runtime.items():
+                ei = ei.astype(np.int64)
+                attrs = {"edge_length": edge_length(knn_graph, src, dst, ei),
+                         "edge_dirs": edge_direction(knn_graph, src, dst, ei)}
+                knn_graph[(src, dst)] = EdgeSet(ei, attrs).sort_by_dst(knn_graph[dst].num_nodes)
+        knn_graph.save(graph_path)
+        cfg["graph"]["save_path"] = graph_path
+        static = os.path.join(workdir, f"dynamic_{label}_bundle")
+        shutil.copytree(bundle, static)
+        with open(os.path.join(static, "checkpoint.json"), "w") as f:
+            json.dump(meta, f)
+        iface = load_inference_checkpoint(static, device)
+        ref = make_forecast_fn(iface, steps=STEPS)(batch)["data"].float().cpu().numpy()
+        del iface
+        result[label] = float(np.linalg.norm(out["dynamic"] - ref) / np.linalg.norm(ref))
+        result[f"{label}_by_region"] = split_gap(out["dynamic"], ref, regions)
+        print(f"[dynamic] forecast against the same weights on the {label} graph: relative L2 "
+              f"{result[label]:.3e} (tol {SERVING_TOL}); by region and step: "
+              f"{json.dumps(result[f'{label}_by_region'])}", flush=True)
+    if not result["static_runtime_sets"] <= SERVING_TOL:
+        raise RuntimeError(f"dynamic: forecast differs from the static graphs': {result}")
+    torch.cuda.empty_cache()
+    return result
+
+
+def dynamic_phase(workdir: str, device) -> dict:
+    """Phase 26: the example with ``DynamicKNN`` on the encoder and the
+    decoder through ``cli train`` (3 steps: 18/18/18/0 a step on the
+    runtime sets, the gradient gate, ``runtime_set_checks``) and ``cli
+    predict`` (2 steps, bit for bit with the in-process forecast), then the
+    forecast against the static graphs."""
+    path = example_json(workdir, "dynamic", with_dynamic_knn)
+    checks = {}
+
+    def after(trainer, state, want):
+        checks.update(runtime_set_checks(trainer, device))
+        return {}
+
+    train, run_dir, _ = family_train(
+        workdir, device, "dynamic", path, [LR_ONLY], FAMILY_STEPS,
+        lambda t: expected_launches(t.config, t.graph, int(t.config["model"]["processor"]["num_layers"])), split=8, after=after)
+    predict = family_predict(workdir, device, "dynamic", run_dir, LAUNCHES_PER_STEP, split=8,
+                             bitwise=True)
+    result = {"train": train, "predict": predict, "runtime_sets": checks,
+              "static": dynamic_against_static(workdir, run_dir, device)}
+    print(f"[dynamic] {json.dumps({k: v for k, v in result.items() if k != 'runtime_sets'})}",
+          flush=True)
+    return result
+
+
+def with_transformer_mappers(cfg: dict) -> None:
+    cfg["model"]["encoder"] = {"name": "TransformerForwardMapper", "num_heads": HEADS,
+                               "mlp_hidden_ratio": 4.0}
+    cfg["model"]["decoder"] = {"name": "TransformerBackwardMapper", "num_heads": HEADS,
+                               "mlp_hidden_ratio": 4.0, "initialise_data_extractor_zero": False}
+
+
+def cross_attention_checks(device) -> dict:
+    """SDPA (flash / memory-efficient) against the plain cross attention at
+    o32 -> ico-3 (where the plain one fits), both directions, 16 heads of
+    32, float32 and bf16: the output within ``CROSS_TOL`` and dq, dk, dv
+    within ``CROSS_GRAD_TOL`` (relative L2); both timed, forward and
+    forward + backward."""
+    from anemoi_tpu_torch.models.layers.attention import cross_attention, cross_attention_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    (grid, n_grid), (mesh, n_mesh) = CROSS_CHECK
+    d = HD // HEADS
+    rows = []
+    for label, nq, nk in ((f"{grid}->{mesh}", n_mesh, n_grid), (f"{mesh}->{grid}", n_grid, n_mesh)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(1, n, HEADS, d, generator=gen, device=device).to(dtype)
+                       for n in (nq, nk, nk))
+            g = torch.randn(1, nq, HEADS, d, generator=gen, device=device).to(dtype)
+            outs = {}
+            for route, fn in (("sdpa", cross_attention), ("plain", cross_attention_plain)):
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = fn(*leaves)
+                out.backward(g)
+                outs[route] = [out.detach().float()] + [t.grad.float() for t in leaves]
+
+            def rel(a, b):
+                return float((a - b).norm() / b.norm())
+
+            errs = [rel(a, b) for a, b in zip(outs["sdpa"], outs["plain"])]
+            if not (errs[0] <= CROSS_TOL[dtype] and max(errs[1:]) <= CROSS_GRAD_TOL):
+                raise RuntimeError(f"cross attention {label} {dtype}: SDPA against plain "
+                                   f"(out, dq, dk, dv) {errs}")
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            row = {"shape": label, "dtype": str(dtype).split(".")[-1], "nq": nq, "nk": nk,
+                   "rel_l2_out": errs[0], "rel_l2_dq_dk_dv": errs[1:],
+                   "sdpa_ms": cuda_ms(lambda: cross_attention(q, k, v)),
+                   "plain_ms": cuda_ms(lambda: cross_attention_plain(q, k, v), reps=10),
+                   "sdpa_fwd_bwd_ms": cuda_ms(lambda: cross_attention(*leaves).backward(g),
+                                              reps=10)}
+            rows.append(row)
+            print(f"[transformer mappers] SDPA vs plain: {json.dumps(row)}", flush=True)
+    return {"rows": rows}
+
+
+def mapper_times(trainer, device) -> dict:
+    """Each Transformer mapper of the trained model, cast to bf16, forward
+    and forward + backward at the full shapes (o96 -> ico-5, B 1), CUDA
+    events; peak memory of the encoder's forward + backward."""
+    import copy
+
+    model = trainer.interface.model
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    n_grid, n_mesh = model.graph.num_nodes["data"], model.graph.num_nodes["hidden"]
+    result = {}
+    for part, mapper in (("encoder", model.encoder["data"]), ("decoder", model.decoder["data"])):
+        m = copy.deepcopy(mapper).to(torch.bfloat16)
+        if part == "encoder":
+            shapes = ((1, n_grid, m.emb_nodes_src.in_features),
+                      (1, n_mesh, m.emb_nodes_dst.in_features))
+        else:
+            shapes = ((1, n_mesh, HD), (1, n_grid, m.emb_nodes_dst.in_features))
+        xs = [torch.randn(*sh, generator=gen, device=device, dtype=torch.bfloat16) for sh in shapes]
+
+        def fwd(m=m, xs=xs, part=part):
+            out = m(tuple(xs))
+            return out[1] if part == "encoder" else out
+
+        def fwd_bwd():
+            fwd().float().square().mean().backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        fwd_bwd()
+        torch.cuda.synchronize()
+        result[part] = {"forward_ms": cuda_ms(fwd, reps=10), "forward_backward_ms":
+                        cuda_ms(fwd_bwd, reps=10), "peak_memory_bytes":
+                        torch.cuda.max_memory_allocated(device)}
+        print(f"[transformer mappers] {part} bf16 at full shape: {json.dumps(result[part])} "
+              f"({card_line()})", flush=True)
+        del m
+        torch.cuda.empty_cache()
+    return result
+
+
+def transformer_mappers_phase(workdir: str, device) -> dict:
+    """Phase 27: the example with the dense cross-attention Transformer
+    mappers (16 heads) and its GT processor: SDPA against the plain cross
+    attention where the plain one fits (``cross_attention_checks``); ``cli
+    train`` 3 steps (16 K1, K3 and K4 a step, the processor's; the gradient
+    gate), the mappers' times at full shape, ``cli predict`` 2 steps (16 K1
+    a step, bit for bit with the in-process forecast)."""
+    checks = cross_attention_checks(device)
+    path = example_json(workdir, "transformer_mappers", with_transformer_mappers)
+    times = {}
+
+    def after(trainer, state, want):
+        times.update(mapper_times(trainer, device))
+        return {}
+
+    want = {**NO_LAUNCHES, "K1": TRANSFORMER_LAYERS, "K3": TRANSFORMER_LAYERS,
+            "K4": TRANSFORMER_LAYERS}
+    train, run_dir, _ = family_train(workdir, device, "transformer_mappers", path, [LR_ONLY],
+                                     FAMILY_STEPS, lambda t: want, split=8, after=after)
+    predict = family_predict(workdir, device, "transformer_mappers", run_dir, TRANSFORMER_LAYERS,
+                             split=8, bitwise=True)
+    result = {"sdpa_vs_plain": checks, "train": train, "mapper_times": times,
+              "predict": predict}
+    print(f"[transformer mappers] {json.dumps(result)}", flush=True)
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
            ens: dict, families: dict, transport: dict, hierarchy: dict,
-           spectral: dict) -> dict:
+           spectral: dict, slice_17: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -3146,7 +3665,9 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     ``cli predict`` (phases 16-21), each transport preset's training
     step and generative ``cli predict`` (phase 22), each hierarchical
     preset's training step and ``cli predict`` and the ratio-2 step (phase
-    23), and the spectral and plain steps of phase 24."""
+    23), the spectral and plain steps of phase 24, and the training steps
+    and ``cli predict`` of phases 25-27 (``slice_17``: projections, dynamic
+    kNN, Transformer mappers)."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
                "example_trainer_step": trainer["launches_per_step"],
@@ -3184,7 +3705,11 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                       ("predict_2_steps", hierarchy[label]["predict"]["launches"]))},
                "hierarchical_ratio_2_step": hierarchy["ratio_2"]["launches"],
                "spectral_loss_and_residual_step": spectral["step"]["spectral"]["launches"],
-               "spectral_plain_step": spectral["step"]["plain"]["launches"]}
+               "spectral_plain_step": spectral["step"]["plain"]["launches"],
+               **{f"{label}_{kind}": counts
+                  for label, res in slice_17.items()
+                  for kind, counts in (("train", res["train"]["launches_per_step"]),
+                                       ("predict_2_steps", res["predict"]["launches"]))}}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
                "K4": "training_step", "K5": "training_step_fused_bwd",
                "K6": "transformer_serving_2_steps", "K7_dq": "transformer_training_step",
@@ -3299,10 +3824,18 @@ def main() -> int:
         transport = phase("transport", transport_phase, workdir, device)
         hierarchy = phase("hierarchical", hierarchical_phase, workdir, device)
         spectral = phase("spectral", spectral_phase, workdir, device)
-    for name, extra in hierarchy["down_set_rows"].items():
-        rows[name] += extra
+        slice_17 = {
+            "projections": phase("projections", projections_phase, workdir, device),
+            "dynamic": phase("dynamic", dynamic_phase, workdir, device),
+            "transformer_mappers": phase("transformer mappers", transformer_mappers_phase,
+                                         workdir, device),
+        }
+    for extra_rows in (hierarchy["down_set_rows"],
+                       slice_17["dynamic"]["runtime_sets"]["encoder_rows"]):
+        for name, extra in extra_rows.items():
+            rows[name] += extra
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
-                 ens, families, transport, hierarchy, spectral)
+                 ens, families, transport, hierarchy, spectral, slice_17)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -3312,7 +3845,7 @@ def main() -> int:
                        "transformer_serving": t_serving,
                        "transformer_training": t_training, "remat": remat, "presets": presets,
                        "ensemble": ens, "families": families, "transport": transport,
-                       "hierarchical": hierarchy, "spectral": spectral,
+                       "hierarchical": hierarchy, "spectral": spectral, **slice_17,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

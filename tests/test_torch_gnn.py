@@ -396,9 +396,10 @@ def test_graph_without_processor_edges():
 
 
 def test_component_keys_dropped_as_jax_drops_them(caplog):
-    """Keys another family left behind are dropped with a warning; a GT
-    processor on a graph without processor edges is refused by neither
-    package at build time, but the GNN families build."""
+    """Keys another family left behind are dropped with a warning, also when
+    the encoder is switched to a Transformer mapper (ported:
+    tests/test_torch_cross_attention.py), whose JAX module has no
+    ``mlp_extra_layers``."""
     cfg = gnn_config()
     cfg["model"]["processor"].update(num_heads=4, qk_norm_type="rmsnorm")
     graph = JaxGraphCreator(flagship_recipe("o8", 1)).create()
@@ -407,11 +408,14 @@ def test_component_keys_dropped_as_jax_drops_them(caplog):
                              data_indices=flagship_indices(),
                              statistics=flagship_statistics(seed=1), device="cpu")
     assert "['num_heads', 'qk_norm_type']" in caplog.text
-    cfg["model"]["encoder"]["name"] = "TransformerForwardMapper"
-    with pytest.raises(NotImplementedError, match="TransformerForwardMapper"):
-        AnemoiModelInterface(config=cfg, graph=port_graph(graph),
-                             data_indices=flagship_indices(),
-                             statistics=flagship_statistics(seed=1), device="cpu")
+    cfg["model"]["encoder"].update(name="TransformerForwardMapper", num_heads=4)
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        iface = AnemoiModelInterface(config=cfg, graph=port_graph(graph),
+                                     data_indices=flagship_indices(),
+                                     statistics=flagship_statistics(seed=1), device="cpu")
+    assert "TransformerForwardMapper: ignoring config keys ['mlp_extra_layers']" in caplog.text
+    assert type(iface.model.encoder["data"]).__name__ == "TransformerForwardMapper"
 
 
 def test_gnn_bf16_step_tracks_float32():

@@ -39,7 +39,7 @@ def test_imports_nothing_of_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     n_modules, bad = res.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 67
+    assert int(n_modules) >= 93
     assert bad.strip() == "[]", bad
 
 

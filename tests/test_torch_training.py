@@ -287,19 +287,15 @@ def test_fused_backward_choice():
 
 
 def test_not_ported_pieces_raise(tiny):
-    # the loss that needs the sparse projector (the spectral losses are
-    # ported: tests/test_torch_spectral.py)
-    with pytest.raises(NotImplementedError):
-        get_loss_function({"name": "MultiscaleLossWrapper"}, {})
-    # the Transformer mappers and the dynamic edge providers (the hierarchical
-    # family is ported: tests/test_torch_hierarchical.py)
-    transformer_mapper = config()
-    transformer_mapper["model"]["encoder"] = {"name": "TransformerForwardMapper",
-                                              "num_heads": 4}
-    edge_provider = config()
-    edge_provider["model"]["decoder"] = {**edge_provider["model"]["decoder"],
-                                         "edge_provider": {"num_nearest_neighbours": 3}}
-    for cfg, match in ((transformer_mapper, "not ported"), (edge_provider, "edge provider")):
+    # model parallelism (ROADMAP item 9): Ulysses head sharding and model
+    # shards (the multiscale loss, the Transformer mappers and the dynamic
+    # edge providers are ported: tests/test_torch_projection.py,
+    # tests/test_torch_cross_attention.py, tests/test_torch_dynamic.py)
+    heads = config()
+    heads["model"]["processor"] = {**heads["model"]["processor"], "shard_strategy": "heads"}
+    shards = config()
+    shards["model"]["num_model_shards"] = 2
+    for cfg, match in ((heads, "Ulysses"), (shards, "model parallelism")):
         with pytest.raises(NotImplementedError, match=match):
             AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
                                  data_indices=flagship_indices(), statistics=tiny["stats"],
