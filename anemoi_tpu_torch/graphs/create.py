@@ -74,3 +74,21 @@ class GraphCreator:
         if save_path:
             graph.save(save_path)
         return graph
+
+
+def describe(graph: Graph) -> str:
+    """A human-readable summary: node sets, edge sets and their attributes."""
+    lines = ["Graph summary", "============="]
+    for name, ns in graph.nodes.items():
+        lines.append(f"nodes '{name}': {ns.num_nodes} nodes")
+        for attr, v in ns.attributes.items():
+            lines.append(f"    attr '{attr}': shape {tuple(v.shape)} dtype {v.dtype}")
+    for (src, dst), es in graph.edges.items():
+        deg = es.num_edges / max(graph[dst].num_nodes, 1)
+        lines.append(
+            f"edges '{src}'->'{dst}': {es.num_edges} edges "
+            f"(mean in-degree {deg:.1f}, dst_sorted={es.is_dst_sorted})"
+        )
+        for attr, v in es.attributes.items():
+            lines.append(f"    attr '{attr}': shape {tuple(v.shape)} dtype {v.dtype}")
+    return "\n".join(lines)

@@ -1,11 +1,13 @@
 """Edge builders and edge attributes.
 
-Copy of ``anemoi_tpu.graphs.edges``, trimmed to the builders the flagship
-recipe uses, and ``GaussianDistanceWeights`` (the projection weights of
-``graphs/builders.py``).  Distance queries run on unit-sphere cartesian coordinates with
-``scipy.spatial.cKDTree`` (the JAX package uses scikit-learn, which the GPU
-machine does not have).  Neighbours come back sorted by distance in both, so
-the edge order within a destination agrees except where two distances tie.
+Copy of ``anemoi_tpu.graphs.edges``: every builder and attribute of the JAX
+package's registries, in the tables ``EDGE_BUILDERS`` and
+``EDGE_ATTRIBUTES``.  Distance queries run on unit-sphere cartesian
+coordinates with ``scipy.spatial.cKDTree`` (the JAX package uses
+scikit-learn, which the GPU machine does not have).  Neighbours come back
+sorted by distance in both, so the edge order within a destination agrees
+except where two distances tie.  Where the JAX package asserts a node count,
+the port raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -15,10 +17,14 @@ from typing import Dict, Optional
 import numpy as np
 from scipy.spatial import cKDTree
 
+from anemoi_tpu_torch.graphs.generate.healpix import healpix_multiscale_edges
+from anemoi_tpu_torch.graphs.generate.hexagons import hex_multi_scale_edge_index
+from anemoi_tpu_torch.graphs.generate.icon import icon_grid2mesh_edges, icon_multimesh
 from anemoi_tpu_torch.graphs.generate.icosahedron import multi_scale_edge_index
 from anemoi_tpu_torch.graphs.graph import Graph
 from anemoi_tpu_torch.graphs.nodes import _lookup, normalise
 from anemoi_tpu_torch.graphs.transforms import (
+    azimuth,
     edge_directions,
     great_circle_distance,
     latlon_rad_to_xyz,
@@ -92,6 +98,115 @@ def knn_edges(
     return np.stack([idx.ravel(), dst]).astype(np.int64)
 
 
+def reversed_knn_edges(
+    graph: Graph, source_name: str, target_name: str, num_nearest_neighbours: int = 3
+) -> np.ndarray:
+    """Connect each SOURCE node to its k nearest target nodes (edges in
+    source order)."""
+    src_xyz = latlon_rad_to_xyz(graph[source_name].coords)
+    dst_xyz = latlon_rad_to_xyz(graph[target_name].coords)
+    _, idx = _kneighbors(dst_xyz, src_xyz, num_nearest_neighbours)
+    src = np.repeat(np.arange(len(src_xyz)), num_nearest_neighbours)
+    return np.stack([src, idx.ravel()]).astype(np.int64)
+
+
+def mutual_knn_edges(
+    graph: Graph, source_name: str, target_name: str, num_nearest_neighbours: int = 3
+) -> np.ndarray:
+    """The reversed kNN edges that are also forward kNN edges, in the
+    reversed set's order."""
+    fwd = knn_edges(graph, source_name, target_name, num_nearest_neighbours)
+    rev = reversed_knn_edges(graph, source_name, target_name, num_nearest_neighbours)
+    n_dst = np.int64(graph[target_name].num_nodes)
+    keep = np.isin(rev[0] * n_dst + rev[1], fwd[0] * n_dst + fwd[1])
+    return rev[:, keep]
+
+
+def healpix_multi_scale_edges(
+    graph: Graph,
+    source_name: str,
+    target_name: str,
+    scale_resolutions=None,
+    resolution: Optional[int] = None,
+) -> np.ndarray:
+    """HEALPix multi-scale mesh edges over a nested-scheme ``HEALPixNodes``
+    set: the 8-neighbour pixel adjacency unioned over ``scale_resolutions``,
+    coarse pixels mapped to their first fine descendant."""
+    if source_name != target_name:
+        raise ValueError("HEALPixMultiScaleEdges connect a node set to itself.")
+    num_nodes = graph[source_name].num_nodes
+    if resolution is None:
+        resolution = int(round(np.log(num_nodes / 12.0) / np.log(4.0)))
+        if 12 * 4**resolution != num_nodes:
+            raise ValueError(
+                f"Cannot infer HEALPix resolution from {num_nodes} nodes; pass resolution=")
+    return healpix_multiscale_edges(resolution, scale_resolutions)
+
+
+def icon_processor_edges(
+    graph: Graph,
+    source_name: str,
+    target_name: str,
+    grid_filename: str,
+    max_level: Optional[int] = None,
+    bidirectional: bool = True,
+) -> np.ndarray:
+    """Multimesh vertex-vertex edges unioned over refinement levels
+    0..max_level, over ``ICONMultiMeshNodes`` of the same grid file and
+    ``max_level``."""
+    if source_name != target_name:
+        raise ValueError("ICON processor edges connect the multimesh to itself.")
+    mesh = icon_multimesh(grid_filename, max_level)
+    if mesh.num_nodes != graph[source_name].num_nodes:
+        raise ValueError(
+            f"'{source_name}' has {graph[source_name].num_nodes} nodes but the ICON "
+            f"multimesh at max_level={max_level} has {mesh.num_nodes}; build the "
+            "nodes with ICONMultiMeshNodes from the same grid_filename/max_level.")
+    return mesh.multi_mesh_edges(bidirectional=bidirectional)
+
+
+def _icon_grid2mesh(graph, cell_name, mesh_name, grid_filename, max_level, cell_max_level):
+    """[E, 2] (cell, multimesh vertex) pairs, checked against the node sets."""
+    pairs = icon_grid2mesh_edges(grid_filename, max_level, cell_max_level)
+    mesh = icon_multimesh(grid_filename, max_level)
+    if mesh.num_nodes != graph[mesh_name].num_nodes:
+        raise ValueError(
+            f"'{mesh_name}' has {graph[mesh_name].num_nodes} nodes but the ICON multimesh "
+            f"at max_level={max_level} has {mesh.num_nodes}")
+    if int(pairs[:, 0].max()) + 1 != graph[cell_name].num_nodes:
+        raise ValueError(f"'{cell_name}' must be ICONCellGridNodes from the same grid file")
+    return pairs
+
+
+def icon_encoder_edges(
+    graph: Graph,
+    source_name: str,
+    target_name: str,
+    grid_filename: str,
+    max_level: Optional[int] = None,
+    cell_max_level: Optional[int] = None,
+) -> np.ndarray:
+    """Cell -> multimesh-vertex edges: each ICON cell connects to the 3
+    vertices of its level-``max_level`` ancestor triangle."""
+    pairs = _icon_grid2mesh(graph, source_name, target_name, grid_filename, max_level,
+                            cell_max_level)
+    return pairs.T.astype(np.int64)
+
+
+def icon_decoder_edges(
+    graph: Graph,
+    source_name: str,
+    target_name: str,
+    grid_filename: str,
+    max_level: Optional[int] = None,
+    cell_max_level: Optional[int] = None,
+) -> np.ndarray:
+    """Multimesh-vertex -> cell edges: the encoder edges reversed."""
+    pairs = _icon_grid2mesh(graph, target_name, source_name, grid_filename, max_level,
+                            cell_max_level)
+    return pairs[:, ::-1].T.astype(np.int64)
+
+
 def multi_scale_edges(
     graph: Graph,
     source_name: str,
@@ -99,19 +214,37 @@ def multi_scale_edges(
     x_hops: int = 1,
     resolution: Optional[int] = None,
     scale_resolutions: Optional[list] = None,
+    mesh_type: Optional[str] = None,
+    depth_children: int = 0,
 ) -> np.ndarray:
-    """Icosahedral multi-scale edges over a ``TriNodes`` set (10*4^r+2 nodes);
-    coarse-level adjacency is unioned across ``scale_resolutions``."""
+    """Icosahedral multi-scale edges over ``TriNodes`` (10*4^r+2 nodes) or
+    ``HexNodes`` (20*4^r nodes); the mesh type is inferred from the node
+    count unless ``mesh_type`` ('tri'|'hex') is given.  Coarse-level
+    adjacency is unioned across ``scale_resolutions``; ``depth_children``
+    (hex only) adds parent-child edges across levels."""
     if source_name != target_name:
         raise ValueError("MultiScaleEdges connect a node set to itself.")
     num_nodes = graph[source_name].num_nodes
-    if resolution is None:
-        resolution = int(round(np.log(max(num_nodes - 2, 1) / 10.0) / np.log(4.0)))
-    if 10 * 4**resolution + 2 != num_nodes:
+    if mesh_type is None or resolution is None:
+        r_tri = int(round(np.log(max(num_nodes - 2, 1) / 10.0) / np.log(4.0)))
+        r_hex = int(round(np.log(max(num_nodes, 1) / 20.0) / np.log(4.0)))
+        if mesh_type == "tri" or (mesh_type is None and 10 * 4**r_tri + 2 == num_nodes):
+            mesh_type, resolution = "tri", (resolution if resolution is not None else r_tri)
+        elif mesh_type == "hex" or (mesh_type is None and 20 * 4**r_hex == num_nodes):
+            mesh_type, resolution = "hex", (resolution if resolution is not None else r_hex)
+        else:
+            raise ValueError(
+                f"Cannot infer tri/hex mesh resolution from {num_nodes} nodes; "
+                "pass mesh_type= and resolution=")
+    expected = 10 * 4**resolution + 2 if mesh_type == "tri" else 20 * 4**resolution
+    if expected != num_nodes:
         raise ValueError(
-            f"MultiScaleEdges: node set '{source_name}' has {num_nodes} nodes, not a "
-            f"tri mesh at resolution {resolution}"
-        )
+            f"MultiScaleEdges: node set '{source_name}' has {num_nodes} nodes but a "
+            f"{mesh_type} mesh at resolution {resolution} has {expected}")
+    if mesh_type == "hex":
+        return hex_multi_scale_edge_index(resolution, scale_resolutions, x_hops, depth_children)
+    if depth_children != 0:
+        raise ValueError("depth_children applies to hex meshes only")
     return multi_scale_edge_index(resolution, scale_resolutions, x_hops)
 
 
@@ -141,6 +274,15 @@ def edge_direction(
     return normalise(d.astype(np.float32), norm)
 
 
+def edge_azimuth(
+    graph: Graph, source_name: str, target_name: str, edge_index: np.ndarray,
+    norm: Optional[str] = None,
+) -> np.ndarray:
+    """Forward azimuth src -> dst."""
+    src, dst = _edge_coords(graph, source_name, target_name, edge_index)
+    return normalise(azimuth(src, dst).astype(np.float32)[:, None], norm)
+
+
 def gaussian_distance_weights(
     graph: Graph, source_name: str, target_name: str, edge_index: np.ndarray,
     sigma_factor: Optional[float] = None, sigma: Optional[float] = None,
@@ -163,13 +305,49 @@ def gaussian_distance_weights(
     return normalise(w.astype(np.float32)[:, None], norm)
 
 
+def radial_basis_features(
+    graph: Graph, source_name: str, target_name: str, edge_index: np.ndarray,
+    num_basis: int = 8, norm: Optional[str] = None,
+) -> np.ndarray:
+    """Gaussian radial-basis expansion of the edge length: ``num_basis``
+    centres evenly from 0 to the longest edge."""
+    src, dst = _edge_coords(graph, source_name, target_name, edge_index)
+    d = great_circle_distance(src, dst)
+    d_max = max(float(d.max()), 1e-12)
+    centres = np.linspace(0.0, d_max, num_basis)
+    width = d_max / max(num_basis - 1, 1)
+    feats = np.exp(-0.5 * ((d[:, None] - centres[None, :]) / width) ** 2)
+    return normalise(feats.astype(np.float32), norm)
+
+
+def directional_harmonics(
+    graph: Graph, source_name: str, target_name: str, edge_index: np.ndarray,
+    num_harmonics: int = 2, norm: Optional[str] = None,
+) -> np.ndarray:
+    """sin(k a), cos(k a) of the edge azimuth a for k = 1..num_harmonics."""
+    src, dst = _edge_coords(graph, source_name, target_name, edge_index)
+    a = azimuth(src, dst)
+    k = np.arange(1, num_harmonics + 1)
+    feats = np.stack([np.sin(k[None] * a[:, None]), np.cos(k[None] * a[:, None])], axis=-1)
+    return normalise(feats.reshape(len(a), -1).astype(np.float32), norm)
+
+
 EDGE_BUILDERS = {
     "CutOffEdges": cutoff_edges,
     "KNNEdges": knn_edges,
+    "ReversedKNNEdges": reversed_knn_edges,
+    "MutualKNNEdges": mutual_knn_edges,
+    "HEALPixMultiScaleEdges": healpix_multi_scale_edges,
+    "ICONTopologicalProcessorEdges": icon_processor_edges,
+    "ICONTopologicalEncoderEdges": icon_encoder_edges,
+    "ICONTopologicalDecoderEdges": icon_decoder_edges,
     "MultiScaleEdges": multi_scale_edges,
 }
 EDGE_ATTRIBUTES = {"EdgeLength": edge_length, "EdgeDirection": edge_direction,
-                   "GaussianDistanceWeights": gaussian_distance_weights}
+                   "Azimuth": edge_azimuth,
+                   "GaussianDistanceWeights": gaussian_distance_weights,
+                   "RadialBasisFeatures": radial_basis_features,
+                   "DirectionalHarmonics": directional_harmonics}
 
 
 def build_edges(graph: Graph, config: Dict) -> np.ndarray:

@@ -1,9 +1,11 @@
 """Gaussian grid generation (pure numpy).
 
-Copy of ``anemoi_tpu.graphs.generate.gaussian``, trimmed to the grids that
-``ReducedGaussianGridNodes`` builds: Gaussian latitudes from Gauss-Legendre
-quadrature roots; ring lengths follow the octahedral rule (O-grids), the
-vendored classic tables (N-grids) or a full ring (F-grids).
+Copy of ``anemoi_tpu.graphs.generate.gaussian``: the grids that
+``ReducedGaussianGridNodes`` and ``RegularLatLonNodes`` build.  Gaussian
+latitudes come from Gauss-Legendre quadrature roots; ring lengths follow the
+octahedral rule (O-grids), official pl arrays named by
+``ANEMOI_TPU_PL_TABLES`` or the vendored classic tables (N-grids), or a full
+ring (F-grids).
 """
 
 from __future__ import annotations
@@ -37,9 +39,34 @@ def octahedral_ring_lengths(n: int) -> np.ndarray:
     return np.concatenate([half, half[::-1]])
 
 
+def _pl_table_override(n: int) -> np.ndarray | None:
+    """Official pl array override from ANEMOI_TPU_PL_TABLES (npz with keys
+    like 'n320' holding the full 2n-ring pl array or the n-ring NH half)."""
+    import os
+
+    path = os.environ.get("ANEMOI_TPU_PL_TABLES")
+    if not path:
+        return None
+    with np.load(path) as tables:
+        key = f"n{n}"
+        if key not in tables:
+            return None
+        pl = np.asarray(tables[key], dtype=np.int64)
+    if pl.size == n:  # NH half-table
+        pl = np.concatenate([pl, pl[::-1]])
+    if pl.size != 2 * n:
+        raise ValueError(f"{path}[{key}] has {pl.size} rings, expected {n} or {2 * n}")
+    return pl
+
+
 def reduced_ring_lengths(n: int) -> np.ndarray:
-    """Classic reduced-Gaussian (N-grid) ring lengths: the vendored tables,
-    else the approximate FFT-friendly rule nlon(ring) ~ 4n*cos(lat)."""
+    """Classic reduced-Gaussian (N-grid) ring lengths: the official pl array
+    of ``ANEMOI_TPU_PL_TABLES`` where it holds one for ``n``, else the
+    vendored tables, else the approximate FFT-friendly rule
+    nlon(ring) ~ 4n*cos(lat)."""
+    override = _pl_table_override(n)
+    if override is not None:
+        return override
     from anemoi_tpu_torch.graphs.generate._ngrid_tables import CLASSIC_RING_TABLES
 
     if n in CLASSIC_RING_TABLES:
@@ -90,3 +117,14 @@ def full_gaussian_grid(n: int) -> np.ndarray:
     """Full Gaussian grid F<n>: 2n lats x 4n lons."""
     lats = gaussian_latitudes(n)
     return grid_from_rings(lats, np.full(2 * n, 4 * n, dtype=np.int64))
+
+
+def regular_latlon_grid(resolution_deg: float) -> np.ndarray:
+    """Regular lat/lon grid at the given spacing (degrees), poles excluded."""
+    nlat = int(round(180.0 / resolution_deg)) - 1
+    nlon = int(round(360.0 / resolution_deg))
+    lats = np.deg2rad(90.0 - resolution_deg * np.arange(1, nlat + 1))
+    lons = np.deg2rad(np.arange(nlon) * resolution_deg)
+    lons = np.where(lons > np.pi, lons - 2.0 * np.pi, lons)
+    lat_grid, lon_grid = np.meshgrid(lats, lons, indexing="ij")
+    return np.stack([lat_grid.ravel(), lon_grid.ravel()], axis=-1)

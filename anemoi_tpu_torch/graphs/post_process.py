@@ -1,8 +1,8 @@
 """Graph post-processors.
 
-Copy of ``anemoi_tpu.graphs.post_process``, trimmed to the destination sort
-(the CSR invariant) and the two node relabelings the flagship recipe and the
-frozen inference fixture use.
+Copy of ``anemoi_tpu.graphs.post_process``: the destination sort (the CSR
+invariant), the source sort, the two node relabelings and the two node
+subsets (unconnected nodes, a lat/lon box), in the table ``POST_PROCESSORS``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,84 @@ def sort_edges_by_dst(graph: Graph) -> Graph:
         _, dst_name = key
         graph.edges[key] = graph.edges[key].sort_by_dst(graph[dst_name].num_nodes)
     return graph
+
+
+def sort_edges_by_src(graph: Graph) -> Graph:
+    """Stably sort every edge set by source node.  The recipe ends with the
+    destination sort all the same (the CSR invariant)."""
+    for key in list(graph.edges):
+        es = graph.edges[key]
+        order = np.argsort(es.edge_index[0], kind="stable")
+        graph.edges[key] = EdgeSet(edge_index=es.edge_index[:, order],
+                                   attributes={k: v[order] for k, v in es.attributes.items()})
+    return graph
+
+
+def _keep_nodes(graph: Graph, nodes_name: str, keep_idx: np.ndarray,
+                extra_attributes: Optional[dict] = None) -> Graph:
+    """Keep the nodes ``keep_idx`` of ``nodes_name`` (in that order) and the
+    edges of every touching set whose endpoints are both kept."""
+    ns = graph[nodes_name]
+    relabel = -np.ones(ns.num_nodes, dtype=np.int64)
+    relabel[keep_idx] = np.arange(len(keep_idx))
+    graph.nodes[nodes_name] = NodeSet(
+        coords=ns.coords[keep_idx],
+        attributes={**{k: v[keep_idx] for k, v in ns.attributes.items()},
+                    **(extra_attributes or {})},
+    )
+    for key in list(graph.edges):
+        src, dst = key
+        if src != nodes_name and dst != nodes_name:
+            continue
+        es = graph.edges[key]
+        ei = es.edge_index.copy()
+        mask = np.ones(es.num_edges, dtype=bool)
+        if src == nodes_name:
+            ei[0] = relabel[ei[0]]
+            mask &= ei[0] >= 0
+        if dst == nodes_name:
+            ei[1] = relabel[ei[1]]
+            mask &= ei[1] >= 0
+        graph.edges[key] = EdgeSet(edge_index=ei[:, mask],
+                                   attributes={k: v[mask] for k, v in es.attributes.items()})
+    return graph
+
+
+def remove_unconnected_nodes(
+    graph: Graph,
+    nodes_name: str,
+    ignore: Optional[str] = None,
+    save_mask_indices_to_attr: Optional[str] = None,
+) -> Graph:
+    """Drop the nodes of ``nodes_name`` that no edge touches.  ``ignore``
+    names a boolean attribute whose True nodes stay regardless;
+    ``save_mask_indices_to_attr`` stores the kept nodes' old indices."""
+    ns = graph[nodes_name]
+    connected = np.zeros(ns.num_nodes, dtype=bool)
+    for (src, dst), es in graph.edges.items():
+        if src == nodes_name:
+            connected[es.edge_index[0]] = True
+        if dst == nodes_name:
+            connected[es.edge_index[1]] = True
+    if ignore is not None:
+        connected |= ns.attributes[ignore].reshape(-1).astype(bool)
+    keep_idx = np.flatnonzero(connected)
+    extra = {save_mask_indices_to_attr: keep_idx[:, None]} if save_mask_indices_to_attr else None
+    return _keep_nodes(graph, nodes_name, keep_idx, extra)
+
+
+def subset_nodes_in_area(
+    graph: Graph,
+    nodes_name: str,
+    lat_min: float = -90.0,
+    lat_max: float = 90.0,
+    lon_min: float = -180.0,
+    lon_max: float = 180.0,
+) -> Graph:
+    """Keep only the nodes inside a lat/lon box (degrees, bounds included)."""
+    lat, lon = np.rad2deg(graph[nodes_name].coords).T
+    keep = (lat >= lat_min) & (lat <= lat_max) & (lon >= lon_min) & (lon <= lon_max)
+    return _keep_nodes(graph, nodes_name, np.flatnonzero(keep))
 
 
 def _relabel_nodes(graph: Graph, nodes_name: str, order: np.ndarray) -> Graph:
@@ -70,6 +148,9 @@ def sort_nodes_by_incoming_degree(
 
 POST_PROCESSORS = {
     "SortEdgeIndexByDestinationNodes": sort_edges_by_dst,
+    "SortEdgeIndexBySourceNodes": sort_edges_by_src,
+    "RemoveUnconnectedNodes": remove_unconnected_nodes,
+    "SubsetNodesInArea": subset_nodes_in_area,
     "SortNodesBySpaceFillingCurve": sort_nodes_by_space_filling_curve,
     "SortNodesByIncomingDegree": sort_nodes_by_incoming_degree,
 }

@@ -283,7 +283,29 @@ Phases (any failure exits non-zero, with no result line):
                   bf16 forward and forward + backward at full shape with its
                   peak memory; ``cli predict`` 2 steps (16 K1 a step) bit for
                   bit with the in-process forecast;
- 28. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 28. hex       -- the ``graphtransformer`` model at its width (1024
+                  channels, 16 layers, 16 heads) on ``graph/hex_mesh.yaml``
+                  (o96 -> ``HexNodes`` r5, ``MultiScaleEdges`` x_hops 2)
+                  through ``cli train`` over phase 9's store, bf16, 3 steps:
+                  the graph's node and edge counts (40 320 / 20 480; 41 704
+                  / 245 700 / 120 960 edges), degree ranges and edgeless
+                  sources, exactly 18 K1, K3 and K4 and no K5 a step, the
+                  gradient gate; K3 + K4 at the encoder set (6 764 of the
+                  40 320 sources edgeless) at HD 1024 against the plain
+                  backward and ``index_add_``, timed as in phase 23; ``cli
+                  predict`` 2 steps (18 K1 a step) bit for bit with the
+                  in-process forecast; wall, device ms and peak memory;
+ 29. healpix   -- as phase 28 with ``HEALPixNodes`` r5 (nested) and
+                  ``HEALPixMultiScaleEdges`` (12 288 hidden nodes; 48 880 /
+                  130 568 / 120 960 edges), without the encoder rows;
+ 30. icon      -- ``graph/icon_mesh.yaml`` on a synthetic ICON grid the
+                  phase writes (``write_synthetic_icon_grid`` r6,
+                  ``max_level`` 5: 81 920 cells, 10 242 vertices; 245 760 /
+                  81 900 / 245 760 edges) with a synthetic dataset on its
+                  cells: as phase 28, but 18 K1, 18 K3, 16 K4 and 2 K5 a step
+                  (the 2 GB rule picks the fused backward for both mappers at
+                  1024 channels), and at the encoder set K3 + K4 and K3 + K5;
+ 31. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
@@ -292,9 +314,10 @@ Phases (any failure exits non-zero, with no result line):
                   steps, rollout-2 steps and forecasts, phase 22's
                   training steps and generative forecasts, phase 23's
                   training steps, forecasts and ratio-2 step and phase 24's
-                  two steps, phases 25-27's training steps and forecasts;
-                  the K3 and K4 rows also the down set's and the dynamic
-                  encoder set's), the card line, and
+                  two steps, phases 25-30's training steps and forecasts;
+                  the K3 and K4 rows also the down set's, the dynamic
+                  encoder set's and the hex and ICON encoder sets', the K5
+                  row the ICON encoder set's), the card line, and
                   last {"ok": true, "device": {...}}; with --json, the same
                   and the serving and training details also go to PATH.
 
@@ -492,8 +515,8 @@ def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1):
     the rows), or, with the projection fused, dW and dbias (the flagship's
     raw attributes are constants: no d_attr); K4 reads dkv back and writes
     dk, dv; K5 reads K3's inputs plus the source-ordered view and writes dk,
-    dv.  Operations per edge, channel and row: K3 12 (+ 4F for the
-    projection and dW), K4 2, K5 12 (+ 2F)."""
+    dv; K3 beside K5 writes no dkv.  Operations per edge, channel and row:
+    K3 12 (+ 4F for the projection and dW), K4 2, K5 12 (+ 2F)."""
     node_in = batch * (2 * n_dst * hd * elt + 2 * n_src * hd * elt)  # q, g; k, v
     stats = batch * 2 * 4 * n_dst * HEADS  # lse, delta (float32)
     edge_in = (n_edges * n_feat * elt + n_feat * hd * elt + hd * elt) if fused \
@@ -507,6 +530,7 @@ def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1):
     per_edge = batch * n_edges * hd
     return {
         "K3": bound(k3, per_edge * (12 + (4 * n_feat if fused else 0))),
+        "K3 (no dkv)": bound(k3 - dkv, per_edge * (12 + (4 * n_feat if fused else 0))),
         "K4": bound(k4, per_edge * 2),
         "K5": bound(k5, per_edge * (12 + (2 * n_feat if fused else 0))),
     }
@@ -2006,12 +2030,12 @@ FAMILY_STEPS = 3  # cli train steps of phases 16-19 (2 for the ensemble downscal
 FAMILY_TIMED = 3  # fixed-batch steps timed after the run, after 1 of warmup
 LR_ONLY = "diagnostics.callbacks=[{name: LearningRateMonitor}]"
 CARD_CPU_TOL = 1e-4  # relative L2, the GNN's float32 forward and gradient, card against CPU
-GNN_DEFAULTS = """defaults:
+FAMILY_DEFAULTS = """defaults:
   - data: synthetic
   - dataloader: default
   - diagnostics: default
-  - graph: multi_scale
-  - model: gnn
+  - graph: {graph}
+  - model: {model}
   - task: forecaster
   - training: default
   - _self_
@@ -2041,7 +2065,8 @@ def family_train(workdir: str, device, label: str, path: str, overrides: list, s
                  want, attention: bool = True, split: int = 0, dataset=None,
                  after=None) -> tuple:
     """``cli train`` on ``path`` over phase 9's store (or ``dataset``, a
-    ``(kind, path)``), bf16: exit 0, ``steps`` finite records, a finite
+    ``(kind, path)``; ``"config"``: the config's own dataset), bf16: exit 0,
+    ``steps`` finite records, a finite
     validation record, exactly ``want(trainer)`` launches in every step;
     then, on a batch of the store, the trained step's gradient against the
     plain attention (``attention``), ``after(trainer, state, want)`` (its
@@ -2051,10 +2076,12 @@ def family_train(workdir: str, device, label: str, path: str, overrides: list, s
     memory.  Returns (result, run directory, last validation record)."""
     from anemoi_tpu_torch.training import cli
 
-    kind, store = dataset or ("zarr", os.path.join(workdir, "example_o96.zarr"))
+    data = []
+    if dataset != "config":
+        kind, store = dataset or ("zarr", os.path.join(workdir, "example_o96.zarr"))
+        data = [f"data.datasets.data.kind={kind}", f"data.datasets.data.path={store}"]
     run_dir = os.path.join(workdir, f"{label}_run")
-    run = [f"data.datasets.data.kind={kind}", f"data.datasets.data.path={store}",
-           f"output_dir={run_dir}", f"training.max_steps={steps}", "training.max_epochs=1",
+    run = [*data, f"output_dir={run_dir}", f"training.max_steps={steps}", "training.max_epochs=1",
            "training.precision=bf16", "diagnostics.log_interval=1", *overrides]
     t0 = time.perf_counter()
     with StepLaunches() as counted:
@@ -2291,7 +2318,7 @@ def gnn_phase(workdir: str, device) -> dict:
     the CPU (the same weights and batch)."""
     cfg_path = os.path.join(workdir, "gnn.yaml")
     with open(cfg_path, "w") as f:
-        f.write(GNN_DEFAULTS)
+        f.write(FAMILY_DEFAULTS.format(graph="multi_scale", model="gnn"))
     overrides = [f"graph.save_path={os.path.join(workdir, 'graph.npz')}", LR_ONLY]
     composed_preset(cfg_path, overrides, {
         "model.num_channels": 512, "model.processor.name": "GNNProcessor",
@@ -2359,7 +2386,7 @@ def graph_summary(label: str, graph, hidden: str = "hidden") -> dict:
     printed and returned."""
     import numpy as np
 
-    out = {"hidden_nodes": graph[hidden].num_nodes}
+    out = {"data_nodes": graph["data"].num_nodes, "hidden_nodes": graph[hidden].num_nodes}
     if "cutout_mask" in graph["data"].attributes:
         out["area_nodes"] = int(graph["data"].attributes["cutout_mask"].sum())
     for (src, dst), es in graph.edges.items():
@@ -2368,7 +2395,8 @@ def graph_summary(label: str, graph, hidden: str = "hidden") -> dict:
         out[f"{src}->{dst}"] = {
             "edges": es.num_edges, "source_degree": [int(out_deg.min()), int(out_deg.max())],
             "sources_without_edges": int((out_deg == 0).sum()),
-            "destination_degree": [int(in_deg.min()), int(in_deg.max())]}
+            "destination_degree": [int(in_deg.min()), int(in_deg.max())],
+            "mean_destination_degree": float(in_deg.mean())}
     print(f"[{label}] graph: {json.dumps(out)}", flush=True)
     return out
 
@@ -2858,95 +2886,132 @@ def hierarchical_launches(config: dict, graph) -> dict:
             "K5": blocks.count(True)}
 
 
-def down_set_backward(graph, device) -> dict:
-    """K3 + K4 at the V-cycle's down set (``hidden_1 -> hidden_2``, KNN-3 from
-    each ico-3 node: most ico-5 sources have no edge): :func:`sparse_set_backward`
-    on the host-built set."""
+def graph_set_backward(label, graph, key, device, **kw) -> dict:
+    """:func:`sparse_set_backward` on the host-built edge set ``key`` of
+    ``graph`` with its ``edge_length`` and ``edge_dirs``."""
     from anemoi_tpu_torch.ops.gt_attention import SourceOrder
 
-    es = graph[DOWN_SET]
-    n_src, n_dst = graph[DOWN_SET[0]].num_nodes, graph[DOWN_SET[1]].num_nodes
+    es = graph[key]
+    n_src, n_dst = graph[key[0]].num_nodes, graph[key[1]].num_nodes
     ei = torch.as_tensor(es.edge_index, dtype=torch.int32, device=device).contiguous()
     ptr = torch.as_tensor(es.dst_ptr, dtype=torch.int32, device=device)
     attr32 = torch.as_tensor(es.attribute_matrix(["edge_length", "edge_dirs"]), device=device)
-    return sparse_set_backward("hierarchical", "->".join(DOWN_SET), ei, ptr,
-                               SourceOrder.of(ei, n_src), attr32, n_src, n_dst, device)
+    return sparse_set_backward(label, "->".join(key), ei, ptr, SourceOrder.of(ei, n_src),
+                               attr32, n_src, n_dst, device, **kw)
 
 
-def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, device) -> dict:
-    """K3 + K4 at an edge set with edgeless sources, against the plain
-    backward, the flagship's fused edge projection, HD 512, float32
+def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, device,
+                        hd=HD, k5=False) -> dict:
+    """K3 + K4 (and, with ``k5``, K3 + K5) at an edge set, against the plain
+    backward, the flagship's fused edge projection, width ``hd``, float32
     and bfloat16, within the phase-4 gates; the dk and dv rows of the
-    sources with no edge exactly 0.  Rows for K3 and K4, timed as in phase
-    4, K4 beside one ``index_add_``."""
+    sources with no edge exactly 0.  Rows for K3, K4 (and K5), each timed
+    single and back to back beside its byte bound, K4 also beside
+    ``index_add_`` timed the same two ways; with ``k5`` also K3 without its
+    dkv output, as the fused backward launches it, and both backward
+    passes' back-to-back sums (K3 + K4, K3 without dkv + K5)."""
     from anemoi_tpu_torch.kernels import gt_attention as kern
     from anemoi_tpu_torch.ops.gt_attention import gt_attention_bwd_kernels, gt_attention_bwd_plain
 
     no_edge = torch.bincount(ei[0].long(), minlength=n_src) == 0
     n_e, n_f = attr32.shape
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    rows = {"K3": [], "K4": []}
+    rows = {"K3": [], "K4": [], **({"K5": []} if k5 else {})}
     for dtype in (torch.float32, torch.bfloat16):
         def rnd(*shape, scale=1.0):
             return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
 
-        q, k, v, g = rnd(1, n_dst, HD), rnd(1, n_src, HD), rnd(1, n_src, HD), rnd(1, n_dst, HD)
-        edge_kw = dict(edge_attr=attr32.to(dtype), weight=rnd(HD, n_f, scale=0.3).t(),
-                       bias=rnd(HD, scale=0.1))
+        q, k, v, g = rnd(1, n_dst, hd), rnd(1, n_src, hd), rnd(1, n_src, hd), rnd(1, n_dst, hd)
+        edge_kw = dict(edge_attr=attr32.to(dtype), weight=rnd(hd, n_f, scale=0.3).t(),
+                       bias=rnd(hd, scale=0.1))
         out, lse = kern.gt_attention_fused_edge(q, k, v, *edge_kw.values(), ei, ptr, HEADS)
         ref = gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g, **edge_kw)
-        kern.reset_launches()
-        got = gt_attention_bwd_kernels(q, k, v, ei, ptr, order.src_ptr, order.src_perm, HEADS,
-                                       out, lse, g, fused_bwd=False, **edge_kw)
-        torch.cuda.synchronize()
-        launches = kern.launch_counts()  # the graph attention's K1-K5
-        if launches != {name: int(name in ("K3", "K4")) for name in launches}:
-            raise RuntimeError(f"{label} {edge_set} backward: launches {launches}, want one K3 and one K4")
-        errs = {}
-        for name in ("dq", "dk", "dv", "d_attr", "d_weight", "d_bias"):
-            x, y = getattr(got, name).float(), getattr(ref, name).float()
-            errs[name] = (x - y).abs().max().item()
-            if not (errs[name] <= TOL[dtype] * y.abs().max().item() and torch.isfinite(x).all()):
-                raise RuntimeError(f"{label} {edge_set} backward {dtype} {name}: max abs err "
-                                   f"{errs[name]:.3e}, max|ref| {y.abs().max().item():.3e}")
-        zero_rows = [name for name in ("dk", "dv")
-                     if getattr(got, name)[:, no_edge].count_nonzero().item()]
+        got = {}
+        for fused_bwd in (False, True)[:1 + k5]:
+            source_pass = "K5" if fused_bwd else "K4"
+            kern.reset_launches()
+            got[source_pass] = gt_attention_bwd_kernels(
+                q, k, v, ei, ptr, order.src_ptr, order.src_perm, HEADS, out, lse, g,
+                fused_bwd=fused_bwd, **edge_kw)
+            torch.cuda.synchronize()
+            launches = kern.launch_counts()  # the graph attention's K1-K5
+            if launches != {name: int(name in ("K3", source_pass)) for name in launches}:
+                raise RuntimeError(f"{label} {edge_set} backward: launches {launches}, want "
+                                   f"one K3 and one {source_pass}")
+        errs = {}  # source pass -> gradient field -> max abs error
+        for source_pass, grads in got.items():
+            errs[source_pass] = {}
+            for field in ("dq", "dk", "dv", "d_attr", "d_weight", "d_bias"):
+                x, y = getattr(grads, field).float(), getattr(ref, field).float()
+                err = errs[source_pass][field] = (x - y).abs().max().item()
+                if not (err <= TOL[dtype] * y.abs().max().item() and torch.isfinite(x).all()):
+                    raise RuntimeError(f"{label} {edge_set} backward {dtype} K3 + {source_pass} "
+                                       f"{field}: max abs err {err:.3e}, max|ref| "
+                                       f"{y.abs().max().item():.3e}")
+        zero_rows = [f"{name} ({source_pass})" for source_pass, grads in got.items()
+                     for name in ("dk", "dv")
+                     if getattr(grads, name)[:, no_edge].count_nonzero().item()]
         if zero_rows:
             raise RuntimeError(f"{label} {edge_set} backward {dtype}: {zero_rows} not exactly 0 at the "
                                f"{int(no_edge.sum())} sources with no edge")
-        print(f"[{label}] K3 + K4 at {edge_set} ({n_e} edges, {int(no_edge.sum())} of "
-              f"{n_src} sources with no edge), {dtype}: max abs errors {errs}; dk and dv "
-              "exactly 0 at the sources with no edge", flush=True)
+        print(f"[{label}] K3 + {' / '.join(got)} at {edge_set} ({n_e} edges, "
+              f"{int(no_edge.sum())} of {n_src} sources with no edge, HD {hd}), {dtype}: max "
+              f"abs errors {errs}; dk and dv exactly 0 at the sources with no edge", flush=True)
         delta = (out.float() * g.float()).reshape(1, n_dst, HEADS, -1).sum(-1)
         path_kw = dict(edge_grad=False, weight_grad=True)
         dkv = kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw,
                                         **path_kw).dkv
-        ms = {"K3": cuda_ms(lambda: kern.gt_attention_bwd_dst(
-                  q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw)),
-              "K4": cuda_ms(lambda: kern.gt_attention_bwd_src(dkv, order.src_ptr,
-                                                              order.src_perm))}
+        calls = {"K3": lambda: kern.gt_attention_bwd_dst(
+                     q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw),
+                 "K4": lambda: kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm),
+                 "K5": lambda: kern.gt_attention_bwd_src_fused(
+                     q, k, v, g, lse, delta, ei, ptr, order.src_ptr, order.src_perm, HEADS,
+                     **edge_kw)}
+        ms = {name: cuda_ms(calls[name]) for name in rows}
+        b2b = {name: cuda_ms_back_to_back(calls[name]) for name in rows}
         src = ei[0].long()
-        k4_plain_ms = cuda_ms(lambda: torch.zeros(1, n_src, 2 * HD, device=device).index_add_(
+        k4_plain_ms = cuda_ms(lambda: torch.zeros(1, n_src, 2 * hd, device=device).index_add_(
             1, src, dkv.float()))
-        k4_library_ms = cuda_ms(lambda: torch.zeros(1, n_src, 2 * HD, device=device,
-                                                    dtype=dtype).index_add_(1, src, dkv))
+
+        def k4_library():
+            return torch.zeros(1, n_src, 2 * hd, device=device, dtype=dtype).index_add_(1, src, dkv)
+
+        k4_library_ms, k4_library_b2b = cuda_ms(k4_library), cuda_ms_back_to_back(k4_library)
         plain_ms = cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g,
                                                           **edge_kw), reps=10, warmup=2)
-        bounds = backward_bounds(n_dst, n_src, n_e, n_f, q.element_size(), True)
-        base = {"edge_set": edge_set, "dtype": str(dtype).split(".")[-1],
+        bounds = backward_bounds(n_dst, n_src, n_e, n_f, q.element_size(), True, hd)
+        base = {"edge_set": edge_set, "dtype": str(dtype).split(".")[-1], "hd": hd,
                 "fused_edge": True, "n_dst": n_dst, "n_src": n_src, "n_edges": n_e,
                 "sources_without_edges": int(no_edge.sum()), "no_edge_rows_exactly_0": True}
-        rows["K3"].append({**base, "ms": ms["K3"], "plain_ms": plain_ms,
-                           "plain_is": "gt_attention_bwd_plain", "library_ms": None,
-                           "bound_ms": bounds["K3"][0], "bound_by": bounds["K3"][1],
-                           "max_abs_err": max(errs[n] for n in errs if n not in ("dk", "dv")),
-                           "errors": errs})
-        rows["K4"].append({**base, "ms": ms["K4"], "plain_ms": k4_plain_ms,
-                           "plain_is": "float32 index_add_ of dkv", "library_ms": k4_library_ms,
-                           "library_is": "index_add_ of dkv", "bound_ms": bounds["K4"][0],
-                           "bound_by": bounds["K4"][1],
-                           "max_abs_err": max(errs["dk"], errs["dv"])})
+        k3_fields = ("dq", "d_attr", "d_weight", "d_bias")
+        per_kernel = {
+            "K3": dict(plain_ms=plain_ms, plain_is="gt_attention_bwd_plain", library_ms=None,
+                       max_abs_err=max(e[f] for e in errs.values() for f in k3_fields),
+                       errors=errs),
+            "K4": dict(plain_ms=k4_plain_ms, plain_is="float32 index_add_ of dkv",
+                       library_ms=k4_library_ms, library_ms_back_to_back=k4_library_b2b,
+                       library_is="index_add_ of dkv",
+                       max_abs_err=max(errs["K4"]["dk"], errs["K4"]["dv"])),
+            "K5": dict(plain_ms=plain_ms, plain_is="gt_attention_bwd_plain", library_ms=None,
+                       max_abs_err=max(errs["K5"]["dk"], errs["K5"]["dv"]) if k5 else None),
+        }
+        if k5:  # the fused backward's K3 writes no dkv: time it as the path runs it
+            def k3_no_dkv():
+                return kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS,
+                                                 **edge_kw, **path_kw, emit_dkv=False)
+
+            no_dkv = {"ms_no_dkv": cuda_ms(k3_no_dkv),
+                      "ms_back_to_back_no_dkv": cuda_ms_back_to_back(k3_no_dkv),
+                      "bound_ms_no_dkv": bounds["K3 (no dkv)"][0]}
+            per_kernel["K3"].update(no_dkv)
+            passes = {"K3 + K4": b2b["K3"] + b2b["K4"],
+                      "K3 (no dkv) + K5": no_dkv["ms_back_to_back_no_dkv"] + b2b["K5"]}
+            per_kernel["K5"]["backward_ms_back_to_back"] = passes
+            print(f"[{label}] backward at {edge_set}, {dtype}, back to back: {passes}", flush=True)
         for name in rows:
+            rows[name].append({**base, "ms": ms[name], "ms_back_to_back": b2b[name],
+                               "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                               **per_kernel[name]})
             print(f"[{label}] {name} {rows[name][-1]}", flush=True)
         del q, k, v, g, out, lse, ref, got, dkv
     torch.cuda.empty_cache()
@@ -2989,7 +3054,7 @@ def hierarchical_phase(workdir: str, device) -> dict:
     ``FAMILY_STEPS`` steps, exactly ``hierarchical_launches`` a step, the
     gradient gate; ``cli predict`` 2 steps, equal bit for bit to the
     in-process forecast and within the serving gate of the plain
-    attention; then K3 + K4 at the down set (``down_set_backward``) and a
+    attention; then K3 + K4 at the down set (``graph_set_backward``) and a
     fixed-batch step at ``level_channel_ratio`` 2."""
     from anemoi_tpu_torch.graphs.graph import Graph
     from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
@@ -3014,7 +3079,7 @@ def hierarchical_phase(workdir: str, device) -> dict:
         print(f"[{label}] {json.dumps(result[label])}", flush=True)
     graph = Graph.load(graph_file)
     result["graph"] = graph_summary("hierarchical", graph, "hidden_1")
-    result["down_set_rows"] = down_set_backward(graph, device)
+    result["down_set_rows"] = graph_set_backward("hierarchical", graph, DOWN_SET, device)
     result["ratio_2"] = hierarchical_ratio_2_step(
         composed_preset(os.path.join(PACKAGED_CONFIG_DIR, "hierarchical.yaml"),
                         [f"graph.save_path={graph_file}"], {}), graph, device)
@@ -3646,10 +3711,129 @@ def transformer_mappers_phase(workdir: str, device) -> dict:
     return result
 
 
+MESH_GRAPHS = {  # label -> data nodes, hidden nodes, data->hidden, hidden->hidden, hidden->data
+    "hex": (40320, 20480, 41704, 245700, 120960),
+    "healpix": (40320, 12288, 48880, 130568, 120960),
+    "icon": (81920, 10242, 245760, 81900, 245760),
+}
+MESH_LAUNCHES = {  # label -> K1, K3, K4, K5 a training step (K5: the 2 GB mapper rule)
+    "hex": (18, 18, 18, 0), "healpix": (18, 18, 18, 0), "icon": (18, 18, 16, 2)}
+ICON_RESOLUTION, ICON_MAX_LEVEL = 6, 5  # the synthetic ICON grid: 81 920 cells, 10 242 vertices
+ENCODER_SET = ("data", "hidden")
+
+
+def mesh_config(workdir: str, label: str, edit) -> str:
+    """The ``graphtransformer`` model at its width (1024 channels, 16 layers,
+    16 heads) on ``graph/hex_mesh.yaml`` or ``graph/icon_mesh.yaml``
+    (``edit(config)`` picks and changes it), composed from a defaults list
+    by the port's ``load_config`` and written as JSON for ``cli train``."""
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
+
+    graph = "icon_mesh" if label == "icon" else "hex_mesh"
+    defaults = os.path.join(workdir, f"{label}.yaml")
+    with open(defaults, "w") as f:
+        f.write(FAMILY_DEFAULTS.format(graph=graph, model="graphtransformer"))
+    cfg = load_config(defaults, search_paths=[PACKAGED_CONFIG_DIR]).to_dict()
+    model = cfg["model"]
+    width = (model["num_channels"], model["processor"]["num_layers"],
+             model["processor"]["num_heads"], model["encoder"]["num_heads"])
+    if width != (1024, FLAGSHIP_LAYERS, 16, 16):
+        raise RuntimeError(f"{label}: the graphtransformer preset composed to {width}")
+    cfg["graph"]["save_path"] = os.path.join(workdir, f"graph_{label}.npz")
+    edit(cfg)
+    path = os.path.join(workdir, f"{label}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def with_healpix(cfg: dict) -> None:
+    """The hex recipe with a nested HEALPix r5 processor mesh."""
+    recipe = cfg["graph"]["recipe"]
+    recipe["nodes"]["hidden"]["node_builder"] = {"name": "HEALPixNodes", "resolution": 5}
+    [processor] = [e for e in recipe["edges"] if e["source_name"] == e["target_name"]]
+    processor["edge_builder"] = {"name": "HEALPixMultiScaleEdges"}
+
+
+def with_icon_grid(grid: str):
+    """``graph/icon_mesh.yaml`` on ``grid`` at ``ICON_MAX_LEVEL``, and a
+    synthetic dataset (the example's 12 variables, 64 times) on the grid's
+    cells."""
+    def set_grid(node):
+        if isinstance(node, dict):
+            for key, value in node.items():
+                if key == "grid_filename":
+                    node[key] = grid
+                elif key == "max_level":
+                    node[key] = ICON_MAX_LEVEL
+                else:
+                    set_grid(value)
+        elif isinstance(node, list):
+            for value in node:
+                set_grid(value)
+
+    def edit(cfg: dict) -> None:
+        set_grid(cfg["graph"])
+        data = cfg["data"]["datasets"]["data"]
+        data["nodes"] = {"name": "ICONCellGridNodes", "grid_filename": grid}
+        data["num_times"] = 64
+    return edit
+
+
+def mesh_phase(workdir: str, device, label: str) -> dict:
+    """Phases 28-30: the ``graphtransformer`` model at its width on the hex,
+    HEALPix or ICON processor mesh through ``cli train`` (3 steps: exactly
+    ``MESH_LAUNCHES`` a step, the 2 GB rule's K5 on the ICON mappers; the
+    gradient gate) and ``cli predict`` (2 steps, 18 K1 a step, bit for bit
+    with the in-process forecast); the graph's node and edge counts against
+    ``MESH_GRAPHS``, its degree ranges and edgeless sources; K3 + K4 at the
+    encoder set beside ``index_add_`` (hex), K3 + K4 and K3 + K5 there
+    (ICON)."""
+    from anemoi_tpu_torch.graphs.generate.icon import write_synthetic_icon_grid
+
+    if label == "icon":
+        grid = os.path.join(workdir, "icon_grid.nc")
+        write_synthetic_icon_grid(grid, ICON_RESOLUTION)
+        edit, dataset = with_icon_grid(grid), "config"
+    else:
+        edit, dataset = (with_healpix if label == "healpix" else lambda cfg: None), None
+    path = mesh_config(workdir, label, edit)
+    summary, encoder_rows = {}, {}
+
+    def want(trainer):
+        counts = expected_launches(trainer.config, trainer.graph, FLAGSHIP_LAYERS)
+        if tuple(counts[k] for k in ("K1", "K3", "K4", "K5")) != MESH_LAUNCHES[label]:
+            raise RuntimeError(f"{label}: the launch rule gives {counts}, want K1/K3/K4/K5 "
+                               f"{MESH_LAUNCHES[label]}")
+        return counts
+
+    def after(trainer, state, want_1):
+        graph = trainer.graph
+        summary.update(graph_summary(label, graph))
+        counts = (summary["data_nodes"], summary["hidden_nodes"],
+                  *(summary[key]["edges"] for key in ("data->hidden", "hidden->hidden",
+                                                      "hidden->data")))
+        if counts != MESH_GRAPHS[label]:
+            raise RuntimeError(f"{label}: graph counts {counts}, want {MESH_GRAPHS[label]}")
+        if label != "healpix":
+            encoder_rows.update(graph_set_backward(label, graph, ENCODER_SET, device,
+                                                   hd=WIDE_HD, k5=label == "icon"))
+        return {}
+
+    train, run_dir, _ = family_train(workdir, device, label, path, [LR_ONLY], FAMILY_STEPS,
+                                     want, split=8, dataset=dataset, after=after)
+    predict = family_predict(workdir, device, label, run_dir, LAUNCHES_PER_STEP, split=8,
+                             bitwise=True)
+    result = {"graph": summary, "train": train, "predict": predict}
+    print(f"[{label}] {json.dumps(result)}", flush=True)
+    result["encoder_rows"] = encoder_rows
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
            ens: dict, families: dict, transport: dict, hierarchy: dict,
-           spectral: dict, slice_17: dict) -> dict:
+           spectral: dict, later: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -3666,8 +3850,8 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     step and generative ``cli predict`` (phase 22), each hierarchical
     preset's training step and ``cli predict`` and the ratio-2 step (phase
     23), the spectral and plain steps of phase 24, and the training steps
-    and ``cli predict`` of phases 25-27 (``slice_17``: projections, dynamic
-    kNN, Transformer mappers)."""
+    and ``cli predict`` of phases 25-30 (``later``: projections, dynamic
+    kNN, Transformer mappers; the hex, HEALPix and ICON meshes)."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
                "example_trainer_step": trainer["launches_per_step"],
@@ -3707,7 +3891,7 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                "spectral_loss_and_residual_step": spectral["step"]["spectral"]["launches"],
                "spectral_plain_step": spectral["step"]["plain"]["launches"],
                **{f"{label}_{kind}": counts
-                  for label, res in slice_17.items()
+                  for label, res in later.items()
                   for kind, counts in (("train", res["train"]["launches_per_step"]),
                                        ("predict_2_steps", res["predict"]["launches"]))}}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
@@ -3830,12 +4014,15 @@ def main() -> int:
             "transformer_mappers": phase("transformer mappers", transformer_mappers_phase,
                                          workdir, device),
         }
+        meshes = {label: phase(label, mesh_phase, workdir, device, label)
+                  for label in MESH_GRAPHS}
     for extra_rows in (hierarchy["down_set_rows"],
-                       slice_17["dynamic"]["runtime_sets"]["encoder_rows"]):
+                       slice_17["dynamic"]["runtime_sets"]["encoder_rows"],
+                       *(m.pop("encoder_rows") for m in meshes.values())):
         for name, extra in extra_rows.items():
             rows[name] += extra
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
-                 ens, families, transport, hierarchy, spectral, slice_17)
+                 ens, families, transport, hierarchy, spectral, {**slice_17, **meshes})
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -3846,6 +4033,7 @@ def main() -> int:
                        "transformer_training": t_training, "remat": remat, "presets": presets,
                        "ensemble": ens, "families": families, "transport": transport,
                        "hierarchical": hierarchy, "spectral": spectral, **slice_17,
+                       "meshes": meshes,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

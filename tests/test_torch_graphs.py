@@ -21,7 +21,7 @@ import pytest
 from anemoi_tpu.graphs.create import GraphCreator as JaxGraphCreator
 from anemoi_tpu_torch.flagship import flagship_recipe
 from anemoi_tpu_torch.graphs.create import GraphCreator
-from anemoi_tpu_torch.graphs.transforms import latlon_rad_to_xyz
+from tests.torch_graph_compare import compare_graphs
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "inference_ckpt_r2")
 
@@ -29,52 +29,6 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "inference_ckpt_r2
 def fixture_recipe():
     with open(os.path.join(FIXTURE, "checkpoint.json")) as f:
         return json.load(f)["config"]["graph"]["recipe"]
-
-
-def compare_graphs(g_jax, g_port):
-    """Assert the two graphs agree; return the number of tied destinations
-    per edge set."""
-    assert list(g_jax.nodes) == list(g_port.nodes)
-    for name, ns in g_jax.nodes.items():
-        np.testing.assert_array_equal(ns.coords, g_port[name].coords)
-        assert sorted(ns.attributes) == sorted(g_port[name].attributes)
-        for attr, value in ns.attributes.items():
-            np.testing.assert_allclose(g_port[name].attributes[attr], value, rtol=1e-6, atol=1e-6)
-    ties = {}
-    assert list(g_jax.edges) == list(g_port.edges)
-    for key, ej in g_jax.edges.items():
-        ep = g_port[key]
-        src_xyz = latlon_rad_to_xyz(g_jax[key[0]].coords)
-        dst_xyz = latlon_rad_to_xyz(g_jax[key[1]].coords)
-        assert ej.num_edges == ep.num_edges
-        np.testing.assert_array_equal(ej.dst_ptr, ep.dst_ptr)  # same in-degrees
-        tied = 0
-        for d in range(len(ej.dst_ptr) - 1):
-            lo, hi = ej.dst_ptr[d], ej.dst_ptr[d + 1]
-            sj, sp = set(ej.edge_index[0, lo:hi]), set(ep.edge_index[0, lo:hi])
-            if sj == sp:
-                continue
-            # a tie: the sources that differ are all at the boundary distance
-            tied += 1
-            dist = {s: np.linalg.norm(src_xyz[s] - dst_xyz[d]) for s in sj | sp}
-            boundary = max(dist[s] for s in sj)
-            for s in sj ^ sp:
-                assert abs(dist[s] - boundary) < 1e-12, (key, d, s)
-        ties[key] = tied
-
-        # attributes of the shared edges, aligned by (dst, src)
-        def keyed(es):
-            order = np.lexsort((es.edge_index[0], es.edge_index[1]))
-            pairs = es.edge_index[1, order] * (1 << 32) + es.edge_index[0, order]
-            return pairs, {k: v[order] for k, v in es.attributes.items()}
-
-        pj, aj = keyed(ej)
-        pp, ap = keyed(ep)
-        common, ij, ip = np.intersect1d(pj, pp, return_indices=True)
-        assert len(common) >= ej.num_edges - 3 * tied
-        for attr in aj:
-            np.testing.assert_allclose(ap[attr][ip], aj[attr][ij], rtol=1e-6, atol=1e-6)
-    return ties
 
 
 @pytest.mark.parametrize(
