@@ -5,15 +5,18 @@ all datasets (missing-data aware), seeded per-epoch shuffling from the same
 ``context_seed`` contexts (``data-shuffle-<epoch>``), so both packages see
 the same batches in the same order, and window extraction.  Batches are
 numpy arrays on the host; ``data/prefetch.py`` moves them to the device.
-The port trains on one device, so the JAX package's multi-process sharding
-(``shard_index``/``num_shards``, ``local_plan``) is not copied.  Unlike the
+The JAX package's sampler sharding (``shard_index``/``num_shards``: each
+process strides the anchor order) and ``local_plan`` (``{dataset:
+(batch_rows, grid_rows)}``, set by the trainer: every rank samples the same
+seeded global order and reads only its batch rows and grid rows) are
+copied.  Unlike the
 JAX package, ``set_rollout`` keeps the configured ``validation_fraction``
 (the JAX package re-splits at 0.15 whatever was configured).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -73,23 +76,29 @@ def compute_valid_anchors(
 
 
 class WindowSampler:
-    """Seeded sampler of window start indices, in full batches."""
+    """Seeded sampler of window start indices, in full batches; with
+    ``num_shards`` each shard takes every ``num_shards``-th anchor of the
+    order from ``shard_index``."""
 
-    def __init__(self, starts: np.ndarray, batch_size: int, shuffle: bool = True) -> None:
+    def __init__(self, starts: np.ndarray, batch_size: int, shuffle: bool = True,
+                 shard_index: int = 0, num_shards: int = 1) -> None:
         self.starts = starts
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.shard_index = shard_index
+        self.num_shards = num_shards
 
     def epoch_batches(self, epoch: int) -> Iterator[np.ndarray]:
         order = self.starts.copy()
         if self.shuffle:
             rng = np.random.default_rng(context_seed(f"data-shuffle-{epoch}"))
             rng.shuffle(order)
+        local = order[self.shard_index :: self.num_shards]
         for i in range(len(self)):
-            yield order[i * self.batch_size : (i + 1) * self.batch_size]
+            yield local[i * self.batch_size : (i + 1) * self.batch_size]
 
     def __len__(self) -> int:
-        return len(self.starts) // self.batch_size
+        return len(self.starts[self.shard_index :: self.num_shards]) // self.batch_size
 
 
 class DataModule:
@@ -107,6 +116,8 @@ class DataModule:
         rollout: int = 1,
         batch_size: int = 1,
         validation_fraction: float = 0.15,
+        shard_index: int = 0,
+        num_shards: int = 1,
     ) -> None:
         self.datasets = datasets
         self.n_step_input = n_step_input
@@ -116,8 +127,12 @@ class DataModule:
         self.validation_fraction = validation_fraction
         self.window = n_step_input + rollout * n_step_output
         train, val = self._split()
-        self.train_sampler = WindowSampler(train, batch_size, shuffle=True)
-        self.val_sampler = WindowSampler(val, batch_size, shuffle=False)
+        self.train_sampler = WindowSampler(train, batch_size, shuffle=True,
+                                           shard_index=shard_index, num_shards=num_shards)
+        self.val_sampler = WindowSampler(val, batch_size, shuffle=False,
+                                         shard_index=shard_index, num_shards=num_shards)
+        # {dataset: (batch_rows, grid_rows)} this rank reads (set by the trainer)
+        self.local_plan: Optional[Dict[str, Tuple[slice, slice]]] = None
 
     @property
     def train_starts(self) -> np.ndarray:
@@ -146,12 +161,17 @@ class DataModule:
         self.train_sampler.starts, self.val_sampler.starts = self._split()
 
     def make_batch(self, anchors: np.ndarray) -> Dict[str, np.ndarray]:
-        """``anchors``: [B, 2] (sequence, position) rows."""
-        return {
-            name: np.stack([ds.get_seq_window(int(s), int(p), self.window)
-                            for s, p in anchors])  # [B, T, E, G, V]
-            for name, ds in self.datasets.items()
-        }
+        """``anchors``: [B, 2] (sequence, position) rows; with a
+        ``local_plan``, only this rank's batch rows and grid rows are read."""
+        batch = {}
+        for name, ds in self.datasets.items():
+            rows, grid = anchors, slice(None)
+            if self.local_plan is not None and name in self.local_plan:
+                batch_rows, grid = self.local_plan[name]
+                rows = anchors[batch_rows]
+            batch[name] = np.stack([ds.get_seq_window(int(s), int(p), self.window, grid)
+                                    for s, p in rows])  # [B(_local), T, E, G(_local), V]
+        return batch
 
     def train_batches(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         for idx in self.train_sampler.epoch_batches(epoch):

@@ -78,13 +78,15 @@ class BaseDataset:
         """Missing positions WITHIN a sequence."""
         return self.missing
 
-    def get_window(self, start: int, length: int) -> np.ndarray:
-        """[length, ensemble, grid, variable] float32 window starting at ``start``."""
+    def get_window(self, start: int, length: int, grid_slice: slice = slice(None)) -> np.ndarray:
+        """[length, ensemble, grid, variable] float32 window starting at
+        ``start``, of the grid points ``grid_slice`` (a rank's block)."""
         raise NotImplementedError
 
-    def get_seq_window(self, sequence: int, start: int, length: int) -> np.ndarray:
+    def get_seq_window(self, sequence: int, start: int, length: int,
+                       grid_slice: slice = slice(None)) -> np.ndarray:
         """Window within one sequence; analysis datasets ignore ``sequence``."""
-        return self.get_window(start, length)
+        return self.get_window(start, length, grid_slice)
 
     def compute_anchors(self, relative_indices) -> np.ndarray:
         """Valid ``(sequence, position)`` anchors for the requested relative
@@ -136,8 +138,8 @@ class NpyDataset(BaseDataset):
     def __len__(self) -> int:
         return self.data.shape[0]
 
-    def get_window(self, start: int, length: int) -> np.ndarray:
-        w = np.asarray(self.data[start : start + length], dtype=np.float32)
+    def get_window(self, start: int, length: int, grid_slice: slice = slice(None)) -> np.ndarray:
+        w = np.asarray(self.data[start : start + length, :, :, grid_slice], dtype=np.float32)
         # [T, V, E, G] -> [T, E, G, V]
         return np.transpose(w, (0, 2, 3, 1))
 
@@ -203,12 +205,13 @@ class TrajectoryDataset(BaseDataset):
     def missing_positions(self, sequence: int = 0) -> set:
         return set()
 
-    def get_window(self, start: int, length: int) -> np.ndarray:
-        return self.get_seq_window(0, start, length)
+    def get_window(self, start: int, length: int, grid_slice: slice = slice(None)) -> np.ndarray:
+        return self.get_seq_window(0, start, length, grid_slice)
 
-    def get_seq_window(self, sequence: int, start: int, length: int) -> np.ndarray:
+    def get_seq_window(self, sequence: int, start: int, length: int,
+                       grid_slice: slice = slice(None)) -> np.ndarray:
         w = np.asarray(
-            self.data[sequence, :, :, start : start + length],
+            self.data[sequence, :, :, start : start + length, grid_slice],
             dtype=np.float32,
         )  # [V, E, T, G]
         return np.transpose(w, (2, 1, 3, 0))  # [T, E, G, V]
@@ -258,10 +261,10 @@ class ZarrDataset(BaseDataset):
     def __len__(self) -> int:
         return self.data.shape[0]
 
-    def get_window(self, start: int, length: int) -> np.ndarray:
-        w = self.data[start : start + length]
+    def get_window(self, start: int, length: int, grid_slice: slice = slice(None)) -> np.ndarray:
+        w = self.data[start : start + length]  # the chunks hold every grid point
         # [T, V, E, G] -> [T, E, G, V]
-        return np.transpose(np.asarray(w, np.float32), (0, 2, 3, 1))
+        return np.transpose(np.asarray(w, np.float32)[..., grid_slice], (0, 2, 3, 1))
 
 
 def _parse_frequency_hours(freq) -> float:
@@ -323,10 +326,10 @@ class SyntheticDataset(BaseDataset):
             "maximum": tend.max(axis=(0, 2)).astype(np.float32),
         }
 
-    def _fields(self, times: np.ndarray) -> np.ndarray:
+    def _fields(self, times: np.ndarray, grid_slice: slice = slice(None)) -> np.ndarray:
         """[T, V, G] raw fields."""
-        lat = self.latitudes
-        lon = self.longitudes
+        lat = self.latitudes[grid_slice]
+        lon = self.longitudes[grid_slice]
         t = np.asarray(times, dtype=np.float32)[:, None, None, None]  # [T,1,1,1]
         amps = self._amps[None, :, :, None]
         phase = (
@@ -341,8 +344,8 @@ class SyntheticDataset(BaseDataset):
     def __len__(self) -> int:
         return self.num_times
 
-    def get_window(self, start: int, length: int) -> np.ndarray:
-        f = self._fields(np.arange(start, start + length))
+    def get_window(self, start: int, length: int, grid_slice: slice = slice(None)) -> np.ndarray:
+        f = self._fields(np.arange(start, start + length), grid_slice)
         return f.transpose(0, 2, 1)[:, None]  # [T, E=1, G, V]
 
 

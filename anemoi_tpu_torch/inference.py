@@ -38,7 +38,10 @@ def make_forecast_fn(interface, steps: int) -> Callable[[Dict[str, torch.Tensor]
 
     batch: raw data-space {ds: [B, m + steps*n_out, E, G, V_data]} on the
     interface's device -- the window beyond the first m steps supplies the
-    future forcings.  Raises ``ValueError`` for a model that draws noise."""
+    future forcings.  Raises ``ValueError`` for a model that draws noise.
+    Under model shards every rank of the model group runs its grid rows
+    (of a whole-grid or a local batch) and returns the whole forecast,
+    gathered over the group."""
     interface.require_deterministic("make_forecast_fn")
     model = interface.model
     pre = interface.pre_processors
@@ -49,7 +52,7 @@ def make_forecast_fn(interface, steps: int) -> Callable[[Dict[str, torch.Tensor]
 
     @torch.no_grad()
     def forecast(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        batch_norm, x = interface.normalised_input(batch)
+        batch_norm, x = interface.normalised_input(interface.local_rows(batch))
         params = interface.cast_parameters(interface.inference_dtype) if cast else None
         outputs = {ds: [] for ds in dataset_names}
         for step in range(steps):
@@ -62,7 +65,7 @@ def make_forecast_fn(interface, steps: int) -> Callable[[Dict[str, torch.Tensor]
                     ds: advance_input(x[ds], y_pred[ds], batch_norm[ds], t0, ia[ds])
                     for ds in dataset_names
                 }
-        return {ds: torch.cat(v, dim=1) for ds, v in outputs.items()}
+        return interface.gather_grid({ds: torch.cat(v, dim=1) for ds, v in outputs.items()})
 
     return forecast
 
@@ -148,7 +151,16 @@ def run_forecast_cli(args) -> int:
     if platform not in (None, "cpu", "gpu", "cuda"):
         raise ValueError(f"--platform {platform}: anemoi_tpu_torch serves on cpu or gpu")
     device = "cpu" if platform == "cpu" else None
-    iface = load_inference_checkpoint(args.checkpoint, device=device)
+    from anemoi_tpu_torch.parallel.distributed import maybe_initialize
+
+    launch, mesh = maybe_initialize(platform), None
+    if launch is not None and launch.world > 1:
+        # the ranks of a launcher serve the bundle over one model group
+        from anemoi_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+        device = launch.device
+        mesh = create_mesh(MeshSpec(model=launch.world), device)
+    iface = load_inference_checkpoint(args.checkpoint, device=device, mesh=mesh)
     steps = args.steps
     try:
         if iface.is_transport:
@@ -182,6 +194,8 @@ def run_forecast_cli(args) -> int:
     if iface.device.type == "cuda":
         torch.cuda.synchronize(iface.device)
     ms_per_step = (time.perf_counter() - t0) * 1e3 / steps
+    if mesh is not None and not mesh.is_root:
+        return 0  # rank 0 writes the forecast
     arrays = {}
     for ds_name, arr in out.items():
         arrays[f"{ds_name}|forecast"] = arr.cpu().numpy()

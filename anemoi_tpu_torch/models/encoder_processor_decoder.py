@@ -28,8 +28,20 @@ this model and its ensemble and autoencoder subclasses, by the kNN set of
 its node sets' coordinates, built on the device every forward
 (``ops/dynamic.py``; JAX ``_dynamic_edge_data``).  Any other provider is
 dropped, as the JAX package drops it.
-Ported: every model on one device.  Model parallelism raises
-``NotImplementedError``.  The
+Model parallelism (:func:`shard_strategy`, JAX ``shard_strategy``): with
+``num_model_shards`` S > 1 the ``edges`` (halo) strategy splits the data grid
+and the hidden mesh in contiguous row blocks over the model group
+(``parallel/partition.py``); each rank holds its rows, and every
+GraphTransformer attention -- the encoder, each processor layer, the decoder
+-- runs on the rank's CSR after a halo exchange of keys and values
+(``parallel/halo.py``; ``halo_overlap``, default on, splits interior and
+boundary rows).  :meth:`AnemoiModelEncProcDec.shard_over` builds the halo
+tables once, from the interface's mesh; ``forward`` then takes and returns
+the rank's grid rows.  What the halo path cannot express raises
+``NotImplementedError`` naming ROADMAP item 9: ``heads``, a processor or
+mapper other than the GraphTransformer's, ``halo_mappers: false``, a
+residual that mixes grid rows, a ``DynamicKNN`` provider, and the
+hierarchical and transport models.  The
 ``graph_attention_backend`` values of the JAX package (paged, padded,
 segment) all select the port's one CSR attention and the GNN's one
 ``index_add_`` sum.  The attention's backward on each edge set follows the
@@ -159,8 +171,9 @@ def _component(config: dict, part: str):
         raise NotImplementedError(f"{part} '{name}' is not ported to anemoi_tpu_torch")
     _, cls, ported, other = COMPONENTS[name]
     cfg.pop("edge_provider", None)
-    if cfg.get("shard_strategy", "none") != "none":
-        raise NotImplementedError(f"{part}: Ulysses head sharding (shard_strategy) is not ported")
+    if cfg.get("shard_strategy", "none") not in ("none", "edges"):
+        raise NotImplementedError(f"{part}: shard_strategy {cfg['shard_strategy']} is not ported "
+                                  "to anemoi_tpu_torch (ROADMAP.md Queue 1, item 9)")
     if "num_heads" in ported and "num_heads" not in cfg:
         raise ValueError(f"{part}: num_heads is required")
     for key in ("sub_graph_edge_attributes", "trainable_size"):
@@ -173,6 +186,33 @@ def _component(config: dict, part: str):
     if "scan_unroll" in kwargs:
         kwargs["scan_unroll"] = int(kwargs["scan_unroll"])
     return name, cls, kwargs
+
+
+ITEM_9 = "(ROADMAP.md Queue 1, item 9)"
+# residuals that read other grid rows than their own
+ROW_MIXING_RESIDUALS = ("TruncatedConnection", "SpectralOrnsteinConnection")
+
+
+def shard_strategy(config: dict) -> str:
+    """The model-parallel strategy of a model config (JAX
+    ``AnemoiModelEncProcDec.shard_strategy``): ``none``, ``gspmd`` (alias
+    ``shard_over_mesh``), ``edges`` (the halo exchange) or ``heads``.
+    ``gspmd`` on a GraphTransformer processor with ``num_model_shards`` > 1
+    becomes ``edges``, as the JAX package upgrades it on its paged backend;
+    the port has no GSPMD, so it takes the upgrade whatever
+    ``graph_attention_backend`` says (``gspmd_paged_upgrade: false`` keeps
+    ``gspmd``, which the port refuses).  ``none`` with ``num_model_shards``
+    > 1 is what the JAX package runs as GSPMD propagation from the
+    grid-sharded batch, and so takes the same route as ``gspmd``."""
+    s = str(config.get("shard_strategy", "none"))
+    shards = int(config.get("num_model_shards", 1))
+    if s == "none" and (config.get("shard_over_mesh", False) or shards > 1):
+        s = "gspmd"
+    processor = str((config.get("processor") or {}).get("name", _DEFAULT_NAMES["processor"]))
+    if (s == "gspmd" and shards > 1 and bool(config.get("gspmd_paged_upgrade", True))
+            and processor.startswith("GraphTransformer")):
+        return "edges"
+    return s
 
 
 def fused_backward(config: dict, part: str, num_edges: int, num_channels: int) -> bool:
@@ -329,17 +369,92 @@ class AnemoiModelEncProcDec(nn.Module):
         self.config = config
         if str(config.get("graph_attention_backend", "padded")) not in BACKENDS:
             raise ValueError(f"unknown graph_attention_backend {config['graph_attention_backend']}")
-        strategy = str(config.get("shard_strategy", "none"))
-        if strategy != "none" or int(config.get("num_model_shards", 1)) > 1 or config.get(
-            "shard_over_mesh"
-        ):
-            raise NotImplementedError("model parallelism is not ported to anemoi_tpu_torch")
+        self._check_sharding(config)
         self.graph = graph
         self.data_indices = data_indices
         self.num_channels = int(config["num_channels"])
         self.n_step_input = int(config.get("n_step_input", 2))
         self.n_step_output = int(config.get("n_step_output", 1))
         self.latent_skip = bool(config.get("latent_skip", True))
+
+    # whether the halo path covers the model (the hierarchical and transport
+    # models set it False)
+    halo_supported = True
+
+    def _check_sharding(self, config: dict) -> None:
+        """Refuse, naming ROADMAP item 9, what the halo path cannot express;
+        set ``num_model_shards``, ``model_parallel`` and ``halo`` (built by
+        :meth:`shard_over`)."""
+        strategy = shard_strategy(config)
+        self.num_model_shards = int(config.get("num_model_shards", 1))
+        self.halo = None
+        if strategy == "heads":
+            raise NotImplementedError("shard_strategy heads (Ulysses head sharding) is not "
+                                      f"ported to anemoi_tpu_torch {ITEM_9}")
+        self.model_parallel = self.num_model_shards > 1
+        if not self.model_parallel:
+            return
+        where = f"num_model_shards {self.num_model_shards}"
+        if strategy != "edges":
+            raise NotImplementedError(
+                f"{where}: shard_strategy {strategy} needs GSPMD, which anemoi_tpu_torch does "
+                f"not have; the halo (edges) strategy covers GraphTransformer processors {ITEM_9}")
+        if not self.halo_supported:
+            raise NotImplementedError(
+                f"{where}: {type(self).__name__} under model shards is not ported {ITEM_9}")
+        for part in ("encoder", "processor", "decoder"):
+            name = str((config.get(part) or {}).get("name", _DEFAULT_NAMES[part]))
+            if not name.startswith("GraphTransformer"):
+                raise NotImplementedError(
+                    f"{where}: {part} {name} under shard_strategy edges is not ported; the halo "
+                    f"path covers the GraphTransformer processor and mappers {ITEM_9}")
+            if (config.get(part) or {}).get("edge_provider"):
+                raise NotImplementedError(f"{where}: the {part}'s edge_provider under model "
+                                          f"shards is not ported {ITEM_9}")
+        if not bool(config.get("halo_mappers", True)):
+            raise NotImplementedError(f"{where}: halo_mappers false (GSPMD mappers) is not "
+                                      f"ported {ITEM_9}")
+        residual = str((config.get("residual") or {}).get("name", ""))
+        if residual in ROW_MIXING_RESIDUALS:
+            raise NotImplementedError(f"{where}: the residual {residual} mixes grid rows across "
+                                      f"the model group and is not ported there {ITEM_9}")
+
+    def shard_over(self, mesh) -> None:
+        """Build this rank's halo tables of every edge set over ``mesh``'s
+        model group (JAX ``build_graph_inputs`` under ``edges``); a no-op
+        without model shards.  Called once by the interface: training and
+        serving share the tables."""
+        if not self.model_parallel:
+            return
+        s = self.num_model_shards
+        if mesh is None or mesh.size("model") != s:
+            raise ValueError(f"num_model_shards {s} needs a mesh whose model group has {s} "
+                             f"ranks, got {None if mesh is None else mesh.spec}")
+        group, index = mesh.group("model"), mesh.index("model")
+        overlap = bool(self.config.get("halo_overlap", True))
+        g = self.graph
+        self.halo = {
+            "encoder": {ds: sub.sharded_edge_data(s, index, group, overlap)
+                        for ds, sub in g.encoder.items()},
+            "processor": g.processor.sharded_edge_data(s, index, group, overlap),
+            "decoder": {ds: sub.sharded_edge_data(s, index, group, overlap)
+                        for ds, sub in g.decoder.items()},
+        }
+        for ds, enc in self.halo["encoder"].items():
+            if enc.src_rows != self.halo["decoder"][ds].dst_rows:
+                raise AssertionError(f"{ds}: the encoder and decoder split the grid differently")
+
+    def grid_rows(self, ds: str) -> slice:
+        """This rank's rows of dataset ``ds``'s grid (all of them without
+        model shards)."""
+        if self.halo is None:
+            return slice(0, self.graph.num_nodes[ds])
+        return self.halo["encoder"][ds].src_rows
+
+    def hidden_rows(self) -> slice:
+        if self.halo is None:
+            return slice(0, self.graph.num_nodes[self.graph.hidden_name])
+        return self.halo["processor"].dst_rows
 
     def _build_residual(self, ds: str, statistics: Optional[dict]) -> nn.Module:
         return build_residual(self.config.get("residual"), self.data_indices[ds], statistics,
@@ -427,7 +542,8 @@ class AnemoiModelEncProcDec(nn.Module):
 
     def forward(self, x: Dict[str, torch.Tensor], cond: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, fcstep: int = 0) -> Dict[str, torch.Tensor]:
-        """x[ds]: [B, T, E, G, V_model_in] in the compute type; ``cond``: the
+        """x[ds]: [B, T, E, G, V_model_in] in the compute type (under model
+        shards, G is this rank's :meth:`grid_rows`); ``cond``: the
         processor's conditioning (default: the noise injector's); ``noise``:
         the noise injector's standard normal draw (``noise_shape(x)``);
         ``fcstep``: the rollout step (the ensemble model's input channel).
@@ -442,7 +558,9 @@ class AnemoiModelEncProcDec(nn.Module):
         bflat = batch * ens
         dt = some.dtype
 
+        halo = self.halo
         hidden_attrs = self.node_attributes(hidden, graph.node_features[hidden].to(dt))
+        hidden_attrs = hidden_attrs[self.hidden_rows()]
         x_hidden_latent = hidden_attrs[None].expand((bflat,) + hidden_attrs.shape)
 
         x_skip, x_data_latent, latents = {}, {}, []
@@ -450,6 +568,7 @@ class AnemoiModelEncProcDec(nn.Module):
             xd = x[ds]
             x_skip[ds] = self.residual[ds](xd, n_step_output=self.n_step_output)
             node_attrs = self.node_attributes(ds, graph.node_features[ds].to(dt))
+            node_attrs = node_attrs[self.grid_rows(ds)]
             # [B,T,E,G,V] -> [(B E), G, (T V)]
             flat = xd.permute(0, 2, 3, 1, 4).reshape(bflat, xd.shape[3], n_time * xd.shape[4])
             parts = [flat, node_attrs[None].expand((bflat,) + node_attrs.shape)]
@@ -459,20 +578,23 @@ class AnemoiModelEncProcDec(nn.Module):
             x_latent_in = torch.cat(parts, dim=-1)
             sub = self._mapper_edges("encoder", ds, hidden, graph.encoder[ds])
             x_data_latent[ds], x_latent = self.encoder[ds](
-                (x_latent_in, x_hidden_latent), sub, self._edges("encoder_graph_provider", sub, ds)
+                (x_latent_in, x_hidden_latent), sub if halo is None else halo["encoder"][ds],
+                self._edges("encoder_graph_provider", sub, ds)
             )
             latents.append(x_latent)
 
         x_latent = sum(latents)
         noise_cond = None
         if self.noise_injector is not None:
+            if halo is not None and noise is not None:
+                noise = noise[:, self.hidden_rows()]  # every rank draws the whole mesh's
             x_latent, noise_cond = self.noise_injector(x_latent, noise)
         if cond is None:
             cond = noise_cond
         if self.processor_edges:
             x_latent_proc = self.processor(
-                x_latent, graph.processor, self._edges("processor_graph_provider", graph.processor),
-                cond,
+                x_latent, graph.processor if halo is None else halo["processor"],
+                self._edges("processor_graph_provider", graph.processor), cond,
             )
         else:
             x_latent_proc = self.processor(x_latent, cond)
@@ -484,7 +606,7 @@ class AnemoiModelEncProcDec(nn.Module):
             idx = self.data_indices[ds]
             sub = self._mapper_edges("decoder", hidden, ds, graph.decoder[ds])
             x_out = self.decoder[ds](
-                (x_latent_proc, x_data_latent[ds]), sub,
+                (x_latent_proc, x_data_latent[ds]), sub if halo is None else halo["decoder"][ds],
                 self._edges("decoder_graph_provider", sub, ds),
             )
             # [(B E), G, (T V)] -> [B, T, E, G, V]

@@ -18,6 +18,11 @@ reads, from the JAX ``AnemoiModelEncProcDecHierarchical.build_graph_inputs``:
 has such edges, ``down[h_i]`` (``h_i -> h_{i+1}``, the encoder's attributes)
 and ``up[h_{i+1}]`` (``h_{i+1} -> h_i``, the decoder's attributes);
 ``hidden_name`` is the finest level, the one the encoder and decoder map to.
+
+Model parallelism (``shard_strategy: edges``): ``SubGraphArrays.sharded_edge_data``
+partitions one edge set over the model group (JAX
+``SubGraphArrays.sharded_edge_data``) and returns this rank's share, a
+``parallel/halo.HaloShard``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from anemoi_tpu_torch.graphs.graph import Graph
@@ -64,6 +70,29 @@ class SubGraphArrays:
     @property
     def source(self) -> SourceOrder:
         return SourceOrder(self.src_ptr, self.src_perm)
+
+    def sharded_edge_data(self, n_shards: int, index: int, group, overlap: bool = True):
+        """Rank ``index``'s share of this edge set partitioned over a model
+        group of ``n_shards`` (``parallel/partition.py``; a bipartite set
+        partitions its source and destination nodes independently): its
+        CSR over ``[local | halo]`` sources (with ``overlap``, split into
+        interior and boundary rows), the exchange tables and the edge
+        permutation, as a :class:`~anemoi_tpu_torch.parallel.halo.HaloShard`.
+        Built on the host; the model builds it once and serves with it too."""
+        from anemoi_tpu_torch.parallel.halo import HaloShard, shard_split_tables, shard_tables
+        from anemoi_tpu_torch.parallel.partition import partition_graph
+
+        sg = partition_graph(
+            self.edge_index.cpu().numpy().astype(np.int64),
+            self.dst_ptr.cpu().numpy().astype(np.int64),
+            self.num_dst, n_shards, halo=True,
+            num_src_nodes=self.num_src if self.num_src != self.num_dst else None,
+        )
+        tables = shard_tables(sg)
+        if overlap:
+            tables.update(shard_split_tables(sg))
+        return HaloShard.build(sg, tables, index, group, self.edge_index.device, self.num_dst,
+                               self.num_src, self.num_edges)
 
 
 @dataclass

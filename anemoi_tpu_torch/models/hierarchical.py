@@ -57,6 +57,8 @@ _LEARNABLE_RESIDUALS = ("ScalarOrnsteinConnection", "SpectralOrnsteinConnection"
 class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
     """The multi-level V-cycle model."""
 
+    halo_supported = False  # under model shards: ROADMAP item 9
+
     def __init__(self, *, graph, data_indices, config: dict, statistics=None) -> None:
         nn.Module.__init__(self)
         self._init_common(graph, data_indices, config)

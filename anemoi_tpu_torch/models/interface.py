@@ -47,6 +47,14 @@ chain are built, so that everything downstream lives in the remapped
 variable space, and it goes first in each chain.  ``predict_step`` computes
 the imputer's NaN bookkeeping from the raw inputs and puts the NaNs back on
 the way out; ``make_forecast_fn`` does not, as in the JAX package.
+
+Model parallelism: an interface built with a ``mesh`` (``parallel/mesh.py``)
+whose model group has ``num_model_shards`` ranks builds the model's halo
+tables over it (``AnemoiModelEncProcDec.shard_over``).  Each rank then runs
+the model on its grid rows (:meth:`local_rows` cuts a whole-grid batch to
+them) and :meth:`gather_grid` joins the rows of the model group;
+``predict_step`` takes a whole-grid or a local batch and returns the whole
+grid on every rank of the model group.
 """
 
 from __future__ import annotations
@@ -170,9 +178,11 @@ class AnemoiModelInterface(nn.Module):
         metadata: Optional[dict] = None,
         device: torch.device | str | None = None,
         training: bool = False,
+        mesh=None,
     ) -> None:
         super().__init__()
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.config = config
         self.metadata = metadata or {}
         processors_cfg = list((config.get("data") or {}).get("processors") or [])
@@ -236,6 +246,7 @@ class AnemoiModelInterface(nn.Module):
                 zero_heads += list(getattr(model, modules, {}).values())
         initialise_parameters(model, context_generator("model-init"), zero_heads)
         self.model = model.to(device=self.device, dtype=self.param_dtype)
+        model.shard_over(mesh)
         self.pre_processors: Dict[str, Processors] = {}
         for ds, idx in data_indices.items():
             chain = build_processors(processors_cfg, idx, statistics[ds], device=self.device)
@@ -248,6 +259,40 @@ class AnemoiModelInterface(nn.Module):
             for ds, idx in data_indices.items()
         }
         self.eval()
+
+    @property
+    def model_group(self):
+        """The model group of a model-parallel interface, else None."""
+        return self.mesh.group("model") if getattr(self.model, "halo", None) else None
+
+    def local_rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``{ds: [B, T, E, G, V]}`` cut to this rank's grid rows where ``G``
+        is the whole grid (a no-op without model shards or on local rows)."""
+        if self.model_group is None:
+            return batch
+        out = {}
+        for ds, b in batch.items():
+            rows = self.model.grid_rows(ds)
+            out[ds] = (b[:, :, :, rows] if b.shape[3] == self.model.graph.num_nodes[ds]
+                       and b.shape[3] != rows.stop - rows.start else b)
+        return out
+
+    def gather_grid(self, y: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``{ds: [..., G_local, V]}`` (grid on dim 3) joined over the model
+        group into the whole grid, on every rank of the group (a no-op
+        without model shards).  Collective."""
+        group = self.model_group
+        if group is None:
+            return y
+        from anemoi_tpu_torch.parallel.distributed import all_gather
+
+        out = {}
+        for ds in sorted(y):
+            block = self.model.halo["encoder"][ds].n_local_src
+            pad = torch.nn.functional.pad(y[ds], (0, 0, 0, block - y[ds].shape[3]))
+            whole = torch.cat(all_gather(pad, group), dim=3)
+            out[ds] = whole[:, :, :, : self.model.graph.num_nodes[ds]]
+        return out
 
     def use_plain_attention(self, plain: bool = True) -> None:
         """Run every attention -- the graph attention of the GraphTransformer
@@ -348,13 +393,14 @@ class AnemoiModelInterface(nn.Module):
         ensemble model predicts every member of ``E`` (tile the window over
         ``E`` for an ensemble from one state), its noise drawn as
         :meth:`apply` draws it.  An imputed output variable is NaN where its
-        input was NaN."""
+        input was NaN.  Under model shards every rank of the model group
+        takes part and returns the whole grid."""
         m = self.model.n_step_input
-        raw = {ds: b[:, :m] for ds, b in batch.items()}
+        raw = self.local_rows({ds: b[:, :m] for ds, b in batch.items()})
         aux = {ds: self.pre_processors[ds].compute_aux(raw[ds]) for ds in self.data_indices}
         _, x = self.normalised_input(raw)
         cast = self.param_dtype != self.inference_dtype
         y = self.apply(x, generator=generator,
                        params=self.cast_parameters(self.inference_dtype) if cast else None)
-        return {ds: self.pre_processors[ds].inverse_transform(y[ds].float(), aux=aux[ds])
-                for ds in y}
+        return self.gather_grid({
+            ds: self.pre_processors[ds].inverse_transform(y[ds].float(), aux=aux[ds]) for ds in y})

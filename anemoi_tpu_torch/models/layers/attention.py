@@ -19,8 +19,12 @@ on the CPU, and on CUDA tensors :func:`cross_attention` calls
 memory-efficient backends, which never form the ``[B, H, Nq, Nk]`` logits
 (at o96 -> ico-5 with 16 heads the plain version's logits alone take 26 GB
 in float32).  A shape neither backend takes raises; the math backend is
-never picked.  Ulysses sequence parallelism (``shard_strategy: heads``) is
-not ported.
+never picked.  Ulysses sequence parallelism (``shard_strategy: heads``,
+with MHSA's ``valid_len`` masking of padded rows) is not ported: ROADMAP
+item 9, the next slice.  The halo (``edges``) strategy of
+``parallel/halo.py`` shards the graph attention and leaves these dense
+attentions to the models that run them on one rank or under data
+parallelism.
 """
 
 from __future__ import annotations

@@ -28,6 +28,13 @@ read no edges.  The Transformer mappers embed their nodes and run one
 every source (``MultiHeadCrossAttention``, flash / memory-efficient SDPA on
 the card), then an MLP, each behind a LayerNorm and a residual; they read no
 edges and carry no trainable edge features, as in the JAX package.
+
+Under model shards the graph-transformer mappers take a
+``parallel/halo.HaloShard`` as their sub-graph (:func:`_halo_prepare`, JAX
+``mapper._halo_prepare``): the rank's source and destination rows are padded
+to its partition blocks, the edge features (trainable ones included) are
+permuted into its edge layout, and the padded destination rows are dropped
+again after the block.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from anemoi_tpu_torch.models.layers.graph_blocks import (
 from anemoi_tpu_torch.models.layers.mlp import MLP, compute_mlp_hidden_dim
 from anemoi_tpu_torch.models.layers.normalization import LayerNorm
 from anemoi_tpu_torch.models.layers.remat import BlockRemat
+from anemoi_tpu_torch.parallel.halo import HaloShard, pad_rows, permute_rows
 
 
 class TrainableEdgeFeatures(nn.Module):
@@ -61,6 +69,15 @@ class TrainableEdgeFeatures(nn.Module):
 
     def forward(self, edge_attr: torch.Tensor) -> torch.Tensor:
         return torch.cat([edge_attr, self.trainable.to(edge_attr.dtype)], dim=-1)
+
+
+def _halo_prepare(x_src: torch.Tensor, x_dst: torch.Tensor, edge_attr: torch.Tensor,
+                  shard: HaloShard):
+    """Pad this rank's source and destination rows to its partition blocks
+    and permute the edge features ``[E, F]`` into its ``[E_loc, F]`` layout,
+    with a gradient through the permutation (:func:`permute_rows`)."""
+    return (pad_rows(x_src, shard.n_local_src), pad_rows(x_dst, shard.n_local),
+            permute_rows(edge_attr, shard.edge_perm, shard.edge_perm_inv))
 
 
 def _block(in_channels, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio, **block_kw):
@@ -97,8 +114,10 @@ class GraphTransformerForwardMapper(BlockRemat, nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         x_src = self.emb_nodes_src(x[0])
         x_dst = self.emb_nodes_dst(x[1])
+        if isinstance(sub, HaloShard):
+            x_src, x_dst, edge_attr = _halo_prepare(x_src, x_dst, edge_attr, sub)
         _, x_dst = self._run(self.proc, (x_src, x_dst), sub, edge_attr, cond)
-        return x[0], x_dst
+        return x[0], x_dst[:, : x[1].shape[1]]
 
 
 class GraphTransformerBackwardMapper(BlockRemat, nn.Module):
@@ -132,8 +151,11 @@ class GraphTransformerBackwardMapper(BlockRemat, nn.Module):
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
         cond: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
-        x_dst = self.emb_nodes_dst(x[1])
-        _, x_dst = self._run(self.proc, (x[0], x_dst), sub, edge_attr, cond)
+        x_dst, x_src = self.emb_nodes_dst(x[1]), x[0]
+        if isinstance(sub, HaloShard):
+            x_src, x_dst, edge_attr = _halo_prepare(x_src, x_dst, edge_attr, sub)
+        _, x_dst = self._run(self.proc, (x_src, x_dst), sub, edge_attr, cond)
+        x_dst = x_dst[:, : x[1].shape[1]]
         norm, head = self.node_data_extractor
         out = norm(x_dst)
         return head(_promoted(out, head.weight))

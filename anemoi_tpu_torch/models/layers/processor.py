@@ -15,6 +15,12 @@ parameter stacking, which ``state_dict_from_jax`` undoes.  The conditioning
 ``[B·E, 1, cond_dim]``, a transport model's noise level broadcast over the
 nodes) goes to every block, an input of each block's checkpoint as its
 parameters are.
+
+Under model shards the GraphTransformer processor takes a
+``parallel/halo.HaloShard`` (JAX ``processor.py`` halo branch): the rank's
+rows are padded to its block once, per-node conditioning with them, the
+edge features permuted into its layout once, and the padded rows dropped
+after the last block.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from anemoi_tpu_torch.models.layers.graph_blocks import (
 from anemoi_tpu_torch.models.layers.mlp import MLP, compute_mlp_hidden_dim
 from anemoi_tpu_torch.models.layers.normalization import norm
 from anemoi_tpu_torch.models.layers.remat import BlockRemat
+from anemoi_tpu_torch.parallel.halo import HaloShard, pad_rows, permute_rows
 
 
 class GraphTransformerProcessor(BlockRemat, nn.Module):
@@ -62,9 +69,15 @@ class GraphTransformerProcessor(BlockRemat, nn.Module):
 
     def forward(self, x: torch.Tensor, sub: SubGraphArrays, edge_attr: torch.Tensor,
                 cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        n = x.shape[1]
+        if isinstance(sub, HaloShard):
+            x = pad_rows(x, sub.n_local)
+            if cond is not None and cond.dim() == 3 and cond.shape[1] == n:
+                cond = pad_rows(cond, sub.n_local)  # per-node conditioning follows the rows
+            edge_attr = permute_rows(edge_attr, sub.edge_perm, sub.edge_perm_inv)
         for block in self.proc:
             x = self._run(block, x, sub, edge_attr, cond)
-        return x
+        return x[:, :n]
 
 
 class TransformerProcessorBlock(nn.Module):

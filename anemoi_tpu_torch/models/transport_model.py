@@ -49,6 +49,7 @@ class AnemoiTransportModelEncProcDec(AnemoiModelEncProcDec):
 
     is_transport = True
     runtime_edges = False  # the JAX transport model keeps the static edges
+    halo_supported = False  # under model shards: ROADMAP item 9
 
     def __init__(self, *, graph, data_indices, config: dict, statistics=None) -> None:
         super().__init__(graph=graph, data_indices=data_indices, config=config,

@@ -21,14 +21,16 @@ Port of ``anemoi_tpu.training.checkpoint``.
   carries them.
 - :func:`load_inference_checkpoint` reads the port's bundles and the JAX
   package's (``params.msgpack``, decoded by ``_msgpack.py`` and converted by
-  ``models/port.py:state_dict_from_jax``).  A bundle with migrations pending
-  is refused: the JAX package's ``anemoi-tpu-training checkpoint migrate``
-  brings it up to date.
+  ``models/port.py:state_dict_from_jax``), re-basing a bundle trained on
+  model shards to the serving ranks (:func:`rebase_sharding`).  A bundle
+  with migrations pending is refused: the JAX package's
+  ``anemoi-tpu-training checkpoint migrate`` brings it up to date.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import platform
 import re
@@ -47,6 +49,7 @@ MIGRATION_NAMES = (
     "20260820120000_hierarchical_module_names",
 )
 FORMAT_VERSION = 1
+LOGGER = logging.getLogger(__name__)
 _CKPT = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
@@ -69,13 +72,18 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state) -> None:
+    def save(self, step: int, state, write: bool = True) -> None:
+        """Save ``state``.  With ZeRO every rank must call it (the optimizer
+        state is gathered first, JAX ``fetch_replicated``); only the one
+        with ``write`` (rank 0) writes."""
         payload = {
             "step": int(state.step),
             "model": {k: v.detach().cpu() for k, v in state.interface.state_dict().items()},
-            "optimizer": state.optimizer.opt.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
             "optimizer_count": int(state.optimizer.count),
         }
+        if not write:
+            return
         tmp = self._path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(step))
@@ -91,7 +99,7 @@ class CheckpointManager:
         payload = torch.load(self._path(step), map_location=state.interface.device,
                              weights_only=True)
         state.interface.load_state_dict(payload["model"], strict=True)
-        state.optimizer.opt.load_state_dict(payload["optimizer"])
+        state.optimizer.load_state_dict(payload["optimizer"])
         state.optimizer.count = int(payload["optimizer_count"])
         state.step = int(payload["step"])
         return state
@@ -142,11 +150,39 @@ def pending_migrations(bundle: dict) -> list:
     return [name for name in MIGRATION_NAMES if name not in done]
 
 
-def load_inference_checkpoint(path: str, device: torch.device | str | None = None):
+def rebase_sharding(config: dict, mesh=None) -> dict:
+    """Reconcile a bundle's ``shard_strategy`` / ``num_model_shards`` (how it
+    was trained, not part of its math) with the serving ranks (JAX
+    ``load_inference_checkpoint``): without a model group of more than one
+    rank it serves on one device, with a warning; with one, the shards
+    re-base to that group's size."""
+    mcfg = config.setdefault("model", {})
+    shards = int(mcfg.get("num_model_shards", 1))
+    if str(mcfg.get("shard_strategy", "none")) == "none" and shards <= 1:
+        return config
+    size = mesh.size("model") if mesh is not None else 1
+    if size <= 1:
+        LOGGER.warning("checkpoint was trained with shard_strategy=%s (num_model_shards=%s) but "
+                       "no model group is active; serving on one device. For sharded serving, "
+                       "load the bundle with the mesh of the serving ranks.",
+                       mcfg.get("shard_strategy", "none"), shards)
+        mcfg["shard_strategy"] = "none"
+        mcfg.pop("num_model_shards", None)
+    else:
+        if shards != size:
+            LOGGER.warning("re-basing num_model_shards %s -> %s to match the active model group",
+                           shards, size)
+        mcfg["num_model_shards"] = size
+    return config
+
+
+def load_inference_checkpoint(path: str, device: torch.device | str | None = None, mesh=None):
     """Rebuild the ``AnemoiModelInterface`` of a bundle (the port's or the
     JAX package's) on ``device`` (default: the CUDA card), serving in the
     config's ``inference_precision``: the float32 parameters are cast once,
-    as they load."""
+    as they load.  With a ``mesh`` (``parallel/mesh.py``) whose model group
+    has more than one rank the bundle serves sharded over it
+    (:func:`rebase_sharding`)."""
     from anemoi_tpu_torch.data_indices.collection import IndexCollection
     from anemoi_tpu_torch.graphs.create import GraphCreator
     from anemoi_tpu_torch.graphs.graph import Graph
@@ -172,7 +208,7 @@ def load_inference_checkpoint(path: str, device: torch.device | str | None = Non
         )
         for ds, di in bundle["data_indices"].items()
     }
-    config = bundle["config"]
+    config = rebase_sharding(bundle["config"], mesh)
     graph_cfg = config.get("graph", {})
     graph_path = graph_cfg.get("save_path")
     if graph_path and os.path.exists(graph_path):
@@ -181,7 +217,7 @@ def load_inference_checkpoint(path: str, device: torch.device | str | None = Non
         graph = GraphCreator(graph_cfg.get("recipe", graph_cfg)).create()
     iface = AnemoiModelInterface(
         config=config, graph=graph, data_indices=data_indices, statistics=statistics,
-        metadata=bundle.get("metadata"), device=device,
+        metadata=bundle.get("metadata"), device=device, mesh=mesh,
     )
     torch_params = os.path.join(path, "params.pt")
     if os.path.exists(torch_params):

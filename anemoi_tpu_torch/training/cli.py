@@ -24,6 +24,17 @@ are not schema-validated (``schemas.py`` needs pydantic and is not ported).
 The subcommands ``validate``, ``mlflow``, ``profile`` and ``checkpoint
 migrate`` are not ported: they print so and return 2.
 
+More than one rank: ``train``, ``evaluate`` and ``predict`` join the world a
+launcher describes (``torchrun``, or the JAX package's ``ANEMOI_TPU_*``
+environment; ``parallel/distributed.py``).  ``train`` with
+``hardware.num_devices: N`` > 1 and no launcher starts its own N local
+ranks (``parallel/distributed.spawn``, the counterpart of the JAX CLI's
+``hardware.num_virtual_devices``), after building the CUDA kernels once in
+the parent when it runs on the card; each rank's device and backend follow
+the rule of ``parallel/distributed.py``.  ``predict`` under a launcher
+serves the bundle over the ranks' model group and rank 0 writes the
+forecast.
+
     python -m anemoi_tpu_torch.training.cli train anemoi_tpu_torch/config/example_o96_gt.yaml \
         hardware.platform=cpu
 """
@@ -152,6 +163,31 @@ def _evaluate(conf: dict, output_dir, rollout) -> int:
     return 0
 
 
+def _train(conf: dict, output_dir) -> dict:
+    from anemoi_tpu_torch.training.trainer import AnemoiTrainer
+
+    return AnemoiTrainer(conf, output_dir=output_dir).train()
+
+
+def _train_rank(conf: dict, output_dir) -> dict:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    return _train(conf, output_dir)
+
+
+def _train_local_ranks(conf: dict, output_dir, world: int, platform) -> int:
+    """``train`` on ``world`` local ranks started here; the kernels are built
+    once first, so that the ranks do not race on the build directory."""
+    from anemoi_tpu_torch.parallel.distributed import spawn
+
+    if platform is None or str(platform).lower() not in ("cpu",):
+        from anemoi_tpu_torch.kernels.build import build_all
+
+        build_all()
+    results = spawn(_train_rank, world, args=(conf, output_dir), platform=platform)
+    print(f"training done: {results[0]}")
+    return 0
+
+
 def _config_list() -> int:
     from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
 
@@ -193,9 +229,13 @@ def main(argv=None) -> int:
             print(text, end="")
         return 0
     if args.command == "train":
-        from anemoi_tpu_torch.training.trainer import AnemoiTrainer
+        hw = dict(conf.get("hardware") or {})
+        world = int(hw.get("num_devices", 1))
+        from anemoi_tpu_torch.parallel.distributed import _env_contract
 
-        result = AnemoiTrainer(conf, output_dir=args.output_dir).train()
+        if world > 1 and _env_contract() is None:
+            return _train_local_ranks(conf, args.output_dir, world, hw.get("platform"))
+        result = _train(conf, args.output_dir)
         print(f"training done: {result}")
         return 0
     if args.command == "evaluate":

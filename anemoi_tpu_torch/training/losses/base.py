@@ -10,11 +10,18 @@ The leaves and ``CombinedLoss`` are in ``leaves.py``, the spectral losses
 in ``spectral.py``, the wrappers ``LossVariableMapper`` and
 ``TimeAggregateLossWrapper`` in ``wrappers.py``, ``MultiscaleLossWrapper``
 in ``multiscale.py``.
+
+Under model shards each rank scores its grid rows (:func:`grid_sharded`):
+the grid-bound scalers are cut to the rows and the weighted mean's
+denominator is summed over the model group, so that the ranks' values add
+up to the loss of the whole grid.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import copy
 
 import numpy as np
 import torch
@@ -149,6 +156,17 @@ class ScaleTensor:
             w = w * self._broadcast(dims, array, x)
         return w.expand(x.shape)
 
+    def slice_grid(self, rows: slice, num_points: int) -> "ScaleTensor":
+        """A copy with every grid-bound scaler of ``num_points`` rows cut to
+        ``rows`` (scalers of size 1 there broadcast as before)."""
+        out = ScaleTensor()
+        for name, (dims, array) in self.scalers.items():
+            if "grid" in dims and array.shape[dims.index("grid")] == num_points:
+                array = array.narrow(dims.index("grid"), rows.start, rows.stop - rows.start)
+            out.scalers[name] = (dims, array)
+        out._frozen = set(self._frozen)
+        return out
+
     def __contains__(self, name: str) -> bool:
         return name in self.scalers
 
@@ -162,9 +180,14 @@ class BaseLoss:
     scaler, NaN targets out of both numerator and denominator, the weighted
     mean (``squash``) or the per-variable weighted mean (``squash=False``)."""
 
+    # its value over a grid split in row blocks is the sum of the blocks'
+    # (numerator over the rows, denominator summed over the group)
+    grid_decomposable = False
+
     def __init__(self, scalers: Optional[ScaleTensor] = None, ignore_nans: bool = True):
         self.scalers = scalers or ScaleTensor()
         self.ignore_nans = ignore_nans
+        self.grid_group = None  # the model group whose grid rows share the denominator
 
     def error(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -212,14 +235,37 @@ class BaseLoss:
             weighted = weighted * m
             weight = weight * m
 
-        if squash:
-            return weighted.sum() / weight.sum().clamp_min(1e-12)
-        axes = tuple(range(err.dim() - 1))  # all but the variable dim
-        return weighted.sum(axes) / weight.sum(axes).clamp_min(1e-12)
+        axes = None if squash else tuple(range(err.dim() - 1))  # all but the variable dim
+        den = weight.sum() if squash else weight.sum(axes)
+        group = getattr(self, "grid_group", None)
+        if group is not None:
+            from anemoi_tpu_torch.parallel.distributed import all_reduce
+
+            den = all_reduce(den.detach().clone(), group)
+        return (weighted.sum() if squash else weighted.sum(axes)) / den.clamp_min(1e-12)
 
     @property
     def name(self) -> str:
         return self.__class__.__name__.lower()
+
+
+def grid_sharded(loss: "BaseLoss", rows: slice, num_points: int, group) -> "BaseLoss":
+    """A copy of ``loss`` that scores a rank's ``rows`` of a grid of
+    ``num_points`` split over the model ``group``.  A loss whose value is not
+    a sum over grid rows (an RMSE, a spectral or multiscale loss, a
+    wrapper) raises ``NotImplementedError``."""
+    members = getattr(loss, "members", None)
+    if members is None and not (type(loss).__call__ is BaseLoss.__call__
+                                or type(loss).grid_decomposable):
+        raise NotImplementedError(
+            f"{type(loss).__name__} over a grid split across the model group is not ported "
+            "(ROADMAP.md Queue 1, item 9)")
+    out = copy.copy(loss)
+    out.scalers = loss.scalers.slice_grid(rows, num_points)
+    out.grid_group = group
+    if members is not None:
+        out.members = [grid_sharded(m, rows, num_points, group) for m in members]
+    return out
 
 
 def get_loss_function(

@@ -62,6 +62,8 @@ class KernelCRPS(BaseLoss):
     M, G, V]`` against a single-truth ``target [B, T, 1, G, V]``; the error
     is ensemble-reduced (``[B, T, 1, G, V]``)."""
 
+    grid_decomposable = True
+
     def __init__(self, scalers=None, ignore_nans: bool = True, fair: bool = True):
         super().__init__(scalers, ignore_nans)
         self.fair = fair

@@ -43,8 +43,10 @@ def make_rollout_eval_fn(
     model predicts several steps at once.  ``batch``: raw data-space
     ``{ds: [B, m + rollout * n_out, E, G, V_data]}`` on the interface's
     device.  Raises ``ValueError`` for a model that draws noise, which the
-    JAX function runs with no noise stream and fails on."""
-    from anemoi_tpu_torch.training.step import advance_input, device_index_arrays
+    JAX function runs with no noise stream and fails on.  On a parallel
+    interface every rank scores its rows and the sums are reduced over the
+    model and data groups (collective)."""
+    from anemoi_tpu_torch.training.step import advance_input, device_index_arrays, sum_over_ranks
 
     interface.require_deterministic("make_rollout_eval_fn")
     model = interface.model
@@ -57,6 +59,7 @@ def make_rollout_eval_fn(
 
     @torch.no_grad()
     def rollout_eval(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch = interface.local_rows(batch)
         batch_norm = {ds: pre[ds].transform(batch[ds].float()) for ds in dataset_names}
         x = {ds: batch_norm[ds][:, :m][..., ia[ds]["data_input_full"]] for ds in dataset_names}
         out: Dict[str, torch.Tensor] = {}
@@ -68,9 +71,11 @@ def make_rollout_eval_fn(
                 truth = batch[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]].float()
                 valid = ~torch.isnan(truth)
                 sq = torch.where(valid, (y_phys - truth) ** 2, 0.0)
-                per_var_mse = sq.sum(dim=(0, 1, 2, 3)) / valid.sum(dim=(0, 1, 2, 3)).clamp_min(1)
+                count = sum_over_ranks(valid.sum(dim=(0, 1, 2, 3)), interface)
+                per_var_mse = sum_over_ranks(sq.sum(dim=(0, 1, 2, 3)), interface) / count.clamp_min(1)
                 if per_timestep and step == 0 and n_out > 1:
-                    mse_tv = sq.sum(dim=(0, 2, 3)) / valid.sum(dim=(0, 2, 3)).clamp_min(1)
+                    mse_tv = (sum_over_ranks(sq.sum(dim=(0, 2, 3)), interface)
+                              / sum_over_ranks(valid.sum(dim=(0, 2, 3)), interface).clamp_min(1))
                     for gname, idxs in groups[ds].items():
                         g_tv = mse_tv[:, idxs].mean(dim=1)
                         for t in range(n_out):

@@ -8,6 +8,13 @@ clipping).
 
 As in optax, the schedule is read at the update count *before* it is
 incremented: the first update uses ``schedule(0)``, which is 0 with warmup.
+
+``optimizer.zero`` (ZeRO-1, JAX ``mesh.zero_sharding``) over a data group of
+D ranks: the state of every parameter whose first axis divides by D is kept
+for one block of ``rows / D`` rows per rank; each rank updates its block and
+the updated blocks are gathered into the parameter.  The update is
+elementwise, so it is the unsharded one; the rest stays replicated.
+:meth:`Optimizer.state_dict` gathers the blocks (every rank takes part).
 """
 
 from __future__ import annotations
@@ -16,6 +23,9 @@ import math
 from typing import Callable, Iterable, Optional
 
 import torch
+
+from anemoi_tpu_torch.parallel.distributed import RowShard, all_gather, fetch_replicated
+from anemoi_tpu_torch.parallel.mesh import zero_sharding
 
 Schedule = Callable[[int], float]
 
@@ -56,8 +66,8 @@ def build_lr_schedule(config: dict) -> Schedule:
     )
 
 
-# ``eps`` (and every other key) is swallowed as the JAX factories swallow it:
-# optax keeps its 1e-8, torch's default is the same
+# ``eps`` (and every other key but ``zero``) is swallowed as the JAX factories
+# swallow it: optax keeps its 1e-8, torch's default is the same
 def _adamw(params, weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.95, **_):
     return torch.optim.AdamW(params, lr=0.0, betas=(b1, b2), weight_decay=weight_decay)
 
@@ -148,13 +158,29 @@ class Optimizer:
     :meth:`step` updates the parameters in place from their ``.grad``."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], name: str, options: dict,
-                 schedule: Schedule, clip_value: float = 0.0, clip_norm: float = 0.0) -> None:
+                 schedule: Schedule, clip_value: float = 0.0, clip_norm: float = 0.0,
+                 zero_group=None) -> None:
         self.params = [p for p in params if p.requires_grad]
-        self.opt = OPTIMIZERS[name](self.params, **options)
+        self.zero_group = zero_group
+        # per parameter: its ZeRO block (a view of its rows) or None
+        self.blocks = [self._block(p) for p in self.params]
+        self.opt = OPTIMIZERS[name](
+            [p if b is None else b for p, b in zip(self.params, self.blocks)], **options)
         self.schedule = schedule
         self.clip_value = clip_value
         self.clip_norm = clip_norm
         self.count = 0  # updates applied so far
+
+    def _block(self, p: torch.nn.Parameter) -> Optional[torch.Tensor]:
+        group = self.zero_group
+        if group is None:
+            return None
+        size = torch.distributed.get_world_size(group)
+        if not zero_sharding(p.shape, size):
+            return None
+        rows = p.shape[0] // size
+        block = p.data.narrow(0, torch.distributed.get_rank(group) * rows, rows)
+        return block.requires_grad_(True)
 
     def step(self) -> None:
         if self.clip_value > 0:
@@ -164,17 +190,59 @@ class Optimizer:
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
+        for p, block in zip(self.params, self.blocks):
+            if block is not None:
+                block.grad = None if p.grad is None else self._rows(p.grad, block)
         self.opt.step()
+        with torch.no_grad():
+            for p, block in zip(self.params, self.blocks):
+                if block is not None:
+                    p.data.copy_(torch.cat(all_gather(block.detach(), self.zero_group), 0))
         self.count += 1
 
+    def _rows(self, full: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+        """This rank's block of rows of a parameter-shaped tensor."""
+        rows = block.shape[0]
+        return full.narrow(0, torch.distributed.get_rank(self.zero_group) * rows, rows)
 
-def build_optimizer(config: dict, schedule: Optional[Schedule] = None):
-    """``config``: ``{"optimizer": {"name": "adamw", ...}, "lr": {...},
-    "gradient_clip": {"val": 32.0, "algorithm": "value" | "norm"}}``.
-    Returns a factory ``params -> Optimizer`` (what ``TrainState.create``
-    takes, as the JAX ``TrainState.create`` takes an optax transformation)."""
+    def state_dict(self) -> dict:
+        """The torch optimizer's state dict, with ZeRO blocks gathered whole
+        (collective over the data group: every rank calls it)."""
+        sd = self.opt.state_dict()
+        if self.zero_group is not None:
+            state = {}
+            for i, st in sd["state"].items():
+                block = self.blocks[i]
+                state[i] = {k: RowShard(v, self.zero_group)
+                            if block is not None and torch.is_tensor(v) and v.dim() > 0
+                            and v.shape == block.shape else v for k, v in st.items()}
+            sd = {**sd, "state": state}
+        return fetch_replicated(sd)
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load a whole state dict (:meth:`state_dict`), each rank keeping
+        its ZeRO blocks."""
+        if self.zero_group is not None:
+            state = {}
+            for i, st in sd["state"].items():
+                block, p = self.blocks[int(i)], self.params[int(i)]
+                state[i] = {k: self._rows(v, block).clone()
+                            if block is not None and torch.is_tensor(v) and v.shape == p.shape
+                            else v for k, v in st.items()}
+            sd = {**sd, "state": state}
+        self.opt.load_state_dict(sd)
+
+
+def build_optimizer(config: dict, schedule: Optional[Schedule] = None, data_group=None):
+    """``config``: ``{"optimizer": {"name": "adamw", "zero": false, ...},
+    "lr": {...}, "gradient_clip": {"val": 32.0, "algorithm": "value" |
+    "norm"}}``.  Returns a factory ``params -> Optimizer`` (what
+    ``TrainState.create`` takes, as the JAX ``TrainState.create`` takes an
+    optax transformation).  ``zero`` shards the state over ``data_group``
+    (no effect without one, as in the JAX trainer without a mesh)."""
     cfg = dict(config.get("optimizer", {"name": "adamw"}))
     name = cfg.pop("name", "adamw")
+    zero_group = data_group if bool(cfg.pop("zero", False)) else None
     if name not in OPTIMIZERS:
         raise NotImplementedError(f"optimizer '{name}' is not ported to anemoi_tpu_torch")
     lr = schedule if schedule is not None else build_lr_schedule(config.get("lr", {}))
@@ -188,7 +256,7 @@ def build_optimizer(config: dict, schedule: Optional[Schedule] = None):
         return Optimizer(
             params, name, cfg, lr,
             clip_value=val if algorithm == "value" else 0.0,
-            clip_norm=val if algorithm == "norm" else 0.0,
+            clip_norm=val if algorithm == "norm" else 0.0, zero_group=zero_group,
         )
 
     return make

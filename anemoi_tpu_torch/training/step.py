@@ -36,6 +36,16 @@ NaN bookkeeping (``Processors.compute_aux``) is computed from the raw batch
 before it is normalised: its loss mask zeroes the loss where an imputed
 variable was NaN, and the validation metrics put those NaNs back.  Both
 masks are step inputs that enter no rollout checkpoint.
+
+Data and model parallelism (an interface built with a ``mesh``): each rank
+reads its batch rows and, under model shards, runs the model and the loss
+on its grid rows (a whole-grid batch is cut to them).  The loss is a sum
+over the grid points: each rank's loss is its rows' share
+(``losses/base.py:grid_sharded``), so the model group's values add up to the
+loss of the whole grid.  After the backward every replicated parameter's
+gradient is summed over the model group and averaged over the data group
+(:func:`reduce_gradients`), and only then clipped.  The reported losses and
+the validation metrics are reduced the same way.
 """
 
 from __future__ import annotations
@@ -137,6 +147,63 @@ def device_index_arrays(interface) -> Dict[str, Dict[str, torch.Tensor]]:
     }
 
 
+def rank_groups(interface):
+    """``(model_group, data_group, data_size)`` of a parallel interface
+    (Nones and 1 on one rank)."""
+    mesh = getattr(interface, "mesh", None)
+    if mesh is None:
+        return None, None, 1
+    return interface.model_group, mesh.group("data"), mesh.size("data")
+
+
+def sum_over_ranks(t: torch.Tensor, interface) -> torch.Tensor:
+    """``t`` summed over the model and data groups (a metric's sums)."""
+    from anemoi_tpu_torch.parallel.distributed import all_reduce
+
+    model_group, data_group, _ = rank_groups(interface)
+    for group in (model_group, data_group):
+        if group is not None:
+            t = all_reduce(t.detach().clone(), group)
+    return t
+
+
+def mean_loss_over_ranks(loss: torch.Tensor, interface) -> torch.Tensor:
+    """A rank's loss (its grid rows' share) summed over the model group and
+    averaged over the data group: the loss of the global batch."""
+    from anemoi_tpu_torch.parallel.distributed import all_reduce
+
+    model_group, data_group, data_size = rank_groups(interface)
+    if model_group is None and data_group is None:
+        return loss
+    total = all_reduce(loss.detach().clone(), model_group)
+    return all_reduce(total, data_group) / data_size
+
+
+def reduce_gradients(params, interface) -> None:
+    """Every replicated parameter's gradient summed over the model group (the
+    ranks' rows' shares of the whole grid's gradient) and averaged over the
+    data group, in one flat buffer per group."""
+    from anemoi_tpu_torch.parallel.distributed import all_reduce
+
+    model_group, data_group, data_size = rank_groups(interface)
+    if model_group is None and data_group is None:
+        return
+    params = [p for p in params if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    all_reduce(flat, model_group)
+    all_reduce(flat, data_group)
+    if data_size > 1:
+        flat /= data_size
+    offset = 0
+    for p in params:
+        n = p.numel()
+        p.grad.copy_(flat[offset : offset + n].view_as(p.grad))
+        offset += n
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm)."""
     return torch.nn.utils.get_total_norm([t.float() for t in tensors])
@@ -175,9 +242,9 @@ def make_step_fns(
     ``train_step(state, batch) -> (state, {"loss", "grad_norm"})`` updates
     ``state`` IN PLACE (the master weights, the optimizer state and the step
     counter) and returns it; ``grad_norm`` is the global norm of the raw
-    gradients before clipping.  ``train_step.compute_gradients(state,
-    batch)`` leaves the gradients in the parameters' ``.grad`` and returns
-    the loss, without an update.  ``eval_step(state, batch) -> {"val_loss",
+    gradients before clipping (after their reduction over the ranks).
+    ``train_step.compute_gradients(state, batch)`` leaves the gradients in
+    the parameters' ``.grad`` and returns the loss, without an update.  ``eval_step(state, batch) -> {"val_loss",
     "rmse/<ds>/<group>/<step>", ...}`` runs without gradients.
     """
     if task == "transport":
@@ -222,6 +289,15 @@ def make_step_fns(
     noise_seed = context_seed("ensemble-noise")
     boundary = {ds: output_masks[ds].as_tensor(interface.device)
                 if output_masks and ds in output_masks else None for ds in dataset_names}
+    model_group = rank_groups(interface)[0]
+    if model_group is not None:
+        # each rank scores its grid rows
+        from anemoi_tpu_torch.training.losses.base import grid_sharded
+
+        rows = {ds: model.grid_rows(ds) for ds in dataset_names}
+        losses = {ds: grid_sharded(losses[ds], rows[ds], model.graph.num_nodes[ds], model_group)
+                  for ds in dataset_names}
+        boundary = {ds: None if m_ is None else m_[rows[ds]] for ds, m_ in boundary.items()}
 
     def noise_for(x, noise_step: int, step: int):
         """An ensemble model's noise for one rollout step, or None."""
@@ -241,12 +317,13 @@ def make_step_fns(
             truth = batch[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]]
             valid = ~torch.isnan(truth) & ~torch.isnan(y_phys)
             sq = torch.where(valid, (y_phys - truth) ** 2, 0.0)
-            denom = valid.sum(dim=(0, 1, 2, 3)).clamp_min(1)
-            per_var_mse = sq.sum(dim=(0, 1, 2, 3)) / denom  # [V]
+            denom = sum_over_ranks(valid.sum(dim=(0, 1, 2, 3)), interface).clamp_min(1)
+            per_var_mse = sum_over_ranks(sq.sum(dim=(0, 1, 2, 3)), interface) / denom  # [V]
             for gname, idxs in groups[ds].items():
                 out[f"rmse/{ds}/{gname}/{step + 1}"] = torch.sqrt(per_var_mse[idxs].mean())
 
     def rollout_loss(batch, noise_step: int, with_metrics=False):
+        batch = interface.local_rows(batch)
         params = (interface.cast_parameters(compute_dtype, fp32_head)
                   if compute_dtype is not None else None)
         # the imputer's NaN bookkeeping, from the raw batch
@@ -287,7 +364,8 @@ def make_step_fns(
         interface.zero_grad(set_to_none=True)
         loss = rollout_loss(batch, state.step)
         loss.backward()
-        return loss.detach()
+        reduce_gradients(interface.parameters(), interface)
+        return mean_loss_over_ranks(loss.detach(), interface)
 
     def train_step(state: TrainState, batch):
         loss = compute_gradients(state, batch)
@@ -302,7 +380,7 @@ def make_step_fns(
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         loss, group_metrics = rollout_loss(batch, EVAL_NOISE_STEP, with_metrics=True)
-        return {"val_loss": loss, **group_metrics}
+        return {"val_loss": mean_loss_over_ranks(loss, interface), **group_metrics}
 
     train_step.compute_gradients = compute_gradients
     return train_step, eval_step

@@ -19,10 +19,26 @@ JAX trainer calls ``float()``).
 
 Accepted with no effect: ``training.precompile_rollouts`` (there is no
 program to compile ahead) and ``training.donate_state`` (the step updates
-the state in place).  Not ported (``NotImplementedError``): more than one
-device (``hardware.num_devices``, ``num_devices_per_model``,
-``num_devices_per_ensemble``; ``ROADMAP.md`` Queue 1, item 9) and
+the state in place).  Not ported (``NotImplementedError``):
+``hardware.num_devices_per_ensemble`` > 1 (``ROADMAP.md`` Queue 1, item
+9), the transport task on more than one rank (item 9) and
 ``training.checkpoint_pipeline`` (item 10).
+
+Data and model parallelism (JAX ``trainer.py`` mesh): ``hardware.num_devices``
+ranks, started by a launcher (``torchrun``, the ``ANEMOI_TPU_*`` contract of
+``parallel/distributed.py``, or ``cli train``, which starts them itself),
+form the mesh ``data x model`` with ``num_devices_per_model`` ranks in a
+model group; ``num_model_shards`` is written into the model config, and the
+model runs the halo (``edges``) strategy over the group.  Each rank is on
+the device of the backend rule (``parallel/distributed.py``).
+``dataloader.batch_size`` is per data group; every rank samples the same
+seeded anchor order and reads only its batch rows and, with
+``dataloader.shard_grid`` (default on), its model block of the grid.
+``training.optimizer.zero`` shards the optimizer state over the data group
+(``training/optimizers.py``).  Rank 0 alone logs, writes ``metrics.jsonl``,
+the checkpoints (the ZeRO state gathered first, by every rank) and the
+bundle; validation and the ``RolloutEvalCallback`` run on every rank with
+their metrics reduced, and a stop is agreed by all ranks.
 
 The transport task (``training.task: transport``, the presets
 ``transport_*.yaml``) trains with ``training/transport_step.py``'s
@@ -59,6 +75,8 @@ from anemoi_tpu_torch.data_indices.collection import IndexCollection
 from anemoi_tpu_torch.graphs.create import GraphCreator
 from anemoi_tpu_torch.graphs.graph import Graph
 from anemoi_tpu_torch.models.interface import AnemoiModelInterface
+from anemoi_tpu_torch.parallel.distributed import all_reduce, local_batch_plan, maybe_initialize
+from anemoi_tpu_torch.parallel.mesh import MeshSpec, batch_sharding, create_mesh
 from anemoi_tpu_torch.training.callbacks import build_callbacks
 from anemoi_tpu_torch.training.checkpoint import CheckpointManager, save_inference_checkpoint
 from anemoi_tpu_torch.training.loggers import build_loggers
@@ -90,15 +108,16 @@ class RolloutSchedule:
 
 
 def trainer_device(hardware: Optional[dict]) -> torch.device:
-    """``hardware.platform``: ``cpu`` selects the CPU, ``gpu``/``cuda`` or
-    nothing the CUDA card (which must be visible)."""
+    """The device of a one-rank run: ``hardware.platform`` ``cpu`` selects
+    the CPU, ``gpu``/``cuda`` or nothing the CUDA card (which must be
+    visible).  The ensemble axis (``num_devices_per_ensemble`` > 1) is
+    refused."""
     hw = dict(hardware or {})
-    for key in ("num_devices", "num_devices_per_model", "num_devices_per_ensemble"):
-        if int(hw.get(key, 1)) > 1:
-            raise NotImplementedError(
-                f"hardware.{key} > 1: multi-device training is not ported to anemoi_tpu_torch "
-                "(ROADMAP.md Queue 1, item 9)"
-            )
+    if int(hw.get("num_devices_per_ensemble", 1)) > 1:
+        raise NotImplementedError(
+            "hardware.num_devices_per_ensemble > 1: the ensemble axis is not ported to "
+            "anemoi_tpu_torch (ROADMAP.md Queue 1, item 9)"
+        )
     platform = hw.get("platform")
     if platform is None:
         return resolve_device(None)
@@ -130,7 +149,15 @@ class AnemoiTrainer:
         if training_cfg.get("checkpoint_pipeline"):
             raise NotImplementedError("training.checkpoint_pipeline is not ported to "
                                       "anemoi_tpu_torch (ROADMAP.md Queue 1, item 10)")
-        self.device = trainer_device(config.get("hardware"))
+        self._init_mesh(config.get("hardware"))
+        if self.mesh_spec.model > 1:
+            # the model builds its halo tables over the model group
+            config = dict(config)
+            config["model"] = {**config.get("model", {}), "num_model_shards": self.mesh_spec.model}
+            self.config = config
+        if self.mesh_spec.world > 1 and str(training_cfg.get("task", "")) == "transport":
+            raise NotImplementedError("the transport task on more than one rank is not ported "
+                                      "to anemoi_tpu_torch (ROADMAP.md Queue 1, item 9)")
 
         # --- graph ----------------------------------------------------
         graph_cfg = dict(config.get("graph", {}))
@@ -155,9 +182,12 @@ class AnemoiTrainer:
             n_step_input=int(model_cfg.get("n_step_input", 2)),
             n_step_output=int(model_cfg.get("n_step_output", 1)),
             rollout=self.rollout_schedule.start,
-            batch_size=int(loader_cfg.get("batch_size", 1)),
+            # per data group, as in the JAX trainer: the loader samples the global batch
+            batch_size=int(loader_cfg.get("batch_size", 1)) * self.mesh_spec.data,
             validation_fraction=float(loader_cfg.get("validation_fraction", 0.15)),
         )
+        if self.mesh is not None:
+            self._setup_local_loading(bool(loader_cfg.get("shard_grid", True)))
         self._put = HostToDevice(self.device)
 
         # --- indices and model ----------------------------------------
@@ -170,6 +200,7 @@ class AnemoiTrainer:
         self.interface = AnemoiModelInterface(
             config=config, graph=self.graph, data_indices=self.data_indices,
             statistics=self.datamodule.statistics, device=self.device, training=True,
+            mesh=self.mesh,
         )
 
         # --- output masks (limited area, stretched grid) ------------
@@ -199,7 +230,8 @@ class AnemoiTrainer:
 
         # --- optimizer / state ---------------------------------------
         self.lr_schedule = build_lr_schedule(training_cfg.get("lr", {}))
-        self.tx = build_optimizer(training_cfg, self.lr_schedule)
+        self.tx = build_optimizer(training_cfg, self.lr_schedule,
+                                  data_group=self.mesh.group("data") if self.mesh else None)
         self.state = TrainState.create(self.interface, self.tx)
         self.num_params = sum(p.numel() for p in self.interface.parameters())
         LOGGER.info("Model has %.2fM parameters", self.num_params / 1e6)
@@ -216,11 +248,53 @@ class AnemoiTrainer:
         # host seconds the loop waited for each training batch
         self.data_wait_s: list = []
         self.callbacks = build_callbacks(diag.get("callbacks"))
-        self.loggers = build_loggers(diag.get("loggers"), self.output_dir)
+        self.loggers = build_loggers(diag.get("loggers"), self.output_dir) if self.is_root else []
         for lg in self.loggers:
             lg.log_params({"config": dict(config), "num_params": int(self.num_params)})
 
     # ------------------------------------------------------------------
+    def _init_mesh(self, hardware: Optional[dict]) -> None:
+        """The ranks' mesh from ``hardware`` (JAX ``trainer.py:101-131``):
+        join the world a launcher started, check it against
+        ``hardware.num_devices`` and build the data and model groups."""
+        hw = dict(hardware or {})
+        device = trainer_device(hw)  # refuses the ensemble axis
+        launch = maybe_initialize(hw.get("platform"))
+        world = launch.world if launch is not None else 1
+        n_dev = int(hw.get("num_devices", world))
+        if n_dev != world:
+            raise ValueError(
+                f"hardware.num_devices {n_dev} with {world} rank(s) running: start the ranks "
+                "with torchrun, the ANEMOI_TPU_* environment or `cli train`, which starts "
+                "hardware.num_devices local ranks itself")
+        self.mesh_spec = MeshSpec.from_config(hw, num_devices=world)
+        self.device = launch.device if launch is not None else device
+        self.mesh = create_mesh(self.mesh_spec, self.device) if world > 1 else None
+        self.is_root = self.mesh is None or self.mesh.is_root
+        if self.mesh is not None:
+            LOGGER.info("Mesh: data=%d model=%d ensemble=%d (rank %d on %s)",
+                        self.mesh_spec.data, self.mesh_spec.model, self.mesh_spec.ensemble,
+                        self.mesh.rank, self.device)
+
+    def _setup_local_loading(self, shard_grid: bool) -> None:
+        """Each rank reads its batch rows and, with ``shard_grid``, its
+        model block of the grid (JAX ``_setup_multihost_loading``)."""
+        plan = local_batch_plan(batch_sharding(self.mesh, shard_grid=shard_grid), {
+            name: (self.datamodule.batch_size, self.datamodule.window, 1, ds.num_grid_points,
+                   len(ds.variables))
+            for name, ds in self.datamodule.datasets.items()})
+        self.datamodule.local_plan = {name: (slc[0], slc[3]) for name, slc in plan.items()}
+        LOGGER.info("rank %d reads %s", self.mesh.rank,
+                    {n: (f"B[{b.start}:{b.stop}]", f"G[{g.start}:{g.stop}]")
+                     for n, (b, g) in self.datamodule.local_plan.items()})
+
+    def _agreed(self, flag: bool) -> bool:
+        """``flag`` on any rank (a stop every rank takes together)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        return bool(all_reduce(t, torch.distributed.group.WORLD, torch.distributed.ReduceOp.MAX))
+
     def put_batch(self, batch_np) -> Dict[str, torch.Tensor]:
         """A host batch on the trainer's device, ready for the next step."""
         return ready_batch(self._put(batch_np))
@@ -265,11 +339,15 @@ class AnemoiTrainer:
         )
 
     def _log(self, record: Dict[str, Any]) -> None:
+        if self._log_file is None:  # ranks other than 0
+            return
         self._log_file.write(json.dumps(record, default=float) + "\n")
         self._log_file.flush()
 
     # ------------------------------------------------------------------
     def train(self) -> Dict[str, Any]:
+        if not self.is_root:
+            return self._train()
         with open(os.path.join(self.output_dir, "metrics.jsonl"), "a") as self._log_file:
             return self._train()
 
@@ -339,15 +417,15 @@ class AnemoiTrainer:
                     LOGGER.info("step %d epoch %d loss %.5f grad %.3f",
                                 global_step, epoch, rec["loss"], rec["grad_norm"])
                 if global_step % ckpt_interval == 0:
-                    self.ckpt.save(global_step, self.state)
+                    self.ckpt.save(global_step, self.state, write=self.is_root)
                 if global_step >= max_steps:
                     stop = True
                     break
-                if time_limit_s and (time.time() - t_start) > time_limit_s:
+                if self._agreed(bool(time_limit_s) and (time.time() - t_start) > time_limit_s):
                     LOGGER.info("Time limit reached; stopping gracefully")
                     stop = True
                     break
-                if any(cb.should_stop(self) for cb in self.callbacks):
+                if self._agreed(any(cb.should_stop(self) for cb in self.callbacks)):
                     LOGGER.info("Callback requested stop")
                     stop = True
                     break
@@ -363,7 +441,7 @@ class AnemoiTrainer:
                 self._log({"step": global_step, "epoch": epoch, **val})
                 for lg in self.loggers:
                     lg.log_metrics(val, global_step)
-            if not stop and any(cb.should_stop(self) for cb in self.callbacks):
+            if not stop and self._agreed(any(cb.should_stop(self) for cb in self.callbacks)):
                 LOGGER.info("Callback requested stop after validation")
                 stop = True
             if stop:
@@ -371,8 +449,9 @@ class AnemoiTrainer:
         if last_metrics is not None:
             last_loss = float(last_metrics["loss"])
 
-        self.ckpt.save(global_step, self.state)
-        self.save_inference_checkpoint()
+        self.ckpt.save(global_step, self.state, write=self.is_root)
+        if self.is_root:
+            self.save_inference_checkpoint()
         for lg in self.loggers:
             lg.finalize()
         return {"final_loss": last_loss, "steps": global_step}

@@ -305,7 +305,32 @@ Phases (any failure exits non-zero, with no result line):
                   cells: as phase 28, but 18 K1, 18 K3, 16 K4 and 2 K5 a step
                   (the 2 GB rule picks the fused backward for both mappers at
                   1024 channels), and at the encoder set K3 + K4 and K3 + K5;
- 31. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 31. parallel  -- data and halo model parallelism over ranks that share the
+                  card (``parallel/distributed.spawn``; more ranks than
+                  cards: gloo, whose collectives take the CUDA tensors): the
+                  flagship (512 channels, 16 layers, 16 heads,
+                  ``shard_strategy: edges``) on a model group of 2 against
+                  one process on the same weights and batches: float32
+                  step-1 gradients and 2-step forecast within relative L2
+                  1e-4, bf16 within 1e-2 and 2e-2; every rank's K1, K3 and
+                  K4 exactly ``halo_calls`` a training step (interior and
+                  boundary rows of each GT layer) and K1 ``halo_calls`` a
+                  forecast step, no K5; 3 timed bf16 steps a rank (wall ms
+                  marked as gloo on one shared card), each rank's peak
+                  memory beside one process's, each exchange's rows and
+                  bytes; K1 and K3 + K4 on the processor set of shard 2 of
+                  2 (14 padded edgeless destinations, edgeless halo rows)
+                  against the plain op, edgeless rows exact; data 2 x model
+                  2 (4 ranks) float32 losses of 2 steps against one process
+                  at batch 2 (relative 1e-4; a constant rate, so that the
+                  first update moves the weights); ``cli train`` with
+                  ``num_devices_per_model: 2`` (the example on the
+                  flagship's graph, 2 steps, its own ranks) and ``cli
+                  predict`` of its bundle on one device (18 K1 a step); a
+                  one-rank NCCL group in that world: an all-reduce of a
+                  CUDA tensor and a training step reduced over it; the
+                  seconds of each part;
+ 32. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
@@ -314,8 +339,10 @@ Phases (any failure exits non-zero, with no result line):
                   steps, rollout-2 steps and forecasts, phase 22's
                   training steps and generative forecasts, phase 23's
                   training steps, forecasts and ratio-2 step and phase 24's
-                  two steps, phases 25-30's training steps and forecasts;
-                  the K3 and K4 rows also the down set's, the dynamic
+                  two steps, phases 25-30's training steps and forecasts,
+                  phase 31's rank-0 training step and forecast;
+                  the K1 row also model shard 2 of 2's processor set, the
+                  K3 and K4 rows that set's and the down set's, the dynamic
                   encoder set's and the hex and ICON encoder sets', the K5
                   row the ICON encoder set's), the card line, and
                   last {"ok": true, "device": {...}}; with --json, the same
@@ -1227,12 +1254,12 @@ def serving_phase(graph, device, config=None, per_step=None, label="serving") ->
     return result
 
 
-def training_batch(graph, device, times: int = 3):
+def training_batch(graph, device, times: int = 3, seed: int = SEED + 2):
     """A data-space batch of ``times`` steps (3 = m + 1: rollout 1) from the
     seeded statistics."""
     idx = flagship_indices()["data"]
     stats = flagship_statistics(SEED)
-    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    gen = torch.Generator(device=device).manual_seed(seed)
     noise = torch.randn(1, times, 1, graph["data"].num_nodes, idx.num_data_vars, generator=gen,
                         device=device)
     mean, std = (torch.as_tensor(stats["data"][k], device=device) for k in ("mean", "stdev"))
@@ -3830,6 +3857,425 @@ def mesh_phase(workdir: str, device, label: str) -> dict:
     return result
 
 
+# --- phase 31: data and halo model parallelism -------------------------------
+PARALLEL_STEPS = 3  # timed bf16 training steps of each rank of the model group of 2
+PARALLEL_DP_STEPS = 2  # fp32 steps of data 2 x model 2 against one process at batch 2
+# relative L2 gates (forecast, step-1 gradients) against one process: PERF.md section 2
+PARALLEL_TOL = {"fp32": (1e-4, 1e-4), "bf16": (2e-2, 1e-2)}
+PARALLEL_DP_TOL = 1e-4  # relative, each step's loss of the 4 ranks against one process
+PARALLEL_RATE = 1e-4  # constant, so that the first update already moves the weights
+
+
+def halo_calls(model) -> int:
+    """The attention op's calls in one forward of a halo-sharded model on
+    this rank: per edge set, its interior and its boundary rows (all its
+    rows without ``halo_overlap``), each where it has edges."""
+    def calls(shard):
+        sets = (shard.interior, shard.boundary) if shard.overlap else (shard.full,)
+        return sum(csr.num_edges > 0 for csr in sets)
+
+    halo = model.halo
+    return (sum(calls(s) for s in halo["encoder"].values())
+            + len(model.processor.proc) * calls(halo["processor"])
+            + sum(calls(s) for s in halo["decoder"].values()))
+
+
+def halo_exchanges(model, channels: int, elt: int) -> dict:
+    """Per edge set of this rank: the rows each exchange sends and receives
+    (``S * h_pair``, the buffer, self slot included), the real rows it
+    receives, and the buffer's bytes each way (keys and values: 2C
+    channels of ``elt`` bytes, batch 1)."""
+    def sizes(shard):
+        buf = shard.num_shards * shard.h_pair
+        return {"h_pair": shard.h_pair, "buffer_rows": buf,
+                "real_rows_sent": int(shard.send_mask.sum()),
+                "bytes_each_way": buf * 2 * channels * elt,
+                "n_local": shard.n_local, "n_local_src": shard.n_local_src}
+
+    halo = model.halo
+    return {"encoder": sizes(halo["encoder"]["data"]), "processor": sizes(halo["processor"]),
+            "decoder": sizes(halo["decoder"]["data"])}
+
+
+def parallel_interface(graph, device, mesh=None, num_layers: int = 16):
+    """The flagship's training interface (float32 masters) for phase 31,
+    ``shard_strategy: edges`` over ``mesh``'s model group when it has more
+    than one rank.  The weights are the interface's own draws from
+    ``context_seed("model-init")``, the same on every rank and in one
+    process."""
+    from anemoi_tpu_torch.models.interface import AnemoiModelInterface
+
+    config = flagship_config(num_layers=num_layers)
+    if mesh is not None and mesh.size("model") > 1:
+        config["model"].update(shard_strategy="edges", num_model_shards=mesh.size("model"))
+    return AnemoiModelInterface(config=config, graph=graph, data_indices=flagship_indices(),
+                                statistics=flagship_statistics(SEED), device=device,
+                                training=True, mesh=mesh)
+
+
+def parallel_step(iface, graph, precision: str):
+    """(TrainState, train_step) with a fresh optimizer state: ``precision``
+    compute over the masters (AdamW at a constant rate, value clipping at
+    32); the interface's forecasts serve in that type too."""
+    from anemoi_tpu_torch.training.optimizers import build_optimizer
+    from anemoi_tpu_torch.training.step import COMPUTE_TYPES, TrainState, make_step_fns
+
+    iface.inference_dtype = COMPUTE_TYPES[precision] or torch.float32
+    tx = build_optimizer({"gradient_clip": {"val": 32.0, "algorithm": "value"}},
+                         schedule=lambda count: PARALLEL_RATE)
+    train_step, _ = make_step_fns(iface, training_losses(graph), rollout=1, precision=precision)
+    return TrainState.create(iface, tx), train_step
+
+
+def forecast_batch(graph, device):
+    """The serving phase's seeded raw window (m + 2 steps)."""
+    idx = flagship_indices()["data"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return {"data": torch.randn(1, 2 + STEPS, 1, graph["data"].num_nodes, idx.num_data_vars,
+                                generator=gen, device=device)}
+
+
+def parallel_rank(graph, workdir: str) -> dict:
+    """One rank of a model group of 2 on the card (phase 31): per precision
+    the step-1 gradient and a 2-step forecast (rank 0 saves both for the
+    parent), each with its launches; in bf16 also ``PARALLEL_STEPS``
+    training steps, each with its launches and wall ms, and the rank's peak
+    memory; then, on rank 0, a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from anemoi_tpu_torch import kernels
+    from anemoi_tpu_torch.inference import make_forecast_fn
+    from anemoi_tpu_torch.parallel import distributed
+    from anemoi_tpu_torch.parallel.mesh import Mesh, MeshSpec, create_mesh
+
+    launch = distributed.launch()
+    device = launch.device
+    mesh = create_mesh(MeshSpec(model=launch.world), device)
+    batch, fbatch = training_batch(graph, device), forecast_batch(graph, device)
+    out = {"rank": launch.rank, "backend": launch.backend, "device": str(device)}
+    iface = parallel_interface(graph, device, mesh)
+    calls = halo_calls(iface.model)
+    for precision in ("fp32", "bf16"):
+        state, train_step = parallel_step(iface, graph, precision)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launches()
+        train_step.compute_gradients(state, batch)
+        torch.cuda.synchronize()
+        res = {"halo_calls": calls, "grad_launches": kernels.launch_counts()}
+        if launch.rank == 0:
+            torch.save(flat_grads(iface).cpu(), os.path.join(workdir, f"grads_{precision}.pt"))
+        forecast = make_forecast_fn(iface, STEPS)
+        kernels.reset_launches()
+        y = forecast(fbatch)["data"]
+        torch.cuda.synchronize()
+        res["forecast_launches"] = kernels.launch_counts()
+        if launch.rank == 0:
+            torch.save(y.cpu(), os.path.join(workdir, f"forecast_{precision}.pt"))
+        if precision == "bf16":
+            res["exchanges"] = halo_exchanges(iface.model, HD, 2)
+            res["step_launches"], res["losses"], res["wall_ms"] = [], [], []
+            for _ in range(PARALLEL_STEPS):
+                t0 = time.perf_counter()
+                kernels.reset_launches()
+                state, metrics = train_step(state, batch)
+                torch.cuda.synchronize()
+                res["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+                res["step_launches"].append(kernels.launch_counts())
+                res["losses"].append(float(metrics["loss"]))
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+        out[precision] = res
+        del state, train_step, forecast, y
+        torch.cuda.empty_cache()
+    del iface
+    torch.cuda.empty_cache()
+    # a one-rank NCCL group on the card (every rank takes part in creating
+    # it): an all-reduce of a CUDA tensor, and a training step whose
+    # gradient reduction runs over it (the group as the data group)
+    nccl = dist.new_group([0], backend="nccl")
+    if launch.rank == 0:
+        t = torch.arange(4, dtype=torch.float32, device=device)
+        distributed.all_reduce(t, nccl)
+        one_rank = Mesh(MeshSpec(), 0, device, groups={"data": nccl})
+        iface = parallel_interface(graph, device, one_rank, num_layers=1)
+        state, train_step = parallel_step(iface, graph, "bf16")
+        state, metrics = train_step(state, batch)
+        out["nccl"] = {"backend": dist.get_backend(nccl), "all_reduce": t.cpu().tolist(),
+                       "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+        del iface, state, train_step
+    dist.barrier()
+    return out
+
+
+def parallel_dp_rank(graph) -> dict:
+    """One rank of data 2 x model 2 (phase 31): the fp32 losses of
+    ``PARALLEL_DP_STEPS`` steps on its batch row of the batch-2 window."""
+    from anemoi_tpu_torch.parallel import distributed
+    from anemoi_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    launch = distributed.launch()
+    device = launch.device
+    mesh = create_mesh(MeshSpec(data=2, model=2), device)
+    row = mesh.index("data")
+    batch = {"data": torch.cat([training_batch(graph, device)["data"],
+                                training_batch(graph, device, seed=SEED + 3)["data"]])[row:row + 1]}
+    iface = parallel_interface(graph, device, mesh)
+    state, train_step = parallel_step(iface, graph, "fp32")
+    losses = []
+    for _ in range(PARALLEL_DP_STEPS):
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+    return {"rank": launch.rank, "coords": mesh.coords, "losses": losses,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def halo_shard_kernels(graph, device) -> dict:
+    """K1 and K3 + K4 on the processor set of model shard 2 of 2 (no
+    ``halo_overlap``: its 5 128 destination rows, 14 of them padded and
+    edgeless, over 5 128 local and 2 x 400 halo source rows, the padded and
+    self-slot halo rows edgeless), with the set's own attributes in the
+    shard's edge order: K1's out and lse against the plain op on every row
+    (out 0 and lse -inf on the edgeless rows, both sides), dq exactly 0 on
+    the edgeless destinations; K3 + K4 through ``sparse_set_backward``
+    (its gates, dk and dv exactly 0 on the edgeless sources)."""
+    from anemoi_tpu_torch.kernels import gt_attention as kern
+    from anemoi_tpu_torch.models.graph import extract_subgraph
+    from anemoi_tpu_torch.ops.gt_attention import gt_attention_bwd_kernels, gt_attention_plain
+
+    sub = extract_subgraph(graph, "hidden", "hidden", list(EDGE_ATTRIBUTES), device,
+                           torch.float32)
+    shard = sub.sharded_edge_data(2, 1, None, overlap=False)
+    csr = shard.full
+    ei, ptr, n_dst, n_src = csr.edge_index, csr.dst_ptr, csr.num_dst, csr.num_src
+    attr32 = sub.edge_attr[shard.edge_perm[: csr.num_edges]]
+    no_dst = (ptr[1:] - ptr[:-1]) == 0
+    label = "parallel"
+    edge_set = "hidden->hidden, model shard 2 of 2"
+    rows = {"K1": []}
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+        q, k, v, g = rnd(1, n_dst, HD), rnd(1, n_src, HD), rnd(1, n_src, HD), rnd(1, n_dst, HD)
+        w, b = rnd(HD, attr32.shape[1], scale=0.3).t(), rnd(HD, scale=0.1)
+        attr = attr32.to(dtype)
+
+        def k1():
+            return kern.gt_attention_fused_edge(q, k, v, attr, w, b, ei, ptr, HEADS)
+
+        kern.reset_launches()
+        out, lse = k1()
+        torch.cuda.synchronize()
+        if kern.launch_counts()["K1"] != 1:
+            raise RuntimeError(f"{label}: K1 did not launch once: {kern.launch_counts()}")
+        ref, ref_lse = gt_attention_plain(q, k, v, attr.float() @ w.float() + b.float(), ei, ptr,
+                                          HEADS)
+        err = (out.float() - ref.float()).abs().max().item()
+        edgeless_out = out[:, no_dst].count_nonzero().item()
+        lse_pattern = bool(torch.equal(torch.isinf(lse), torch.isinf(ref_lse)))
+        finite = torch.isfinite(ref_lse)
+        lse_err = (lse[finite] - ref_lse[finite]).abs().max().item()
+        if not (err <= TOL[dtype] * ref.float().abs().max().item() and edgeless_out == 0
+                and lse_pattern and bool(torch.isinf(lse[:, no_dst]).all())
+                and lse_err <= 1e-2):
+            raise RuntimeError(f"{label} K1 at {edge_set} {dtype}: out err {err:.3e}, nonzero "
+                               f"edgeless outputs {edgeless_out}, lse -inf pattern "
+                               f"{lse_pattern}, lse err {lse_err:.3e}")
+        grads = gt_attention_bwd_kernels(q, k, v, ei, ptr, csr.source.src_ptr,
+                                         csr.source.src_perm, HEADS, out, lse, g,
+                                         edge_attr=attr, weight=w, bias=b)
+        if grads.dq[:, no_dst].count_nonzero().item():
+            raise RuntimeError(f"{label} K3 at {edge_set} {dtype}: dq not exactly 0 on the "
+                               f"{int(no_dst.sum())} edgeless destinations")
+        bound_ms, bound_by = attention_bound(n_dst, n_src, csr.num_edges, attr.shape[1],
+                                             q.element_size(), True)
+        rows["K1"].append({
+            "edge_set": edge_set, "dtype": str(dtype).split(".")[-1], "fused_edge": True,
+            "n_dst": n_dst, "n_src": n_src, "n_edges": csr.num_edges,
+            "destinations_without_edges": int(no_dst.sum()), "max_abs_err": err,
+            "lse_max_abs_err": lse_err, "edgeless_rows_exact": True,
+            "ms": cuda_ms(k1), "ms_back_to_back": cuda_ms_back_to_back(k1),
+            "plain_ms": cuda_ms(lambda: gt_attention_plain(
+                q, k, v, attr.float() @ w.float() + b.float(), ei, ptr, HEADS), reps=10, warmup=2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        print(f"[{label}] K1 {rows['K1'][-1]}; dq exactly 0 on the "
+              f"{int(no_dst.sum())} edgeless destinations", flush=True)
+        del q, k, v, g, out, lse, ref, ref_lse, grads
+    rows.update(sparse_set_backward(label, edge_set, ei, ptr, csr.source, attr32, n_src, n_dst,
+                                    device))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def parallel_phase(workdir: str, graph, device) -> dict:
+    """Phase 31: the flagship over ranks that share the card (gloo)."""
+    from anemoi_tpu_torch import kernels
+    from anemoi_tpu_torch.inference import make_forecast_fn
+    from anemoi_tpu_torch.parallel.distributed import spawn
+    from anemoi_tpu_torch.training import cli
+
+    seconds, t_part = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        seconds[name] = round(time.perf_counter() - t_part, 2)
+        t_part = time.perf_counter()
+
+    # one process: the same weights and batches
+    batch, fbatch = training_batch(graph, device), forecast_batch(graph, device)
+    one = {}
+    iface = parallel_interface(graph, device)
+    for precision in ("fp32", "bf16"):
+        state, train_step = parallel_step(iface, graph, precision)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        train_step.compute_gradients(state, batch)
+        grads = flat_grads(iface).cpu()
+        y = make_forecast_fn(iface, STEPS)(fbatch)["data"].cpu()
+        walls = []
+        if precision == "bf16":
+            for _ in range(PARALLEL_STEPS):
+                t0 = time.perf_counter()
+                train_step(state, batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        one[precision] = {"grads": grads, "forecast": y, "wall_ms": walls,
+                          "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+        del state, train_step
+        torch.cuda.empty_cache()
+    del iface
+
+    lap("one process")
+    ranks = spawn(parallel_rank, 2, args=(graph, workdir))
+    lap("model group of 2")
+    result = {"ranks": [], "model_group": 2}
+    for r in ranks:
+        for precision in ("fp32", "bf16"):
+            res = r[precision]
+            calls = res["halo_calls"]
+            want_step = {**NO_LAUNCHES, "K1": calls, "K3": calls, "K4": calls}
+            want_fc = {**NO_LAUNCHES, "K1": calls * STEPS}
+            steps = res.get("step_launches", []) + [res["grad_launches"]]
+            if any(c != want_step for c in steps) or res["forecast_launches"] != want_fc:
+                raise RuntimeError(f"parallel rank {r['rank']} {precision}: want {want_step} a "
+                                   f"step and {want_fc} a forecast, got {steps} and "
+                                   f"{res['forecast_launches']}")
+    for precision in ("fp32", "bf16"):
+        fc_tol, grad_tol = PARALLEL_TOL[precision]
+        g = torch.load(os.path.join(workdir, f"grads_{precision}.pt"))
+        y = torch.load(os.path.join(workdir, f"forecast_{precision}.pt"))
+        gap = {"grads": rel_l2(g, one[precision]["grads"]),
+               "forecast": rel_l2(y, one[precision]["forecast"])}
+        finite = bool(torch.isfinite(y).all()) and tuple(y.shape) == tuple(
+            one[precision]["forecast"].shape)
+        print(f"[parallel] {precision}: model group of 2 against one process, relative L2 "
+              f"{gap} (tol forecast {fc_tol}, gradients {grad_tol})", flush=True)
+        if not (finite and gap["forecast"] <= fc_tol and gap["grads"] <= grad_tol):
+            raise RuntimeError(f"parallel {precision}: {gap}, finite and shaped {finite}")
+        result[precision] = {"rel_l2": gap, "one_process_peak_memory_bytes":
+                             one[precision]["peak_memory_bytes"]}
+    for r in ranks:
+        bf = r["bf16"]
+        result["ranks"].append({
+            "rank": r["rank"], "backend": r["backend"], "device": r["device"],
+            "launches_per_step": bf["step_launches"][-1],
+            "launches_per_forecast_step": {k: n // STEPS for k, n in
+                                           bf["forecast_launches"].items()},
+            "losses": bf["losses"], "wall_ms_gloo_shared_card": bf["wall_ms"],
+            "peak_memory_bytes": {p: r[p]["peak_memory_bytes"] for p in ("fp32", "bf16")},
+            "exchanges": bf["exchanges"]})
+    result["one_process_wall_ms"] = one["bf16"]["wall_ms"]
+    print(f"[parallel] ranks {json.dumps(result['ranks'])}", flush=True)
+    print(f"[parallel] wall ms a step, 2 ranks with gloo on one shared card (not NCCL's): "
+          f"{[r['wall_ms_gloo_shared_card'] for r in result['ranks']]}; one process "
+          f"{one['bf16']['wall_ms']}", flush=True)
+    print(f"[parallel] peak memory: ranks {[r['peak_memory_bytes'] for r in result['ranks']]}; "
+          f"one process {[one[p]['peak_memory_bytes'] for p in ('fp32', 'bf16')]}", flush=True)
+    nccl = ranks[0]["nccl"]
+    if not (nccl["backend"] == "nccl" and nccl["all_reduce"] == [0.0, 1.0, 2.0, 3.0]
+            and math.isfinite(nccl["loss"]) and math.isfinite(nccl["grad_norm"])):
+        raise RuntimeError(f"parallel one-rank NCCL group: {nccl}")
+    result["nccl"] = nccl
+    print(f"[parallel] one-rank NCCL group on the card: {nccl}", flush=True)
+    del one
+
+    # data 2 x model 2 against one process at batch 2, fp32
+    dp = spawn(parallel_dp_rank, 4, args=(graph,))
+    lap("data 2 x model 2")
+    batch2 = {"data": torch.cat([batch["data"],
+                                 training_batch(graph, device, seed=SEED + 3)["data"]])}
+    iface = parallel_interface(graph, device)
+    state, train_step = parallel_step(iface, graph, "fp32")
+    want = []
+    for _ in range(PARALLEL_DP_STEPS):
+        state, metrics = train_step(state, batch2)
+        want.append(float(metrics["loss"]))
+    del iface, state, train_step
+    torch.cuda.empty_cache()
+    worst = max(abs(a - b) / abs(b) for r in dp for a, b in zip(r["losses"], want))
+    print(f"[parallel] data 2 x model 2, fp32, {PARALLEL_DP_STEPS} steps: losses "
+          f"{[r['losses'] for r in dp]} against one process at batch 2 {want}: worst relative "
+          f"{worst:.3e} (tol {PARALLEL_DP_TOL})", flush=True)
+    if not worst <= PARALLEL_DP_TOL:
+        raise RuntimeError(f"parallel data 2 x model 2: losses off by {worst:.3e}")
+    result["data2_model2"] = {"losses": [r["losses"] for r in dp], "one_process": want,
+                              "worst_rel": worst,
+                              "peak_memory_bytes": [r["peak_memory_bytes"] for r in dp]}
+    lap("one process at batch 2")
+
+    # cli train on a model group of 2 (the example on the flagship's graph:
+    # the SFC order gives the halo of the flagship's rows), then cli predict
+    # on one device
+    with open(os.path.join(workdir, "example_o96_gt.json")) as f:
+        config = json.load(f)
+    config["output_dir"] = os.path.join(workdir, "parallel_run")
+    config["graph"] = {"save_path": os.path.join(workdir, "flagship_graph.npz")}
+    graph.save(config["graph"]["save_path"])
+    config["training"].update(max_steps=2, max_epochs=1)
+    config["dataloader"]["validation_fraction"] = 0.02  # one validation batch
+    config["diagnostics"]["callbacks"] = [{"name": "LearningRateMonitor"}]
+    cfg_path = os.path.join(workdir, "parallel_example.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    t0 = time.perf_counter()
+    rc = cli.main(["train", cfg_path, "hardware.num_devices=2",
+                   "hardware.num_devices_per_model=2"])
+    with open(os.path.join(config["output_dir"], "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if "loss" in r]
+    if rc != 0 or len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"parallel cli train: rc {rc}, loss records {losses}")
+    bundle = os.path.join(config["output_dir"], "inference")
+    fc_path = os.path.join(workdir, "parallel_forecast.npz")
+    kernels.reset_launches()
+    rc = cli.main(["predict", bundle, "--steps", "2", "--output", fc_path])
+    import numpy as np
+
+    fc = np.load(fc_path)["data|forecast"]
+    if rc != 0 or not np.isfinite(fc).all():
+        raise RuntimeError(f"parallel cli predict on one device: rc {rc}")
+    predict_launches = kernels.launch_counts()
+    if predict_launches != {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP * STEPS}:
+        raise RuntimeError(f"parallel cli predict on one device: launches {predict_launches}")
+    result["cli"] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                     "predict_shape": list(fc.shape), "predict_launches": predict_launches}
+    print(f"[parallel] cli train on 2 ranks: losses {losses}; cli predict on one device from "
+          f"its bundle: {list(fc.shape)}, launches {result['cli']['predict_launches']}",
+          flush=True)
+    lap("cli train on 2 ranks, cli predict")
+
+
+    result["seconds"] = seconds
+    print(f"[parallel] seconds by part: {seconds}", flush=True)
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
            ens: dict, families: dict, transport: dict, hierarchy: dict,
@@ -4016,13 +4462,20 @@ def main() -> int:
         }
         meshes = {label: phase(label, mesh_phase, workdir, device, label)
                   for label in MESH_GRAPHS}
-    for extra_rows in (hierarchy["down_set_rows"],
+        parallel = phase("parallel", parallel_phase, workdir, graph, device)
+        shard_rows = phase("parallel shard kernels", halo_shard_kernels, graph, device)
+    for extra_rows in (shard_rows, hierarchy["down_set_rows"],
                        slice_17["dynamic"]["runtime_sets"]["encoder_rows"],
                        *(m.pop("encoder_rows") for m in meshes.values())):
         for name, extra in extra_rows.items():
             rows[name] += extra
+    rank_0 = parallel["ranks"][0]
+    parallel_path = {"train": {"launches_per_step": rank_0["launches_per_step"]},
+                     "predict": {"launches": {k: n * STEPS for k, n in
+                                              rank_0["launches_per_forecast_step"].items()}}}
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
-                 ens, families, transport, hierarchy, spectral, {**slice_17, **meshes})
+                 ens, families, transport, hierarchy, spectral,
+                 {**slice_17, **meshes, "parallel_rank_0": parallel_path})
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -4033,7 +4486,7 @@ def main() -> int:
                        "transformer_training": t_training, "remat": remat, "presets": presets,
                        "ensemble": ens, "families": families, "transport": transport,
                        "hierarchical": hierarchy, "spectral": spectral, **slice_17,
-                       "meshes": meshes,
+                       "meshes": meshes, "parallel": parallel,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

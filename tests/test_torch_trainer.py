@@ -212,7 +212,7 @@ def test_no_silent_cpu_fallback(tmp_path):
     del cfg["hardware"]
     with pytest.raises(RuntimeError, match="CUDA"):
         AnemoiTrainer(cfg, output_dir=cfg["output_dir"])
-    cfg["hardware"] = {"platform": "cpu", "num_devices": 2}
+    cfg["hardware"] = {"platform": "cpu", "num_devices_per_ensemble": 2}  # the ensemble axis
     with pytest.raises(NotImplementedError, match="item 9"):
         AnemoiTrainer(cfg, output_dir=cfg["output_dir"])
 

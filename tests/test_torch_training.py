@@ -287,15 +287,16 @@ def test_fused_backward_choice():
 
 
 def test_not_ported_pieces_raise(tiny):
-    # model parallelism (ROADMAP item 9): Ulysses head sharding and model
-    # shards (the multiscale loss, the Transformer mappers and the dynamic
-    # edge providers are ported: tests/test_torch_projection.py,
+    # Ulysses head sharding (ROADMAP item 9), asked for by the processor or
+    # by the model (the halo strategy is ported: tests/test_torch_parallel*.py;
+    # the multiscale loss, the Transformer mappers and the dynamic edge
+    # providers: tests/test_torch_projection.py,
     # tests/test_torch_cross_attention.py, tests/test_torch_dynamic.py)
     heads = config()
     heads["model"]["processor"] = {**heads["model"]["processor"], "shard_strategy": "heads"}
-    shards = config()
-    shards["model"]["num_model_shards"] = 2
-    for cfg, match in ((heads, "Ulysses"), (shards, "model parallelism")):
+    model_heads = config()
+    model_heads["model"].update(shard_strategy="heads", num_model_shards=2)
+    for cfg, match in ((heads, "item 9"), (model_heads, "Ulysses")):
         with pytest.raises(NotImplementedError, match=match):
             AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
                                  data_indices=flagship_indices(), statistics=tiny["stats"],

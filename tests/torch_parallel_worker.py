@@ -1,0 +1,171 @@
+"""Rank workers of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_parallel_training.py``.
+
+Every function here runs on each rank started by
+``anemoi_tpu_torch.parallel.distributed.spawn`` (gloo on the CPU, one thread
+a rank) and returns plain numpy, which the test process holds against the
+JAX package.  The module imports the port alone: a spawned rank imports
+neither ``tests/conftest.py`` nor jax.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+
+import numpy as np
+import torch
+
+from anemoi_tpu_torch.data_indices.collection import IndexCollection
+from anemoi_tpu_torch.models.graph import SubGraphArrays
+from anemoi_tpu_torch.models.interface import AnemoiModelInterface
+from anemoi_tpu_torch.parallel import distributed
+from anemoi_tpu_torch.parallel.halo import halo_gt_attention, pad_rows, permute_rows
+from anemoi_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+from anemoi_tpu_torch.training.losses import get_loss_function
+from anemoi_tpu_torch.training.losses.scalers import create_scalers
+from anemoi_tpu_torch.training.optimizers import build_optimizer
+from anemoi_tpu_torch.training.step import TrainState, make_step_fns
+
+
+def _np(t, like=None):
+    """numpy of ``t``; a gradient that never formed (a rank without rows)
+    as zeros shaped ``like``."""
+    if t is None:
+        return np.zeros(tuple(like.shape), np.float32)
+    return t.detach().cpu().numpy()
+
+
+def halo_attention(cases):
+    """Per case (an edge set, the inputs of the whole sets, the model group's
+    size ``S`` and an ``overlap`` flag) this rank's share of
+    ``halo_gt_attention`` with the projection fused (K1's form): its rows of
+    the output and of dq / dk / dv, and its shares of the gradients of the
+    edge attributes and of the projection (the test sums those over the
+    ranks of one model group).  A world of W ranks runs ``S`` < W as W / S
+    data groups of the same model group shape."""
+    world = distributed.launch().world
+    meshes = {s: create_mesh(MeshSpec(data=world // s, model=s))
+              for s in sorted({c["S"] for c in cases})}
+    out = []
+    for case in cases:
+        mesh = meshes[case["S"]]
+        sub = SubGraphArrays(
+            edge_index=torch.as_tensor(case["edge_index"]),
+            dst_ptr=torch.as_tensor(case["dst_ptr"]), edge_attr=torch.as_tensor(case["attr"]),
+            num_src=case["num_src"], num_dst=case["num_dst"])
+        shard = sub.sharded_edge_data(mesh.size("model"), mesh.index("model"),
+                                      mesh.group("model"), overlap=case["overlap"])
+        dst, src = shard.dst_rows, shard.src_rows
+        leaf = {k: torch.tensor(case[k], requires_grad=True) for k in ("attr", "weight", "bias")}
+        q = torch.tensor(case["q"][:, dst], requires_grad=True)
+        k = torch.tensor(case["k"][:, src], requires_grad=True)
+        v = torch.tensor(case["v"][:, src], requires_grad=True)
+        res = halo_gt_attention(
+            pad_rows(q, shard.n_local), pad_rows(k, shard.n_local_src),
+            pad_rows(v, shard.n_local_src), shard, case["heads"],
+            edge_attr=permute_rows(leaf["attr"], shard.edge_perm, shard.edge_perm_inv),
+            weight=leaf["weight"], bias=leaf["bias"])[:, : q.shape[1]]
+        (res * torch.as_tensor(case["cotangent"][:, dst])).sum().backward()
+        out.append({"out": _np(res), "dq": _np(q.grad, q), "dk": _np(k.grad, k),
+                    "dv": _np(v.grad, v),
+                    **{f"d_{name}": _np(t.grad, t) for name, t in leaf.items()},
+                    "dst": (dst.start, dst.stop), "src": (src.start, src.stop),
+                    "data_index": mesh.index("data")})
+    return out
+
+
+def _interface(setup, mesh, config):
+    graph = setup["graph"]
+    indices = {ds: IndexCollection(**kw) for ds, kw in setup["indices"].items()}
+    iface = AnemoiModelInterface(config=config, graph=graph, data_indices=indices,
+                                 statistics=setup["statistics"], device="cpu", training=True,
+                                 mesh=mesh)
+    iface.load_state_dict({k: torch.as_tensor(v) for k, v in setup["state_dict"].items()},
+                          strict=True)
+    return iface
+
+
+def train_runs(setup, runs):
+    """Per run (a mesh ``data`` x ``model``, model-config overrides, the
+    number of steps, ``zero``): the losses of each step and the reduced
+    step-1 gradients, from a fresh interface with the setup's weights,
+    trained on its rows of the setup's batch (the grid cut by the step,
+    or read as the rank's block with ``shard_grid``)."""
+    world = distributed.launch().world
+    results = []
+    for run in runs:
+        spec = MeshSpec(data=run["data"], model=world // run["data"])
+        mesh = create_mesh(spec)
+        config = copy.deepcopy(setup["config"])
+        config["model"].update(run.get("model", {}), num_model_shards=spec.model)
+        iface = _interface(setup, mesh, config)
+        losses = {"data": get_loss_function(
+            setup["loss"], create_scalers(setup["scalers"], graph=setup["graph"]))}
+        opt = dict(setup["optimizer"])
+        if run.get("zero"):
+            opt["optimizer"] = {"name": "adamw", "zero": True}
+        state = TrainState.create(iface, build_optimizer(opt, data_group=mesh.group("data")))
+        train_step, _ = make_step_fns(iface, losses, rollout=1, remat_rollout=False)
+        batch = setup["batch"]
+        rows = batch.shape[0] // spec.data
+        local = batch[mesh.index("data") * rows : (mesh.index("data") + 1) * rows]
+        if run.get("shard_grid"):
+            local = local[:, :, :, iface.model.grid_rows("data")]
+        local = {"data": torch.as_tensor(local)}
+        out = {"losses": [], "grads": None, "halo": iface.model.halo is not None}
+        for step in range(run["steps"]):
+            loss = train_step.compute_gradients(state, local)
+            if step == 0:
+                out["grads"] = {n: _np(p.grad) for n, p in iface.named_parameters()}
+            state.apply_gradients()
+            out["losses"].append(float(loss))
+        if run.get("predict"):
+            out["predict"] = {ds: _np(y) for ds, y in iface.predict_step(
+                {"data": torch.as_tensor(setup["batch"][:1])}).items()}
+        results.append(out)
+    return results
+
+
+def serve_bundle(bundle, batch):
+    """``predict_step`` of a bundle served over a model group of every rank."""
+    from anemoi_tpu_torch.training.checkpoint import load_inference_checkpoint
+
+    mesh = create_mesh(MeshSpec(model=distributed.launch().world))
+    iface = load_inference_checkpoint(bundle, device="cpu", mesh=mesh)
+    halo = iface.model.halo is not None
+    y = iface.predict_step({"data": torch.as_tensor(batch)})
+    return {"halo": halo, "data": _np(y["data"])}
+
+
+def fail_on_rank_one():
+    """Rank 1 fails after the world started; rank 0 waits on a collective
+    that never completes: the spawn must stop it and raise."""
+    if distributed.launch().rank == 1:
+        raise RuntimeError("rank 1 fails")
+    torch.distributed.barrier()
+    return "rank 0 went on alone"
+
+
+def lonely_rank(port):
+    """A rank that asks for a world of 2 in which nobody joins it."""
+    distributed.shutdown()
+    os.environ.update({distributed.ENV_COORDINATOR: f"127.0.0.1:{port}",
+                       distributed.ENV_NUM_PROCESSES: "2", distributed.ENV_PROCESS_ID: "0",
+                       distributed.ENV_INIT_TIMEOUT: "3"})
+    distributed.maybe_initialize("cpu")
+    return "initialised alone"
+
+
+def sequence(calls):
+    """``[fn(*args) for fn, args in calls]`` on this rank (several checks in
+    one world: a spawn costs seconds)."""
+    return [fn(*args) for fn, args in calls]
+
+
+def cli_predict(bundle, output):
+    """``cli predict`` in a world a launcher started: the ranks serve the
+    bundle over one model group and rank 0 writes ``output``."""
+    from anemoi_tpu_torch.training.cli import main
+
+    return main(["predict", bundle, "--steps", "2", "--platform", "cpu", "--output", output])
