@@ -78,7 +78,9 @@ def make_transport_forecast_fn(interface, steps: int, objective: str = "edm",
     (``num_steps`` steps of ``sampler``, EDM's preconditioning and sigma
     range from ``edm``; the initial states drawn from ``generator`` in
     turn), add the last state to it for a ``tendency`` model, denormalise
-    it and advance the window.  ``batch`` as for :func:`make_forecast_fn`."""
+    it and advance the window.  ``batch`` as for :func:`make_forecast_fn`;
+    on a model group every rank samples its grid rows (each initial state
+    the one-process draw's block) and returns the whole forecast."""
     from anemoi_tpu_torch.training.transport_step import make_sampler
 
     generate = make_sampler(interface, objective=objective, sampler=sampler,
@@ -91,6 +93,7 @@ def make_transport_forecast_fn(interface, steps: int, objective: str = "edm",
 
     @torch.no_grad()
     def forecast(batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        batch = interface.local_rows(batch)
         batch_norm = {ds: pre[ds].transform(batch[ds].float()) for ds in dataset_names}
         x = {ds: batch_norm[ds][:, :m][..., ia[ds]["data_input_full"]] for ds in dataset_names}
         # a tendency model samples the increment over the last state
@@ -108,7 +111,7 @@ def make_transport_forecast_fn(interface, steps: int, objective: str = "edm",
             if step + 1 < steps:
                 x = {ds: advance_input(x[ds], y[ds], batch_norm[ds], t0, ia[ds])
                      for ds in dataset_names}
-        return {ds: torch.cat(v, dim=1) for ds, v in outputs.items()}
+        return interface.gather_grid({ds: torch.cat(v, dim=1) for ds, v in outputs.items()})
 
     forecast.schedule = generate.schedule
     return forecast

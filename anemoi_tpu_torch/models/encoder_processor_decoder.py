@@ -35,13 +35,16 @@ and the hidden mesh in contiguous row blocks over the model group
 GraphTransformer attention -- the encoder, each processor layer, the decoder
 -- runs on the rank's CSR after a halo exchange of keys and values
 (``parallel/halo.py``; ``halo_overlap``, default on, splits interior and
-boundary rows).  :meth:`AnemoiModelEncProcDec.shard_over` builds the halo
+boundary rows).  The ``heads`` (Ulysses) strategy keeps those mappers and
+gives the processor -- GraphTransformer or Transformer -- the rank's block
+of hidden rows as its sequence shard (``parallel/heads.py``: one
+all-to-all to the whole mesh for the rank's heads before each attention,
+one back after it).  :meth:`AnemoiModelEncProcDec.shard_over` builds the
 tables once, from the interface's mesh; ``forward`` then takes and returns
-the rank's grid rows.  What the halo path cannot express raises
-``NotImplementedError`` naming ROADMAP item 9: ``heads``, a processor or
-mapper other than the GraphTransformer's, ``halo_mappers: false``, a
-residual that mixes grid rows, a ``DynamicKNN`` provider, and the
-hierarchical and transport models.  The
+the rank's grid rows.  What the sharded paths cannot express raises
+``NotImplementedError`` naming ROADMAP item 9: a processor or mapper other
+than those, ``halo_mappers: false`` under ``edges``, a residual that mixes
+grid rows and a ``DynamicKNN`` provider.  The
 ``graph_attention_backend`` values of the JAX package (paged, padded,
 segment) all select the port's one CSR attention and the GNN's one
 ``index_add_`` sum.  The attention's backward on each edge set follows the
@@ -85,6 +88,7 @@ from anemoi_tpu_torch.ops.dynamic import (
     runtime_edge_attributes,
     runtime_knn,
 )
+from anemoi_tpu_torch.parallel.heads import HeadsShard
 
 LOGGER = logging.getLogger(__name__)
 BACKENDS = ("paged", "padded", "segment")
@@ -160,8 +164,7 @@ def _component(config: dict, part: str):
     field of the chosen JAX module (left behind by preset composition) are
     dropped with a warning; fields that only steer the TPU's execution (scan,
     backend) and the edge provider (read by the model, :func:`dynamic_knn`)
-    are dropped silently; Ulysses head sharding, which is not ported,
-    raises.  The
+    are dropped silently (the model applies ``shard_strategy``).  The
     processors' ``conditional`` is applied by the model (the conditioning's
     width); the GT processor's ``scan_unroll`` is checked against its depth,
     as the JAX processor checks it."""
@@ -171,7 +174,7 @@ def _component(config: dict, part: str):
         raise NotImplementedError(f"{part} '{name}' is not ported to anemoi_tpu_torch")
     _, cls, ported, other = COMPONENTS[name]
     cfg.pop("edge_provider", None)
-    if cfg.get("shard_strategy", "none") not in ("none", "edges"):
+    if cfg.get("shard_strategy", "none") not in ("none", "edges", "heads"):
         raise NotImplementedError(f"{part}: shard_strategy {cfg['shard_strategy']} is not ported "
                                   "to anemoi_tpu_torch (ROADMAP.md Queue 1, item 9)")
     if "num_heads" in ported and "num_heads" not in cfg:
@@ -377,41 +380,51 @@ class AnemoiModelEncProcDec(nn.Module):
         self.n_step_output = int(config.get("n_step_output", 1))
         self.latent_skip = bool(config.get("latent_skip", True))
 
-    # whether the halo path covers the model (the hierarchical and transport
-    # models set it False)
-    halo_supported = True
+    # whether the heads path covers the model (the hierarchical model runs
+    # under edges alone: the JAX package tests no other)
+    heads_supported = True
 
     def _check_sharding(self, config: dict) -> None:
-        """Refuse, naming ROADMAP item 9, what the halo path cannot express;
+        """Refuse, naming ROADMAP item 9, what the sharded paths cannot express;
         set ``num_model_shards``, ``model_parallel`` and ``halo`` (built by
         :meth:`shard_over`)."""
         strategy = shard_strategy(config)
         self.num_model_shards = int(config.get("num_model_shards", 1))
+        self.strategy = strategy
         self.halo = None
-        if strategy == "heads":
-            raise NotImplementedError("shard_strategy heads (Ulysses head sharding) is not "
-                                      f"ported to anemoi_tpu_torch {ITEM_9}")
         self.model_parallel = self.num_model_shards > 1
         if not self.model_parallel:
             return
         where = f"num_model_shards {self.num_model_shards}"
-        if strategy != "edges":
+        if strategy not in ("edges", "heads"):
             raise NotImplementedError(
                 f"{where}: shard_strategy {strategy} needs GSPMD, which anemoi_tpu_torch does "
                 f"not have; the halo (edges) strategy covers GraphTransformer processors {ITEM_9}")
-        if not self.halo_supported:
+        proc_strategy = (config.get("processor") or {}).get("shard_strategy", strategy)
+        if proc_strategy not in ("none", strategy):
+            raise NotImplementedError(f"{where}: a processor shard_strategy {proc_strategy} under "
+                                      f"the model's {strategy} is not ported {ITEM_9}")
+        if strategy == "heads" and not self.heads_supported:
             raise NotImplementedError(
-                f"{where}: {type(self).__name__} under model shards is not ported {ITEM_9}")
+                f"{where}: {type(self).__name__} under shard_strategy heads is not ported "
+                f"{ITEM_9}")
         for part in ("encoder", "processor", "decoder"):
             name = str((config.get(part) or {}).get("name", _DEFAULT_NAMES[part]))
-            if not name.startswith("GraphTransformer"):
+            dense = strategy == "heads" and part == "processor" and name == "TransformerProcessor"
+            if not (name.startswith("GraphTransformer") or dense):
                 raise NotImplementedError(
-                    f"{where}: {part} {name} under shard_strategy edges is not ported; the halo "
-                    f"path covers the GraphTransformer processor and mappers {ITEM_9}")
+                    f"{where}: {part} {name} under shard_strategy {strategy} is not ported; the "
+                    "halo path covers the GraphTransformer processor and mappers, heads the "
+                    f"GraphTransformer and Transformer processors {ITEM_9}")
             if (config.get(part) or {}).get("edge_provider"):
                 raise NotImplementedError(f"{where}: the {part}'s edge_provider under model "
                                           f"shards is not ported {ITEM_9}")
-        if not bool(config.get("halo_mappers", True)):
+        if strategy == "heads":
+            heads = int((config.get("processor") or {}).get("num_heads", 0))
+            if heads % self.num_model_shards:
+                raise ValueError(f"{where}: the processor's num_heads {heads} is not divisible "
+                                 "by the model group (shard_strategy heads)")
+        if strategy == "edges" and not bool(config.get("halo_mappers", True)):
             raise NotImplementedError(f"{where}: halo_mappers false (GSPMD mappers) is not "
                                       f"ported {ITEM_9}")
         residual = str((config.get("residual") or {}).get("name", ""))
@@ -433,16 +446,25 @@ class AnemoiModelEncProcDec(nn.Module):
         group, index = mesh.group("model"), mesh.index("model")
         overlap = bool(self.config.get("halo_overlap", True))
         g = self.graph
+        if self.strategy == "heads":
+            # the mappers keep the bipartite halo route; the processor takes
+            # the hidden mesh's row block as its sequence shard
+            processor = HeadsShard(group, s, index, g.num_nodes[g.hidden_name],
+                                   g.processor if self.processor_edges else None)
+        else:
+            processor = g.processor.sharded_edge_data(s, index, group, overlap)
         self.halo = {
             "encoder": {ds: sub.sharded_edge_data(s, index, group, overlap)
                         for ds, sub in g.encoder.items()},
-            "processor": g.processor.sharded_edge_data(s, index, group, overlap),
+            "processor": processor,
             "decoder": {ds: sub.sharded_edge_data(s, index, group, overlap)
                         for ds, sub in g.decoder.items()},
         }
         for ds, enc in self.halo["encoder"].items():
             if enc.src_rows != self.halo["decoder"][ds].dst_rows:
                 raise AssertionError(f"{ds}: the encoder and decoder split the grid differently")
+            if (enc.dst_rows, enc.n_local) != (processor.dst_rows, processor.n_local):
+                raise AssertionError(f"{ds}: the encoder and processor split the mesh differently")
 
     def grid_rows(self, ds: str) -> slice:
         """This rank's rows of dataset ``ds``'s grid (all of them without
@@ -540,6 +562,25 @@ class AnemoiModelEncProcDec(nn.Module):
             return sub.edge_attr
         return (trainable[ds] if ds is not None else trainable)(sub.edge_attr)
 
+    def _set(self, part: str, ds: str, sub=None):
+        """A mapper's sub-graph: ``sub`` (default: the graph's), or this
+        rank's halo share of it under model shards."""
+        if self.halo is not None:
+            return self.halo[part][ds]
+        return getattr(self.graph, part)[ds] if sub is None else sub
+
+    def _run_processor(self, x_latent: torch.Tensor, cond: Optional[torch.Tensor]):
+        """The processor on the rank's hidden rows: over the processor set,
+        its halo share, or under ``heads`` its sequence shard."""
+        graph, halo = self.graph, self.halo
+        if self.processor_edges:
+            return self.processor(
+                x_latent, graph.processor if halo is None else halo["processor"],
+                self._edges("processor_graph_provider", graph.processor), cond)
+        if halo is not None and isinstance(halo["processor"], HeadsShard):
+            return self.processor(x_latent, cond, shard=halo["processor"])
+        return self.processor(x_latent, cond)
+
     def forward(self, x: Dict[str, torch.Tensor], cond: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, fcstep: int = 0) -> Dict[str, torch.Tensor]:
         """x[ds]: [B, T, E, G, V_model_in] in the compute type (under model
@@ -578,7 +619,7 @@ class AnemoiModelEncProcDec(nn.Module):
             x_latent_in = torch.cat(parts, dim=-1)
             sub = self._mapper_edges("encoder", ds, hidden, graph.encoder[ds])
             x_data_latent[ds], x_latent = self.encoder[ds](
-                (x_latent_in, x_hidden_latent), sub if halo is None else halo["encoder"][ds],
+                (x_latent_in, x_hidden_latent), self._set("encoder", ds, sub),
                 self._edges("encoder_graph_provider", sub, ds)
             )
             latents.append(x_latent)
@@ -591,13 +632,7 @@ class AnemoiModelEncProcDec(nn.Module):
             x_latent, noise_cond = self.noise_injector(x_latent, noise)
         if cond is None:
             cond = noise_cond
-        if self.processor_edges:
-            x_latent_proc = self.processor(
-                x_latent, graph.processor if halo is None else halo["processor"],
-                self._edges("processor_graph_provider", graph.processor), cond,
-            )
-        else:
-            x_latent_proc = self.processor(x_latent, cond)
+        x_latent_proc = self._run_processor(x_latent, cond)
         if self.latent_skip:
             x_latent_proc = x_latent_proc + x_latent
 
@@ -606,7 +641,7 @@ class AnemoiModelEncProcDec(nn.Module):
             idx = self.data_indices[ds]
             sub = self._mapper_edges("decoder", hidden, ds, graph.decoder[ds])
             x_out = self.decoder[ds](
-                (x_latent_proc, x_data_latent[ds]), sub if halo is None else halo["decoder"][ds],
+                (x_latent_proc, x_data_latent[ds]), self._set("decoder", ds, sub),
                 self._edges("decoder_graph_provider", sub, ds),
             )
             # [(B E), G, (T V)] -> [B, T, E, G, V]

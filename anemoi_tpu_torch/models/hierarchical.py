@@ -28,6 +28,13 @@ so ``state_dict_from_jax`` maps the JAX model's ``encoder_<ds>``,
 ``decoder_<ds>`` onto them; trainable edge features live on the matching
 graph providers (``downscale_graph_providers.<h>``, ...).
 
+Model parallelism (``shard_strategy: edges``, JAX ``hierarchical.py:106-135``):
+:meth:`AnemoiModelEncProcDecHierarchical.shard_over` builds halo tables for
+every sub-graph -- the level processors' sets square-partitioned, the
+encoder, decoder, down and up mappers' bipartite -- and each rank runs the
+V-cycle on its row block of every node set.  ``heads`` is refused (ROADMAP
+item 9): the JAX package has no test of it.
+
 The attention backward on each sub-graph follows the JAX model's choice:
 ``paged_fused_bwd`` on the level sets, ``paged_mapper_fused_bwd`` (default:
 ``paged_fused_bwd``) on the encoder, decoder, down and up sets.  As in the
@@ -44,6 +51,7 @@ from torch import nn
 
 from anemoi_tpu_torch.models.encoder_processor_decoder import (
     EDGE_COMPONENTS,
+    ITEM_9,
     AnemoiModelEncProcDec,
     _component,
 )
@@ -57,7 +65,72 @@ _LEARNABLE_RESIDUALS = ("ScalarOrnsteinConnection", "SpectralOrnsteinConnection"
 class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
     """The multi-level V-cycle model."""
 
-    halo_supported = False  # under model shards: ROADMAP item 9
+    heads_supported = False  # the V-cycle is sharded under edges, as in JAX
+
+    def _check_sharding(self, config: dict) -> None:
+        super()._check_sharding(config)
+        up = str((config.get("up_mapper") or {}).get("name", "GraphTransformerBackwardMapper"))
+        if self.model_parallel and not up.startswith("GraphTransformer"):
+            raise NotImplementedError(
+                f"num_model_shards {self.num_model_shards}: the up mapper {up} under "
+                f"shard_strategy edges is not ported {ITEM_9}")
+
+    def shard_over(self, mesh) -> None:
+        """Halo tables for every sub-graph of the V-cycle over ``mesh``'s
+        model group (JAX ``hierarchical.py:106-135``): the level processors'
+        sets square-partitioned, the encoder, decoder, down and up mappers'
+        bipartite; every node set split in the same row blocks."""
+        if not self.model_parallel:
+            return
+        s = self.num_model_shards
+        if mesh is None or mesh.size("model") != s:
+            raise ValueError(f"num_model_shards {s} needs a mesh whose model group has {s} "
+                             f"ranks, got {None if mesh is None else mesh.spec}")
+        group, index = mesh.group("model"), mesh.index("model")
+        overlap = bool(self.config.get("halo_overlap", True))
+        g = self.graph
+        built = {}
+
+        def shard(sub):
+            if id(sub) not in built:  # the finest level's set is the processor's
+                built[id(sub)] = sub.sharded_edge_data(s, index, group, overlap)
+            return built[id(sub)]
+
+        self.halo = {kind: {key: shard(sub) for key, sub in getattr(g, kind).items()}
+                     for kind in ("encoder", "decoder", "level", "down", "up")}
+        self.halo["processor"] = shard(g.processor)
+        rows = {}
+        for kind, subs in self.halo.items():
+            for key, sh in ([("processor", self.halo["processor"])] if kind == "processor"
+                            else subs.items()):
+                src, dst = self._ends(kind, key)
+                for name, r in ((src, sh.src_rows), (dst, sh.dst_rows)):
+                    if rows.setdefault(name, r) != r:
+                        raise AssertionError(f"{name}: the V-cycle's sets split it differently")
+        self._node_rows = rows
+
+    def _ends(self, kind: str, key: str):
+        """(source, destination) node sets of one of the V-cycle's sets."""
+        levels, h = self.hidden_names, self.graph.hidden_name
+        if kind == "encoder":
+            return key, h
+        if kind == "decoder":
+            return h, key
+        if kind in ("level", "processor"):
+            return (h, h) if kind == "processor" else (key, key)
+        i = levels.index(key)
+        return (key, levels[i + 1]) if kind == "down" else (key, levels[i - 1])
+
+    def node_rows(self, name: str) -> slice:
+        """This rank's rows of node set ``name`` (all of them on one rank)."""
+        if self.halo is None:
+            return slice(0, self.graph.num_nodes[name])
+        return self._node_rows[name]
+
+    def _set(self, kind: str, key: str):
+        """The sub-graph one of the V-cycle's attentions runs on: the
+        graph's, or this rank's halo share of it."""
+        return getattr(self.graph, kind)[key] if self.halo is None else self.halo[kind][key]
 
     def __init__(self, *, graph, data_indices, config: dict, statistics=None) -> None:
         nn.Module.__init__(self)
@@ -195,6 +268,7 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
 
     def _attrs(self, name: str, bflat: int, dt: torch.dtype) -> torch.Tensor:
         attrs = self.node_attributes(name, self.graph.node_features[name].to(dt))
+        attrs = attrs[self.node_rows(name)]
         return attrs[None].expand((bflat,) + attrs.shape)
 
     def _process(self, proc: nn.Module, x: torch.Tensor, name: str, provider: str,
@@ -203,7 +277,7 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
             return proc(x, cond)
         sub = self.graph.level[name]
         key = None if provider == "processor_graph_provider" else name
-        return proc(x, sub, self._edges(provider, sub, key), cond)
+        return proc(x, self._set("level", name), self._edges(provider, sub, key), cond)
 
     def forward(self, x: Dict[str, torch.Tensor], cond: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, fcstep: int = 0) -> Dict[str, torch.Tensor]:
@@ -228,10 +302,11 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
             xd = x[ds]
             x_skip[ds] = self.residual[ds](xd, n_step_output=self.n_step_output)
             flat = xd.permute(0, 2, 3, 1, 4).reshape(bflat, xd.shape[3], n_time * xd.shape[4])
-            x_in = torch.cat([flat, self._attrs(ds, bflat, dt)], dim=-1)
+            x_in = torch.cat([flat, self._attrs(ds, bflat, dt)], dim=-1)  # the rank's grid rows
             sub = graph.encoder[ds]
             x_data_latent[ds], x_latent = self.encoder[ds](
-                (x_in, x_h), sub, self._edges("encoder_graph_provider", sub, ds))
+                (x_in, x_h), self._set("encoder", ds),
+                self._edges("encoder_graph_provider", sub, ds))
             latents.append(x_latent)
         state = sum(latents)
 
@@ -249,14 +324,14 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
             if i < deepest:
                 sub = graph.down[name]
                 _, state = self.downscale[name](
-                    (state, self._attrs(levels[i + 1], bflat, dt)), sub,
+                    (state, self._attrs(levels[i + 1], bflat, dt)), self._set("down", name),
                     self._edges("downscale_graph_providers", sub, name))
 
         # up: the up mapper, the skip across the V, the level's processor
         for i in range(deepest - 1, -1, -1):
             name, nxt = levels[i], levels[i + 1]
             sub = graph.up[nxt]
-            state = self.upscale[nxt]((state, down_states[name]), sub,
+            state = self.upscale[nxt]((state, down_states[name]), self._set("up", nxt),
                                       self._edges("upscale_graph_providers", sub, nxt))
             state = state + down_states[name]
             if name in self.up_level_processor:
@@ -268,7 +343,7 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
         for ds in datasets:
             idx = self.data_indices[ds]
             sub = graph.decoder[ds]
-            x_out = self.decoder[ds]((state, x_data_latent[ds]), sub,
+            x_out = self.decoder[ds]((state, x_data_latent[ds]), self._set("decoder", ds),
                                      self._edges("decoder_graph_provider", sub, ds))
             x_out = x_out.reshape(batch, ens, x_out.shape[1], self.n_step_output,
                                   idx.num_model_output_vars).permute(0, 3, 1, 2, 4)

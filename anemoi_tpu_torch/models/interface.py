@@ -54,7 +54,11 @@ tables over it (``AnemoiModelEncProcDec.shard_over``).  Each rank then runs
 the model on its grid rows (:meth:`local_rows` cuts a whole-grid batch to
 them) and :meth:`gather_grid` joins the rows of the model group;
 ``predict_step`` takes a whole-grid or a local batch and returns the whole
-grid on every rank of the model group.
+grid on every rank of the model group.  Along an ensemble group
+(``hardware.num_devices_per_ensemble``) ``predict_step`` forecasts the
+rank's block of the batch's members, each with its one-process noise
+(:meth:`AnemoiModelInterface.draw_noise`), and returns every member on
+every rank of the group.
 """
 
 from __future__ import annotations
@@ -354,10 +358,54 @@ class AnemoiModelInterface(nn.Module):
                 "with no noise stream and fails; serve an ensemble with "
                 "AnemoiModelInterface.predict_step (or apply), which draws the noise")
 
-    def draw_noise(self, x: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+    def draw_shard(self, ds: str, batch_sharded: bool = False):
+        """Where this rank's ``[B, T, E, G, V]`` block of dataset ``ds`` lies
+        in the one-process field (``models/transport/random_fields.DrawShard``:
+        its data group's batch rows with ``batch_sharded``, its model group's
+        grid rows), or None on one rank."""
+        if self.mesh is None:
+            return None
+        from anemoi_tpu_torch.models.transport.random_fields import DrawShard
+        from anemoi_tpu_torch.parallel.mesh import grid_block
+
+        sizes, index = None, 0
+        if self.model_group is not None:
+            n, s = self.model.graph.num_nodes[ds], self.model.num_model_shards
+            blocks = [grid_block(n, s, i) for i in range(s)]
+            sizes, index = tuple(b.stop - b.start for b in blocks), self.mesh.index("model")
+        if batch_sharded:
+            return DrawShard(self.mesh.index("data"), self.mesh.size("data"), sizes, index)
+        return DrawShard(0, 1, sizes, index)
+
+    @property
+    def ensemble_group(self):
+        """The ensemble group of the interface's mesh, else None."""
+        return None if self.mesh is None else self.mesh.group("ensemble")
+
+    def draw_noise(self, x: Dict[str, torch.Tensor], generator: torch.Generator,
+                   batch_sharded: bool = False) -> torch.Tensor:
         """The standard normal draw of a noise-drawing model for inputs ``x``,
-        from ``generator`` (on the interface's device)."""
-        return ensemble.standard_normal(self.model.noise_shape(x), generator)
+        from ``generator`` (on the interface's device).  On a mesh the draw is
+        the one-process draw of the whole ensemble (``E`` times ``x``'s
+        members, the ranks of the ensemble group) and, with
+        ``batch_sharded``, of the global batch (the data group's batch rows),
+        cut to this rank's batch rows and members; the model cuts its hidden
+        rows."""
+        shape = self.model.noise_shape(x)
+        mesh = self.mesh
+        if mesh is None:
+            return ensemble.standard_normal(shape, generator)
+        from anemoi_tpu_torch.models.transport.random_fields import DrawShard, sharded_normal
+
+        some = next(iter(x.values()))
+        b, m = some.shape[0], some.shape[2]
+        shard = DrawShard(mesh.index("data") if batch_sharded else 0,
+                          mesh.size("data") if batch_sharded else 1,
+                          member_index=mesh.index("ensemble"),
+                          member_shards=mesh.size("ensemble"))
+        # [B·M, N, C] drawn as [B, 1, M, N, C]: the same order of draws
+        return sharded_normal(generator, (b, 1, m) + tuple(shape[1:]),
+                              shard=shard).reshape(shape)
 
     def apply(self, x: Dict[str, torch.Tensor], cond: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
@@ -396,11 +444,25 @@ class AnemoiModelInterface(nn.Module):
         input was NaN.  Under model shards every rank of the model group
         takes part and returns the whole grid."""
         m = self.model.n_step_input
+        members = self.ensemble_group
+        if members is not None:
+            # this rank's block of the members, gathered again after the model
+            from anemoi_tpu_torch.parallel.mesh import member_block
+
+            some = next(iter(batch.values()))
+            block = member_block(some.shape[2], self.mesh.size("ensemble"),
+                                 self.mesh.index("ensemble"))
+            batch = {ds: b[:, :, block] for ds, b in batch.items()}
         raw = self.local_rows({ds: b[:, :m] for ds, b in batch.items()})
         aux = {ds: self.pre_processors[ds].compute_aux(raw[ds]) for ds in self.data_indices}
         _, x = self.normalised_input(raw)
         cast = self.param_dtype != self.inference_dtype
         y = self.apply(x, generator=generator,
                        params=self.cast_parameters(self.inference_dtype) if cast else None)
-        return self.gather_grid({
+        y = self.gather_grid({
             ds: self.pre_processors[ds].inverse_transform(y[ds].float(), aux=aux[ds]) for ds in y})
+        if members is not None:
+            from anemoi_tpu_torch.training.losses.base import gather_members
+
+            y = {ds: gather_members(v, members) for ds, v in y.items()}
+        return y

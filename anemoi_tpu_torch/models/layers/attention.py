@@ -19,12 +19,13 @@ on the CPU, and on CUDA tensors :func:`cross_attention` calls
 memory-efficient backends, which never form the ``[B, H, Nq, Nk]`` logits
 (at o96 -> ico-5 with 16 heads the plain version's logits alone take 26 GB
 in float32).  A shape neither backend takes raises; the math backend is
-never picked.  Ulysses sequence parallelism (``shard_strategy: heads``,
-with MHSA's ``valid_len`` masking of padded rows) is not ported: ROADMAP
-item 9, the next slice.  The halo (``edges``) strategy of
-``parallel/halo.py`` shards the graph attention and leaves these dense
-attentions to the models that run them on one rank or under data
-parallelism.
+never picked.  Under Ulysses sequence parallelism (``shard_strategy:
+heads``) the self-attention takes a ``parallel/heads.HeadsShard``: the
+rank's rows of q, k and v go through ``ulysses_mhsa`` (one all-to-all to
+the whole sequence for the rank's heads, the band or full attention on its
+real rows, the all-to-all back).  The halo (``edges``) strategy of
+``parallel/halo.py`` shards the graph attention only; the cross attention
+runs on one rank or under data parallelism.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from torch import nn
 
 from anemoi_tpu_torch.models.layers.normalization import QKNorm
 from anemoi_tpu_torch.ops.window_attention import band_attention, softcap_alibi
+from anemoi_tpu_torch.parallel.heads import HeadsShard, ulysses_mhsa
 
 
 def get_alibi_slopes(num_heads: int) -> torch.Tensor:
@@ -152,7 +154,10 @@ class MultiHeadSelfAttention(nn.Module):
         self.alibi_slopes = get_alibi_slopes(num_heads) if use_alibi_slopes else None
         self.plain_attention = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Optional[HeadsShard] = None) -> torch.Tensor:
+        """``x [B, N, C]``; under ``heads``, the rank's padded rows and its
+        ``shard`` (the JAX ``ulysses_mhsa`` path, whatever
+        ``attention_impl``)."""
         b, n, _ = x.shape
         h, d = self.num_heads, self.attn_channels // self.num_heads
         q = self.lin_q(x).view(b, n, h, d)
@@ -160,11 +165,15 @@ class MultiHeadSelfAttention(nn.Module):
         v = self.lin_v(x).view(b, n, h, d)
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
-        if self.use_rotary_embeddings:
-            q, k = apply_rotary_embeddings(q, k)
         slopes = self.alibi_slopes
         if slopes is not None and slopes.device != x.device:
             slopes = self.alibi_slopes = slopes.to(x.device)
+        if shard is not None:
+            out = ulysses_mhsa(q, k, v, shard, self.window_size, self.softcap, slopes,
+                               self.use_rotary_embeddings, self.plain_attention)
+            return self.projection(out.reshape(b, n, self.attn_channels))
+        if self.use_rotary_embeddings:
+            q, k = apply_rotary_embeddings(q, k)
         out = self_attention(q, k, v, self.window_size, self.softcap, slopes,
                              self.attention_impl, self.plain_attention)
         return self.projection(out.reshape(b, n, self.attn_channels))

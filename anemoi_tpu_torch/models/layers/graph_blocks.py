@@ -17,7 +17,11 @@ view and its ``fused_bwd`` choice (K3 + K4, or K3 + K5).  Under model
 shards the sub-graph is a ``parallel/halo.HaloShard`` and the attention is
 ``halo_gt_attention`` (JAX ``graph_blocks.py`` halo dispatch): the query and
 key norms run before the exchange, and ``lin_edge`` is fused per shard (K1)
-unless an ``edge_pre_mlp`` asks for the projected edges.
+unless an ``edge_pre_mlp`` asks for the projected edges.  Under ``heads``
+the processor block's sub-graph is a ``parallel/heads.HeadsShard`` and the
+attention is ``ulysses_gt_attention`` (JAX ``graph_blocks.py:242-259``):
+the norms run on the rank's rows, the attention on the whole processor set
+for the rank's heads, ``lin_edge`` fused with those heads' columns (K1).
 
 Switches, as in the JAX blocks: ``cond_dim`` (the JAX ``conditional``)
 makes every norm of the block a ``ConditionalLayerNorm`` over the
@@ -50,6 +54,7 @@ from anemoi_tpu_torch.models.layers.normalization import LayerNorm, QKNorm, norm
 from anemoi_tpu_torch.ops.gt_attention import gt_attention, gt_attention_fe
 from anemoi_tpu_torch.ops.segment import gather_edge_endpoints, graph_conv_aggregate
 from anemoi_tpu_torch.parallel.halo import HaloShard, halo_gt_attention
+from anemoi_tpu_torch.parallel.heads import HeadsShard, ulysses_gt_attention
 
 
 class GraphTransformerBaseBlock(nn.Module):
@@ -102,6 +107,14 @@ class GraphTransformerBaseBlock(nn.Module):
             query = self._head_norm(self.q_norm, query)
             key = self._head_norm(self.k_norm, key)
         e = edge_attr.to(x_src.dtype)
+        if isinstance(sub, HeadsShard):
+            if self.edge_pre_mlp is None:
+                return ulysses_gt_attention(query, key, value, sub, self.num_heads, edge_attr=e,
+                                            weight=self.lin_edge.weight.t(),
+                                            bias=self.lin_edge.bias, plain=self.plain_attention)
+            return ulysses_gt_attention(query, key, value, sub, self.num_heads,
+                                        edges=self.lin_edge(self.edge_pre_mlp(e)),
+                                        plain=self.plain_attention)
         if isinstance(sub, HaloShard):
             if self.edge_pre_mlp is None:
                 return halo_gt_attention(query, key, value, sub, self.num_heads, edge_attr=e,

@@ -20,7 +20,12 @@ Under model shards the GraphTransformer processor takes a
 ``parallel/halo.HaloShard`` (JAX ``processor.py`` halo branch): the rank's
 rows are padded to its block once, per-node conditioning with them, the
 edge features permuted into its layout once, and the padded rows dropped
-after the last block.
+after the last block.  Under ``heads`` the GraphTransformer processor takes
+a ``parallel/heads.HeadsShard`` as its sub-graph and the Transformer
+processor takes one as ``shard`` (JAX ``processor.py:109-137, 352-380``):
+the rows and per-node conditioning are padded the same way, the edge
+features stay whole, and every block's attention runs on the rank's heads
+over the whole sequence.
 """
 
 from __future__ import annotations
@@ -41,6 +46,17 @@ from anemoi_tpu_torch.models.layers.mlp import MLP, compute_mlp_hidden_dim
 from anemoi_tpu_torch.models.layers.normalization import norm
 from anemoi_tpu_torch.models.layers.remat import BlockRemat
 from anemoi_tpu_torch.parallel.halo import HaloShard, pad_rows, permute_rows
+from anemoi_tpu_torch.parallel.heads import HeadsShard
+
+
+def _pad_rank_rows(x: torch.Tensor, cond: Optional[torch.Tensor], n_local: int):
+    """A rank's rows padded to its block, and per-node conditioning with
+    them (JAX ``processor.py:109-137``: the conditioning follows the node
+    padding)."""
+    n = x.shape[1]
+    if cond is not None and cond.dim() == 3 and cond.shape[1] == n:
+        cond = pad_rows(cond, n_local)
+    return pad_rows(x, n_local), cond
 
 
 class GraphTransformerProcessor(BlockRemat, nn.Module):
@@ -70,10 +86,9 @@ class GraphTransformerProcessor(BlockRemat, nn.Module):
     def forward(self, x: torch.Tensor, sub: SubGraphArrays, edge_attr: torch.Tensor,
                 cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         n = x.shape[1]
+        if isinstance(sub, (HaloShard, HeadsShard)):
+            x, cond = _pad_rank_rows(x, cond, sub.n_local)
         if isinstance(sub, HaloShard):
-            x = pad_rows(x, sub.n_local)
-            if cond is not None and cond.dim() == 3 and cond.shape[1] == n:
-                cond = pad_rows(cond, sub.n_local)  # per-node conditioning follows the rows
             edge_attr = permute_rows(edge_attr, sub.edge_perm, sub.edge_perm_inv)
         for block in self.proc:
             x = self._run(block, x, sub, edge_attr, cond)
@@ -94,8 +109,9 @@ class TransformerProcessorBlock(nn.Module):
         self.mlp = MLP(num_channels, hidden_dim, num_channels, layer_norm=False,
                        implementation=mlp_implementation)
 
-    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attention(self.layer_norm_attention(x, cond))
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None,
+                shard: Optional[HeadsShard] = None) -> torch.Tensor:
+        x = x + self.attention(self.layer_norm_attention(x, cond), shard)
         return x + self.mlp(self.layer_norm_mlp(x, cond))
 
 
@@ -117,10 +133,16 @@ class TransformerProcessor(BlockRemat, nn.Module):
             for _ in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None,
+                shard: Optional[HeadsShard] = None) -> torch.Tensor:
+        """``shard``: the rank's ``HeadsShard`` under ``heads`` (its rows
+        padded to the block here, and cut back after the last block)."""
+        n = x.shape[1]
+        if shard is not None:
+            x, cond = _pad_rank_rows(x, cond, shard.n_local)
         for block in self.proc:
-            x = self._run(block, x, cond)
-        return x
+            x = self._run(block, x, cond, shard)
+        return x[:, :n]
 
 
 class GNNProcessor(BlockRemat, nn.Module):

@@ -85,17 +85,29 @@ def edm_noised(y: torch.Tensor, sigma: torch.Tensor, noise: torch.Tensor, cfg: E
     return y + sigma * noise.to(y.dtype), sigma, edm_loss_weight(sigma, cfg.sigma_data)
 
 
+def _per_sample(draw, shape, shard: Optional[random_fields.DrawShard]) -> torch.Tensor:
+    """A per-sample draw ``[B, 1, E, 1, 1]``: for the global batch and cut
+    to the rank's rows under a ``shard``."""
+    if shard is None:
+        return draw(shape)
+    return shard.block(draw(shard.global_shape(shape)), shape)
+
+
 def edm_training_targets(generator: torch.Generator, y: torch.Tensor, cfg: EDMConfig,
-                         sigma_dist: Optional[dict] = None):
+                         sigma_dist: Optional[dict] = None,
+                         shard: Optional[random_fields.DrawShard] = None):
     """Draw one EDM training step's sigma (one per batch and ensemble
     member: ``[B, 1, E, 1, 1]``, log-normal with ``cfg``'s ``p_mean`` and
     ``p_std`` unless ``sigma_dist`` names another distribution) and noise,
-    then :func:`edm_noised`.  ``y``: the clean target ``[B, T, E, G, V]``."""
+    then :func:`edm_noised`.  ``y``: the clean target ``[B, T, E, G, V]``,
+    or a rank's block of it under ``shard`` (the draws are then the
+    one-process draws of the global batch and grid, cut to the block)."""
     shape = (y.shape[0], 1, y.shape[2], 1, 1)
     if not sigma_dist:
         sigma_dist = {"kind": "lognormal", "p_mean": cfg.p_mean, "p_std": cfg.p_std}
-    sigma = sample_training_sigma_dist(generator, shape, **sigma_dist)
-    noise = random_fields.standard_normal(y.shape, generator, y.dtype)
+    sigma = _per_sample(lambda sh: sample_training_sigma_dist(generator, sh, **sigma_dist),
+                        shape, shard)
+    noise = random_fields.sharded_normal(generator, y.shape, y.dtype, shard)
     return edm_noised(y, sigma, noise, cfg)
 
 
@@ -116,13 +128,15 @@ def interpolant_path(y0: torch.Tensor, y1: torch.Tensor, t: torch.Tensor,
 def interpolant_training_targets(
     generator: torch.Generator, y0: torch.Tensor, y1: torch.Tensor, gamma: float = 0.0, *,
     beta_schedule: str = "linear", sigma_schedule: str = "brownian_bridge",
-    stratified: bool = False,
+    stratified: bool = False, shard: Optional[random_fields.DrawShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Draw t ``[B, 1, E, 1, 1]`` (and, with ``gamma > 0``, the bridge noise
-    z), then :func:`interpolant_path`; returns ``(x_t, t, velocity)``."""
-    t = sample_training_time(generator, (y0.shape[0], 1, y0.shape[2], 1, 1),
-                             stratified=stratified)
-    z = random_fields.standard_normal(y0.shape, generator, y0.dtype) if gamma > 0 else None
+    z), then :func:`interpolant_path`; returns ``(x_t, t, velocity)``.
+    ``shard``: as for :func:`edm_training_targets`."""
+    t = _per_sample(lambda sh: sample_training_time(generator, sh, stratified=stratified),
+                    (y0.shape[0], 1, y0.shape[2], 1, 1), shard)
+    z = (random_fields.sharded_normal(generator, y0.shape, y0.dtype, shard) if gamma > 0
+         else None)
     return interpolant_path(y0, y1, t, z, gamma, beta_schedule=beta_schedule,
                             sigma_schedule=sigma_schedule)
 

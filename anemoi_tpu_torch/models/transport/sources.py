@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from anemoi_tpu_torch.models.transport.random_fields import randn_grid_sharded
+from anemoi_tpu_torch.models.transport import random_fields
 
 TRANSPORT_SOURCE_KINDS = frozenset({"zero", "gaussian", "reference_state"})
 
@@ -71,9 +71,11 @@ def build_sources(kind: str, generator: Optional[torch.Generator],
                   specs: Dict[str, SourceSpec], *,
                   x: Optional[Dict[str, torch.Tensor]] = None,
                   data_indices: Optional[Dict[str, object]] = None,
-                  n_step_output: int = 1) -> Dict[str, torch.Tensor]:
+                  n_step_output: int = 1,
+                  shard: Optional[random_fields.DrawShard] = None) -> Dict[str, torch.Tensor]:
     """One source field per dataset; ``gaussian`` draws the datasets in
-    sorted order from ``generator``."""
+    sorted order from ``generator`` (under ``shard``, the one-process field
+    cut to the rank's block: JAX ``shard_kwargs``)."""
     if kind not in TRANSPORT_SOURCE_KINDS:
         raise ValueError(f"Unknown transport source '{kind}'; expected one of "
                          f"{sorted(TRANSPORT_SOURCE_KINDS)}")
@@ -81,7 +83,7 @@ def build_sources(kind: str, generator: Optional[torch.Generator],
         return {ds: torch.zeros(sp.shape, dtype=sp.dtype, device=sp.device)
                 for ds, sp in specs.items()}
     if kind == "gaussian":
-        return {ds: randn_grid_sharded(generator, sp.shape, sp.dtype)
+        return {ds: random_fields.sharded_normal(generator, sp.shape, sp.dtype, shard)
                 for ds, sp in sorted(specs.items())}
     if x is None or data_indices is None:
         raise ValueError("reference_state sources need the input batch and indices")

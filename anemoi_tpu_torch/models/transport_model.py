@@ -18,7 +18,10 @@ that width and ``noise_cond_mlp`` (Linear, SiLU, Linear; anemoi-core's
 ``noise_cond_dim``.  The conditioning is one row per sample, ``[B·E, 1,
 C]``, broadcast over the nodes by the norms.  The EDM skip/out combination
 lives in the objective, so the model returns the raw network output: no
-residual connection and no boundings, as in the JAX model.
+residual connection and no boundings, as in the JAX model.  Under model
+shards (``edges`` or ``heads``) it runs on the rank's grid and hidden rows
+as the flat model does; its conditioning is one row per sample, so it
+needs no padding.
 """
 
 from __future__ import annotations
@@ -49,7 +52,6 @@ class AnemoiTransportModelEncProcDec(AnemoiModelEncProcDec):
 
     is_transport = True
     runtime_edges = False  # the JAX transport model keeps the static edges
-    halo_supported = False  # under model shards: ROADMAP item 9
 
     def __init__(self, *, graph, data_indices, config: dict, statistics=None) -> None:
         super().__init__(graph=graph, data_indices=data_indices, config=config,
@@ -127,12 +129,14 @@ class AnemoiTransportModelEncProcDec(AnemoiModelEncProcDec):
         cond_vec = self._conditioning(noise_level, bflat, dt)[:, None, :]  # [B·E, 1, C]
         cond_mappers = cond_vec if self.conditional_mappers else None
         hidden_attrs = self.node_attributes(hidden, graph.node_features[hidden].to(dt))
+        hidden_attrs = hidden_attrs[self.hidden_rows()]
         x_hidden_latent = hidden_attrs[None].expand((bflat,) + hidden_attrs.shape)
 
         x_data_latent, latents = {}, []
         for ds in datasets:
             xd, yn = x[ds], y_noised[ds]
             node_attrs = self.node_attributes(ds, graph.node_features[ds].to(dt))
+            node_attrs = node_attrs[self.grid_rows(ds)]
             flat_x = xd.permute(0, 2, 3, 1, 4).reshape(bflat, xd.shape[3], n_time * xd.shape[4])
             flat_y = yn.permute(0, 2, 3, 1, 4).reshape(bflat, yn.shape[3],
                                                        yn.shape[1] * yn.shape[4])
@@ -142,17 +146,12 @@ class AnemoiTransportModelEncProcDec(AnemoiModelEncProcDec):
             sub = graph.encoder[ds]
             cond = None if cond_mappers is None else (cond_mappers, cond_mappers)
             x_data_latent[ds], x_latent = self.encoder[ds](
-                (x_latent_in, x_hidden_latent), sub,
+                (x_latent_in, x_hidden_latent), self._set("encoder", ds),
                 self._edges("encoder_graph_provider", sub, ds), cond)
             latents.append(x_latent)
 
         x_latent = sum(latents)
-        if self.processor_edges:
-            x_latent_proc = self.processor(
-                x_latent, graph.processor,
-                self._edges("processor_graph_provider", graph.processor), cond_vec)
-        else:
-            x_latent_proc = self.processor(x_latent, cond_vec)
+        x_latent_proc = self._run_processor(x_latent, cond_vec)
         if self.latent_skip:
             x_latent_proc = x_latent_proc + x_latent
 
@@ -161,7 +160,7 @@ class AnemoiTransportModelEncProcDec(AnemoiModelEncProcDec):
             sub = graph.decoder[ds]
             cond = None if cond_mappers is None else (cond_mappers, cond_mappers)
             x_out = self.decoder[ds](
-                (x_latent_proc, x_data_latent[ds]), sub,
+                (x_latent_proc, x_data_latent[ds]), self._set("decoder", ds),
                 self._edges("decoder_graph_provider", sub, ds), cond)
             out[ds] = x_out.reshape(batch, ens, x_out.shape[1], self.n_step_output,
                                     self.data_indices[ds].num_model_output_vars

@@ -227,7 +227,7 @@ def free_port() -> int:
         return int(s.getsockname()[1])
 
 
-def _child(fn, rank: int, world: int, port: int, args: tuple, platform: Optional[str],
+def _child(rank: int, world: int, port: int, work, platform: Optional[str],
            threads: Optional[int], results, env: Dict[str, str]) -> None:
     os.environ.update(env)
     os.environ.update({ENV_COORDINATOR: f"127.0.0.1:{port}", ENV_NUM_PROCESSES: str(world),
@@ -236,6 +236,7 @@ def _child(fn, rank: int, world: int, port: int, args: tuple, platform: Optional
     if threads:
         torch.set_num_threads(threads)
     try:
+        fn, args = work.get()
         maybe_initialize(platform)
         out = fn(*args)
         results.put((rank, True, out))
@@ -259,14 +260,20 @@ def spawn(fn: Callable, world: int, args: tuple = (), platform: Optional[str] = 
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    results, work = ctx.Queue(), ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_child, daemon=False,
-                         args=(fn, r, world, port, args, platform, threads, results,
+                         args=(r, world, port, work, platform, threads, results,
                                dict(env or {})))
              for r in range(world)]
     for p in procs:
         p.start()
+    # ``fn`` and ``args`` go through a queue, not the start call: a start
+    # whose arguments overflow the pipe waits until that child has booted,
+    # which would start the ranks one after another
+    work.cancel_join_thread()
+    for _ in procs:
+        work.put((fn, args))
     out: Dict[int, Any] = {}
     failure = None
     import time

@@ -5,7 +5,8 @@ as one ``jax.sharding.Mesh`` with the axes
 
     data     -- data parallelism (batch rows; anemoi-core's DDP groups)
     model    -- model parallelism (grid and hidden node rows; the model group)
-    ensemble -- ensemble parallelism (not ported: ROADMAP item 9)
+    ensemble -- ensemble parallelism (the members of an ensemble split
+                over the group, :func:`member_block`)
 
 in ``reshape(data, model, ensemble)`` order.  Here the world of ranks is
 laid out the same way by rank arithmetic (:func:`mesh_coords`), and
@@ -18,7 +19,9 @@ is sharded over the data group only when its first axis divides by the
 group's size) and :func:`batch_sharding` its batch layout (batch rows over
 the data group; grid rows over the model group with
 ``dataloader.shard_grid``), with the model group's grid blocks those of
-``parallel/partition.py``.
+``parallel/partition.py``.  Along the ``ensemble`` axis every rank reads
+the same batch rows and grid block and runs its block of the members
+(:func:`member_block`).
 """
 
 from __future__ import annotations
@@ -178,3 +181,15 @@ class BatchSharding:
 def batch_sharding(mesh: Mesh, shard_grid: bool = True) -> BatchSharding:
     return BatchSharding(mesh.size("data"), mesh.index("data"), mesh.size("model"),
                          mesh.index("model"), bool(shard_grid) and mesh.size("model") > 1)
+
+
+def member_block(ensemble_size: int, num_ranks: int, index: int) -> slice:
+    """Rank ``index``'s members of an ensemble of ``ensemble_size`` split over
+    an ensemble group of ``num_ranks``: a contiguous block of ``ensemble_size
+    / num_ranks``, which must divide (JAX ``step.py:235-252`` shards the member
+    axis evenly)."""
+    if ensemble_size % num_ranks:
+        raise ValueError(f"ensemble_size {ensemble_size} does not split over the ensemble "
+                         f"group of {num_ranks} ranks (hardware.num_devices_per_ensemble)")
+    m = ensemble_size // num_ranks
+    return slice(index * m, (index + 1) * m)

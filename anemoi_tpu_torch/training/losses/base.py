@@ -14,7 +14,9 @@ in ``multiscale.py``.
 Under model shards each rank scores its grid rows (:func:`grid_sharded`):
 the grid-bound scalers are cut to the rows and the weighted mean's
 denominator is summed over the model group, so that the ranks' values add
-up to the loss of the whole grid.
+up to the loss of the whole grid.  Along an ensemble group the training
+step hands every loss the members of all the group's ranks
+(:func:`gather_members`), so a CRPS sees the whole ensemble.
 """
 
 from __future__ import annotations
@@ -247,6 +249,36 @@ class BaseLoss:
     @property
     def name(self) -> str:
         return self.__class__.__name__.lower()
+
+
+class _GatherMembers(torch.autograd.Function):
+    """All-gather along the member dim whose backward keeps the rank's own
+    members' gradient (anemoi-core's ``gather_ensemble_members``, whose
+    backward is the split): every rank computes the same loss from the
+    gathered members, so each rank's share of the parameters' gradient
+    comes through its own members, and the training step sums the shares
+    over the ensemble group."""
+
+    @staticmethod
+    def forward(ctx, pred, group, dim):
+        from anemoi_tpu_torch.parallel.distributed import all_gather
+
+        parts = all_gather(pred, group)
+        ctx.dim, ctx.size = dim, pred.shape[dim]
+        ctx.index = torch.distributed.get_rank(group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
+
+
+def gather_members(pred: torch.Tensor, group, dim: int = DIMS["ensemble"]) -> torch.Tensor:
+    """``pred`` with the members of every rank of the ensemble ``group``
+    along ``dim``, in rank order (a no-op without a group).  Collective."""
+    if group is None:
+        return pred
+    return _GatherMembers.apply(pred, group, dim)
 
 
 def grid_sharded(loss: "BaseLoss", rows: slice, num_points: int, group) -> "BaseLoss":

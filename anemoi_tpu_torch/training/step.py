@@ -46,6 +46,16 @@ loss of the whole grid.  After the backward every replicated parameter's
 gradient is summed over the model group and averaged over the data group
 (:func:`reduce_gradients`), and only then clipped.  The reported losses and
 the validation metrics are reduced the same way.
+
+The ensemble axis (``hardware.num_devices_per_ensemble`` E > 1, JAX
+``step.py:235-252``): each rank of an ensemble group runs its block of
+``ensemble_size / E`` members of the same batch rows; each member's noise
+is its one-process draw (the whole ``[B·M, N_hidden, C]`` field of the
+global batch drawn from the step's generator, the rank's batch rows,
+members and, under model shards, hidden rows cut from it); every rank's
+loss sees all the members, gathered over the group
+(``losses/base.py:gather_members``), and the gradients are summed over the
+group.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ import torch
 
 from anemoi_tpu_torch.data_indices.collection import IndexCollection
 from anemoi_tpu_torch.models.layers.remat import checkpointed, resolve_remat_policy
+from anemoi_tpu_torch.training.losses.base import gather_members
 from anemoi_tpu_torch.training.losses.multiscale import MultiscaleLossWrapper
 from anemoi_tpu_torch.training.metrics import variable_groups
 from anemoi_tpu_torch.utils.seeding import context_seed, fold_seed
@@ -157,11 +168,12 @@ def rank_groups(interface):
 
 
 def sum_over_ranks(t: torch.Tensor, interface) -> torch.Tensor:
-    """``t`` summed over the model and data groups (a metric's sums)."""
+    """``t`` summed over the model, ensemble and data groups (a metric's
+    sums, over the rank's grid rows and members)."""
     from anemoi_tpu_torch.parallel.distributed import all_reduce
 
     model_group, data_group, _ = rank_groups(interface)
-    for group in (model_group, data_group):
+    for group in (model_group, interface.ensemble_group, data_group):
         if group is not None:
             t = all_reduce(t.detach().clone(), group)
     return t
@@ -181,12 +193,14 @@ def mean_loss_over_ranks(loss: torch.Tensor, interface) -> torch.Tensor:
 
 def reduce_gradients(params, interface) -> None:
     """Every replicated parameter's gradient summed over the model group (the
-    ranks' rows' shares of the whole grid's gradient) and averaged over the
-    data group, in one flat buffer per group."""
+    ranks' rows' shares of the whole grid's gradient) and the ensemble group
+    (the shares through each rank's members, :func:`~anemoi_tpu_torch.training.losses.base.gather_members`)
+    and averaged over the data group, in one flat buffer."""
     from anemoi_tpu_torch.parallel.distributed import all_reduce
 
     model_group, data_group, data_size = rank_groups(interface)
-    if model_group is None and data_group is None:
+    members = interface.ensemble_group
+    if model_group is None and data_group is None and members is None:
         return
     params = [p for p in params if p.requires_grad]
     for p in params:
@@ -194,6 +208,7 @@ def reduce_gradients(params, interface) -> None:
             p.grad = torch.zeros_like(p)
     flat = torch.cat([p.grad.reshape(-1) for p in params])
     all_reduce(flat, model_group)
+    all_reduce(flat, members)
     all_reduce(flat, data_group)
     if data_size > 1:
         flat /= data_size
@@ -287,6 +302,15 @@ def make_step_fns(
         if hasattr(loss, "to"):
             loss.to(interface.device)
     noise_seed = context_seed("ensemble-noise")
+    # along an ensemble group each rank runs its block of the members, and
+    # every loss sees the members of the whole group
+    mesh = getattr(interface, "mesh", None)
+    members_group = interface.ensemble_group
+    if members_group is not None:
+        from anemoi_tpu_torch.parallel.mesh import member_block
+
+        block = member_block(ensemble_size, mesh.size("ensemble"), mesh.index("ensemble"))
+        ensemble_size = block.stop - block.start
     boundary = {ds: output_masks[ds].as_tensor(interface.device)
                 if output_masks and ds in output_masks else None for ds in dataset_names}
     model_group = rank_groups(interface)[0]
@@ -305,7 +329,7 @@ def make_step_fns(
             return None
         gen = torch.Generator(device=interface.device).manual_seed(
             fold_seed(noise_seed, noise_step, step))
-        return interface.draw_noise(x, gen)
+        return interface.draw_noise(x, gen, batch_sharded=True)
 
     def forward(x, params, noise, fcstep):
         return interface.run_model(x, params, noise=noise, fcstep=fcstep)
@@ -350,7 +374,8 @@ def make_step_fns(
             for ds in dataset_names:
                 target = batch_norm[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]]
                 # the loss in float32 whatever the compute type
-                total = total + losses[ds](y_pred[ds].float(), target, mask=loss_masks[ds])
+                pred = gather_members(y_pred[ds].float(), members_group)
+                total = total + losses[ds](pred, target, mask=loss_masks[ds])
             if with_metrics:
                 _group_metrics(metrics, y_pred, batch, step, t0, pre_aux)
             if step + 1 < steps:

@@ -20,17 +20,20 @@ JAX trainer calls ``float()``).
 Accepted with no effect: ``training.precompile_rollouts`` (there is no
 program to compile ahead) and ``training.donate_state`` (the step updates
 the state in place).  Not ported (``NotImplementedError``):
-``hardware.num_devices_per_ensemble`` > 1 (``ROADMAP.md`` Queue 1, item
-9), the transport task on more than one rank (item 9) and
-``training.checkpoint_pipeline`` (item 10).
+``training.checkpoint_pipeline`` (``ROADMAP.md`` Queue 1, item 10).
 
 Data and model parallelism (JAX ``trainer.py`` mesh): ``hardware.num_devices``
 ranks, started by a launcher (``torchrun``, the ``ANEMOI_TPU_*`` contract of
 ``parallel/distributed.py``, or ``cli train``, which starts them itself),
-form the mesh ``data x model`` with ``num_devices_per_model`` ranks in a
-model group; ``num_model_shards`` is written into the model config, and the
-model runs the halo (``edges``) strategy over the group.  Each rank is on
-the device of the backend rule (``parallel/distributed.py``).
+form the mesh ``data x model x ensemble`` with ``num_devices_per_model``
+ranks in a model group and ``num_devices_per_ensemble`` in an ensemble
+group; ``num_model_shards`` is written into the model config, and the
+model runs its ``shard_strategy`` (``edges``, the halo exchange, or
+``heads``) over the model group, the ensemble step its block of
+``training.ensemble_size`` members on each rank of the ensemble group.  The
+transport task runs on the data and model axes (``training/transport_step.py``);
+with an ensemble group it is refused (``NotImplementedError``, item 9).  Each
+rank is on the device of the backend rule (``parallel/distributed.py``).
 ``dataloader.batch_size`` is per data group; every rank samples the same
 seeded anchor order and reads only its batch rows and, with
 ``dataloader.shard_grid`` (default on), its model block of the grid.
@@ -85,7 +88,7 @@ from anemoi_tpu_torch.training.losses import get_loss_function
 from anemoi_tpu_torch.training.losses.scalers import create_scalers
 from anemoi_tpu_torch.training.optimizers import build_lr_schedule, build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, make_step_fns
-from anemoi_tpu_torch.training.transport_step import make_transport_step_fns
+from anemoi_tpu_torch.training.transport_step import ENSEMBLE_REFUSAL, make_transport_step_fns
 from anemoi_tpu_torch.utils.device import resolve_device
 
 LOGGER = logging.getLogger(__name__)
@@ -110,14 +113,8 @@ class RolloutSchedule:
 def trainer_device(hardware: Optional[dict]) -> torch.device:
     """The device of a one-rank run: ``hardware.platform`` ``cpu`` selects
     the CPU, ``gpu``/``cuda`` or nothing the CUDA card (which must be
-    visible).  The ensemble axis (``num_devices_per_ensemble`` > 1) is
-    refused."""
+    visible)."""
     hw = dict(hardware or {})
-    if int(hw.get("num_devices_per_ensemble", 1)) > 1:
-        raise NotImplementedError(
-            "hardware.num_devices_per_ensemble > 1: the ensemble axis is not ported to "
-            "anemoi_tpu_torch (ROADMAP.md Queue 1, item 9)"
-        )
     platform = hw.get("platform")
     if platform is None:
         return resolve_device(None)
@@ -149,15 +146,15 @@ class AnemoiTrainer:
         if training_cfg.get("checkpoint_pipeline"):
             raise NotImplementedError("training.checkpoint_pipeline is not ported to "
                                       "anemoi_tpu_torch (ROADMAP.md Queue 1, item 10)")
+        if (str(training_cfg.get("task", "")) == "transport"
+                and int(dict(config.get("hardware") or {}).get("num_devices_per_ensemble", 1)) > 1):
+            raise NotImplementedError(ENSEMBLE_REFUSAL)
         self._init_mesh(config.get("hardware"))
         if self.mesh_spec.model > 1:
             # the model builds its halo tables over the model group
             config = dict(config)
             config["model"] = {**config.get("model", {}), "num_model_shards": self.mesh_spec.model}
             self.config = config
-        if self.mesh_spec.world > 1 and str(training_cfg.get("task", "")) == "transport":
-            raise NotImplementedError("the transport task on more than one rank is not ported "
-                                      "to anemoi_tpu_torch (ROADMAP.md Queue 1, item 9)")
 
         # --- graph ----------------------------------------------------
         graph_cfg = dict(config.get("graph", {}))
@@ -258,7 +255,7 @@ class AnemoiTrainer:
         join the world a launcher started, check it against
         ``hardware.num_devices`` and build the data and model groups."""
         hw = dict(hardware or {})
-        device = trainer_device(hw)  # refuses the ensemble axis
+        device = trainer_device(hw)
         launch = maybe_initialize(hw.get("platform"))
         world = launch.world if launch is not None else 1
         n_dev = int(hw.get("num_devices", world))

@@ -19,6 +19,19 @@ bfloat16 copies of the float32 master weights, with bfloat16 inputs and
 noised target; the noise math and the loss stay float32.  The sampler
 integrates in float32 and runs the model in the interface's serving type.
 
+Data and model parallelism (JAX ``tests/test_model_parallel.py:361``): each
+rank trains on its batch rows and, under model shards (``edges`` or
+``heads``), its grid rows; every draw is the one-process draw of the
+global batch and the whole grid, cut to the rank's block
+(``random_fields.DrawShard``), so a step equals one process's at the same
+global batch; the loss is each rank's grid share and the gradients and
+losses are reduced as in ``training/step.py``.  The sampler on a model
+group draws its initial state the same way and runs on the rank's rows
+(``inference.make_transport_forecast_fn`` gathers the grid).
+
+The ensemble axis (``hardware.num_devices_per_ensemble`` > 1) is refused
+with ``NotImplementedError``: the transport model has no members to split.
+
 One dataset only: the JAX model takes ``y_noised`` for every dataset while
 the JAX step passes one, so a multi-dataset transport config fails there
 with a ``KeyError``; here both functions refuse it with a ``ValueError``.
@@ -47,10 +60,17 @@ from anemoi_tpu_torch.training.step import (
     TrainState,
     device_index_arrays,
     global_norm,
+    mean_loss_over_ranks,
+    rank_groups,
+    reduce_gradients,
 )
 from anemoi_tpu_torch.utils.seeding import context_seed, fold_seed
 
 OBJECTIVES = ("edm", "interpolant")
+ENSEMBLE_REFUSAL = (
+    "the transport task with hardware.num_devices_per_ensemble > 1 is not ported to "
+    "anemoi_tpu_torch (ROADMAP.md Queue 1, item 9): a transport model has no members, so "
+    "every rank of an ensemble group would train on the same rows")
 
 
 def _one_dataset(interface, what: str) -> str:
@@ -90,7 +110,11 @@ def make_transport_step_fns(
     ``gaussian`` or ``reference_state``, to the target along
     ``beta_schedule``/``sigma_schedule`` with bridge noise
     ``interpolant_gamma``).  ``tendency``: the target is the increment over
-    the last input state.  Raises ``ValueError`` for more than one dataset."""
+    the last input state.  Raises ``ValueError`` for more than one dataset,
+    and ``NotImplementedError`` on a mesh with an ensemble group."""
+    mesh = getattr(interface, "mesh", None)
+    if mesh is not None and mesh.size("ensemble") > 1:
+        raise NotImplementedError(ENSEMBLE_REFUSAL)
     ds = _one_dataset(interface, "make_transport_step_fns")
     if objective not in OBJECTIVES:
         raise ValueError(f"Unknown transport objective '{objective}'")
@@ -109,6 +133,14 @@ def make_transport_step_fns(
     if hasattr(loss, "to"):
         loss.to(interface.device)
     base_seed = context_seed("transport-noise")
+    model_group = rank_groups(interface)[0]
+    if model_group is not None:
+        # each rank scores its grid rows
+        from anemoi_tpu_torch.training.losses.base import grid_sharded
+
+        loss = grid_sharded(loss, model.grid_rows(ds), model.graph.num_nodes[ds], model_group)
+    # the one-process draws of the global batch and grid, cut to the rank's block
+    shard = interface.draw_shard(ds, batch_sharded=True)
 
     def cast(v: torch.Tensor) -> torch.Tensor:
         return v if compute_dtype is None else v.to(compute_dtype)
@@ -116,6 +148,7 @@ def make_transport_step_fns(
     def transport_loss(batch, noise_step: int) -> torch.Tensor:
         params = (interface.cast_parameters(compute_dtype) if compute_dtype is not None
                   else None)
+        batch = interface.local_rows(batch)
         batch_norm = pre.transform(batch[ds].float())
         x_in = batch_norm[:, :m][..., ia["data_input_full"]]
         target = batch_norm[:, m : m + n_out][..., ia["model_out_in_data"]]
@@ -125,17 +158,18 @@ def make_transport_step_fns(
         gen = torch.Generator(device=interface.device).manual_seed(
             fold_seed(base_seed, noise_step, 0))
         if objective == "edm":
-            y_noised, sigma, weight = edm_training_targets(gen, target, edm, sigma_dist)
+            y_noised, sigma, weight = edm_training_targets(gen, target, edm, sigma_dist,
+                                                           shard=shard)
             _, _, c_in, c_noise = edm_preconditioning(sigma, edm.sigma_data)
             f_out = interface.run_model(x, params, y_noised={ds: cast(c_in * y_noised)},
                                         noise_level=c_noise[:, 0, :, 0, 0])
             d = edm_denoise(f_out[ds].float(), y_noised, sigma, edm)
             return loss(torch.sqrt(weight) * d, torch.sqrt(weight) * target)
         y0 = build_sources(source, gen, {ds: SourceSpec.from_tensor(target)}, x={ds: x_in},
-                           data_indices=indices, n_step_output=n_out)[ds]
+                           data_indices=indices, n_step_output=n_out, shard=shard)[ds]
         x_t, t, velocity = interpolant_training_targets(
             gen, y0, target, interpolant_gamma, beta_schedule=beta_schedule,
-            sigma_schedule=sigma_schedule)
+            sigma_schedule=sigma_schedule, shard=shard)
         f_out = interface.run_model(x, params, y_noised={ds: cast(x_t)},
                                     noise_level=t[:, 0, :, 0, 0])
         return loss(f_out[ds].float(), velocity)
@@ -144,7 +178,8 @@ def make_transport_step_fns(
         interface.zero_grad(set_to_none=True)
         value = transport_loss(batch, state.step)
         value.backward()
-        return value.detach()
+        reduce_gradients(interface.parameters(), interface)
+        return mean_loss_over_ranks(value.detach(), interface)
 
     def train_step(state: TrainState, batch):
         value = compute_gradients(state, batch)
@@ -154,7 +189,8 @@ def make_transport_step_fns(
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
-        return {"val_loss": transport_loss(batch, EVAL_NOISE_STEP)}
+        return {"val_loss": mean_loss_over_ranks(transport_loss(batch, EVAL_NOISE_STEP),
+                                                 interface)}
 
     train_step.compute_gradients = compute_gradients
     return train_step, eval_step
@@ -193,6 +229,7 @@ def make_sampler(
     sample_fn = SAMPLERS[sampler]
     dt = interface.inference_dtype
     cast = interface.param_dtype != dt
+    shard = interface.draw_shard(ds)  # under model shards: the rank's grid rows
 
     @torch.no_grad()
     def generate(x: Dict[str, torch.Tensor], generator: torch.Generator):
@@ -210,7 +247,7 @@ def make_sampler(
                                         noise_level=c_noise[:, 0, :, 0, 0])
                 return edm_denoise(f[ds].float(), y, sig, edm)
 
-            y0 = random_fields.standard_normal(shape, generator) * float(grid[0])
+            y0 = random_fields.sharded_normal(generator, shape, shard=shard) * float(grid[0])
             return {ds: sample_fn(denoise_fn, y0, grid)}
 
         def velocity_fn(xt, t: float):
@@ -218,7 +255,8 @@ def make_sampler(
             f = interface.run_model(xc, params, y_noised={ds: xt.to(dt)}, noise_level=level)
             return f[ds].float()
 
-        return {ds: sample_fn(velocity_fn, random_fields.standard_normal(shape, generator), grid)}
+        y0 = random_fields.sharded_normal(generator, shape, shard=shard)
+        return {ds: sample_fn(velocity_fn, y0, grid)}
 
     generate.schedule = grid
     return generate

@@ -330,7 +330,36 @@ Phases (any failure exits non-zero, with no result line):
                   one-rank NCCL group in that world: an all-reduce of a
                   CUDA tensor and a training step reduced over it; the
                   seconds of each part;
- 32. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 32. parallel families -- the rest of item 9 over ranks that share the
+                  card (gloo), each part against one process on the same
+                  weights and batches (step-1 gradients and the part's
+                  forecast, float32 within relative L2 1e-4, bf16 within
+                  1e-2 and 2e-2: phase 31's gates), every rank's
+                  launches exactly ``family_launches`` a training step and
+                  a forecast, 2 timed bf16 steps a rank (wall ms marked as
+                  gloo on one shared card), peak memory beside one
+                  process's, the bytes each rank sends: on a model group of
+                  2 the flagship (512 channels, 16 layers, 16 heads) and
+                  the Transformer preset (1 024 channels, 16 layers, w 512)
+                  under ``shard_strategy: heads`` (Ulysses: 20 K1/K3/K4 a
+                  flagship step; 16 K6/K7 a Transformer step on 8 heads over
+                  the whole mesh), the ``transport_edm_diffusion`` model
+                  under ``edges`` (its training step; one generative
+                  forecast step of 4 EDM-Heun sampling steps, not the
+                  preset's 20: 7 evaluations), the ``hierarchical`` V-cycle
+                  under ``edges`` on phase 23's graph; the
+                  ``ensemble_crps`` model's 4 members on ensemble 2 x model
+                  2 (4 ranks, 2 members a rank: its CRPS step and
+                  ``predict_step``); ``cli train ensemble_crps.yaml`` with
+                  ``hardware.num_devices_per_ensemble: 2`` (2 steps, its
+                  first loss within 2e-2 of phase 15's one process); K1 and
+                  K3 + K4 on 8 of 16 heads (HD 256) at the processor set
+                  and K6/K7 on 8 of 16 heads at N 10 242, each against its
+                  plain op and timed beside its bound; K3 + K4 at model
+                  shard 2 of 2 of the V-cycle's down set, dk and dv exactly
+                  0 on its edgeless and padded rows; the seconds of each
+                  part;
+ 33. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
@@ -340,11 +369,14 @@ Phases (any failure exits non-zero, with no result line):
                   training steps and generative forecasts, phase 23's
                   training steps, forecasts and ratio-2 step and phase 24's
                   two steps, phases 25-30's training steps and forecasts,
-                  phase 31's rank-0 training step and forecast;
-                  the K1 row also model shard 2 of 2's processor set, the
-                  K3 and K4 rows that set's and the down set's, the dynamic
-                  encoder set's and the hex and ICON encoder sets', the K5
-                  row the ICON encoder set's), the card line, and
+                  phase 31's rank-0 training step and forecast, phase
+                  32's rank-0 training step and forecast of each part;
+                  the K1 row also model shard 2 of 2's processor set and
+                  the head subset's, the K3 and K4 rows those sets', the
+                  down set's and its shard's, the dynamic encoder set's and
+                  the hex and ICON encoder sets', the K5 row the ICON
+                  encoder set's, the K6 and K7 rows the head subset's), the
+                  card line, and
                   last {"ok": true, "device": {...}}; with --json, the same
                   and the serving and training details also go to PATH.
 
@@ -490,7 +522,7 @@ def cuda_ms_back_to_back(fn, launches: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / launches
 
 
-def attention_bound(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1):
+def attention_bound(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1, heads=HEADS):
     """(bound_ms, bound_by) of one attention launch of width ``hd`` over
     ``batch`` rows: each input read once and each output written once at
     the HBM rate (the edges and their projection are shared by the rows),
@@ -504,7 +536,7 @@ def attention_bound(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1):
         + batch * 2 * n_src * hd * elt  # k, v
         + edge_bytes
         + 4 * (n_edges + n_dst + 1)  # src, dst_ptr (int32)
-        + batch * 4 * n_dst * HEADS  # lse
+        + batch * 4 * n_dst * heads  # lse
     )
     return bound(nbytes, batch * n_edges * hd * (7 + (2 * n_feat if fused else 0)))
 
@@ -534,7 +566,7 @@ def window_bounds(b, n, h, d, w, elt):
             "K7_dkv": bound(6 * x + 2 * stats, 8 * d * pairs, rate)}
 
 
-def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1):
+def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1, heads=HEADS):
     """{kernel: (bound_ms, bound_by)} of K3, K4 and K5 of width ``hd`` over
     ``batch`` rows as the training path launches them: each input read once,
     each output written once.  K3 writes dq, the per-edge dkv [B, E, 2HD]
@@ -545,7 +577,7 @@ def backward_bounds(n_dst, n_src, n_edges, n_feat, elt, fused, hd=HD, batch=1):
     dv; K3 beside K5 writes no dkv.  Operations per edge, channel and row:
     K3 12 (+ 4F for the projection and dW), K4 2, K5 12 (+ 2F)."""
     node_in = batch * (2 * n_dst * hd * elt + 2 * n_src * hd * elt)  # q, g; k, v
-    stats = batch * 2 * 4 * n_dst * HEADS  # lse, delta (float32)
+    stats = batch * 2 * 4 * n_dst * heads  # lse, delta (float32)
     edge_in = (n_edges * n_feat * elt + n_feat * hd * elt + hd * elt) if fused \
         else n_edges * hd * elt
     dkv = batch * n_edges * 2 * hd * elt
@@ -1067,9 +1099,11 @@ def gt_wide_phase(graph, device):
     return rows, errors
 
 
-def window_phase(device) -> dict:
+def window_phase(device, cases=None, label="window", timed=("main",)) -> dict:
     """K6 and K7 against the plain band at the Transformer preset's shape,
-    float32 and bfloat16, timed; one ALiBi + softcap case, checked."""
+    float32 and bfloat16, timed; one ALiBi + softcap case, checked.  Or
+    ``cases`` (name -> (B, N, H, D, w, softcap, ALiBi)), those in ``timed``
+    timed, printed under ``label``."""
     import torch.nn.functional as F
 
     from anemoi_tpu_torch.kernels import window_attention as wkern
@@ -1092,8 +1126,8 @@ def window_phase(device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     rows = {"K6": [], "K7_dq": [], "K7_dkv": []}
-    cases = {"main": (WIN_B, WIN_N, WIN_H, WIN_D, WIN_W, None, False),
-             "alibi_softcap": (1, 2000, 4, WIN_D, 100, 5.0, True)}
+    cases = cases or {"main": (WIN_B, WIN_N, WIN_H, WIN_D, WIN_W, None, False),
+                      "alibi_softcap": (1, 2000, 4, WIN_D, 100, 5.0, True)}
     for case, (b, n, h, d, w, softcap, alibi) in cases.items():
         slopes = get_alibi_slopes(h).to(device) if alibi else None
         for dtype in (torch.float32, torch.bfloat16):
@@ -1115,18 +1149,18 @@ def window_phase(device) -> dict:
                 err = (x.float() - y.float()).abs().max().item()
                 scale_ref = y.float().abs().max().item()
                 if not (err <= TOL[dtype] * scale_ref and torch.isfinite(x).all()):
-                    raise RuntimeError(f"window {case} {dtype} {name}: max abs err {err:.3e}, "
+                    raise RuntimeError(f"{label} {case} {dtype} {name}: max abs err {err:.3e}, "
                                        f"max|ref| {scale_ref:.3e} (tol {TOL[dtype]} of max|ref|)")
                 errs[name], rel[name] = err, err / scale_ref
             lse_err = (lse - ref_lse).abs().max().item()
             if not lse_err <= 1e-3 * ref_lse.abs().max().item():
-                raise RuntimeError(f"window {case} {dtype} lse: max abs err {lse_err:.3e}")
+                raise RuntimeError(f"{label} {case} {dtype} lse: max abs err {lse_err:.3e}")
             del ref, ref_lse, ref_grads
             base = {"case": case, "dtype": str(dtype).split(".")[-1], "shape": [b, n, h, d],
                     "window": w, "softcap": softcap, "alibi": alibi}
-            print(f"[window] {base} max abs errors {errs}, over max|ref| {rel}, "
+            print(f"[{label}] {base} max abs errors {errs}, over max|ref| {rel}, "
                   f"lse {lse_err:.3e}", flush=True)
-            if case != "main":
+            if case not in timed:
                 continue
             if dtype == torch.bfloat16:  # each block alone writes its rows: bitwise repeatable
                 again = (*wkern.window_attention_fwd(q, k, v, w),
@@ -1135,7 +1169,7 @@ def window_phase(device) -> dict:
                 first = (out, lse, dq, dk, dv)
                 if not all(torch.equal(x, y) for x, y in zip(first, again)):
                     raise RuntimeError("bf16 K6 or K7 is not deterministic: two runs differ")
-                print("[window] bf16 K6 and K7 deterministic: two runs bitwise equal", flush=True)
+                print(f"[{label}] bf16 K6 and K7 deterministic: two runs bitwise equal", flush=True)
                 del again, first
             calls = {
                 "K6": lambda: wkern.window_attention_fwd(q, k, v, w),
@@ -1179,7 +1213,7 @@ def window_phase(device) -> dict:
                        "library_is": ("scaled_dot_product_attention, [N, N] band mask"
                                       + ("" if name == "K6" else ": its backward"))}
                 rows[name].append(row)
-                print(f"[window] {name} {row}", flush=True)
+                print(f"[{label}] {name} {row}", flush=True)
             del q, k, v, g, out, lse, delta, dq, dk, dv
             torch.cuda.empty_cache()
     return rows
@@ -2928,7 +2962,7 @@ def graph_set_backward(label, graph, key, device, **kw) -> dict:
 
 
 def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, device,
-                        hd=HD, k5=False) -> dict:
+                        hd=HD, k5=False, heads=HEADS) -> dict:
     """K3 + K4 (and, with ``k5``, K3 + K5) at an edge set, against the plain
     backward, the flagship's fused edge projection, width ``hd``, float32
     and bfloat16, within the phase-4 gates; the dk and dv rows of the
@@ -2936,7 +2970,8 @@ def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, d
     single and back to back beside its byte bound, K4 also beside
     ``index_add_`` timed the same two ways; with ``k5`` also K3 without its
     dkv output, as the fused backward launches it, and both backward
-    passes' back-to-back sums (K3 + K4, K3 without dkv + K5)."""
+    passes' back-to-back sums (K3 + K4, K3 without dkv + K5).  ``heads``:
+    the heads of ``hd`` (a head subset under ``heads`` sharding)."""
     from anemoi_tpu_torch.kernels import gt_attention as kern
     from anemoi_tpu_torch.ops.gt_attention import gt_attention_bwd_kernels, gt_attention_bwd_plain
 
@@ -2951,14 +2986,14 @@ def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, d
         q, k, v, g = rnd(1, n_dst, hd), rnd(1, n_src, hd), rnd(1, n_src, hd), rnd(1, n_dst, hd)
         edge_kw = dict(edge_attr=attr32.to(dtype), weight=rnd(hd, n_f, scale=0.3).t(),
                        bias=rnd(hd, scale=0.1))
-        out, lse = kern.gt_attention_fused_edge(q, k, v, *edge_kw.values(), ei, ptr, HEADS)
-        ref = gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g, **edge_kw)
+        out, lse = kern.gt_attention_fused_edge(q, k, v, *edge_kw.values(), ei, ptr, heads)
+        ref = gt_attention_bwd_plain(q, k, v, ei, heads, out, lse, g, **edge_kw)
         got = {}
         for fused_bwd in (False, True)[:1 + k5]:
             source_pass = "K5" if fused_bwd else "K4"
             kern.reset_launches()
             got[source_pass] = gt_attention_bwd_kernels(
-                q, k, v, ei, ptr, order.src_ptr, order.src_perm, HEADS, out, lse, g,
+                q, k, v, ei, ptr, order.src_ptr, order.src_perm, heads, out, lse, g,
                 fused_bwd=fused_bwd, **edge_kw)
             torch.cuda.synchronize()
             launches = kern.launch_counts()  # the graph attention's K1-K5
@@ -2984,15 +3019,15 @@ def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, d
         print(f"[{label}] K3 + {' / '.join(got)} at {edge_set} ({n_e} edges, "
               f"{int(no_edge.sum())} of {n_src} sources with no edge, HD {hd}), {dtype}: max "
               f"abs errors {errs}; dk and dv exactly 0 at the sources with no edge", flush=True)
-        delta = (out.float() * g.float()).reshape(1, n_dst, HEADS, -1).sum(-1)
+        delta = (out.float() * g.float()).reshape(1, n_dst, heads, -1).sum(-1)
         path_kw = dict(edge_grad=False, weight_grad=True)
-        dkv = kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw,
+        dkv = kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, heads, **edge_kw,
                                         **path_kw).dkv
         calls = {"K3": lambda: kern.gt_attention_bwd_dst(
-                     q, k, v, g, lse, delta, ei, ptr, HEADS, **edge_kw, **path_kw),
+                     q, k, v, g, lse, delta, ei, ptr, heads, **edge_kw, **path_kw),
                  "K4": lambda: kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm),
                  "K5": lambda: kern.gt_attention_bwd_src_fused(
-                     q, k, v, g, lse, delta, ei, ptr, order.src_ptr, order.src_perm, HEADS,
+                     q, k, v, g, lse, delta, ei, ptr, order.src_ptr, order.src_perm, heads,
                      **edge_kw)}
         ms = {name: cuda_ms(calls[name]) for name in rows}
         b2b = {name: cuda_ms_back_to_back(calls[name]) for name in rows}
@@ -3004,10 +3039,12 @@ def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, d
             return torch.zeros(1, n_src, 2 * hd, device=device, dtype=dtype).index_add_(1, src, dkv)
 
         k4_library_ms, k4_library_b2b = cuda_ms(k4_library), cuda_ms_back_to_back(k4_library)
-        plain_ms = cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g,
+        plain_ms = cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, heads, out, lse, g,
                                                           **edge_kw), reps=10, warmup=2)
-        bounds = backward_bounds(n_dst, n_src, n_e, n_f, q.element_size(), True, hd)
+        bounds = backward_bounds(n_dst, n_src, n_e, n_f, q.element_size(), True, hd,
+                                 heads=heads)
         base = {"edge_set": edge_set, "dtype": str(dtype).split(".")[-1], "hd": hd,
+                **({"heads": heads} if heads != HEADS else {}),
                 "fused_edge": True, "n_dst": n_dst, "n_src": n_src, "n_edges": n_e,
                 "sources_without_edges": int(no_edge.sum()), "no_edge_rows_exactly_0": True}
         k3_fields = ("dq", "d_attr", "d_weight", "d_bias")
@@ -3024,7 +3061,7 @@ def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, d
         }
         if k5:  # the fused backward's K3 writes no dkv: time it as the path runs it
             def k3_no_dkv():
-                return kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS,
+                return kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, heads,
                                                  **edge_kw, **path_kw, emit_dkv=False)
 
             no_dkv = {"ms_no_dkv": cuda_ms(k3_no_dkv),
@@ -4029,48 +4066,43 @@ def parallel_dp_rank(graph) -> dict:
             "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
 
 
-def halo_shard_kernels(graph, device) -> dict:
-    """K1 and K3 + K4 on the processor set of model shard 2 of 2 (no
-    ``halo_overlap``: its 5 128 destination rows, 14 of them padded and
-    edgeless, over 5 128 local and 2 x 400 halo source rows, the padded and
-    self-slot halo rows edgeless), with the set's own attributes in the
-    shard's edge order: K1's out and lse against the plain op on every row
-    (out 0 and lse -inf on the edgeless rows, both sides), dq exactly 0 on
-    the edgeless destinations; K3 + K4 through ``sparse_set_backward``
-    (its gates, dk and dv exactly 0 on the edgeless sources)."""
+def k1_set_rows(label, edge_set, ei, ptr, attr32, n_src, n_dst, device, hd=HD,
+                heads=HEADS) -> list:
+    """K1 at an edge set (the flagship's fused projection, width ``hd`` in
+    ``heads`` heads), float32 and bfloat16: out and lse against the plain
+    op on every row (out 0 and lse -inf on the destinations without edges,
+    both sides), dq of K3 exactly 0 there; each row timed single and back
+    to back beside its bound and the plain op."""
     from anemoi_tpu_torch.kernels import gt_attention as kern
-    from anemoi_tpu_torch.models.graph import extract_subgraph
-    from anemoi_tpu_torch.ops.gt_attention import gt_attention_bwd_kernels, gt_attention_plain
+    from anemoi_tpu_torch.ops.gt_attention import SourceOrder, gt_attention_bwd_kernels
+    from anemoi_tpu_torch.ops.gt_attention import gt_attention_plain
 
-    sub = extract_subgraph(graph, "hidden", "hidden", list(EDGE_ATTRIBUTES), device,
-                           torch.float32)
-    shard = sub.sharded_edge_data(2, 1, None, overlap=False)
-    csr = shard.full
-    ei, ptr, n_dst, n_src = csr.edge_index, csr.dst_ptr, csr.num_dst, csr.num_src
-    attr32 = sub.edge_attr[shard.edge_perm[: csr.num_edges]]
     no_dst = (ptr[1:] - ptr[:-1]) == 0
-    label = "parallel"
-    edge_set = "hidden->hidden, model shard 2 of 2"
-    rows = {"K1": []}
+    order = SourceOrder.of(ei, n_src)
+    rows = []
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     for dtype in (torch.float32, torch.bfloat16):
         def rnd(*shape, scale=1.0):
             return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
 
-        q, k, v, g = rnd(1, n_dst, HD), rnd(1, n_src, HD), rnd(1, n_src, HD), rnd(1, n_dst, HD)
-        w, b = rnd(HD, attr32.shape[1], scale=0.3).t(), rnd(HD, scale=0.1)
+        q, k, v, g = rnd(1, n_dst, hd), rnd(1, n_src, hd), rnd(1, n_src, hd), rnd(1, n_dst, hd)
+        w, b = rnd(hd, attr32.shape[1], scale=0.3).t(), rnd(hd, scale=0.1)
         attr = attr32.to(dtype)
 
         def k1():
-            return kern.gt_attention_fused_edge(q, k, v, attr, w, b, ei, ptr, HEADS)
+            return kern.gt_attention_fused_edge(q, k, v, attr, w, b, ei, ptr, heads)
 
         kern.reset_launches()
         out, lse = k1()
         torch.cuda.synchronize()
         if kern.launch_counts()["K1"] != 1:
             raise RuntimeError(f"{label}: K1 did not launch once: {kern.launch_counts()}")
-        ref, ref_lse = gt_attention_plain(q, k, v, attr.float() @ w.float() + b.float(), ei, ptr,
-                                          HEADS)
+
+        def plain():
+            return gt_attention_plain(q, k, v, attr.float() @ w.float() + b.float(), ei, ptr,
+                                      heads)
+
+        ref, ref_lse = plain()
         err = (out.float() - ref.float()).abs().max().item()
         edgeless_out = out[:, no_dst].count_nonzero().item()
         lse_pattern = bool(torch.equal(torch.isinf(lse), torch.isinf(ref_lse)))
@@ -4082,28 +4114,48 @@ def halo_shard_kernels(graph, device) -> dict:
             raise RuntimeError(f"{label} K1 at {edge_set} {dtype}: out err {err:.3e}, nonzero "
                                f"edgeless outputs {edgeless_out}, lse -inf pattern "
                                f"{lse_pattern}, lse err {lse_err:.3e}")
-        grads = gt_attention_bwd_kernels(q, k, v, ei, ptr, csr.source.src_ptr,
-                                         csr.source.src_perm, HEADS, out, lse, g,
-                                         edge_attr=attr, weight=w, bias=b)
+        grads = gt_attention_bwd_kernels(q, k, v, ei, ptr, order.src_ptr, order.src_perm,
+                                         heads, out, lse, g, edge_attr=attr, weight=w, bias=b)
         if grads.dq[:, no_dst].count_nonzero().item():
             raise RuntimeError(f"{label} K3 at {edge_set} {dtype}: dq not exactly 0 on the "
                                f"{int(no_dst.sum())} edgeless destinations")
-        bound_ms, bound_by = attention_bound(n_dst, n_src, csr.num_edges, attr.shape[1],
-                                             q.element_size(), True)
-        rows["K1"].append({
+        bound_ms, bound_by = attention_bound(n_dst, n_src, int(ei.shape[1]), attr.shape[1],
+                                             q.element_size(), True, hd, heads=heads)
+        rows.append({
             "edge_set": edge_set, "dtype": str(dtype).split(".")[-1], "fused_edge": True,
-            "n_dst": n_dst, "n_src": n_src, "n_edges": csr.num_edges,
+            **({"hd": hd, "heads": heads} if hd != HD else {}),
+            "n_dst": n_dst, "n_src": n_src, "n_edges": int(ei.shape[1]),
             "destinations_without_edges": int(no_dst.sum()), "max_abs_err": err,
             "lse_max_abs_err": lse_err, "edgeless_rows_exact": True,
             "ms": cuda_ms(k1), "ms_back_to_back": cuda_ms_back_to_back(k1),
-            "plain_ms": cuda_ms(lambda: gt_attention_plain(
-                q, k, v, attr.float() @ w.float() + b.float(), ei, ptr, HEADS), reps=10, warmup=2),
+            "plain_ms": cuda_ms(plain, reps=10, warmup=2),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-        print(f"[{label}] K1 {rows['K1'][-1]}; dq exactly 0 on the "
-              f"{int(no_dst.sum())} edgeless destinations", flush=True)
+        print(f"[{label}] K1 {rows[-1]}; dq exactly 0 on the {int(no_dst.sum())} edgeless "
+              "destinations", flush=True)
         del q, k, v, g, out, lse, ref, ref_lse, grads
-    rows.update(sparse_set_backward(label, edge_set, ei, ptr, csr.source, attr32, n_src, n_dst,
-                                    device))
+    return rows
+
+
+def halo_shard_kernels(graph, device) -> dict:
+    """K1 and K3 + K4 on the processor set of model shard 2 of 2 (no
+    ``halo_overlap``: its 5 128 destination rows, 14 of them padded and
+    edgeless, over 5 128 local and 2 x 400 halo source rows, the padded and
+    self-slot halo rows edgeless), with the set's own attributes in the
+    shard's edge order: K1's out and lse against the plain op on every row
+    (``k1_set_rows``), K3 + K4 through ``sparse_set_backward`` (its gates,
+    dk and dv exactly 0 on the edgeless sources)."""
+    from anemoi_tpu_torch.models.graph import extract_subgraph
+
+    sub = extract_subgraph(graph, "hidden", "hidden", list(EDGE_ATTRIBUTES), device,
+                           torch.float32)
+    shard = sub.sharded_edge_data(2, 1, None, overlap=False)
+    csr = shard.full
+    attr32 = sub.edge_attr[shard.edge_perm[: csr.num_edges]]
+    edge_set = "hidden->hidden, model shard 2 of 2"
+    rows = {"K1": k1_set_rows("parallel", edge_set, csr.edge_index, csr.dst_ptr, attr32,
+                              csr.num_src, csr.num_dst, device)}
+    rows.update(sparse_set_backward("parallel", edge_set, csr.edge_index, csr.dst_ptr,
+                                    csr.source, attr32, csr.num_src, csr.num_dst, device))
     torch.cuda.empty_cache()
     return rows
 
@@ -4276,6 +4328,414 @@ def parallel_phase(workdir: str, graph, device) -> dict:
     return result
 
 
+FAMILY_PARTS = {  # part -> shard strategy on the model group of 2
+    "flagship_heads": "heads", "transformer_heads": "heads", "transport_edges": "edges",
+    "hierarchical_edges": "edges"}
+FAMILY_BF16_STEPS = 2  # timed bf16 training steps of each rank and part
+FAMILY_SAMPLING_STEPS = 4  # EDM-Heun sampling steps of the generative step (the presets: 20)
+HEAD_SUBSET = HEADS // 2  # the heads one rank of a model group of 2 attends for
+
+
+def family_config(part: str) -> dict:
+    """The model of one part of phase 32, on the flagship's graph and
+    variables (the hierarchical one on phase 23's graph): the flagship
+    (512 channels, 16 layers, 16 heads), the Transformer preset (1 024
+    channels, 16 layers, 16 heads, w 512), or the packaged preset's model
+    section at its width."""
+    import copy
+
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
+
+    if part == "flagship_heads":
+        return flagship_config(num_layers=FLAGSHIP_LAYERS)
+    if part == "transformer_heads":
+        return transformer_config(num_layers=TRANSFORMER_LAYERS)
+    preset = {"transport_edges": "transport_edm_diffusion", "ensemble": "ensemble_crps",
+              "hierarchical_edges": "hierarchical"}[part]
+    composed = load_config(os.path.join(PACKAGED_CONFIG_DIR, f"{preset}.yaml"), [],
+                           search_paths=[PACKAGED_CONFIG_DIR]).to_dict()
+    config = flagship_config(num_layers=FLAGSHIP_LAYERS)
+    config["model"] = {**copy.deepcopy(composed["model"]), "inference_precision": "bf16"}
+    return config
+
+
+def family_interface(part: str, graph, device, mesh=None):
+    """The part's training interface (float32 masters, the interface's own
+    draws from ``context_seed("model-init")``), sharded over ``mesh``'s
+    model group when it has more than one rank."""
+    from anemoi_tpu_torch.models.interface import AnemoiModelInterface
+
+    config = family_config(part)
+    if mesh is not None and mesh.size("model") > 1:
+        config["model"].update(shard_strategy=FAMILY_PARTS.get(part, "edges"),
+                               num_model_shards=mesh.size("model"))
+    return AnemoiModelInterface(config=config, graph=graph, data_indices=flagship_indices(),
+                                statistics=flagship_statistics(SEED), device=device,
+                                training=True, mesh=mesh)
+
+
+def family_step(iface, graph, part: str, precision: str):
+    """(TrainState, train_step) as phase 31's, through the part's step: the
+    EDM transport step, the 4-member ``KernelCRPS`` step, or the forecaster's."""
+    from anemoi_tpu_torch.training.losses import get_loss_function
+    from anemoi_tpu_torch.training.losses.scalers import create_scalers
+    from anemoi_tpu_torch.training.optimizers import build_optimizer
+    from anemoi_tpu_torch.training.step import COMPUTE_TYPES, TrainState, make_step_fns
+    from anemoi_tpu_torch.training.transport_step import make_transport_step_fns
+
+    iface.inference_dtype = COMPUTE_TYPES[precision] or torch.float32
+    tx = build_optimizer({"gradient_clip": {"val": 32.0, "algorithm": "value"}},
+                         schedule=lambda count: PARALLEL_RATE)
+    if part == "transport_edges":
+        train_step, _ = make_transport_step_fns(iface, training_losses(graph), objective="edm",
+                                                precision=precision)
+    elif part == "ensemble":
+        scalers = create_scalers({"area": {"name": "GraphNodeAttributeScaler",
+                                           "nodes_name": "data",
+                                           "attribute_name": "area_weight"}}, graph=graph)
+        losses = {"data": get_loss_function({"name": "KernelCRPS", "scalers": ["area"]},
+                                            scalers)}
+        train_step, _ = make_step_fns(iface, losses, rollout=1, precision=precision,
+                                      ensemble_size=MEMBERS)
+    else:
+        train_step, _ = make_step_fns(iface, training_losses(graph), rollout=1,
+                                      precision=precision)
+    return TrainState.create(iface, tx), train_step
+
+
+def family_output(iface, part: str, graph, device):
+    """The part's forecast, float32, the whole grid: ``STEPS`` forecast
+    steps; the transport model's one generative step of
+    ``FAMILY_SAMPLING_STEPS`` EDM-Heun steps; the ensemble's
+    ``predict_step`` of the window tiled to its members (noise and initial
+    state from generators seeded as in phase 22)."""
+    from anemoi_tpu_torch.inference import make_forecast_fn, make_transport_forecast_fn
+
+    fbatch = forecast_batch(graph, device)
+    gen = torch.Generator(device=device).manual_seed(TRANSPORT_SEED)
+    if part == "transport_edges":
+        return make_transport_forecast_fn(iface, 1, num_steps=FAMILY_SAMPLING_STEPS)(
+            fbatch, gen)["data"]
+    if part == "ensemble":
+        window = {"data": fbatch["data"][:, :2].expand(-1, -1, MEMBERS, -1, -1)}
+        return iface.predict_step(window, generator=gen)["data"]
+    return make_forecast_fn(iface, STEPS)(fbatch)["data"]
+
+
+def shard_calls(shard) -> int:
+    """The attention op's calls on one halo-sharded set: its interior and
+    boundary rows (all its rows without ``halo_overlap``), where it has
+    edges."""
+    sets = (shard.interior, shard.boundary) if shard.overlap else (shard.full,)
+    return sum(csr.num_edges > 0 for csr in sets)
+
+
+def family_launches(model) -> dict:
+    """A training step's and a forecast step's launches on this rank of a
+    sharded model, from its tables: K1 once a mapper call (``shard_calls``)
+    and a processor layer (under ``heads`` one call over the whole set, or
+    K6 for a dense layer; under ``edges`` ``shard_calls`` a layer), K3 and
+    K4 with each K1 (no set reaches the 2 GB rule), K7 with each K6."""
+    from anemoi_tpu_torch.models.hierarchical import AnemoiModelEncProcDecHierarchical
+    from anemoi_tpu_torch.parallel.heads import HeadsShard
+
+    halo = model.halo
+    gt = sum(shard_calls(s) for s in halo["encoder"].values())
+    gt += sum(shard_calls(s) for s in halo["decoder"].values())
+    dense = 0
+    if isinstance(model, AnemoiModelEncProcDecHierarchical):
+        for kind in ("down", "up"):
+            gt += sum(shard_calls(s) for s in halo[kind].values())
+            for name, proc in getattr(model, f"{kind}_level_processor").items():
+                gt += len(proc.proc) * shard_calls(halo["level"][name])
+        if hasattr(model, "processor"):
+            gt += len(model.processor.proc) * shard_calls(halo["level"][model.hidden_names[-1]])
+    elif isinstance(halo["processor"], HeadsShard):
+        if model.processor_edges:
+            gt += len(model.processor.proc)
+        else:
+            dense = len(model.processor.proc)
+    else:
+        gt += len(model.processor.proc) * shard_calls(halo["processor"])
+    step = {**NO_LAUNCHES, "K1": gt, "K3": gt, "K4": gt, "K6": dense, "K7_dq": dense,
+            "K7_dkv": dense}
+    forecast = {**NO_LAUNCHES, "K1": gt, "K6": dense}
+    return {"step": step, "forecast": forecast}
+
+
+def family_bytes(model, channels: int, elt: int, batch: int = 1) -> dict:
+    """Bytes this rank sends (its own block included) in one forward: per
+    processor layer under ``heads``, the all-to-alls of q, k, v to heads and
+    of the output back (``4 B n_local HD``); the mappers' halo exchanges of
+    keys and values (``halo_exchanges``)."""
+    from anemoi_tpu_torch.parallel.heads import HeadsShard
+
+    halo = model.halo
+    proc = halo["processor"]
+    out = {"mapper_exchanges": {
+        part: sum(s.num_shards * s.h_pair * 2 * channels * elt * batch
+                  for s in halo[part].values()) for part in ("encoder", "decoder")}}
+    if isinstance(proc, HeadsShard):
+        hd = channels
+        out["all_to_all_bytes_per_layer"] = 4 * batch * proc.n_local * hd * elt
+        out["n_local"], out["padded_len_jax"] = proc.n_local, proc.padded_len
+    return out
+
+
+def family_run(part, graph, device, mesh, workdir, save: bool) -> dict:
+    """One part on this process (``mesh`` None) or this rank: per precision
+    the step-1 gradient and the forecast (saved under ``workdir`` by rank 0
+    with ``save``, kept in the result on one process), each with its
+    launches; in bf16 then ``FAMILY_BF16_STEPS`` steps, each with its
+    launches, loss and wall ms; peak memory."""
+    from anemoi_tpu_torch import kernels
+
+    iface = family_interface(part, graph, device, mesh)
+    res = {"peak_memory_bytes": {}, "grad_launches": [], "output_launches": []}
+    batch = training_batch(graph, device)
+    for precision in ("fp32", "bf16"):
+        state, train_step = family_step(iface, graph, part, precision)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launches()
+        train_step.compute_gradients(state, batch)
+        torch.cuda.synchronize()
+        res["grad_launches"].append(kernels.launch_counts())
+        grads = flat_grads(iface).cpu()
+        kernels.reset_launches()
+        y = family_output(iface, part, graph, device).cpu()
+        torch.cuda.synchronize()
+        res["output_launches"].append(kernels.launch_counts())
+        res["output_shape"] = list(y.shape)
+        if save:
+            torch.save({"grads": grads, "output": y},
+                       os.path.join(workdir, f"family_{part}_{precision}.pt"))
+        elif mesh is None:
+            res[precision] = {"grads": grads, "output": y}
+        if precision == "bf16":
+            res["step_launches"], res["losses"], res["wall_ms"] = [], [], []
+            for _ in range(FAMILY_BF16_STEPS):
+                t0 = time.perf_counter()
+                kernels.reset_launches()
+                state, metrics = train_step(state, batch)
+                torch.cuda.synchronize()
+                res["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+                res["step_launches"].append(kernels.launch_counts())
+                res["losses"].append(float(metrics["loss"]))
+        res["peak_memory_bytes"][precision] = torch.cuda.max_memory_allocated(device)
+        del state, train_step, grads, y
+        torch.cuda.empty_cache()
+    if mesh is not None:
+        res["launches_want"] = family_launches(iface.model)
+        res["bytes"] = family_bytes(iface.model, iface.model.num_channels, 2)
+        if mesh.size("ensemble") > 1:
+            # the member gather of one loss: the rank receives the other
+            # ranks' [B, T, M / E, G_local, V_out] float32 predictions
+            rows = iface.model.grid_rows("data")
+            res["bytes"]["gather_bytes_per_loss"] = (
+                (mesh.size("ensemble") - 1) * (MEMBERS // mesh.size("ensemble"))
+                * (rows.stop - rows.start) * iface.model.n_step_output
+                * iface.data_indices["data"].num_model_output_vars * 4)
+    del iface
+    torch.cuda.empty_cache()
+    return res
+
+
+def families_rank(graph, hierarchical_graph: str, workdir: str) -> dict:
+    """One rank of a model group of 2 on the card (phase 32): each part of
+    ``FAMILY_PARTS`` in turn (``family_run``)."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.parallel import distributed
+    from anemoi_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    launch = distributed.launch()
+    device = launch.device
+    mesh = create_mesh(MeshSpec(model=launch.world), device)
+    out = {"rank": launch.rank, "backend": launch.backend}
+    for part in FAMILY_PARTS:
+        g = Graph.load(hierarchical_graph) if part == "hierarchical_edges" else graph
+        t0 = time.perf_counter()
+        out[part] = family_run(part, g, device, mesh, workdir, save=launch.rank == 0)
+        out[part]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def ensemble_axis_rank(graph, workdir: str) -> dict:
+    """One rank of ensemble 2 x model 2 (phase 32): the ensemble preset's
+    model, 4 members, 2 a rank, ``edges`` over the model group."""
+    from anemoi_tpu_torch.parallel import distributed
+    from anemoi_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    launch = distributed.launch()
+    mesh = create_mesh(MeshSpec(data=1, model=2, ensemble=2), launch.device)
+    t0 = time.perf_counter()
+    res = family_run("ensemble", graph, launch.device, mesh, workdir, save=launch.rank == 0)
+    res.update(rank=launch.rank, coords=mesh.coords, seconds=time.perf_counter() - t0)
+    return res
+
+
+def head_subset_kernels(graph, device) -> dict:
+    """The kernels on one rank's head subset under ``heads`` at a model
+    group of 2: K1 and K3 + K4 at the processor set (the flagship's 8 of
+    16 heads, HD 256, the whole set), K6 and K7 at the Transformer preset's
+    8 of 16 heads over the whole mesh (N 10 242, D 64, w 512), each against
+    its plain op and timed beside its bound."""
+    from anemoi_tpu_torch.models.graph import extract_subgraph
+
+    sub = extract_subgraph(graph, "hidden", "hidden", list(EDGE_ATTRIBUTES), device,
+                           torch.float32)
+    edge_set = f"hidden->hidden, {HEAD_SUBSET} of {HEADS} heads"
+    hd = HD * HEAD_SUBSET // HEADS
+    rows = {"K1": k1_set_rows("families", edge_set, sub.edge_index, sub.dst_ptr, sub.edge_attr,
+                              sub.num_src, sub.num_dst, device, hd=hd, heads=HEAD_SUBSET)}
+    rows.update(sparse_set_backward("families", edge_set, sub.edge_index, sub.dst_ptr,
+                                    sub.source, sub.edge_attr, sub.num_src, sub.num_dst, device,
+                                    hd=hd, heads=HEAD_SUBSET))
+    case = f"{HEAD_SUBSET} of {WIN_H} heads"
+    rows.update(window_phase(device, {case: (WIN_B, WIN_N, HEAD_SUBSET, WIN_D, WIN_W, None,
+                                             False)}, "families", timed=(case,)))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sharded_down_set(graph_file: str, device) -> dict:
+    """K3 + K4 at model shard 2 of 2 of the V-cycle's down set (no
+    ``halo_overlap``; its padded and halo source rows edgeless besides the
+    sources no hidden_2 node reads), through ``sparse_set_backward``: dk and
+    dv exactly 0 on every edgeless row."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.models.graph import extract_subgraph
+
+    sub = extract_subgraph(Graph.load(graph_file), *DOWN_SET, ["edge_length", "edge_dirs"],
+                           device, torch.float32)
+    shard = sub.sharded_edge_data(2, 1, None, overlap=False)
+    csr = shard.full
+    attr32 = sub.edge_attr[shard.edge_perm[: csr.num_edges]]
+    return sparse_set_backward("families", "hidden_1->hidden_2, model shard 2 of 2",
+                               csr.edge_index, csr.dst_ptr, csr.source, attr32, csr.num_src,
+                               csr.num_dst, device)
+
+
+def ensemble_axis_cli(workdir: str, losses_one_process: list) -> dict:
+    """``cli train ensemble_crps.yaml`` with ``hardware.num_devices=2`` and
+    ``num_devices_per_ensemble=2`` (its own 2 ranks, 2 members each) over
+    phase 9's store, bf16, 2 steps: exit 0, finite records; the first
+    step's loss (before any update) against phase 15's one-process run."""
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    run_dir = os.path.join(workdir, "ensemble_axis_run")
+    run = ["data.datasets.data.kind=zarr",
+           f"data.datasets.data.path={os.path.join(workdir, 'example_o96.zarr')}",
+           f"graph.save_path={os.path.join(workdir, 'graph.npz')}", f"output_dir={run_dir}",
+           "training.max_steps=2", "training.max_epochs=1", "training.precision=bf16",
+           "diagnostics.log_interval=1", "diagnostics.callbacks=[{name: LearningRateMonitor}]",
+           "hardware.num_devices=2", "hardware.num_devices_per_ensemble=2"]
+    t0 = time.perf_counter()
+    rc = cli.main(["train", os.path.join(PACKAGED_CONFIG_DIR, "ensemble_crps.yaml"), *run])
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if "loss" in r]
+    if rc != 0 or len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"families cli train on the ensemble axis: rc {rc}, losses {losses}")
+    first = abs(losses[0] - losses_one_process[0]) / abs(losses_one_process[0])
+    print(f"[families] cli train ensemble_crps.yaml, ensemble group of 2 (2 members a rank): "
+          f"losses {losses} against phase 15's one process {losses_one_process[:2]}: first "
+          f"step relative {first:.3e} (tol {SERVING_TOL}); {seconds:.2f} s", flush=True)
+    if not first <= SERVING_TOL:
+        raise RuntimeError(f"families cli train on the ensemble axis: first loss off by {first}")
+    return {"losses": losses, "one_process": losses_one_process[:2], "first_rel": first,
+            "seconds": seconds}
+
+
+def families_phase(workdir: str, graph, device, ensemble_losses: list) -> dict:
+    """Phase 32: the parallel families over ranks that share the card
+    (gloo): ``FAMILY_PARTS`` on a model group of 2 and the ensemble preset
+    on ensemble 2 x model 2, each against one process on the same weights
+    and batches (float32 and bf16 gradients and forecasts within phase 31's
+    ``PARALLEL_TOL``; every rank's launches exactly ``family_launches``);
+    ``cli train`` on
+    the ensemble axis; the head-subset and sharded down-set kernel rows."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.parallel.distributed import spawn
+
+    seconds, t_part = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        seconds[name] = round(time.perf_counter() - t_part, 2)
+        t_part = time.perf_counter()
+
+    hier_file = os.path.join(workdir, "graph_hierarchical.npz")
+    parts = [*FAMILY_PARTS, "ensemble"]
+    one = {}
+    for part in parts:
+        g = Graph.load(hier_file) if part == "hierarchical_edges" else graph
+        one[part] = family_run(part, g, device, None, workdir, save=False)
+    lap("one process")
+    ranks = spawn(families_rank, 2, args=(graph, hier_file, workdir))
+    lap("model group of 2")
+    ens = spawn(ensemble_axis_rank, 4, args=(graph, workdir))
+    lap("ensemble 2 x model 2")
+    result = {"parts": {}, "seconds": seconds}
+    for part in parts:
+        per_rank = ens if part == "ensemble" else [r[part] for r in ranks]
+        for i, res in enumerate(per_rank):
+            want = res["launches_want"]
+            steps = res["step_launches"] + res["grad_launches"]
+            want_out = dict(want["forecast"])
+            if part == "transport_edges":  # 2 N - 1 evaluations of EDM-Heun
+                want_out["K1"] *= 2 * FAMILY_SAMPLING_STEPS - 1
+            elif part != "ensemble":
+                want_out = {k: n * STEPS for k, n in want_out.items()}
+            if (any(c != want["step"] for c in steps)
+                    or any(c != want_out for c in res["output_launches"])):
+                raise RuntimeError(f"families {part} rank {i}: want {want['step']} a step and "
+                                   f"{want_out} an output, got {steps} and "
+                                   f"{res['output_launches']}")
+        gap = {}
+        for precision in ("fp32", "bf16"):
+            saved = torch.load(os.path.join(workdir, f"family_{part}_{precision}.pt"))
+            ref = one[part][precision]
+            gap[precision] = {"grads": rel_l2(saved["grads"], ref["grads"]),
+                              "output": rel_l2(saved["output"], ref["output"])}
+            fc_tol, grad_tol = PARALLEL_TOL[precision]
+            finite = bool(torch.isfinite(saved["output"]).all()) and (
+                saved["output"].shape == ref["output"].shape)
+            print(f"[families] {part} {precision}: against one process, relative L2 "
+                  f"{gap[precision]} (tol output {fc_tol}, gradients {grad_tol}); output "
+                  f"{list(saved['output'].shape)}", flush=True)
+            if not (finite and gap[precision]["grads"] <= grad_tol
+                    and gap[precision]["output"] <= fc_tol):
+                raise RuntimeError(f"families {part} {precision}: {gap[precision]}, finite "
+                                   f"and shaped {finite}")
+        result["parts"][part] = {
+            "rel_l2": gap, "strategy": FAMILY_PARTS.get(part, "edges"),
+            "launches_per_step": per_rank[0]["step_launches"][-1],
+            "launches_per_output": per_rank[0]["output_launches"][-1],
+            "output_shape": per_rank[0]["output_shape"],
+            "wall_ms_gloo_shared_card": [r["wall_ms"] for r in per_rank],
+            "losses_bf16": [r["losses"] for r in per_rank],
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in per_rank],
+            "one_process_peak_memory_bytes": one[part]["peak_memory_bytes"],
+            "one_process_wall_ms": one[part]["wall_ms"],
+            "one_process_losses_bf16": one[part]["losses"],
+            "bytes": per_rank[0]["bytes"], "seconds": [r["seconds"] for r in per_rank],
+            **({"coords": [r["coords"] for r in per_rank]} if part == "ensemble" else {})}
+        print(f"[families] {part} {json.dumps(result['parts'][part])}", flush=True)
+    del one
+    result["cli_ensemble_axis"] = ensemble_axis_cli(workdir, ensemble_losses)
+    lap("cli train on the ensemble axis")
+    rows = head_subset_kernels(graph, device)
+    for name, extra in sharded_down_set(hier_file, device).items():
+        rows.setdefault(name, []).extend(extra)
+    lap("head-subset and down-set kernels")
+    result["rows"] = rows
+    print(f"[families] seconds by part: {seconds}", flush=True)
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
            ens: dict, families: dict, transport: dict, hierarchy: dict,
@@ -4297,7 +4757,11 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     preset's training step and ``cli predict`` and the ratio-2 step (phase
     23), the spectral and plain steps of phase 24, and the training steps
     and ``cli predict`` of phases 25-30 (``later``: projections, dynamic
-    kNN, Transformer mappers; the hex, HEALPix and ICON meshes)."""
+    kNN, Transformer mappers; the hex, HEALPix and ICON meshes), phase
+    31's rank 0's and each phase 32 part's rank 0's training step and
+    forecast (``<part>_rank_0_train``, ``..._predict_2_steps``: 2 forecast
+    steps, or the transport model's one generative step, or the
+    ensemble's ``predict_step``)."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
                "example_trainer_step": trainer["launches_per_step"],
@@ -4464,7 +4928,9 @@ def main() -> int:
                   for label in MESH_GRAPHS}
         parallel = phase("parallel", parallel_phase, workdir, graph, device)
         shard_rows = phase("parallel shard kernels", halo_shard_kernels, graph, device)
-    for extra_rows in (shard_rows, hierarchy["down_set_rows"],
+        parallel_families = phase("parallel families", families_phase, workdir, graph, device,
+                                  ens["losses"])
+    for extra_rows in (shard_rows, parallel_families.pop("rows"), hierarchy["down_set_rows"],
                        slice_17["dynamic"]["runtime_sets"]["encoder_rows"],
                        *(m.pop("encoder_rows") for m in meshes.values())):
         for name, extra in extra_rows.items():
@@ -4473,9 +4939,12 @@ def main() -> int:
     parallel_path = {"train": {"launches_per_step": rank_0["launches_per_step"]},
                      "predict": {"launches": {k: n * STEPS for k, n in
                                               rank_0["launches_per_forecast_step"].items()}}}
+    family_paths = {f"{part}_rank_0": {"train": {"launches_per_step": res["launches_per_step"]},
+                                       "predict": {"launches": res["launches_per_output"]}}
+                    for part, res in parallel_families["parts"].items()}
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
                  ens, families, transport, hierarchy, spectral,
-                 {**slice_17, **meshes, "parallel_rank_0": parallel_path})
+                 {**slice_17, **meshes, "parallel_rank_0": parallel_path, **family_paths})
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -4487,6 +4956,7 @@ def main() -> int:
                        "ensemble": ens, "families": families, "transport": transport,
                        "hierarchical": hierarchy, "spectral": spectral, **slice_17,
                        "meshes": meshes, "parallel": parallel,
+                       "parallel_families": parallel_families,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

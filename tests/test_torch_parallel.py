@@ -285,7 +285,10 @@ def tiny_interface(model_update, graph):
 
 
 @pytest.mark.parametrize("update", [
-    {"shard_strategy": "heads", "num_model_shards": 2},
+    # heads itself is ported (tests/test_torch_parallel_heads.py); a GNN
+    # processor under it is not
+    {"shard_strategy": "heads", "num_model_shards": 2,
+     "processor": {"name": "GNNProcessor", "num_layers": 1}},
     {"shard_strategy": "edges", "num_model_shards": 2,
      "processor": {"name": "GNNProcessor", "num_layers": 1}},
     {"shard_strategy": "edges", "num_model_shards": 2, "halo_mappers": False},
@@ -296,8 +299,14 @@ def test_not_ported_strategies_name_item_9(graph, update):
 
 
 def test_ensemble_axis_names_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trainer_device({"platform": "cpu", "num_devices_per_ensemble": 2})
+    # the ensemble axis is ported (tests/test_torch_parallel_families.py):
+    # the device rule no longer refuses it
+    assert trainer_device({"platform": "cpu", "num_devices_per_ensemble": 2}) == torch.device(
+        "cpu")
+    spec = mesh.MeshSpec.from_config({"num_devices_per_model": 2,
+                                      "num_devices_per_ensemble": 2}, num_devices=4)
+    assert (spec.data, spec.model, spec.ensemble) == (1, 2, 2)
+    assert mesh.axis_lines(spec, "ensemble") == [[0, 1], [2, 3]]
 
 
 def test_failed_rank_stops_the_world():

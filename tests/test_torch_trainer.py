@@ -212,8 +212,11 @@ def test_no_silent_cpu_fallback(tmp_path):
     del cfg["hardware"]
     with pytest.raises(RuntimeError, match="CUDA"):
         AnemoiTrainer(cfg, output_dir=cfg["output_dir"])
-    cfg["hardware"] = {"platform": "cpu", "num_devices_per_ensemble": 2}  # the ensemble axis
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the ensemble axis is ported (tests/test_torch_parallel_families.py); on
+    # one process it needs the ranks it names, and says so with the JAX
+    # mesh's message instead of training on one rank
+    cfg["hardware"] = {"platform": "cpu", "num_devices_per_ensemble": 2}
+    with pytest.raises(AssertionError, match=r"not divisible by model\(1\) x ensemble\(2\)"):
         AnemoiTrainer(cfg, output_dir=cfg["output_dir"])
 
 

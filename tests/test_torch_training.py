@@ -287,20 +287,26 @@ def test_fused_backward_choice():
 
 
 def test_not_ported_pieces_raise(tiny):
-    # Ulysses head sharding (ROADMAP item 9), asked for by the processor or
-    # by the model (the halo strategy is ported: tests/test_torch_parallel*.py;
-    # the multiscale loss, the Transformer mappers and the dynamic edge
-    # providers: tests/test_torch_projection.py,
-    # tests/test_torch_cross_attention.py, tests/test_torch_dynamic.py)
+    # Ulysses head sharding is ported (tests/test_torch_parallel_heads.py):
+    # asked for by the processor on one rank it is the plain processor, and
+    # by the model over 2 shards it needs a mesh of 2 model ranks (so do
+    # the halo strategy, the multiscale loss, the Transformer mappers and
+    # the dynamic edge providers: tests/test_torch_parallel*.py,
+    # tests/test_torch_projection.py, tests/test_torch_cross_attention.py,
+    # tests/test_torch_dynamic.py)
     heads = config()
     heads["model"]["processor"] = {**heads["model"]["processor"], "shard_strategy": "heads"}
     model_heads = config()
     model_heads["model"].update(shard_strategy="heads", num_model_shards=2)
-    for cfg, match in ((heads, "item 9"), (model_heads, "Ulysses")):
-        with pytest.raises(NotImplementedError, match=match):
-            AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
-                                 data_indices=flagship_indices(), statistics=tiny["stats"],
-                                 device="cpu", training=True)
+
+    def build(cfg):
+        return AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
+                                    data_indices=flagship_indices(), statistics=tiny["stats"],
+                                    device="cpu", training=True)
+
+    assert build(heads).model.halo is None
+    with pytest.raises(ValueError, match="needs a mesh whose model group has 2 ranks"):
+        build(model_heads)
     iface, _, _, _ = port_setup(tiny)
     losses = {"data": get_loss_function(LOSS, {})}
     make_step_fns(iface, losses, rollout=1, ensemble_size=2)  # ported: tests/test_torch_ensemble.py

@@ -182,18 +182,24 @@ def test_fp32_step_gradients_match_jax(tiny):
 
 
 def test_not_ported_transformer_options_raise(tiny):
-    """Ulysses head sharding is not ported; a conditional processor needs an
-    ensemble model's noise conditioning.  The gated MLPs are ported
+    """A conditional processor needs an ensemble model's noise conditioning.
+    Ulysses head sharding is ported (tests/test_torch_parallel_heads.py): on
+    one rank the processor's ``shard_strategy: heads`` leaves it the plain
+    processor, as in the JAX package.  The gated MLPs are ported
     (tests/test_torch_switches.py), and ``qk_norm_type``, which the JAX
     ``TransformerProcessor`` has no field for, is dropped as it drops it."""
-    for key, value, error in (("shard_strategy", "heads", NotImplementedError),
-                              ("conditional", True, ValueError)):
-        cfg = config()
-        cfg["model"]["processor"][key] = value
-        with pytest.raises(error):
-            AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
+    cfg = config()
+    cfg["model"]["processor"]["conditional"] = True
+    with pytest.raises(ValueError):
+        AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
+                             data_indices=flagship_indices(), statistics=tiny["stats"],
+                             device="cpu")
+    cfg = config()
+    cfg["model"]["processor"]["shard_strategy"] = "heads"
+    heads = AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],
                                  data_indices=flagship_indices(), statistics=tiny["stats"],
                                  device="cpu")
+    assert heads.model.halo is None
     cfg = config()
     cfg["model"]["processor"].update(mlp_implementation="swiglu", qk_norm_type="rmsnorm")
     iface = AnemoiModelInterface(config=cfg, graph=tiny["port_graph"],

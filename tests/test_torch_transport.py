@@ -303,7 +303,13 @@ def test_sources_match_jax(tr, monkeypatch):
                                        n_step_output=1)
     with pytest.raises(ValueError, match="Unknown transport source"):
         sources.build_sources("uniform", None, specs)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a field sharded over the grid: the block of the one-process draw
+    # (the model-parallel runs: tests/test_torch_parallel_families.py)
+    block = random_fields.randn_grid_sharded(torch.Generator().manual_seed(3), (3, 2),
+                                             shard_sizes=(5, 3), shard_index=1)
+    whole = random_fields.standard_normal((8, 2), torch.Generator().manual_seed(3))
+    assert torch.equal(block, whole[5:])
+    with pytest.raises(ValueError, match="needs shard_index"):
         random_fields.randn_grid_sharded(torch.Generator(), (2, 4), shard_sizes=(2, 2))
 
 

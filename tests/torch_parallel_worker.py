@@ -1,5 +1,7 @@
-"""Rank workers of ``tests/test_torch_parallel.py`` and
-``tests/test_torch_parallel_training.py``.
+"""Rank workers of ``tests/test_torch_parallel.py``,
+``tests/test_torch_parallel_training.py``,
+``tests/test_torch_parallel_heads.py`` and
+``tests/test_torch_parallel_families.py``.
 
 Every function here runs on each rank started by
 ``anemoi_tpu_torch.parallel.distributed.spawn`` (gloo on the CPU, one thread
@@ -86,45 +88,150 @@ def _interface(setup, mesh, config):
     return iface
 
 
+class FixedDraws:
+    """The port's standard normal draws (the ensemble noise and every
+    transport draw) replaced by given arrays, one per shape, the same array
+    at every call: the one-process arrays of the global batch and grid that
+    a test hands the JAX package too (whose jitted step draws once)."""
+
+    def __init__(self, draws):
+        from anemoi_tpu_torch.models.layers import ensemble
+        from anemoi_tpu_torch.models.transport import random_fields
+
+        self.draws, self.patched = draws or {}, []
+        if self.draws:
+            for module in (ensemble, random_fields):
+                self.patched.append((module, module.standard_normal))
+                module.standard_normal = self.normal
+
+    def normal(self, shape, generator, dtype=torch.float32):
+        return torch.from_numpy(self.draws[tuple(int(s) for s in shape)]).to(dtype)
+
+    def restore(self):
+        for module, fn in self.patched:
+            module.standard_normal = fn
+
+
+def _step_fns(iface, run, losses):
+    if run.get("task") == "transport":
+        from anemoi_tpu_torch.training.transport_step import make_transport_step_fns
+
+        return make_transport_step_fns(iface, losses, objective="edm")
+    return make_step_fns(iface, losses, rollout=1, remat_rollout=False,
+                         ensemble_size=run.get("ensemble_size", 1))
+
+
 def train_runs(setup, runs):
-    """Per run (a mesh ``data`` x ``model``, model-config overrides, the
-    number of steps, ``zero``): the losses of each step and the reduced
-    step-1 gradients, from a fresh interface with the setup's weights,
-    trained on its rows of the setup's batch (the grid cut by the step,
-    or read as the rank's block with ``shard_grid``)."""
-    world = distributed.launch().world
+    """Per run (a mesh ``data`` x ``model`` x ``ensemble``, model-config
+    overrides, the number of steps, ``zero``, the loss, ``ensemble_size``,
+    the transport ``task``, ``draws`` for :class:`FixedDraws`): the losses of
+    each step and the reduced step-1 gradients, from a fresh interface with
+    the setup's weights, trained on its rows of the setup's batch (the grid
+    cut by the step, or read as the rank's block with ``shard_grid``); with
+    ``predict``, ``predict_step`` of the first window tiled over
+    ``ensemble_size`` members; with ``sample`` (a transport model), one
+    generative forecast step of that many sampling steps from a generator
+    seeded 7."""
+    launch = distributed.launch()
+    world = 1 if launch is None else launch.world  # one process: the test's own
     results = []
     for run in runs:
-        spec = MeshSpec(data=run["data"], model=world // run["data"])
+        ens = run.get("ensemble", 1)
+        spec = MeshSpec(data=run["data"], model=world // (run["data"] * ens), ensemble=ens)
         mesh = create_mesh(spec)
         config = copy.deepcopy(setup["config"])
         config["model"].update(run.get("model", {}), num_model_shards=spec.model)
         iface = _interface(setup, mesh, config)
         losses = {"data": get_loss_function(
-            setup["loss"], create_scalers(setup["scalers"], graph=setup["graph"]))}
+            run.get("loss", setup["loss"]), create_scalers(setup["scalers"], graph=setup["graph"]))}
         opt = dict(setup["optimizer"])
         if run.get("zero"):
             opt["optimizer"] = {"name": "adamw", "zero": True}
         state = TrainState.create(iface, build_optimizer(opt, data_group=mesh.group("data")))
-        train_step, _ = make_step_fns(iface, losses, rollout=1, remat_rollout=False)
-        batch = setup["batch"]
-        rows = batch.shape[0] // spec.data
-        local = batch[mesh.index("data") * rows : (mesh.index("data") + 1) * rows]
-        if run.get("shard_grid"):
-            local = local[:, :, :, iface.model.grid_rows("data")]
-        local = {"data": torch.as_tensor(local)}
-        out = {"losses": [], "grads": None, "halo": iface.model.halo is not None}
-        for step in range(run["steps"]):
-            loss = train_step.compute_gradients(state, local)
-            if step == 0:
-                out["grads"] = {n: _np(p.grad) for n, p in iface.named_parameters()}
-            state.apply_gradients()
-            out["losses"].append(float(loss))
-        if run.get("predict"):
-            out["predict"] = {ds: _np(y) for ds, y in iface.predict_step(
-                {"data": torch.as_tensor(setup["batch"][:1])}).items()}
+        draws = FixedDraws(run.get("draws"))
+        try:
+            train_step, _ = _step_fns(iface, run, losses)
+            batch = setup["batch"]
+            rows = batch.shape[0] // spec.data
+            local = batch[mesh.index("data") * rows : (mesh.index("data") + 1) * rows]
+            if run.get("shard_grid"):
+                local = local[:, :, :, iface.model.grid_rows("data")]
+            local = {"data": torch.as_tensor(local)}
+            out = {"losses": [], "grads": None, "halo": iface.model.halo is not None,
+                   "coords": mesh.coords}
+            for step in range(run["steps"]):
+                loss = train_step.compute_gradients(state, local)
+                if step == 0:
+                    out["grads"] = {n: _np(p.grad) for n, p in iface.named_parameters()}
+                state.apply_gradients()
+                out["losses"].append(float(loss))
+            if run.get("predict"):
+                window = np.repeat(setup["batch"][:1], run.get("ensemble_size", 1), axis=2)
+                out["predict"] = {ds: _np(y) for ds, y in iface.predict_step(
+                    {"data": torch.as_tensor(window)}).items()}
+        finally:
+            draws.restore()
+        if run.get("sample"):
+            out["sample"] = sample_forecast(iface, setup["batch"][:1], run["sample"])
+        if run.get("forecast"):
+            from anemoi_tpu_torch.inference import make_forecast_fn
+
+            out["forecast"] = _np(make_forecast_fn(iface, run["forecast"])(
+                {"data": torch.as_tensor(setup["window"])})["data"])
         results.append(out)
     return results
+
+
+def sample_forecast(iface, window, num_steps: int):
+    """One generative forecast step of a transport interface (EDM-Heun,
+    ``num_steps`` sampling steps, a generator seeded 7): the whole grid."""
+    from anemoi_tpu_torch.inference import make_transport_forecast_fn
+
+    forecast = make_transport_forecast_fn(iface, 1, num_steps=num_steps)
+    return _np(forecast({"data": torch.as_tensor(window)},
+                        torch.Generator().manual_seed(7))["data"])
+
+
+def heads_attention(cases):
+    """Per case (global ``q``, ``k``, ``v`` ``[B, N, H, D]``, a cotangent,
+    the window, softcap, ALiBi and rotary flags) this rank's rows of
+    ``ulysses_mhsa`` over the world's model group and of the gradients of
+    q, k and v; and ``heads_to_seq(seq_to_heads(x))`` with its gradient."""
+    from anemoi_tpu_torch.models.layers.attention import get_alibi_slopes
+    from anemoi_tpu_torch.parallel.halo import pad_rows
+    from anemoi_tpu_torch.parallel.heads import (
+        HeadsShard,
+        heads_to_seq,
+        seq_to_heads,
+        ulysses_mhsa,
+    )
+
+    mesh = create_mesh(MeshSpec(model=distributed.launch().world))
+    group, s, i = mesh.group("model"), mesh.size("model"), mesh.index("model")
+    out = []
+    for case in cases:
+        n, h = case["q"].shape[1], case["q"].shape[2]
+        shard = HeadsShard(group, s, i, n)
+        rows = shard.dst_rows
+        leaves = [torch.tensor(case[k][:, rows], requires_grad=True) for k in ("q", "k", "v")]
+        q, k, v = (pad_rows(t.flatten(2), shard.n_local).unflatten(2, t.shape[2:])
+                   for t in leaves)
+        slopes = get_alibi_slopes(h) if case["alibi"] else None
+        res = ulysses_mhsa(q, k, v, shard, case["window"], case["softcap"], slopes,
+                           case["rotary"])[:, : rows.stop - rows.start]
+        (res * torch.as_tensor(case["cotangent"][:, rows])).sum().backward()
+        out.append({"rows": (rows.start, rows.stop), "out": _np(res),
+                    **{f"d{name}": _np(t.grad, t) for name, t in zip("qkv", leaves)}})
+    x = torch.randn(2, 8, 4, 3, generator=torch.Generator().manual_seed(i), requires_grad=True)
+    back = heads_to_seq(seq_to_heads(x, group), group)
+    (back * back).sum().backward()
+    out.append({"round_trip": bool(torch.equal(back, x)),
+                "grad": bool(torch.equal(x.grad, 2 * x.detach()))})
+    try:
+        seq_to_heads(torch.zeros(1, 8, s + 1, 2), group)
+    except ValueError as err:
+        out.append({"refused": str(err)})
+    return out
 
 
 def serve_bundle(bundle, batch):
