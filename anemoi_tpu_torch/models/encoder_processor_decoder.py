@@ -29,22 +29,36 @@ its node sets' coordinates, built on the device every forward
 (``ops/dynamic.py``; JAX ``_dynamic_edge_data``).  Any other provider is
 dropped, as the JAX package drops it.
 Model parallelism (:func:`shard_strategy`, JAX ``shard_strategy``): with
-``num_model_shards`` S > 1 the ``edges`` (halo) strategy splits the data grid
-and the hidden mesh in contiguous row blocks over the model group
-(``parallel/partition.py``); each rank holds its rows, and every
-GraphTransformer attention -- the encoder, each processor layer, the decoder
--- runs on the rank's CSR after a halo exchange of keys and values
-(``parallel/halo.py``; ``halo_overlap``, default on, splits interior and
-boundary rows).  The ``heads`` (Ulysses) strategy keeps those mappers and
-gives the processor -- GraphTransformer or Transformer -- the rank's block
-of hidden rows as its sequence shard (``parallel/heads.py``: one
-all-to-all to the whole mesh for the rank's heads before each attention,
-one back after it).  :meth:`AnemoiModelEncProcDec.shard_over` builds the
-tables once, from the interface's mesh; ``forward`` then takes and returns
-the rank's grid rows.  What the sharded paths cannot express raises
-``NotImplementedError`` naming ROADMAP item 9: a processor or mapper other
-than those, ``halo_mappers: false`` under ``edges``, a residual that mixes
-grid rows and a ``DynamicKNN`` provider.  The
+``num_model_shards`` S > 1 every node set -- the data grid, the hidden mesh
+-- is split in contiguous row blocks over the model group
+(``parallel/partition.py``) and each rank holds its rows.  Each component
+takes its route (:func:`mapper_shard`, :func:`processor_shard`), whatever
+the strategy's name (``edges``; ``gspmd``, ``none`` with S > 1 and
+``shard_over_mesh``, which the JAX package runs by GSPMD sharding
+constraints, take the same routes here; ``halo_mappers: false`` too):
+
+- GraphTransformer and GNN mappers and processors: the halo
+  (``parallel/halo.py``): the rank's CSR over ``[local | halo]`` sources
+  after one exchange of the rows it reads (for the GraphTransformer keys
+  and values, ``halo_overlap``, default on, splitting interior and boundary
+  rows; for the GNN the source rows of each block);
+- the Transformer processor: the band halo (``parallel/band.py``), the
+  window's rows around the rank's block;
+- the point-wise processor and mappers: the rank's rows alone;
+- the dense cross-attention mappers and a ``DynamicKNN`` mapper: the
+  rank's destinations over the whole source set (``parallel/rows.py``,
+  the runtime set built for the rank's destinations);
+- a processor whose ``shard_strategy`` (its own, else the model's) is
+  ``heads`` -- GraphTransformer or Transformer -- takes the rank's block of
+  hidden rows as its sequence shard (``parallel/heads.py``: one all-to-all
+  to the whole mesh for the rank's heads before each attention, one back
+  after it); a processor with no heads to split keeps its route above.
+
+A residual that mixes grid rows (``TruncatedConnection``,
+``SpectralOrnsteinConnection``) runs on the whole grid, gathered from the
+ranks, and keeps the rank's rows.  :meth:`AnemoiModelEncProcDec.shard_over`
+builds the tables once, from the interface's mesh; ``forward`` then takes
+and returns the rank's grid rows.  The
 ``graph_attention_backend`` values of the JAX package (paged, padded,
 segment) all select the port's one CSR attention and the GNN's one
 ``index_add_`` sum.  The attention's backward on each edge set follows the
@@ -88,7 +102,9 @@ from anemoi_tpu_torch.ops.dynamic import (
     runtime_edge_attributes,
     runtime_knn,
 )
+from anemoi_tpu_torch.parallel.band import BandShard
 from anemoi_tpu_torch.parallel.heads import HeadsShard
+from anemoi_tpu_torch.parallel.rows import BlockShard, gather_blocks
 
 LOGGER = logging.getLogger(__name__)
 BACKENDS = ("paged", "padded", "segment")
@@ -174,9 +190,9 @@ def _component(config: dict, part: str):
         raise NotImplementedError(f"{part} '{name}' is not ported to anemoi_tpu_torch")
     _, cls, ported, other = COMPONENTS[name]
     cfg.pop("edge_provider", None)
-    if cfg.get("shard_strategy", "none") not in ("none", "edges", "heads"):
-        raise NotImplementedError(f"{part}: shard_strategy {cfg['shard_strategy']} is not ported "
-                                  "to anemoi_tpu_torch (ROADMAP.md Queue 1, item 9)")
+    if cfg.get("shard_strategy", "none") not in STRATEGIES:
+        raise ValueError(f"{part}: unknown shard_strategy {cfg['shard_strategy']} "
+                         f"(known: {STRATEGIES})")
     if "num_heads" in ported and "num_heads" not in cfg:
         raise ValueError(f"{part}: num_heads is required")
     for key in ("sub_graph_edge_attributes", "trainable_size"):
@@ -191,9 +207,60 @@ def _component(config: dict, part: str):
     return name, cls, kwargs
 
 
-ITEM_9 = "(ROADMAP.md Queue 1, item 9)"
+STRATEGIES = ("none", "gspmd", "edges", "heads")
 # residuals that read other grid rows than their own
 ROW_MIXING_RESIDUALS = ("TruncatedConnection", "SpectralOrnsteinConnection")
+# processors whose attention heads the heads (Ulysses) strategy splits
+HEADS_PROCESSORS = ("GraphTransformerProcessor", "TransformerProcessor")
+
+
+def component_name(config: dict, part: str) -> str:
+    return str((config.get(part) or {}).get("name", _DEFAULT_NAMES[part]))
+
+
+def mapper_shard(name: str, sub: SubGraphArrays, group, num_shards: int, index: int,
+                 overlap: bool, runtime: bool = False):
+    """A mapper's share of its edge set on rank ``index`` of the model group:
+    the halo (a ``HaloShard``) for the GraphTransformer and GNN mappers, the
+    rank's destination and source blocks (a ``BlockShard``) for the
+    point-wise and cross-attention mappers and a runtime (``DynamicKNN``)
+    set.  ``halo_overlap`` splits interior and boundary rows of a
+    GraphTransformer set."""
+    if runtime or name not in EDGE_COMPONENTS:
+        return BlockShard(group, num_shards, index, sub.num_dst, sub.num_src)
+    return sub.sharded_edge_data(num_shards, index, group,
+                                 overlap and name.startswith("GraphTransformer"))
+
+
+def processor_shard(name: str, sub: SubGraphArrays, processor: nn.Module, group,
+                    num_shards: int, index: int, overlap: bool, heads: bool):
+    """A processor's share of the ``sub.num_dst`` hidden rows: a
+    ``HeadsShard`` under ``heads`` (GraphTransformer, Transformer), the band
+    halo for the Transformer, the rank's block for the point-wise
+    processor, the halo for the GraphTransformer and GNN."""
+    n = sub.num_dst
+    if heads and name in HEADS_PROCESSORS:
+        return HeadsShard(group, num_shards, index, n, sub if name in EDGE_COMPONENTS else None)
+    if name == "PointWiseMLPProcessor":
+        return BlockShard(group, num_shards, index, n, n)
+    if name == "TransformerProcessor":
+        attention = processor.proc[0].attention if processor is not None else None
+        return BandShard.build(group, num_shards, index, n,
+                               None if attention is None else attention.window_size,
+                               "xla" if attention is None else attention.attention_impl,
+                               sub.edge_index.device)
+    return sub.sharded_edge_data(num_shards, index, group,
+                                 overlap and name.startswith("GraphTransformer"))
+
+
+def call_processor(processor: nn.Module, x: torch.Tensor, sub, edge_attr, cond, edges: bool):
+    """A processor on the rank's rows: over its edge set (or its shard of
+    it), or with its sequence shard (``heads``, the band halo), or alone."""
+    if edges:
+        return processor(x, sub, edge_attr, cond)
+    if isinstance(sub, (HeadsShard, BandShard)):
+        return processor(x, cond, shard=sub)
+    return processor(x, cond)
 
 
 def shard_strategy(config: dict) -> str:
@@ -204,9 +271,11 @@ def shard_strategy(config: dict) -> str:
     becomes ``edges``, as the JAX package upgrades it on its paged backend;
     the port has no GSPMD, so it takes the upgrade whatever
     ``graph_attention_backend`` says (``gspmd_paged_upgrade: false`` keeps
-    ``gspmd``, which the port refuses).  ``none`` with ``num_model_shards``
-    > 1 is what the JAX package runs as GSPMD propagation from the
-    grid-sharded batch, and so takes the same route as ``gspmd``."""
+    ``gspmd``).  ``none`` with ``num_model_shards`` > 1 is what the JAX
+    package runs as GSPMD propagation from the grid-sharded batch, and so
+    takes the same name as ``gspmd``.  The port has no GSPMD: every name
+    runs each component on its route (:func:`mapper_shard`,
+    :func:`processor_shard`)."""
     s = str(config.get("shard_strategy", "none"))
     shards = int(config.get("num_model_shards", 1))
     if s == "none" and (config.get("shard_over_mesh", False) or shards > 1):
@@ -257,12 +326,29 @@ def dynamic_knn(config: dict, part: str) -> Optional[dict]:
 
 
 def dynamic_subgraph(provider: dict, src_feat: torch.Tensor, dst_feat: torch.Tensor,
-                     dtype: torch.dtype, fused_bwd: bool) -> SubGraphArrays:
+                     dtype: torch.dtype, fused_bwd: bool,
+                     shard: Optional[BlockShard] = None) -> SubGraphArrays:
     """The runtime kNN sub-graph of one mapper from its node sets' float32
     sincos features: edges, device source order and attributes (in
-    ``dtype``, the static sets' type), as K1 / K3 / K4 take them."""
-    edges = runtime_knn(src_feat, dst_feat, provider["k"])
-    attr = runtime_edge_attributes(src_feat, dst_feat, edges.edge_index, provider["attributes"])
+    ``dtype``, the static sets' type), as K1 / K3 / K4 take them.  With a
+    ``shard`` (model shards): the set of the rank's destination rows over
+    every source (global source ids), its attributes normalised over the
+    whole set, as one process normalises them (every rank's picks are
+    gathered, a few bytes an edge)."""
+    from anemoi_tpu_torch.parallel.rows import all_gather_blocks
+
+    k = provider["k"]
+    rows = None if shard is None else shard.dst_rows
+    edges = runtime_knn(src_feat, dst_feat, k, rows)
+    whole = edges.edge_index
+    if shard is not None:
+        picks = all_gather_blocks(edges.edge_index[0].reshape(-1, k), 0, shard.group,
+                                  shard.num_dst, shard.num_shards)
+        dst = torch.arange(shard.num_dst, dtype=torch.int32, device=picks.device)
+        whole = torch.stack([picks.reshape(-1), dst.repeat_interleave(k)])
+    attr = runtime_edge_attributes(src_feat, dst_feat, whole, provider["attributes"])
+    if rows is not None:
+        attr = attr[rows.start * k : rows.stop * k]
     return SubGraphArrays(
         edge_index=edges.edge_index, dst_ptr=edges.dst_ptr, edge_attr=attr.to(dtype),
         num_src=edges.num_src, num_dst=edges.num_dst, src_ptr=edges.source.src_ptr,
@@ -373,6 +459,7 @@ class AnemoiModelEncProcDec(nn.Module):
         if str(config.get("graph_attention_backend", "padded")) not in BACKENDS:
             raise ValueError(f"unknown graph_attention_backend {config['graph_attention_backend']}")
         self._check_sharding(config)
+        self.dynamic: Dict[str, Optional[dict]] = {}  # the mappers' DynamicKNN providers
         self.graph = graph
         self.data_indices = data_indices
         self.num_channels = int(config["num_channels"])
@@ -380,91 +467,70 @@ class AnemoiModelEncProcDec(nn.Module):
         self.n_step_output = int(config.get("n_step_output", 1))
         self.latent_skip = bool(config.get("latent_skip", True))
 
-    # whether the heads path covers the model (the hierarchical model runs
-    # under edges alone: the JAX package tests no other)
-    heads_supported = True
-
     def _check_sharding(self, config: dict) -> None:
-        """Refuse, naming ROADMAP item 9, what the sharded paths cannot express;
-        set ``num_model_shards``, ``model_parallel`` and ``halo`` (built by
-        :meth:`shard_over`)."""
+        """Read the model-parallel settings: ``num_model_shards``,
+        ``model_parallel``, the strategy, each component's name and whether
+        the processor splits heads; ``halo`` (the rank's shares) is built
+        by :meth:`shard_over`."""
         strategy = shard_strategy(config)
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown shard_strategy {strategy} (known: {STRATEGIES})")
         self.num_model_shards = int(config.get("num_model_shards", 1))
         self.strategy = strategy
         self.halo = None
         self.model_parallel = self.num_model_shards > 1
-        if not self.model_parallel:
-            return
-        where = f"num_model_shards {self.num_model_shards}"
-        if strategy not in ("edges", "heads"):
-            raise NotImplementedError(
-                f"{where}: shard_strategy {strategy} needs GSPMD, which anemoi_tpu_torch does "
-                f"not have; the halo (edges) strategy covers GraphTransformer processors {ITEM_9}")
-        proc_strategy = (config.get("processor") or {}).get("shard_strategy", strategy)
-        if proc_strategy not in ("none", strategy):
-            raise NotImplementedError(f"{where}: a processor shard_strategy {proc_strategy} under "
-                                      f"the model's {strategy} is not ported {ITEM_9}")
-        if strategy == "heads" and not self.heads_supported:
-            raise NotImplementedError(
-                f"{where}: {type(self).__name__} under shard_strategy heads is not ported "
-                f"{ITEM_9}")
-        for part in ("encoder", "processor", "decoder"):
-            name = str((config.get(part) or {}).get("name", _DEFAULT_NAMES[part]))
-            dense = strategy == "heads" and part == "processor" and name == "TransformerProcessor"
-            if not (name.startswith("GraphTransformer") or dense):
-                raise NotImplementedError(
-                    f"{where}: {part} {name} under shard_strategy {strategy} is not ported; the "
-                    "halo path covers the GraphTransformer processor and mappers, heads the "
-                    f"GraphTransformer and Transformer processors {ITEM_9}")
-            if (config.get(part) or {}).get("edge_provider"):
-                raise NotImplementedError(f"{where}: the {part}'s edge_provider under model "
-                                          f"shards is not ported {ITEM_9}")
-        if strategy == "heads":
+        self.overlap = bool(config.get("halo_overlap", True))
+        self.names = {part: component_name(config, part)
+                      for part in ("encoder", "processor", "decoder")}
+        # the processor's own strategy, else the model's
+        proc_strategy = str((config.get("processor") or {}).get("shard_strategy", strategy))
+        self.processor_heads = (proc_strategy == "heads"
+                                and self.names["processor"] in HEADS_PROCESSORS)
+        if self.model_parallel and self.processor_heads:
             heads = int((config.get("processor") or {}).get("num_heads", 0))
             if heads % self.num_model_shards:
-                raise ValueError(f"{where}: the processor's num_heads {heads} is not divisible "
-                                 "by the model group (shard_strategy heads)")
-        if strategy == "edges" and not bool(config.get("halo_mappers", True)):
-            raise NotImplementedError(f"{where}: halo_mappers false (GSPMD mappers) is not "
-                                      f"ported {ITEM_9}")
-        residual = str((config.get("residual") or {}).get("name", ""))
-        if residual in ROW_MIXING_RESIDUALS:
-            raise NotImplementedError(f"{where}: the residual {residual} mixes grid rows across "
-                                      f"the model group and is not ported there {ITEM_9}")
+                raise ValueError(f"num_model_shards {self.num_model_shards}: the processor's "
+                                 f"num_heads {heads} is not divisible by the model group "
+                                 "(shard_strategy heads)")
 
-    def shard_over(self, mesh) -> None:
-        """Build this rank's halo tables of every edge set over ``mesh``'s
-        model group (JAX ``build_graph_inputs`` under ``edges``); a no-op
-        without model shards.  Called once by the interface: training and
-        serving share the tables."""
-        if not self.model_parallel:
-            return
+    def _mesh_group(self, mesh):
+        """``(group, size, index)`` of ``mesh``'s model group, which must
+        have ``num_model_shards`` ranks."""
         s = self.num_model_shards
         if mesh is None or mesh.size("model") != s:
             raise ValueError(f"num_model_shards {s} needs a mesh whose model group has {s} "
                              f"ranks, got {None if mesh is None else mesh.spec}")
-        group, index = mesh.group("model"), mesh.index("model")
-        overlap = bool(self.config.get("halo_overlap", True))
+        return mesh.group("model"), s, mesh.index("model")
+
+    def shard_over(self, mesh) -> None:
+        """Build this rank's share of every edge set and node set over
+        ``mesh``'s model group (JAX ``build_graph_inputs`` under model
+        shards), each by its component's route; a no-op without model
+        shards.  Called once by the interface: training and serving share
+        the tables."""
+        if not self.model_parallel:
+            return
+        group, s, index = self._mesh_group(mesh)
         g = self.graph
-        if self.strategy == "heads":
-            # the mappers keep the bipartite halo route; the processor takes
-            # the hidden mesh's row block as its sequence shard
-            processor = HeadsShard(group, s, index, g.num_nodes[g.hidden_name],
-                                   g.processor if self.processor_edges else None)
-        else:
-            processor = g.processor.sharded_edge_data(s, index, group, overlap)
+
+        def mapper(part, sub):
+            return mapper_shard(self.names[part], sub, group, s, index, self.overlap,
+                                runtime=self.dynamic.get(part) is not None)
+
+        processor = processor_shard(self.names["processor"], g.processor, self.processor, group,
+                                    s, index, self.overlap, self.processor_heads)
         self.halo = {
-            "encoder": {ds: sub.sharded_edge_data(s, index, group, overlap)
-                        for ds, sub in g.encoder.items()},
+            "encoder": {ds: mapper("encoder", sub) for ds, sub in g.encoder.items()},
             "processor": processor,
-            "decoder": {ds: sub.sharded_edge_data(s, index, group, overlap)
-                        for ds, sub in g.decoder.items()},
+            "decoder": {ds: mapper("decoder", sub) for ds, sub in g.decoder.items()},
         }
         for ds, enc in self.halo["encoder"].items():
             if enc.src_rows != self.halo["decoder"][ds].dst_rows:
                 raise AssertionError(f"{ds}: the encoder and decoder split the grid differently")
             if (enc.dst_rows, enc.n_local) != (processor.dst_rows, processor.n_local):
                 raise AssertionError(f"{ds}: the encoder and processor split the mesh differently")
+            if self.names["encoder"].startswith("PointWise") and enc.src_rows != enc.dst_rows:
+                raise AssertionError(f"{ds}: a point-wise mapper's grid and mesh rows differ")
 
     def grid_rows(self, ds: str) -> slice:
         """This rank's rows of dataset ``ds``'s grid (all of them without
@@ -547,39 +613,61 @@ class AnemoiModelEncProcDec(nn.Module):
 
     def _mapper_edges(self, part: str, src: str, dst: str, static) -> SubGraphArrays:
         """The mapper's edge set: the static one, or its ``DynamicKNN``
-        provider's, built now from the node sets' coordinates."""
+        provider's, built now from the node sets' coordinates (under model
+        shards: the rank's destinations' edges)."""
         provider = self.dynamic[part]
         if provider is None:
             return static
         feats = self.graph.node_features_f32
         fused = fused_backward(self.config, part, self.graph.num_nodes[dst] * provider["k"],
                                self.num_channels)
-        return dynamic_subgraph(provider, feats[src], feats[dst], static.edge_attr.dtype, fused)
+        # the mapper's dataset: its source set (encoder) or destination set
+        shard = None if self.halo is None else self.halo[part][src if part == "encoder" else dst]
+        return dynamic_subgraph(provider, feats[src], feats[dst], static.edge_attr.dtype, fused,
+                                shard)
 
     def _edges(self, provider: str, sub, ds: str | None = None) -> torch.Tensor:
         trainable = getattr(self, provider, None)
         if trainable is None:
             return sub.edge_attr
-        return (trainable[ds] if ds is not None else trainable)(sub.edge_attr)
+        module = trainable[ds] if ds is not None else trainable
+        part = provider.split("_")[0]
+        if self.halo is not None and self.dynamic.get(part) is not None:
+            # the rank's edges of the runtime set: k a destination row
+            rows, k = self.halo[part][ds].dst_rows, self.dynamic[part]["k"]
+            return module(sub.edge_attr, slice(rows.start * k, rows.stop * k))
+        return module(sub.edge_attr)
 
     def _set(self, part: str, ds: str, sub=None):
         """A mapper's sub-graph: ``sub`` (default: the graph's), or this
-        rank's halo share of it under model shards."""
+        rank's share of it under model shards (with a runtime set, the
+        rank's ``BlockShard`` carrying it)."""
         if self.halo is not None:
-            return self.halo[part][ds]
+            shard = self.halo[part][ds]
+            return shard.with_sub(sub) if self.dynamic.get(part) is not None else shard
         return getattr(self.graph, part)[ds] if sub is None else sub
 
+    def _skip(self, ds: str, x: torch.Tensor) -> torch.Tensor:
+        """The residual's skip state of the rank's grid rows; a residual
+        that mixes grid rows runs on the whole grid, gathered over the
+        model group (its backward sums the ranks' cotangents onto each
+        row's owner), and keeps the rank's rows."""
+        residual = self.residual[ds]
+        if self.halo is None or type(residual).__name__ not in ROW_MIXING_RESIDUALS:
+            return residual(x, n_step_output=self.n_step_output)
+        shard, rows = self.halo["encoder"][ds], self.grid_rows(ds)
+        whole = gather_blocks(x, 3, shard.group, shard.num_src, shard.num_shards, shard.index)
+        out = residual(whole, n_step_output=self.n_step_output)
+        return out.narrow(3, rows.start, rows.stop - rows.start)
+
     def _run_processor(self, x_latent: torch.Tensor, cond: Optional[torch.Tensor]):
-        """The processor on the rank's hidden rows: over the processor set,
-        its halo share, or under ``heads`` its sequence shard."""
+        """The processor on the rank's hidden rows: over the processor set or
+        the rank's share of it (``call_processor``)."""
         graph, halo = self.graph, self.halo
-        if self.processor_edges:
-            return self.processor(
-                x_latent, graph.processor if halo is None else halo["processor"],
-                self._edges("processor_graph_provider", graph.processor), cond)
-        if halo is not None and isinstance(halo["processor"], HeadsShard):
-            return self.processor(x_latent, cond, shard=halo["processor"])
-        return self.processor(x_latent, cond)
+        sub = graph.processor if halo is None else halo["processor"]
+        edges = (self._edges("processor_graph_provider", graph.processor)
+                 if self.processor_edges else None)
+        return call_processor(self.processor, x_latent, sub, edges, cond, self.processor_edges)
 
     def forward(self, x: Dict[str, torch.Tensor], cond: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, fcstep: int = 0) -> Dict[str, torch.Tensor]:
@@ -607,7 +695,7 @@ class AnemoiModelEncProcDec(nn.Module):
         x_skip, x_data_latent, latents = {}, {}, []
         for ds in datasets:
             xd = x[ds]
-            x_skip[ds] = self.residual[ds](xd, n_step_output=self.n_step_output)
+            x_skip[ds] = self._skip(ds, xd)
             node_attrs = self.node_attributes(ds, graph.node_features[ds].to(dt))
             node_attrs = node_attrs[self.grid_rows(ds)]
             # [B,T,E,G,V] -> [(B E), G, (T V)]

@@ -28,12 +28,16 @@ so ``state_dict_from_jax`` maps the JAX model's ``encoder_<ds>``,
 ``decoder_<ds>`` onto them; trainable edge features live on the matching
 graph providers (``downscale_graph_providers.<h>``, ...).
 
-Model parallelism (``shard_strategy: edges``, JAX ``hierarchical.py:106-135``):
-:meth:`AnemoiModelEncProcDecHierarchical.shard_over` builds halo tables for
-every sub-graph -- the level processors' sets square-partitioned, the
-encoder, decoder, down and up mappers' bipartite -- and each rank runs the
-V-cycle on its row block of every node set.  ``heads`` is refused (ROADMAP
-item 9): the JAX package has no test of it.
+Model parallelism (JAX ``hierarchical.py:106-135``):
+:meth:`AnemoiModelEncProcDecHierarchical.shard_over` builds each rank's
+share of every sub-graph by its component's route (as the flat model's,
+``encoder_processor_decoder.mapper_shard`` and ``processor_shard``): the
+level processors' sets square-partitioned (or, under ``heads``, a
+``HeadsShard`` of the level's mesh for a GraphTransformer or Transformer
+processor), the encoder, decoder, down and up mappers' bipartite; each rank
+runs the V-cycle on its row block of every node set.  The JAX package holds
+no sharded test of the V-cycle under ``heads``; the port's is held to one
+process.
 
 The attention backward on each sub-graph follows the JAX model's choice:
 ``paged_fused_bwd`` on the level sets, ``paged_mapper_fused_bwd`` (default:
@@ -51,9 +55,11 @@ from torch import nn
 
 from anemoi_tpu_torch.models.encoder_processor_decoder import (
     EDGE_COMPONENTS,
-    ITEM_9,
     AnemoiModelEncProcDec,
     _component,
+    call_processor,
+    mapper_shard,
+    processor_shard,
 )
 from anemoi_tpu_torch.models.layers.embed import NamedNodesAttributes
 from anemoi_tpu_torch.models.layers.mapper import TrainableEdgeFeatures
@@ -65,40 +71,40 @@ _LEARNABLE_RESIDUALS = ("ScalarOrnsteinConnection", "SpectralOrnsteinConnection"
 class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
     """The multi-level V-cycle model."""
 
-    heads_supported = False  # the V-cycle is sharded under edges, as in JAX
-
     def _check_sharding(self, config: dict) -> None:
         super()._check_sharding(config)
-        up = str((config.get("up_mapper") or {}).get("name", "GraphTransformerBackwardMapper"))
-        if self.model_parallel and not up.startswith("GraphTransformer"):
-            raise NotImplementedError(
-                f"num_model_shards {self.num_model_shards}: the up mapper {up} under "
-                f"shard_strategy edges is not ported {ITEM_9}")
+        self.names["up"] = str((config["up_mapper"] if "up_mapper" in config
+                                else config.get("decoder") or {}).get(
+            "name", "GraphTransformerBackwardMapper"))
 
     def shard_over(self, mesh) -> None:
-        """Halo tables for every sub-graph of the V-cycle over ``mesh``'s
-        model group (JAX ``hierarchical.py:106-135``): the level processors'
-        sets square-partitioned, the encoder, decoder, down and up mappers'
-        bipartite; every node set split in the same row blocks."""
+        """Each rank's share of every sub-graph of the V-cycle over
+        ``mesh``'s model group (JAX ``hierarchical.py:106-135``), by its
+        component's route: the level processors' sets square-partitioned
+        (a ``HeadsShard`` of the level's mesh under ``heads``), the encoder,
+        decoder, down and up mappers' bipartite; every node set split in the
+        same row blocks."""
         if not self.model_parallel:
             return
-        s = self.num_model_shards
-        if mesh is None or mesh.size("model") != s:
-            raise ValueError(f"num_model_shards {s} needs a mesh whose model group has {s} "
-                             f"ranks, got {None if mesh is None else mesh.spec}")
-        group, index = mesh.group("model"), mesh.index("model")
-        overlap = bool(self.config.get("halo_overlap", True))
+        group, s, index = self._mesh_group(mesh)
         g = self.graph
         built = {}
+        kinds = {"encoder": "encoder", "down": "encoder", "decoder": "decoder", "up": "up"}
 
-        def shard(sub):
-            if id(sub) not in built:  # the finest level's set is the processor's
-                built[id(sub)] = sub.sharded_edge_data(s, index, group, overlap)
-            return built[id(sub)]
+        def shard(kind, sub):
+            if id(sub) in built:  # the finest level's set is the processor's
+                return built[id(sub)]
+            if kind in kinds:
+                out = mapper_shard(self.names[kinds[kind]], sub, group, s, index, self.overlap)
+            else:
+                out = processor_shard(self.names["processor"], sub, self._a_processor(),
+                                      group, s, index, self.overlap, self.processor_heads)
+            built[id(sub)] = out
+            return out
 
-        self.halo = {kind: {key: shard(sub) for key, sub in getattr(g, kind).items()}
+        self.halo = {kind: {key: shard(kind, sub) for key, sub in getattr(g, kind).items()}
                      for kind in ("encoder", "decoder", "level", "down", "up")}
-        self.halo["processor"] = shard(g.processor)
+        self.halo["processor"] = shard("processor", g.processor)
         rows = {}
         for kind, subs in self.halo.items():
             for key, sh in ([("processor", self.halo["processor"])] if kind == "processor"
@@ -108,6 +114,11 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
                     if rows.setdefault(name, r) != r:
                         raise AssertionError(f"{name}: the V-cycle's sets split it differently")
         self._node_rows = rows
+
+    def _a_processor(self) -> Optional[nn.Module]:
+        """One of the level processors (they share one config), or None."""
+        procs = [getattr(self, "processor", None), *self.down_level_processor.values()]
+        return next((p for p in procs if p is not None), None)
 
     def _ends(self, kind: str, key: str):
         """(source, destination) node sets of one of the V-cycle's sets."""
@@ -273,11 +284,12 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
 
     def _process(self, proc: nn.Module, x: torch.Tensor, name: str, provider: str,
                  cond: Optional[torch.Tensor]) -> torch.Tensor:
-        if not self.processor_edges:
-            return proc(x, cond)
-        sub = self.graph.level[name]
-        key = None if provider == "processor_graph_provider" else name
-        return proc(x, self._set("level", name), self._edges(provider, sub, key), cond)
+        edges = None
+        if self.processor_edges:
+            key = None if provider == "processor_graph_provider" else name
+            edges = self._edges(provider, self.graph.level[name], key)
+        return call_processor(proc, x, self._set("level", name), edges, cond,
+                              self.processor_edges)
 
     def forward(self, x: Dict[str, torch.Tensor], cond: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, fcstep: int = 0) -> Dict[str, torch.Tensor]:
@@ -300,7 +312,7 @@ class AnemoiModelEncProcDecHierarchical(AnemoiModelEncProcDec):
         x_skip, x_data_latent, latents = {}, {}, []
         for ds in datasets:
             xd = x[ds]
-            x_skip[ds] = self.residual[ds](xd, n_step_output=self.n_step_output)
+            x_skip[ds] = self._skip(ds, xd)
             flat = xd.permute(0, 2, 3, 1, 4).reshape(bflat, xd.shape[3], n_time * xd.shape[4])
             x_in = torch.cat([flat, self._attrs(ds, bflat, dt)], dim=-1)  # the rank's grid rows
             sub = graph.encoder[ds]

@@ -23,9 +23,12 @@ never picked.  Under Ulysses sequence parallelism (``shard_strategy:
 heads``) the self-attention takes a ``parallel/heads.HeadsShard``: the
 rank's rows of q, k and v go through ``ulysses_mhsa`` (one all-to-all to
 the whole sequence for the rank's heads, the band or full attention on its
-real rows, the all-to-all back).  The halo (``edges``) strategy of
-``parallel/halo.py`` shards the graph attention only; the cross attention
-runs on one rank or under data parallelism.
+real rows, the all-to-all back); under ``edges`` a
+``parallel/band.BandShard``: ``band_mhsa``, the band over the rank's
+extended block (the window's rows around its block, fetched from the
+ranks that own them).  Under model shards the cross attention takes the
+rank's queries over the whole source set, its keys and values gathered
+(``parallel/rows.BlockShard``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ from torch import nn
 
 from anemoi_tpu_torch.models.layers.normalization import QKNorm
 from anemoi_tpu_torch.ops.window_attention import band_attention, softcap_alibi
-from anemoi_tpu_torch.parallel.heads import HeadsShard, ulysses_mhsa
+from anemoi_tpu_torch.parallel.band import BandShard, band_mhsa
+from anemoi_tpu_torch.parallel.heads import ulysses_mhsa
+from anemoi_tpu_torch.parallel.rows import BlockShard
 
 
 def get_alibi_slopes(num_heads: int) -> torch.Tensor:
@@ -58,15 +63,16 @@ def get_alibi_slopes(num_heads: int) -> torch.Tensor:
 
 
 def apply_rotary_embeddings(
-    q: torch.Tensor, k: torch.Tensor, base: float = 10000.0
+    q: torch.Tensor, k: torch.Tensor, base: float = 10000.0, offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RoPE over the sequence axis: rotate the two halves of each head dim
     by position-dependent angles (an odd last lane passes through).  q, k:
-    ``[..., N, H, D]``.  Plain tensor code, as in the JAX package."""
+    ``[..., N, H, D]``, whose first row is at position ``offset`` of the
+    sequence.  Plain tensor code, as in the JAX package."""
     n, _, d = q.shape[-3:]
     half = d // 2
     inv = 1.0 / (base ** (torch.arange(half, dtype=torch.float32) / max(half, 1)))
-    ang = torch.arange(n, dtype=torch.float32)[:, None] * inv[None]  # [N, half]
+    ang = torch.arange(offset, offset + n, dtype=torch.float32)[:, None] * inv[None]  # [N, half]
     cos = torch.cos(ang)[:, None, :].to(q.device, q.dtype)  # [N, 1, half]
     sin = torch.sin(ang)[:, None, :].to(q.device, q.dtype)
 
@@ -154,10 +160,11 @@ class MultiHeadSelfAttention(nn.Module):
         self.alibi_slopes = get_alibi_slopes(num_heads) if use_alibi_slopes else None
         self.plain_attention = False
 
-    def forward(self, x: torch.Tensor, shard: Optional[HeadsShard] = None) -> torch.Tensor:
-        """``x [B, N, C]``; under ``heads``, the rank's padded rows and its
-        ``shard`` (the JAX ``ulysses_mhsa`` path, whatever
-        ``attention_impl``)."""
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """``x [B, N, C]``; under model shards, the rank's padded rows and
+        its ``shard``: a ``HeadsShard`` under ``heads`` (the JAX
+        ``ulysses_mhsa`` path, whatever ``attention_impl``), a
+        ``BandShard`` under ``edges`` (the band halo)."""
         b, n, _ = x.shape
         h, d = self.num_heads, self.attn_channels // self.num_heads
         q = self.lin_q(x).view(b, n, h, d)
@@ -168,6 +175,10 @@ class MultiHeadSelfAttention(nn.Module):
         slopes = self.alibi_slopes
         if slopes is not None and slopes.device != x.device:
             slopes = self.alibi_slopes = slopes.to(x.device)
+        if isinstance(shard, BandShard):
+            out = band_mhsa(q, k, v, shard, self.softcap, slopes, self.use_rotary_embeddings,
+                            self.plain_attention)
+            return self.projection(out.reshape(b, n, self.attn_channels))
         if shard is not None:
             out = ulysses_mhsa(q, k, v, shard, self.window_size, self.softcap, slopes,
                                self.use_rotary_embeddings, self.plain_attention)
@@ -225,12 +236,19 @@ class MultiHeadCrossAttention(nn.Module):
         self.lin_v = nn.Linear(num_channels, hd, bias=qkv_bias)
         self.projection = nn.Linear(hd, num_channels)
 
-    def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor,
+                shard: Optional[BlockShard] = None) -> torch.Tensor:
+        """Under model shards (``shard``) the rank's queries attend over the
+        whole source set: its keys and values are gathered from every
+        rank's rows, their gradient summed back to the rows' owners."""
         b, nq, _ = x_dst.shape
-        nk = x_src.shape[1]
         h, d = self.num_heads, self.attn_channels // self.num_heads
+        hd = self.attn_channels
+        k, v = self.lin_k(x_src), self.lin_v(x_src)
+        if shard is not None:
+            kv = shard.gather_src(torch.cat([k, v], dim=-1))
+            k, v = kv[..., :hd], kv[..., hd:]
+        nk = k.shape[1]
         q = self.lin_q(x_dst).view(b, nq, h, d)
-        k = self.lin_k(x_src).view(b, nk, h, d)
-        v = self.lin_v(x_src).view(b, nk, h, d)
-        out = cross_attention(q, k, v)
+        out = cross_attention(q, k.reshape(b, nk, h, d), v.reshape(b, nk, h, d))
         return self.projection(out.reshape(b, nq, self.attn_channels))

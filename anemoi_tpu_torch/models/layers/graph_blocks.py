@@ -22,6 +22,9 @@ the processor block's sub-graph is a ``parallel/heads.HeadsShard`` and the
 attention is ``ulysses_gt_attention`` (JAX ``graph_blocks.py:242-259``):
 the norms run on the rank's rows, the attention on the whole processor set
 for the rank's heads, ``lin_edge`` fused with those heads' columns (K1).
+On a ``parallel/rows.BlockShard`` (a ``DynamicKNN`` mapper's runtime set of
+the rank's destinations) the keys and values of the whole source set are
+gathered from every rank and the attention runs on that CSR.
 
 Switches, as in the JAX blocks: ``cond_dim`` (the JAX ``conditional``)
 makes every norm of the block a ``ConditionalLayerNorm`` over the
@@ -32,7 +35,12 @@ layer (``mlp`` or a gated variant); ``qk_norm_type`` the query/key norm.
 The GNN blocks (anemoi's original GNN) run no kernel of their own: the edge
 MLP over ``[x_i, x_j, e]`` (``x_i`` the destination's features, ``x_j`` the
 source's), then the sum of the updated edges into each destination
-(``ops/segment.py``).  With the plain ``mlp`` hidden layer the edge MLP's
+(``ops/segment.py``).  Under model shards the GNN runs on the halo route:
+on a ``HaloShard`` each block exchanges the source rows its shard's edges
+read and sums its CSR's edges (``full``: the shard's destinations over
+``[local | halo]`` sources) into the local destinations; the edge latents
+belong to their destination's rank.  On a ``BlockShard`` (a runtime set)
+the sources are gathered whole.  With the plain ``mlp`` hidden layer the edge MLP's
 first Linear is split as the JAX ``_DecomposedEdgeMLP`` splits it: its
 weight ``[hidden, c_dst + c_src + f]`` in that order, the node parts
 ``x_dst @ Wi`` and ``x_src @ Wj`` taken once a node and gathered to the
@@ -53,8 +61,9 @@ from anemoi_tpu_torch.models.layers.mlp import MLP, compute_mlp_hidden_dim, get_
 from anemoi_tpu_torch.models.layers.normalization import LayerNorm, QKNorm, norm
 from anemoi_tpu_torch.ops.gt_attention import gt_attention, gt_attention_fe
 from anemoi_tpu_torch.ops.segment import gather_edge_endpoints, graph_conv_aggregate
-from anemoi_tpu_torch.parallel.halo import HaloShard, halo_gt_attention
+from anemoi_tpu_torch.parallel.halo import HaloShard, _depends_on, halo_exchange_b, halo_gt_attention
 from anemoi_tpu_torch.parallel.heads import HeadsShard, ulysses_gt_attention
+from anemoi_tpu_torch.parallel.rows import BlockShard
 
 
 class GraphTransformerBaseBlock(nn.Module):
@@ -107,6 +116,18 @@ class GraphTransformerBaseBlock(nn.Module):
             query = self._head_norm(self.q_norm, query)
             key = self._head_norm(self.k_norm, key)
         e = edge_attr.to(x_src.dtype)
+        if isinstance(sub, BlockShard):
+            hd = key.shape[-1]
+            kv = sub.gather_src(torch.cat([key, value], dim=-1))
+            out = self._attend(query, kv[..., :hd].contiguous(), kv[..., hd:].contiguous(),
+                               sub.sub, e)
+            return _depends_on(out, kv)
+        return self._attend(query, key, value, sub, e)
+
+    def _attend(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor, sub,
+                e: torch.Tensor) -> torch.Tensor:
+        """The sparse attention of the projected rows over ``sub`` (a
+        sub-graph, or a rank's ``HeadsShard`` or ``HaloShard``)."""
         if isinstance(sub, HeadsShard):
             if self.edge_pre_mlp is None:
                 return ulysses_gt_attention(query, key, value, sub, self.num_heads, edge_attr=e,
@@ -190,6 +211,18 @@ def gnn_mlp(in_features: int, hidden_dim: int, out_features: int, mlp_extra_laye
                implementation=implementation, n_extra_layers=mlp_extra_layers + 1)
 
 
+def source_rows(x_src: torch.Tensor, sub):
+    """``(sources, csr)`` of a GNN block: on a ``HaloShard`` the rank's
+    padded rows and the rows its peers send (``[local | halo]``) with the
+    shard's CSR; on a ``BlockShard`` the whole source set with the rank's
+    runtime CSR; else ``x_src`` and ``sub``."""
+    if isinstance(sub, HaloShard):
+        return halo_exchange_b(x_src, sub), sub.full
+    if isinstance(sub, BlockShard):
+        return sub.gather_src(x_src), sub.sub
+    return x_src, sub
+
+
 class GraphConv(nn.Module):
     """GNN message function and aggregation: ``e_new = edge_mlp([x_i, x_j,
     e]) + e`` and ``out[d] = sum of e_new over the edges into d``; returns
@@ -216,12 +249,14 @@ class GraphConv(nn.Module):
 
     def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor, edge_attr: torch.Tensor,
                 sub: SubGraphArrays) -> Tuple[torch.Tensor, torch.Tensor]:
+        x_ext, sub = source_rows(x_src, sub)
         if self.decomposed:
-            edges_new = self._edge_mlp_decomposed(x_src, x_dst, edge_attr, sub) + edge_attr
+            edges_new = self._edge_mlp_decomposed(x_ext, x_dst, edge_attr, sub) + edge_attr
         else:
-            x_i, x_j = gather_edge_endpoints(x_src, x_dst, sub.edge_index)
+            x_i, x_j = gather_edge_endpoints(x_ext, x_dst, sub.edge_index)
             edges_new = self.edge_mlp(torch.cat([x_i, x_j, edge_attr], dim=-1)) + edge_attr
-        return graph_conv_aggregate(edges_new, sub.edge_index[1], sub.num_dst), edges_new
+        out = graph_conv_aggregate(edges_new, sub.edge_index[1], sub.num_dst)
+        return (out if x_ext is x_src else _depends_on(out, x_ext)), edges_new
 
 
 class GraphConvProcessorBlock(nn.Module):

@@ -29,12 +29,17 @@ every source (``MultiHeadCrossAttention``, flash / memory-efficient SDPA on
 the card), then an MLP, each behind a LayerNorm and a residual; they read no
 edges and carry no trainable edge features, as in the JAX package.
 
-Under model shards the graph-transformer mappers take a
+Under model shards the graph-transformer and GNN mappers take a
 ``parallel/halo.HaloShard`` as their sub-graph (:func:`_halo_prepare`, JAX
 ``mapper._halo_prepare``): the rank's source and destination rows are padded
 to its partition blocks, the edge features (trainable ones included) are
 permuted into its edge layout, and the padded destination rows are dropped
-again after the block.
+again after the block; the GNN's edges are its shard's destination CSR
+(``HaloShard.full``), whose source rows the block exchanges.  A mapper whose
+edges are a ``DynamicKNN`` runtime set, and the dense cross-attention
+mappers, take a ``parallel/rows.BlockShard``: the rank's destinations over
+the whole source set, gathered from every rank.  The point-wise mappers
+read the rank's rows alone.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from anemoi_tpu_torch.models.layers.mlp import MLP, compute_mlp_hidden_dim
 from anemoi_tpu_torch.models.layers.normalization import LayerNorm
 from anemoi_tpu_torch.models.layers.remat import BlockRemat
 from anemoi_tpu_torch.parallel.halo import HaloShard, pad_rows, permute_rows
+from anemoi_tpu_torch.parallel.rows import BlockShard
 
 
 class TrainableEdgeFeatures(nn.Module):
@@ -67,8 +73,11 @@ class TrainableEdgeFeatures(nn.Module):
         super().__init__()
         self.trainable = nn.Parameter(torch.zeros(num_edges, trainable_size))
 
-    def forward(self, edge_attr: torch.Tensor) -> torch.Tensor:
-        return torch.cat([edge_attr, self.trainable.to(edge_attr.dtype)], dim=-1)
+    def forward(self, edge_attr: torch.Tensor, rows: Optional[slice] = None) -> torch.Tensor:
+        """``edge_attr`` of all the set's edges, or of its edges ``rows`` (a
+        rank's edges of a runtime set under model shards)."""
+        trainable = self.trainable if rows is None else self.trainable[rows]
+        return torch.cat([edge_attr, trainable.to(edge_attr.dtype)], dim=-1)
 
 
 def _halo_prepare(x_src: torch.Tensor, x_dst: torch.Tensor, edge_attr: torch.Tensor,
@@ -78,6 +87,16 @@ def _halo_prepare(x_src: torch.Tensor, x_dst: torch.Tensor, edge_attr: torch.Ten
     with a gradient through the permutation (:func:`permute_rows`)."""
     return (pad_rows(x_src, shard.n_local_src), pad_rows(x_dst, shard.n_local),
             permute_rows(edge_attr, shard.edge_perm, shard.edge_perm_inv))
+
+
+def _gnn_prepare(x_src: torch.Tensor, x_dst: torch.Tensor, edge_attr: torch.Tensor, sub):
+    """A GNN mapper's rows and edge features on a halo shard: padded, and
+    the features of the shard's CSR edges (``full``, its first edges in
+    order); elsewhere as given."""
+    if not isinstance(sub, HaloShard):
+        return x_src, x_dst, edge_attr
+    x_src, x_dst, edge_attr = _halo_prepare(x_src, x_dst, edge_attr, sub)
+    return x_src, x_dst, edge_attr.narrow(0, 0, sub.full.num_edges)
 
 
 def _block(in_channels, hidden_dim, num_heads, edge_dim, mlp_hidden_ratio, **block_kw):
@@ -194,9 +213,12 @@ class GNNForwardMapper(nn.Module):
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
         cond=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        n_src, n_dst = x[0].shape[1], x[1].shape[1]
+        x_src, x_dst, edge_attr = _gnn_prepare(self.emb_nodes_src(x[0]), self.emb_nodes_dst(x[1]),
+                                               edge_attr, sub)
         edges = _broadcast_edges(self.emb_edges, edge_attr, x[0])
-        x = (self.emb_nodes_src(x[0]), self.emb_nodes_dst(x[1]))
-        return self.proc(x, edges, sub)[0]
+        x_src, x_dst = self.proc((x_src, x_dst), edges, sub)[0]
+        return x_src[:, :n_src], x_dst[:, :n_dst]
 
 
 class GNNBackwardMapper(nn.Module):
@@ -222,9 +244,11 @@ class GNNBackwardMapper(nn.Module):
         self, x: Tuple[torch.Tensor, torch.Tensor], sub: SubGraphArrays, edge_attr: torch.Tensor,
         cond=None,
     ) -> torch.Tensor:
+        n_dst = x[1].shape[1]
+        x_src, x_dst, edge_attr = _gnn_prepare(x[0], x[1], edge_attr, sub)
         edges = _broadcast_edges(self.emb_edges, edge_attr, x[0])
-        (_, x_dst), _ = self.proc(x, edges, sub)
-        return self.node_data_extractor(_promoted(x_dst, self.output_linear.weight))
+        (_, x_dst), _ = self.proc((x_src, x_dst), edges, sub)
+        return self.node_data_extractor(_promoted(x_dst[:, :n_dst], self.output_linear.weight))
 
 
 def _same_nodes(x_src: torch.Tensor, x_dst: torch.Tensor) -> None:
@@ -269,6 +293,11 @@ class PointWiseBackwardMapper(nn.Module):
         return self.mlp(torch.cat(x, dim=-1))
 
 
+def _block_shard(sub) -> Optional[BlockShard]:
+    """The rank's ``BlockShard`` under model shards, else None."""
+    return sub if isinstance(sub, BlockShard) else None
+
+
 class TransformerMapperBlock(nn.Module):
     """``x_dst + attention(LN(x_src), LN(x_dst))``, then ``+ mlp(LN(.))``
     (anemoi-core's names; the JAX mapper's ``ln_src``, ``ln_dst``,
@@ -283,9 +312,10 @@ class TransformerMapperBlock(nn.Module):
         self.mlp = MLP(hidden_dim, compute_mlp_hidden_dim(hidden_dim, mlp_hidden_ratio),
                        hidden_dim, layer_norm=False)
 
-    def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor,
+                shard: Optional[BlockShard] = None) -> torch.Tensor:
         x_dst = x_dst + self.attention(self.layer_norm_attention_src(x_src),
-                                       self.layer_norm_attention_dst(x_dst))
+                                       self.layer_norm_attention_dst(x_dst), shard)
         return x_dst + self.mlp(self.layer_norm_mlp(x_dst))
 
 
@@ -303,7 +333,8 @@ class TransformerForwardMapper(nn.Module):
         self.proc = TransformerMapperBlock(hidden_dim, num_heads, mlp_hidden_ratio)
 
     def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None, cond=None):
-        return x[0], self.proc(self.emb_nodes_src(x[0]), self.emb_nodes_dst(x[1]))
+        return x[0], self.proc(self.emb_nodes_src(x[0]), self.emb_nodes_dst(x[1]),
+                               _block_shard(sub))
 
 
 class TransformerBackwardMapper(nn.Module):
@@ -325,6 +356,6 @@ class TransformerBackwardMapper(nn.Module):
         return self.node_data_extractor[1]
 
     def forward(self, x: Tuple[torch.Tensor, torch.Tensor], sub=None, edge_attr=None, cond=None):
-        x_dst = self.proc(x[0], self.emb_nodes_dst(x[1]))
+        x_dst = self.proc(x[0], self.emb_nodes_dst(x[1]), _block_shard(sub))
         norm, head = self.node_data_extractor
         return head(_promoted(norm(x_dst), head.weight))

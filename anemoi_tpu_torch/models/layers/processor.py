@@ -25,7 +25,13 @@ a ``parallel/heads.HeadsShard`` as its sub-graph and the Transformer
 processor takes one as ``shard`` (JAX ``processor.py:109-137, 352-380``):
 the rows and per-node conditioning are padded the same way, the edge
 features stay whole, and every block's attention runs on the rank's heads
-over the whole sequence.
+over the whole sequence.  Under ``edges`` the Transformer processor takes a
+``parallel/band.BandShard`` as ``shard`` (the band halo: each block's
+attention over the rank's extended block), and the GNN processor a
+``HaloShard``: its rows are padded, the raw edge features permuted into the
+shard's layout once (the edge latents it threads through its layers stay
+with their destination's rank), and each block exchanges its source rows.
+The point-wise processor is row-local and takes no shard.
 """
 
 from __future__ import annotations
@@ -110,7 +116,7 @@ class TransformerProcessorBlock(nn.Module):
                        implementation=mlp_implementation)
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None,
-                shard: Optional[HeadsShard] = None) -> torch.Tensor:
+                shard=None) -> torch.Tensor:
         x = x + self.attention(self.layer_norm_attention(x, cond), shard)
         return x + self.mlp(self.layer_norm_mlp(x, cond))
 
@@ -134,9 +140,10 @@ class TransformerProcessor(BlockRemat, nn.Module):
         )
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None,
-                shard: Optional[HeadsShard] = None) -> torch.Tensor:
-        """``shard``: the rank's ``HeadsShard`` under ``heads`` (its rows
-        padded to the block here, and cut back after the last block)."""
+                shard=None) -> torch.Tensor:
+        """``shard``: the rank's ``HeadsShard`` under ``heads``, its
+        ``BandShard`` under ``edges`` (its rows padded to the block here,
+        and cut back after the last block)."""
         n = x.shape[1]
         if shard is not None:
             x, cond = _pad_rank_rows(x, cond, shard.n_local)
@@ -165,9 +172,14 @@ class GNNProcessor(BlockRemat, nn.Module):
 
     def forward(self, x: torch.Tensor, sub: SubGraphArrays, edge_attr: torch.Tensor,
                 cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        n = x.shape[1]
+        if isinstance(sub, HaloShard):
+            x = pad_rows(x, sub.n_local)
+            edge_attr = permute_rows(edge_attr, sub.edge_perm, sub.edge_perm_inv).narrow(
+                0, 0, sub.full.num_edges)
         for block in self.proc:
             x, edge_attr = self._run(block, x, edge_attr, sub)
-        return x
+        return x[:, :n]
 
 
 class PointWiseMLPProcessor(nn.Module):

@@ -35,7 +35,7 @@ ties between equally near sources differently.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -106,22 +106,29 @@ class RuntimeEdges(NamedTuple):
     num_dst: int
 
 
-def runtime_knn(src_feat: torch.Tensor, dst_feat: torch.Tensor, k: int) -> RuntimeEdges:
+def runtime_knn(src_feat: torch.Tensor, dst_feat: torch.Tensor, k: int,
+                rows: Optional[slice] = None) -> RuntimeEdges:
     """Each destination's ``k`` nearest sources, nearest first, from the
-    sincos features ``[N, 4]`` (float32)."""
-    ns, nd = src_feat.shape[0], dst_feat.shape[0]
+    sincos features ``[N, 4]`` (float32).  ``rows``: only these destinations
+    (a rank's block under model shards; numbered from 0 in the result),
+    each computed in the block of destinations one process computes it in,
+    so that equally near sources break the same way."""
+    ns, nd_all = src_feat.shape[0], dst_feat.shape[0]
     if k > ns:
         raise ValueError(f"asked for {k} neighbours among {ns} nodes")
+    rows = slice(0, nd_all) if rows is None else rows
+    nd = rows.stop - rows.start
     src_xyz = xyz_from_sincos(src_feat.float())
     dst_xyz = xyz_from_sincos(dst_feat.float())
     block = max(1, SIMILARITY_BLOCK_ELEMENTS // ns)
-    picked = []
-    with _full_float32():
-        for start in range(0, nd, block):
-            sim = dst_xyz[start:start + block] @ src_xyz.t()
-            picked.append(torch.topk(sim, k, dim=1).indices)
-            del sim
     dev = src_feat.device
+    picked = [torch.zeros((0, k), dtype=torch.long, device=dev)]
+    with _full_float32():
+        for start in range(rows.start - rows.start % block, rows.stop, block):
+            sim = dst_xyz[start:start + block] @ src_xyz.t()
+            top = torch.topk(sim, k, dim=1).indices
+            picked.append(top[max(rows.start - start, 0) : rows.stop - start])
+            del sim
     edge_src = torch.cat(picked).reshape(-1).to(torch.int32)
     edge_dst = torch.arange(nd, dtype=torch.int32, device=dev).repeat_interleave(k)
     edge_index = torch.stack([edge_src, edge_dst])

@@ -36,8 +36,7 @@ from typing import Optional
 import torch
 
 from anemoi_tpu_torch.parallel.distributed import all_to_all
-from anemoi_tpu_torch.parallel.mesh import grid_block
-from anemoi_tpu_torch.parallel.partition import _round_up
+from anemoi_tpu_torch.parallel.mesh import block_rows, grid_block
 
 
 def _exchange(blocks: torch.Tensor, group) -> torch.Tensor:
@@ -120,14 +119,14 @@ class HeadsShard:
 
     @property
     def n_local(self) -> int:
-        if self.num_shards <= 1:
-            return self.num_nodes
-        return _round_up(-(-self.num_nodes // self.num_shards), 8)
+        return block_rows(self.num_nodes, self.num_shards)
 
     @property
     def dst_rows(self) -> slice:
         """This rank's real rows of the hidden mesh."""
         return grid_block(self.num_nodes, self.num_shards, self.index)
+
+    src_rows = dst_rows
 
     @property
     def padded_len(self) -> int:

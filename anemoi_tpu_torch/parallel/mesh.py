@@ -142,6 +142,15 @@ def zero_sharding(shape: Sequence[int], data_size: int) -> bool:
     return data_size > 1 and len(shape) >= 1 and shape[0] > 0 and shape[0] % data_size == 0
 
 
+def block_rows(num_points: int, num_shards: int, bucket_multiple: int = 8) -> int:
+    """The rows of one rank's block of a node set split over ``num_shards``
+    (pad included): ``round_up(ceil(N / S), 8)``, as ``partition_graph``
+    pads them."""
+    if num_shards <= 1:
+        return num_points
+    return _round_up(-(-num_points // num_shards), bucket_multiple)
+
+
 def grid_block(num_points: int, num_shards: int, index: int,
                bucket_multiple: int = 8) -> slice:
     """Rank ``index``'s rows of a node set split over ``num_shards``: the
@@ -150,7 +159,7 @@ def grid_block(num_points: int, num_shards: int, index: int,
     may be short, or empty)."""
     if num_shards <= 1:
         return slice(0, num_points)
-    n_local = _round_up(-(-num_points // num_shards), bucket_multiple)
+    n_local = block_rows(num_points, num_shards, bucket_multiple)
     lo = min(index * n_local, num_points)
     return slice(lo, min(lo + n_local, num_points))
 

@@ -11,10 +11,12 @@ in ``spectral.py``, the wrappers ``LossVariableMapper`` and
 ``TimeAggregateLossWrapper`` in ``wrappers.py``, ``MultiscaleLossWrapper``
 in ``multiscale.py``.
 
-Under model shards each rank scores its grid rows (:func:`grid_sharded`):
-the grid-bound scalers are cut to the rows and the weighted mean's
-denominator is summed over the model group, so that the ranks' values add
-up to the loss of the whole grid.  Along an ensemble group the training
+Under model shards each rank scores its grid rows (:func:`grid_sharded`),
+so that the ranks' values add up to the loss of the whole grid: a sum over
+rows cuts the grid-bound scalers to the rows and sums the weighted mean's
+denominator over the model group; the RMSE also sums its numerator before
+the root; a loss that mixes grid rows gathers them whole
+(:class:`WholeGridLoss`) and each rank takes ``1 / S`` of its value.  Along an ensemble group the training
 step hands every loss the members of all the group's ranks
 (:func:`gather_members`), so a CRPS sees the whole ensemble.
 """
@@ -182,9 +184,9 @@ class BaseLoss:
     scaler, NaN targets out of both numerator and denominator, the weighted
     mean (``squash``) or the per-variable weighted mean (``squash=False``)."""
 
-    # its value over a grid split in row blocks is the sum of the blocks'
-    # (numerator over the rows, denominator summed over the group)
-    grid_decomposable = False
+    # how a rank scores its rows of a grid split over a model group
+    # (:func:`grid_sharded`); None: "rows" for the plain weighted mean
+    grid_route: Optional[str] = None
 
     def __init__(self, scalers: Optional[ScaleTensor] = None, ignore_nans: bool = True):
         self.scalers = scalers or ScaleTensor()
@@ -281,18 +283,78 @@ def gather_members(pred: torch.Tensor, group, dim: int = DIMS["ensemble"]) -> to
     return _GatherMembers.apply(pred, group, dim)
 
 
-def grid_sharded(loss: "BaseLoss", rows: slice, num_points: int, group) -> "BaseLoss":
+class WholeGridLoss:
+    """A loss that is no sum over grid rows (a spectral or multiscale loss)
+    on a rank's rows of a grid split over the model ``group``: the rows of
+    the prediction, the target and the imputer's mask are gathered whole
+    (``parallel/rows.gather_blocks``, whose backward sums every rank's
+    cotangent onto the rows' owner), the loss runs on the whole grid with
+    its own scalers, and each rank returns ``1 / S`` of it, so that the
+    model group's values add up to the loss and the gradients to its
+    gradient."""
+
+    grid_route = "whole"
+
+    def __init__(self, loss: "BaseLoss", num_points: int, group):
+        import torch.distributed as dist
+
+        self.loss, self.num_points, self.group = loss, int(num_points), group
+        self.num_shards = 1 if group is None else dist.get_world_size(group)
+        self.index = 0 if group is None else dist.get_rank(group)
+
+    @property
+    def scalers(self) -> ScaleTensor:
+        return self.loss.scalers
+
+    @property
+    def name(self) -> str:
+        return self.loss.name
+
+    def to(self, device) -> "WholeGridLoss":
+        self.loss.to(device)
+        return self
+
+    def _whole(self, x: Optional[torch.Tensor], dim: int) -> Optional[torch.Tensor]:
+        from anemoi_tpu_torch.parallel.rows import gather_blocks
+
+        if x is None:
+            return None
+        return gather_blocks(x, dim, self.group, self.num_points, self.num_shards, self.index)
+
+    def __call__(self, pred, target, squash: bool = True, mask=None, **kwargs):
+        grid = DIMS["grid"]
+        value = self.loss(self._whole(pred, grid), self._whole(target, grid), squash=squash,
+                          mask=self._whole(mask, 1), **kwargs)
+        return value / self.num_shards
+
+
+def grid_sharded(loss: "BaseLoss", rows: slice, num_points: int, group):
     """A copy of ``loss`` that scores a rank's ``rows`` of a grid of
-    ``num_points`` split over the model ``group``.  A loss whose value is not
-    a sum over grid rows (an RMSE, a spectral or multiscale loss, a
-    wrapper) raises ``NotImplementedError``."""
+    ``num_points`` split over the model ``group``, its value the rank's
+    share of the whole grid's loss (the group's values add up to it), by
+    the loss's route (``grid_route``):
+
+    - ``rows``: a sum over grid rows (the pointwise leaves, ``KernelCRPS``):
+      the grid-bound scalers cut to the rows, the weighted mean's
+      denominator summed over the group;
+    - ``reduce`` (``WeightedRMSELoss``): the same, with the numerator summed
+      over the group before the root;
+    - ``inner``: a wrapper (``LossVariableMapper``,
+      ``TimeAggregateLossWrapper``) or ``CombinedLoss``: each loss inside
+      takes its own route;
+    - ``whole``: any other loss (the spectral losses,
+      ``MultiscaleLossWrapper``): :class:`WholeGridLoss`."""
     members = getattr(loss, "members", None)
-    if members is None and not (type(loss).__call__ is BaseLoss.__call__
-                                or type(loss).grid_decomposable):
-        raise NotImplementedError(
-            f"{type(loss).__name__} over a grid split across the model group is not ported "
-            "(ROADMAP.md Queue 1, item 9)")
+    inner = getattr(loss, "loss", None) if type(loss).__name__ in WRAPPERS else None
+    route = getattr(type(loss), "grid_route", None)
+    if route is None:
+        route = "rows" if type(loss).__call__ is BaseLoss.__call__ else "whole"
+    if members is None and inner is None and route == "whole":
+        return WholeGridLoss(loss, num_points, group)
     out = copy.copy(loss)
+    if inner is not None:
+        out.loss = grid_sharded(inner, rows, num_points, group)
+        return out
     out.scalers = loss.scalers.slice_grid(rows, num_points)
     out.grid_group = group
     if members is not None:

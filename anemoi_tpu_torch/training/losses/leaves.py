@@ -28,10 +28,23 @@ class WeightedMAELoss(BaseLoss):
 
 @register_loss("WeightedRMSELoss")
 class WeightedRMSELoss(WeightedMSELoss):
-    """The square root of the weighted MSE."""
+    """The square root of the weighted MSE.  On a rank's grid rows
+    (``grid_group`` set) the MSE shares are summed over the model group
+    before the root, and each rank returns ``1 / S`` of the whole grid's
+    value."""
+
+    grid_route = "reduce"
 
     def __call__(self, pred, target, squash: bool = True, **kwargs):
-        return torch.sqrt(super().__call__(pred, target, squash=squash, **kwargs))
+        mse = super().__call__(pred, target, squash=squash, **kwargs)
+        group = self.grid_group
+        if group is None:
+            return torch.sqrt(mse)
+        import torch.distributed as dist
+
+        from anemoi_tpu_torch.parallel.rows import all_reduce_sum
+
+        return torch.sqrt(all_reduce_sum(mse, group)) / dist.get_world_size(group)
 
 
 @register_loss("WeightedHuberLoss")
@@ -62,7 +75,7 @@ class KernelCRPS(BaseLoss):
     M, G, V]`` against a single-truth ``target [B, T, 1, G, V]``; the error
     is ensemble-reduced (``[B, T, 1, G, V]``)."""
 
-    grid_decomposable = True
+    grid_route = "rows"
 
     def __init__(self, scalers=None, ignore_nans: bool = True, fair: bool = True):
         super().__init__(scalers, ignore_nans)

@@ -191,15 +191,16 @@ def mean_loss_over_ranks(loss: torch.Tensor, interface) -> torch.Tensor:
     return all_reduce(total, data_group) / data_size
 
 
-def reduce_gradients(params, interface) -> None:
+def reduce_gradients(params, interface, over_ensemble: bool = True) -> None:
     """Every replicated parameter's gradient summed over the model group (the
     ranks' rows' shares of the whole grid's gradient) and the ensemble group
-    (the shares through each rank's members, :func:`~anemoi_tpu_torch.training.losses.base.gather_members`)
-    and averaged over the data group, in one flat buffer."""
+    (the shares through each rank's members, :func:`~anemoi_tpu_torch.training.losses.base.gather_members`;
+    not ``over_ensemble``: the group's ranks are replicas, as a transport
+    model's) and averaged over the data group, in one flat buffer."""
     from anemoi_tpu_torch.parallel.distributed import all_reduce
 
     model_group, data_group, data_size = rank_groups(interface)
-    members = interface.ensemble_group
+    members = interface.ensemble_group if over_ensemble else None
     if model_group is None and data_group is None and members is None:
         return
     params = [p for p in params if p.requires_grad]

@@ -32,7 +32,7 @@ model runs its ``shard_strategy`` (``edges``, the halo exchange, or
 ``heads``) over the model group, the ensemble step its block of
 ``training.ensemble_size`` members on each rank of the ensemble group.  The
 transport task runs on the data and model axes (``training/transport_step.py``);
-with an ensemble group it is refused (``NotImplementedError``, item 9).  Each
+the ranks of an ensemble group train it as replicas.  Each
 rank is on the device of the backend rule (``parallel/distributed.py``).
 ``dataloader.batch_size`` is per data group; every rank samples the same
 seeded anchor order and reads only its batch rows and, with
@@ -88,7 +88,7 @@ from anemoi_tpu_torch.training.losses import get_loss_function
 from anemoi_tpu_torch.training.losses.scalers import create_scalers
 from anemoi_tpu_torch.training.optimizers import build_lr_schedule, build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, make_step_fns
-from anemoi_tpu_torch.training.transport_step import ENSEMBLE_REFUSAL, make_transport_step_fns
+from anemoi_tpu_torch.training.transport_step import make_transport_step_fns
 from anemoi_tpu_torch.utils.device import resolve_device
 
 LOGGER = logging.getLogger(__name__)
@@ -146,9 +146,6 @@ class AnemoiTrainer:
         if training_cfg.get("checkpoint_pipeline"):
             raise NotImplementedError("training.checkpoint_pipeline is not ported to "
                                       "anemoi_tpu_torch (ROADMAP.md Queue 1, item 10)")
-        if (str(training_cfg.get("task", "")) == "transport"
-                and int(dict(config.get("hardware") or {}).get("num_devices_per_ensemble", 1)) > 1):
-            raise NotImplementedError(ENSEMBLE_REFUSAL)
         self._init_mesh(config.get("hardware"))
         if self.mesh_spec.model > 1:
             # the model builds its halo tables over the model group

@@ -29,8 +29,14 @@ losses are reduced as in ``training/step.py``.  The sampler on a model
 group draws its initial state the same way and runs on the rank's rows
 (``inference.make_transport_forecast_fn`` gathers the grid).
 
-The ensemble axis (``hardware.num_devices_per_ensemble`` > 1) is refused
-with ``NotImplementedError``: the transport model has no members to split.
+The ensemble axis (``hardware.num_devices_per_ensemble`` E > 1): a
+transport model has no members to split, so the ranks of an ensemble group
+are replicas.  They read the same batch rows and grid block, draw the same
+noise (the draws are seeded by the step and cut by data and model index
+alone) and reduce the loss and gradients over the model and data groups
+only, so every replica takes the one-process step and their parameters stay
+equal (summing over the ensemble group too would give E times the
+gradient).
 
 One dataset only: the JAX model takes ``y_noised`` for every dataset while
 the JAX step passes one, so a multi-dataset transport config fails there
@@ -67,10 +73,6 @@ from anemoi_tpu_torch.training.step import (
 from anemoi_tpu_torch.utils.seeding import context_seed, fold_seed
 
 OBJECTIVES = ("edm", "interpolant")
-ENSEMBLE_REFUSAL = (
-    "the transport task with hardware.num_devices_per_ensemble > 1 is not ported to "
-    "anemoi_tpu_torch (ROADMAP.md Queue 1, item 9): a transport model has no members, so "
-    "every rank of an ensemble group would train on the same rows")
 
 
 def _one_dataset(interface, what: str) -> str:
@@ -110,11 +112,9 @@ def make_transport_step_fns(
     ``gaussian`` or ``reference_state``, to the target along
     ``beta_schedule``/``sigma_schedule`` with bridge noise
     ``interpolant_gamma``).  ``tendency``: the target is the increment over
-    the last input state.  Raises ``ValueError`` for more than one dataset,
-    and ``NotImplementedError`` on a mesh with an ensemble group."""
-    mesh = getattr(interface, "mesh", None)
-    if mesh is not None and mesh.size("ensemble") > 1:
-        raise NotImplementedError(ENSEMBLE_REFUSAL)
+    the last input state.  Raises ``ValueError`` for more than one dataset.
+    On a mesh with an ensemble group the group's ranks are replicas: the
+    gradients are reduced over the model and data groups only."""
     ds = _one_dataset(interface, "make_transport_step_fns")
     if objective not in OBJECTIVES:
         raise ValueError(f"Unknown transport objective '{objective}'")
@@ -178,7 +178,7 @@ def make_transport_step_fns(
         interface.zero_grad(set_to_none=True)
         value = transport_loss(batch, state.step)
         value.backward()
-        reduce_gradients(interface.parameters(), interface)
+        reduce_gradients(interface.parameters(), interface, over_ensemble=False)
         return mean_loss_over_ranks(value.detach(), interface)
 
     def train_step(state: TrainState, batch):

@@ -308,8 +308,9 @@ Phases (any failure exits non-zero, with no result line):
  31. parallel  -- data and halo model parallelism over ranks that share the
                   card (``parallel/distributed.spawn``; more ranks than
                   cards: gloo, whose collectives take the CUDA tensors): the
-                  flagship (512 channels, 16 layers, 16 heads,
-                  ``shard_strategy: edges``) on a model group of 2 against
+                  flagship (512 channels, 16 heads, its processor cut to
+                  ``PARALLEL_LAYERS`` = 8 layers, ``shard_strategy:
+                  edges``) on a model group of 2 against
                   one process on the same weights and batches: float32
                   step-1 gradients and 2-step forecast within relative L2
                   1e-4, bf16 within 1e-2 and 2e-2; every rank's K1, K3 and
@@ -339,11 +340,13 @@ Phases (any failure exits non-zero, with no result line):
                   a forecast, 2 timed bf16 steps a rank (wall ms marked as
                   gloo on one shared card), peak memory beside one
                   process's, the bytes each rank sends: on a model group of
-                  2 the flagship (512 channels, 16 layers, 16 heads) and
-                  the Transformer preset (1 024 channels, 16 layers, w 512)
-                  under ``shard_strategy: heads`` (Ulysses: 20 K1/K3/K4 a
-                  flagship step; 16 K6/K7 a Transformer step on 8 heads over
-                  the whole mesh), the ``transport_edm_diffusion`` model
+                  2 the flagship (512 channels, 16 heads) and the
+                  Transformer preset (1 024 channels, w 512), their
+                  processors and the transport and ensemble models' cut to
+                  ``PARALLEL_LAYERS`` = 8 layers,
+                  under ``shard_strategy: heads`` (Ulysses: 2 + 8 K1/K3/K4
+                  a flagship step; 8 K6/K7 a Transformer step on 8 heads
+                  over the whole mesh), the ``transport_edm_diffusion`` model
                   under ``edges`` (its training step; one generative
                   forecast step of 4 EDM-Heun sampling steps, not the
                   preset's 20: 7 evaluations), the ``hierarchical`` V-cycle
@@ -359,7 +362,28 @@ Phases (any failure exits non-zero, with no result line):
                   shard 2 of 2 of the V-cycle's down set, dk and dv exactly
                   0 on its edgeless and padded rows; the seconds of each
                   part;
- 33. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 33. parallel routes -- the rest of item 9 over ranks that share the card
+                  (gloo), as phase 32 (phase 31's gates against one process,
+                  every rank's launches exactly ``family_launches``, 2
+                  timed bf16 steps a rank, peak memory, the bytes each rank
+                  sends), on a model group of 2 at each model's width: the
+                  flagship with ``SpectralOrnsteinConnection`` and
+                  ``CombinedLoss`` (MSE + ``SpectralAMSELoss``, O96), the
+                  flagship with ``TruncatedConnection`` and the multiscale
+                  loss (an o32 ``truncation`` set), the Transformer preset
+                  under ``edges`` (the band halo: 16 K6/K7 a step on the
+                  rank's extended block), the GNN model (no kernel), the
+                  flagship with dense Transformer mappers, with
+                  ``DynamicKNN`` mappers (the runtime sets of the rank's
+                  destinations), the ``point_wise`` preset's model under
+                  ``gspmd``, the ``hierarchical`` V-cycle under ``heads``
+                  on phase 23's graph; ``transport_edm_diffusion``'s model
+                  on an ensemble group of 2 (replicas: their parameters
+                  equal after the steps, the first loss one process's);
+                  K6 and K7 on rank 0's extended block (5 640 of 10 242
+                  rows) against the plain op, timed beside the bound and
+                  SDPA with the band mask; the seconds of each part;
+ 34. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
@@ -369,13 +393,15 @@ Phases (any failure exits non-zero, with no result line):
                   training steps and generative forecasts, phase 23's
                   training steps, forecasts and ratio-2 step and phase 24's
                   two steps, phases 25-30's training steps and forecasts,
-                  phase 31's rank-0 training step and forecast, phase
-                  32's rank-0 training step and forecast of each part;
+                  phase 31's rank-0 training step and forecast, phases
+                  32's and 33's rank-0 training step and forecast of each
+                  part;
                   the K1 row also model shard 2 of 2's processor set and
                   the head subset's, the K3 and K4 rows those sets', the
                   down set's and its shard's, the dynamic encoder set's and
                   the hex and ICON encoder sets', the K5 row the ICON
-                  encoder set's, the K6 and K7 rows the head subset's), the
+                  encoder set's, the K6 and K7 rows the head subset's and
+                  the extended block's), the
                   card line, and
                   last {"ok": true, "device": {...}}; with --json, the same
                   and the serving and training details also go to PATH.
@@ -3895,6 +3921,9 @@ def mesh_phase(workdir: str, device, label: str) -> dict:
 
 
 # --- phase 31: data and halo model parallelism -------------------------------
+# the processors' depth in phases 31 and 32 (their width is the models'): cut
+# from 16 so that the whole run, phase 33 included, stays under 1 000 s
+PARALLEL_LAYERS = 8
 PARALLEL_STEPS = 3  # timed bf16 training steps of each rank of the model group of 2
 PARALLEL_DP_STEPS = 2  # fp32 steps of data 2 x model 2 against one process at batch 2
 # relative L2 gates (forecast, step-1 gradients) against one process: PERF.md section 2
@@ -3934,7 +3963,7 @@ def halo_exchanges(model, channels: int, elt: int) -> dict:
             "decoder": sizes(halo["decoder"]["data"])}
 
 
-def parallel_interface(graph, device, mesh=None, num_layers: int = 16):
+def parallel_interface(graph, device, mesh=None, num_layers: int = None):
     """The flagship's training interface (float32 masters) for phase 31,
     ``shard_strategy: edges`` over ``mesh``'s model group when it has more
     than one rank.  The weights are the interface's own draws from
@@ -3942,7 +3971,7 @@ def parallel_interface(graph, device, mesh=None, num_layers: int = 16):
     process."""
     from anemoi_tpu_torch.models.interface import AnemoiModelInterface
 
-    config = flagship_config(num_layers=num_layers)
+    config = flagship_config(num_layers=PARALLEL_LAYERS if num_layers is None else num_layers)
     if mesh is not None and mesh.size("model") > 1:
         config["model"].update(shard_strategy="edges", num_model_shards=mesh.size("model"))
     return AnemoiModelInterface(config=config, graph=graph, data_indices=flagship_indices(),
@@ -4337,25 +4366,41 @@ HEAD_SUBSET = HEADS // 2  # the heads one rank of a model group of 2 attends for
 
 
 def family_config(part: str) -> dict:
-    """The model of one part of phase 32, on the flagship's graph and
-    variables (the hierarchical one on phase 23's graph): the flagship
-    (512 channels, 16 layers, 16 heads), the Transformer preset (1 024
-    channels, 16 layers, 16 heads, w 512), or the packaged preset's model
-    section at its width."""
+    """The model of one part of phase 32 or 33, on the flagship's graph and
+    variables (the hierarchical ones on phase 23's graph): the flagship
+    (512 channels, 16 heads; phase 33's with a residual, a loss or mappers
+    of its part), the Transformer preset (1 024 channels, 16 heads, w
+    512), or the packaged preset's model section at its width; phase 32's
+    processors at ``PARALLEL_LAYERS``, phase 33's at 16 layers (the
+    ``hierarchical`` preset: 2 a level)."""
     import copy
 
     from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
 
-    if part == "flagship_heads":
-        return flagship_config(num_layers=FLAGSHIP_LAYERS)
-    if part == "transformer_heads":
-        return transformer_config(num_layers=TRANSFORMER_LAYERS)
-    preset = {"transport_edges": "transport_edm_diffusion", "ensemble": "ensemble_crps",
-              "hierarchical_edges": "hierarchical"}[part]
-    composed = load_config(os.path.join(PACKAGED_CONFIG_DIR, f"{preset}.yaml"), [],
-                           search_paths=[PACKAGED_CONFIG_DIR]).to_dict()
-    config = flagship_config(num_layers=FLAGSHIP_LAYERS)
-    config["model"] = {**copy.deepcopy(composed["model"]), "inference_precision": "bf16"}
+    layers = FLAGSHIP_LAYERS if part in ROUTE_PARTS else PARALLEL_LAYERS
+    if part in ("flagship_heads", "spectral", "projections", "dynamic", "transformer_mappers"):
+        config = flagship_config(num_layers=layers)
+        {"spectral": lambda c: c["model"].update(residual=SPECTRAL_RESIDUAL),
+         "projections": lambda c: c["model"].update(residual={"name": "TruncatedConnection"}),
+         "dynamic": with_dynamic_knn, "transformer_mappers": with_transformer_mappers,
+         }.get(part, lambda c: None)(config)
+        return config
+    if part.startswith("transformer"):
+        return transformer_config(num_layers=layers)
+    config = flagship_config(num_layers=layers)
+    if part == "gnn":  # the model group's file (phase 19 composes it on multi_scale)
+        model = load_config(os.path.join(PACKAGED_CONFIG_DIR, "model", "gnn.yaml"), [],
+                            search_paths=[PACKAGED_CONFIG_DIR]).to_dict()
+    else:
+        preset = {"transport_edges": "transport_edm_diffusion",
+                  "transport_ensemble": "transport_edm_diffusion", "ensemble": "ensemble_crps",
+                  "hierarchical_edges": "hierarchical", "hierarchical_heads": "hierarchical",
+                  "point_wise": "point_wise"}[part]
+        model = load_config(os.path.join(PACKAGED_CONFIG_DIR, f"{preset}.yaml"), [],
+                            search_paths=[PACKAGED_CONFIG_DIR]).to_dict()["model"]
+    config["model"] = {**copy.deepcopy(model), "inference_precision": "bf16"}
+    if part in ("transport_edges", "ensemble"):
+        config["model"]["processor"]["num_layers"] = layers
     return config
 
 
@@ -4367,7 +4412,7 @@ def family_interface(part: str, graph, device, mesh=None):
 
     config = family_config(part)
     if mesh is not None and mesh.size("model") > 1:
-        config["model"].update(shard_strategy=FAMILY_PARTS.get(part, "edges"),
+        config["model"].update(shard_strategy={**FAMILY_PARTS, **ROUTE_PARTS}.get(part, "edges"),
                                num_model_shards=mesh.size("model"))
     return AnemoiModelInterface(config=config, graph=graph, data_indices=flagship_indices(),
                                 statistics=flagship_statistics(SEED), device=device,
@@ -4386,7 +4431,13 @@ def family_step(iface, graph, part: str, precision: str):
     iface.inference_dtype = COMPUTE_TYPES[precision] or torch.float32
     tx = build_optimizer({"gradient_clip": {"val": 32.0, "algorithm": "value"}},
                          schedule=lambda count: PARALLEL_RATE)
-    if part == "transport_edges":
+    if part in ROUTE_LOSSES:
+        scalers = create_scalers({"area": {"name": "GraphNodeAttributeScaler",
+                                           "nodes_name": "data",
+                                           "attribute_name": "area_weight"}}, graph=graph)
+        losses = {"data": get_loss_function(ROUTE_LOSSES[part], scalers, graph=graph)}
+        train_step, _ = make_step_fns(iface, losses, rollout=1, precision=precision)
+    elif part.startswith("transport"):
         train_step, _ = make_transport_step_fns(iface, training_losses(graph), objective="edm",
                                                 precision=precision)
     elif part == "ensemble":
@@ -4413,7 +4464,7 @@ def family_output(iface, part: str, graph, device):
 
     fbatch = forecast_batch(graph, device)
     gen = torch.Generator(device=device).manual_seed(TRANSPORT_SEED)
-    if part == "transport_edges":
+    if part.startswith("transport"):
         return make_transport_forecast_fn(iface, 1, num_steps=FAMILY_SAMPLING_STEPS)(
             fbatch, gen)["data"]
     if part == "ensemble":
@@ -4432,54 +4483,126 @@ def shard_calls(shard) -> int:
 
 def family_launches(model) -> dict:
     """A training step's and a forecast step's launches on this rank of a
-    sharded model, from its tables: K1 once a mapper call (``shard_calls``)
-    and a processor layer (under ``heads`` one call over the whole set, or
-    K6 for a dense layer; under ``edges`` ``shard_calls`` a layer), K3 and
-    K4 with each K1 (no set reaches the 2 GB rule), K7 with each K6."""
+    sharded model (or on one process), from its tables: K1 once a
+    GraphTransformer mapper call (on a halo shard ``shard_calls``; on a
+    runtime set of the rank's destinations one, where it has rows) and a
+    GraphTransformer processor layer (under ``heads`` one call over the
+    whole set, under ``edges`` ``shard_calls``); K6 once a dense processor
+    layer (``heads`` or the band halo); none for the GNN, point-wise and
+    cross-attention components; K3 and K4 with each K1 (no set reaches the
+    2 GB rule), K7 with each K6."""
     from anemoi_tpu_torch.models.hierarchical import AnemoiModelEncProcDecHierarchical
+    from anemoi_tpu_torch.parallel.halo import HaloShard
     from anemoi_tpu_torch.parallel.heads import HeadsShard
+    from anemoi_tpu_torch.parallel.rows import BlockShard
 
-    halo = model.halo
-    gt = sum(shard_calls(s) for s in halo["encoder"].values())
-    gt += sum(shard_calls(s) for s in halo["decoder"].values())
-    dense = 0
-    if isinstance(model, AnemoiModelEncProcDecHierarchical):
-        for kind in ("down", "up"):
-            gt += sum(shard_calls(s) for s in halo[kind].values())
-            for name, proc in getattr(model, f"{kind}_level_processor").items():
-                gt += len(proc.proc) * shard_calls(halo["level"][name])
-        if hasattr(model, "processor"):
-            gt += len(model.processor.proc) * shard_calls(halo["level"][model.hidden_names[-1]])
-    elif isinstance(halo["processor"], HeadsShard):
-        if model.processor_edges:
-            gt += len(model.processor.proc)
+    halo, names, g = model.halo, model.names, model.graph
+
+    def gt_calls(name, shard, sub):
+        if not name.startswith("GraphTransformer"):
+            return 0
+        if shard is None:
+            return int(sub.num_edges > 0)
+        if isinstance(shard, HaloShard):
+            return shard_calls(shard)
+        if isinstance(shard, BlockShard):
+            return int(shard.dst_rows.stop > shard.dst_rows.start)
+        return int(isinstance(shard, HeadsShard))
+
+    def shard_of(kind, key=None):
+        if halo is None:
+            return None
+        return halo[kind] if key is None else halo[kind][key]
+
+    counts = {"gt": 0, "dense": 0}
+
+    def processor(proc, shard, sub):
+        if names["processor"] == "TransformerProcessor":
+            counts["dense"] += len(proc.proc)
         else:
-            dense = len(model.processor.proc)
+            counts["gt"] += len(proc.proc) * gt_calls(names["processor"], shard, sub)
+
+    kinds = [("encoder", "encoder"), ("decoder", "decoder")]
+    if isinstance(model, AnemoiModelEncProcDecHierarchical):
+        kinds += [("down", "encoder"), ("up", "up")]
+        for direction in ("down", "up"):
+            for name, proc in getattr(model, f"{direction}_level_processor").items():
+                processor(proc, shard_of("level", name), g.level[name])
+        if hasattr(model, "processor"):
+            deepest = model.hidden_names[-1]
+            processor(model.processor, shard_of("level", deepest), g.level[deepest])
     else:
-        gt += len(model.processor.proc) * shard_calls(halo["processor"])
+        processor(model.processor, shard_of("processor"), g.processor)
+    for kind, part in kinds:
+        for key, sub in getattr(g, kind).items():
+            counts["gt"] += gt_calls(names[part], shard_of(kind, key), sub)
+    gt, dense = counts["gt"], counts["dense"]
     step = {**NO_LAUNCHES, "K1": gt, "K3": gt, "K4": gt, "K6": dense, "K7_dq": dense,
             "K7_dkv": dense}
     forecast = {**NO_LAUNCHES, "K1": gt, "K6": dense}
     return {"step": step, "forecast": forecast}
 
 
+def shard_bytes(name: str, shard, channels: int, elt: int, batch: int = 1) -> int:
+    """Bytes this rank sends in one exchange of a component's route (its own
+    block included in a buffer's size): a halo exchange of ``S h_pair`` rows
+    (2C key and value channels for a GraphTransformer set, C source channels
+    for a GNN block), a heads layer's four all-to-alls (``4 B n_local HD``),
+    the band halo's ``S h`` rows of q, k and v, a gather of the whole source
+    set (a runtime set's or a cross attention's keys and values: the rank's
+    block to each of the S - 1 peers); 0 for a point-wise component."""
+    from anemoi_tpu_torch.parallel.band import BandShard
+    from anemoi_tpu_torch.parallel.halo import HaloShard
+    from anemoi_tpu_torch.parallel.heads import HeadsShard
+    from anemoi_tpu_torch.parallel.rows import BlockShard
+
+    if isinstance(shard, HaloShard):
+        width = 2 * channels if name.startswith("GraphTransformer") else channels
+        return shard.num_shards * shard.h_pair * width * elt * batch
+    if isinstance(shard, HeadsShard):
+        return 4 * batch * shard.n_local * channels * elt
+    if isinstance(shard, BandShard):
+        return shard.num_shards * shard.h * 3 * channels * elt * batch
+    if isinstance(shard, BlockShard) and not name.startswith("PointWise"):
+        return (shard.num_shards - 1) * shard.n_local_src * 2 * channels * elt * batch
+    return 0
+
+
 def family_bytes(model, channels: int, elt: int, batch: int = 1) -> dict:
-    """Bytes this rank sends (its own block included) in one forward: per
-    processor layer under ``heads``, the all-to-alls of q, k, v to heads and
-    of the output back (``4 B n_local HD``); the mappers' halo exchanges of
-    keys and values (``halo_exchanges``)."""
+    """Bytes this rank sends in one forward (``shard_bytes``): each mapper's
+    exchange or gather, and the processor's a layer (under ``heads`` and for
+    the band halo, its ``n_local`` and the JAX padded length or the
+    extended block)."""
+    from anemoi_tpu_torch.parallel.band import BandShard
     from anemoi_tpu_torch.parallel.heads import HeadsShard
 
-    halo = model.halo
-    proc = halo["processor"]
+    halo, names = model.halo, model.names
+    if halo is None:
+        return {}
+    mappers = {"encoder": "encoder", "decoder": "decoder", "down": "encoder", "up": "up"}
     out = {"mapper_exchanges": {
-        part: sum(s.num_shards * s.h_pair * 2 * channels * elt * batch
-                  for s in halo[part].values()) for part in ("encoder", "decoder")}}
+        f"{kind}/{key}": shard_bytes(names[part], sh, channels, elt, batch)
+        for kind, part in mappers.items() if kind in halo for key, sh in halo[kind].items()}}
+    proc = halo["processor"]
+    out["processor_bytes_per_layer"] = shard_bytes(names["processor"], proc, channels, elt, batch)
     if isinstance(proc, HeadsShard):
-        hd = channels
-        out["all_to_all_bytes_per_layer"] = 4 * batch * proc.n_local * hd * elt
+        out["all_to_all_bytes_per_layer"] = out["processor_bytes_per_layer"]
         out["n_local"], out["padded_len_jax"] = proc.n_local, proc.padded_len
+    if isinstance(proc, BandShard):
+        out["n_local"], out["extended_block"] = proc.n_local, [proc.ext_rows.start,
+                                                               proc.ext_rows.stop]
     return out
+
+
+def replicas_equal(iface) -> bool:
+    """Whether this rank's parameters equal every rank's of the world, bit
+    for bit (the ranks of an ensemble group training a transport model)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().flatten() for p in iface.parameters()])
+    parts = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, flat)
+    return all(torch.equal(flat, other) for other in parts)
 
 
 def family_run(part, graph, device, mesh, workdir, save: bool) -> dict:
@@ -4528,7 +4651,9 @@ def family_run(part, graph, device, mesh, workdir, save: bool) -> dict:
     if mesh is not None:
         res["launches_want"] = family_launches(iface.model)
         res["bytes"] = family_bytes(iface.model, iface.model.num_channels, 2)
-        if mesh.size("ensemble") > 1:
+        if mesh.size("ensemble") > 1 and part.startswith("transport"):
+            res["replicas_equal"] = replicas_equal(iface)
+        if mesh.size("ensemble") > 1 and part == "ensemble":
             # the member gather of one loss: the rank receives the other
             # ranks' [B, T, M / E, G_local, V_out] float32 predictions
             rows = iface.model.grid_rows("data")
@@ -4736,6 +4861,167 @@ def families_phase(workdir: str, graph, device, ensemble_losses: list) -> dict:
     return result
 
 
+# --- phase 33: the rest of item 9's routes -----------------------------------
+ROUTE_PARTS = {  # part -> shard strategy of the model on a model group of 2
+    "spectral": "edges", "projections": "edges", "transformer_edges": "edges", "gnn": "edges",
+    "transformer_mappers": "edges", "dynamic": "edges", "point_wise": "gspmd",
+    "transport_ensemble": "none", "hierarchical_heads": "heads"}
+ROUTE_ENSEMBLE = {"transport_ensemble": 2}  # parts on an ensemble group of 2 (model 1)
+SPECTRAL_RESIDUAL = {"name": "SpectralOrnsteinConnection", "gaussian_n": 96,
+                     "grid_kind": "octahedral", "theta_init": 0.3}
+ROUTE_LOSSES = {  # the parts' losses (the others: the bench's area-weighted MSE)
+    "spectral": {"name": "CombinedLoss", "loss_weights": [1.0, 0.5], "losses": [
+        {"name": "WeightedMSELoss", "scalers": ["area"]},
+        {"name": "SpectralAMSELoss", "transform": "octahedral_sht", "gaussian_n": 96,
+         "scalers": []}]},
+    "projections": {"name": "MultiscaleLossWrapper", "native_weight": 1.0,
+                    "loss": {"name": "WeightedMSELoss", "scalers": ["area"]},
+                    "scales": [{"nodes": "truncation", "weight": 0.5,
+                                "weight_attribute": "gauss_weight"}]},
+}
+
+
+def projections_graph(path: str):
+    """The flagship's graph with phase 25's ``truncation`` set (o32, KNN-3
+    both ways, ``GaussianDistanceWeights`` l1), saved at ``path``."""
+    from anemoi_tpu_torch.graphs.create import GraphCreator
+
+    recipe = flagship_recipe("o96", 5)
+    cfg = {"graph": {"recipe": recipe}, "model": {}, "training": {"loss": {}}}
+    with_projections(cfg)
+    return GraphCreator(recipe).create(path)
+
+
+def routes_rank(graph, projections_file: str, hierarchical_file: str, workdir: str) -> dict:
+    """One rank of phase 33: each part of ``ROUTE_PARTS`` in turn
+    (``family_run``) on a model group of 2, or on an ensemble group of 2."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.parallel import distributed
+    from anemoi_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    launch = distributed.launch()
+    device = launch.device
+    meshes = {e: create_mesh(MeshSpec(model=launch.world // e, ensemble=e), device)
+              for e in (1, 2)}
+    graphs = {"projections": Graph.load(projections_file),
+              "hierarchical_heads": Graph.load(hierarchical_file)}
+    out = {"rank": launch.rank, "backend": launch.backend}
+    for part in ROUTE_PARTS:
+        t0 = time.perf_counter()
+        mesh = meshes[ROUTE_ENSEMBLE.get(part, 1)]
+        out[part] = family_run(part, graphs.get(part, graph), device, mesh, workdir,
+                               save=launch.rank == 0)
+        out[part].update(seconds=time.perf_counter() - t0, coords=mesh.coords)
+    return out
+
+
+def extended_block_kernels(device) -> dict:
+    """K6 and K7 on rank 0's extended block of the Transformer preset under
+    ``edges`` on a model group of 2 (its 5 128 rows and the window's 512 of
+    rank 1's, 16 heads of 64, w 512), against the plain op and timed beside
+    the operation bound and SDPA with the band mask (``window_phase``)."""
+    from anemoi_tpu_torch.parallel.band import BandShard
+
+    rows = BandShard.build(None, 2, 0, WIN_N, WIN_W, "xla", "cpu").ext_rows
+    case = f"extended block {rows.stop - rows.start} of {WIN_N}"
+    return window_phase(device, {case: (WIN_B, rows.stop - rows.start, WIN_H, WIN_D, WIN_W, None,
+                                        False)}, "routes", timed=(case,))
+
+
+def routes_phase(workdir: str, graph, device) -> dict:
+    """Phase 33: the rest of item 9's routes over ranks that share the card
+    (gloo): ``ROUTE_PARTS`` on a model group of 2 (the transport model on
+    an ensemble group of 2), each against one process on the same weights
+    and batches (float32 and bf16 gradients and forecasts within phase 31's
+    ``PARALLEL_TOL``; every rank's launches exactly ``family_launches``);
+    the transport replicas' parameters equal after the steps and their
+    first loss one process's; K6 and K7 on the extended block."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.parallel.distributed import spawn
+
+    seconds, t_part = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        seconds[name] = round(time.perf_counter() - t_part, 2)
+        t_part = time.perf_counter()
+
+    hier_file = os.path.join(workdir, "graph_hierarchical.npz")  # phase 23's
+    proj_file = os.path.join(workdir, "graph_routes_projections.npz")
+    graphs = {"projections": projections_graph(proj_file),
+              "hierarchical_heads": Graph.load(hier_file)}
+    lap("projections graph")
+    one = {}
+    for part in ROUTE_PARTS:
+        one[part] = family_run(part, graphs.get(part, graph), device, None, workdir, save=False)
+    lap("one process")
+    ranks = spawn(routes_rank, 2, args=(graph, proj_file, hier_file, workdir))
+    lap("two ranks")
+    result = {"parts": {}, "seconds": seconds}
+    for part in ROUTE_PARTS:
+        per_rank = [r[part] for r in ranks]
+        for i, res in enumerate(per_rank):
+            want = res["launches_want"]
+            steps = res["step_launches"] + res["grad_launches"]
+            want_out = dict(want["forecast"])
+            if part.startswith("transport"):  # 2 N - 1 evaluations of EDM-Heun
+                want_out["K1"] *= 2 * FAMILY_SAMPLING_STEPS - 1
+            else:
+                want_out = {k: n * STEPS for k, n in want_out.items()}
+            if (any(c != want["step"] for c in steps)
+                    or any(c != want_out for c in res["output_launches"])):
+                raise RuntimeError(f"routes {part} rank {i}: want {want['step']} a step and "
+                                   f"{want_out} an output, got {steps} and "
+                                   f"{res['output_launches']}")
+        gap = {}
+        for precision in ("fp32", "bf16"):
+            saved = torch.load(os.path.join(workdir, f"family_{part}_{precision}.pt"))
+            ref = one[part][precision]
+            gap[precision] = {"grads": rel_l2(saved["grads"], ref["grads"]),
+                              "output": rel_l2(saved["output"], ref["output"])}
+            fc_tol, grad_tol = PARALLEL_TOL[precision]
+            finite = bool(torch.isfinite(saved["output"]).all()) and (
+                saved["output"].shape == ref["output"].shape)
+            print(f"[routes] {part} {precision}: against one process, relative L2 "
+                  f"{gap[precision]} (tol output {fc_tol}, gradients {grad_tol}); output "
+                  f"{list(saved['output'].shape)}", flush=True)
+            if not (finite and gap[precision]["grads"] <= grad_tol
+                    and gap[precision]["output"] <= fc_tol):
+                raise RuntimeError(f"routes {part} {precision}: {gap[precision]}, finite and "
+                                   f"shaped {finite}")
+        extra = {}
+        if part in ROUTE_ENSEMBLE:
+            first = [r["losses"][0] for r in per_rank]
+            extra = {"replicas_equal": [r["replicas_equal"] for r in per_rank],
+                     "first_loss_rel": max(abs(x - one[part]["losses"][0])
+                                           / abs(one[part]["losses"][0]) for x in first)}
+            print(f"[routes] {part}: replicas' parameters equal after "
+                  f"{FAMILY_BF16_STEPS} bf16 steps {extra['replicas_equal']}; first loss "
+                  f"{first} against one process's {one[part]['losses'][0]}", flush=True)
+            if not (all(extra["replicas_equal"]) and extra["first_loss_rel"] <= 1e-6):
+                raise RuntimeError(f"routes {part}: replicas {extra}")
+        result["parts"][part] = {
+            "rel_l2": gap, "strategy": ROUTE_PARTS[part], "coords": per_rank[0]["coords"],
+            "launches_per_step": per_rank[0]["step_launches"][-1],
+            "launches_per_output": per_rank[0]["output_launches"][-1],
+            "launches_per_step_by_rank": [r["step_launches"][-1] for r in per_rank],
+            "output_shape": per_rank[0]["output_shape"],
+            "wall_ms_gloo_shared_card": [r["wall_ms"] for r in per_rank],
+            "losses_bf16": [r["losses"] for r in per_rank],
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in per_rank],
+            "one_process_peak_memory_bytes": one[part]["peak_memory_bytes"],
+            "one_process_wall_ms": one[part]["wall_ms"],
+            "one_process_losses_bf16": one[part]["losses"],
+            "bytes": [r["bytes"] for r in per_rank], "seconds": [r["seconds"] for r in per_rank],
+            **extra}
+        print(f"[routes] {part} {json.dumps(result['parts'][part])}", flush=True)
+    del one
+    result["rows"] = extended_block_kernels(device)
+    lap("extended-block kernels")
+    print(f"[routes] seconds by part: {seconds} ({card_line()})", flush=True)
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
            ens: dict, families: dict, transport: dict, hierarchy: dict,
@@ -4930,7 +5216,9 @@ def main() -> int:
         shard_rows = phase("parallel shard kernels", halo_shard_kernels, graph, device)
         parallel_families = phase("parallel families", families_phase, workdir, graph, device,
                                   ens["losses"])
-    for extra_rows in (shard_rows, parallel_families.pop("rows"), hierarchy["down_set_rows"],
+        routes = phase("parallel routes", routes_phase, workdir, graph, device)
+    for extra_rows in (shard_rows, parallel_families.pop("rows"), routes.pop("rows"),
+                       hierarchy["down_set_rows"],
                        slice_17["dynamic"]["runtime_sets"]["encoder_rows"],
                        *(m.pop("encoder_rows") for m in meshes.values())):
         for name, extra in extra_rows.items():
@@ -4941,7 +5229,8 @@ def main() -> int:
                                               rank_0["launches_per_forecast_step"].items()}}}
     family_paths = {f"{part}_rank_0": {"train": {"launches_per_step": res["launches_per_step"]},
                                        "predict": {"launches": res["launches_per_output"]}}
-                    for part, res in parallel_families["parts"].items()}
+                    for part, res in [*parallel_families["parts"].items(),
+                                      *routes["parts"].items()]}
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
                  ens, families, transport, hierarchy, spectral,
                  {**slice_17, **meshes, "parallel_rank_0": parallel_path, **family_paths})
@@ -4956,7 +5245,7 @@ def main() -> int:
                        "ensemble": ens, "families": families, "transport": transport,
                        "hierarchical": hierarchy, "spectral": spectral, **slice_17,
                        "meshes": meshes, "parallel": parallel,
-                       "parallel_families": parallel_families,
+                       "parallel_families": parallel_families, "parallel_routes": routes,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

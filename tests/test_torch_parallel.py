@@ -14,8 +14,10 @@
   edge attributes and the projection's weight and bias against JAX's halo
   attention on the conftest's virtual devices and against the single-device
   op, fp32, rtol/atol 3e-5.
-- Refusals naming ROADMAP item 9, and worlds that fail: a world whose rank
-  fails, or that never completes, raises, and no rank carries on alone.
+- The strategies the port once refused (ROADMAP item 9) and now runs: each
+  builds a model-parallel interface and takes its route; worlds that fail:
+  a world whose rank fails, or that never completes, raises, and no rank
+  carries on alone.
 """
 
 import numpy as np
@@ -270,6 +272,9 @@ def test_halo_attention_matches_jax(halo_runs, jax_refs, part, shards, overlap):
 
 
 def tiny_interface(model_update, graph):
+    """A tiny training interface; with ``num_model_shards`` in the update,
+    its shares of a model group of that size are built for rank 0 (a mesh
+    without process groups: the tables, not the collectives)."""
     from tests.test_torch_parallel_training import model_config
 
     cfg = model_config()
@@ -277,25 +282,31 @@ def tiny_interface(model_update, graph):
     nv = 5
     stats = {"data": {k: np.ones(nv, np.float32) for k in ("mean", "stdev", "minimum",
                                                            "maximum")}}
+    shards = int(model_update.get("num_model_shards", 1))
     return AnemoiModelInterface(
         config=cfg, graph=port_graph(graph),
         data_indices={"data": IndexCollection({n: i for i, n in enumerate("qtuzc")},
                                               forcing=["c"])},
-        statistics=stats, device="cpu", training=True)
+        statistics=stats, device="cpu", training=True,
+        mesh=mesh.Mesh(mesh.MeshSpec(model=shards)) if shards > 1 else None)
 
 
-@pytest.mark.parametrize("update", [
-    # heads itself is ported (tests/test_torch_parallel_heads.py); a GNN
-    # processor under it is not
-    {"shard_strategy": "heads", "num_model_shards": 2,
-     "processor": {"name": "GNNProcessor", "num_layers": 1}},
-    {"shard_strategy": "edges", "num_model_shards": 2,
-     "processor": {"name": "GNNProcessor", "num_layers": 1}},
-    {"shard_strategy": "edges", "num_model_shards": 2, "halo_mappers": False},
+@pytest.mark.parametrize("update,want", [
+    # a GNN processor has no heads to split: under heads it keeps the halo
+    ({"shard_strategy": "heads", "num_model_shards": 2,
+      "processor": {"name": "GNNProcessor", "num_layers": 1}},
+     {"processor": "HaloShard", "encoder/data": "HaloShard"}),
+    ({"shard_strategy": "edges", "num_model_shards": 2,
+      "processor": {"name": "GNNProcessor", "num_layers": 1}}, {"processor": "HaloShard"}),
+    # halo_mappers false: the GraphTransformer mappers on the halo route still
+    ({"shard_strategy": "edges", "num_model_shards": 2, "halo_mappers": False},
+     {"encoder/data": "HaloShard", "decoder/data": "HaloShard"}),
 ], ids=["heads", "gnn_processor_under_edges", "no_halo_mappers"])
-def test_not_ported_strategies_name_item_9(graph, update):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tiny_interface(update, graph)
+def test_not_ported_strategies_name_item_9(graph, update, want):
+    """Once refused naming ROADMAP item 9; each now builds its route (the
+    runs: ``tests/test_torch_parallel_routes.py``)."""
+    routes = worker.routes(tiny_interface(update, graph).model)
+    assert {k: routes[k] for k in want} == want
 
 
 def test_ensemble_axis_names_item_9():

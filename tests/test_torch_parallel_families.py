@@ -27,9 +27,10 @@ the JAX step, jitted, draws once), which each rank cuts to its block.
   7, the port's own draws) against one process's.  The hierarchical
   V-cycle of JAX ``test_hierarchical_mesh_parity`` (o8 -> ico-2 -> ico-1,
   one-layer level processors) under ``edges`` on a model group of 2.
-- Item 9's fifth part still refuses, naming item 9, and so do the
-  hierarchical model under ``heads`` and the transport task on an ensemble
-  group.
+- What item 9's fifth part once refused (a GNN, the ``halo_mappers``
+  switch, a row-mixing residual, ``DynamicKNN``, a processor strategy of
+  its own, the V-cycle under ``heads``, a loss that is no grid sum, the
+  transport task on an ensemble group) now builds its route.
 """
 
 import copy
@@ -257,52 +258,75 @@ def test_transport_sample_on_a_model_group_matches_one_process(models, two_ranks
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def tiny(update):
+def tiny(update, graph=None):
     from tests.test_torch_parallel import tiny_interface
 
-    return tiny_interface(update, JaxGraphCreator(_recipe()).create())
+    return tiny_interface(update, graph or JaxGraphCreator(_recipe()).create())
 
 
-@pytest.mark.parametrize("update", [
-    {"shard_strategy": "edges", "num_model_shards": 2,
-     "processor": {"name": "GNNProcessor", "num_layers": 1}},
-    {"shard_strategy": "heads", "num_model_shards": 2,
-     "encoder": {"name": "GNNForwardMapper"}},
-    {"shard_strategy": "edges", "num_model_shards": 2, "halo_mappers": False},
-    {"shard_strategy": "edges", "num_model_shards": 2,
-     "residual": {"name": "TruncatedConnection"}},
-    {"shard_strategy": "edges", "num_model_shards": 2,
-     "encoder": {"name": "GraphTransformerForwardMapper", "num_heads": 4,
-                 "edge_provider": {"name": "DynamicKNN"}}},
-    {"shard_strategy": "edges", "num_model_shards": 2,
-     "processor": {"name": "GraphTransformerProcessor", "num_layers": 1, "num_heads": 4,
-                   "shard_strategy": "heads"}},
+@pytest.mark.parametrize("update,want", [
+    ({"shard_strategy": "edges", "num_model_shards": 2,
+      "processor": {"name": "GNNProcessor", "num_layers": 1}}, {"processor": "HaloShard"}),
+    ({"shard_strategy": "heads", "num_model_shards": 2,
+      "encoder": {"name": "GNNForwardMapper"}},
+     {"encoder/data": "HaloShard", "processor": "HeadsShard"}),
+    ({"shard_strategy": "edges", "num_model_shards": 2, "halo_mappers": False},
+     {"encoder/data": "HaloShard"}),
+    ({"shard_strategy": "edges", "num_model_shards": 2,
+      "residual": {"name": "TruncatedConnection"}},
+     {"encoder/data": "HaloShard", "residual": "TruncatedConnection"}),
+    ({"shard_strategy": "edges", "num_model_shards": 2,
+      "encoder": {"name": "GraphTransformerForwardMapper", "num_heads": 4,
+                  "edge_provider": {"name": "DynamicKNN"}}},
+     {"encoder/data": "BlockShard", "decoder/data": "HaloShard"}),
+    ({"shard_strategy": "edges", "num_model_shards": 2,
+      "processor": {"name": "GraphTransformerProcessor", "num_layers": 1, "num_heads": 4,
+                    "shard_strategy": "heads"}},
+     {"processor": "HeadsShard", "encoder/data": "HaloShard"}),
 ], ids=["gnn_processor", "gnn_mapper_under_heads", "no_halo_mappers", "row_mixing_residual",
         "dynamic_knn", "processor_strategy_not_the_models"])
-def test_item_9_fifth_part_still_refuses(update):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tiny(update)
+def test_item_9_fifth_part_still_refuses(update, want):
+    """Once refused naming ROADMAP item 9 (item 9's fifth part); each now
+    builds its route on a model group of 2 (the runs:
+    ``tests/test_torch_parallel_routes.py``)."""
+    from tests.test_torch_parallel_routes import truncation_recipe
+
+    graph = JaxGraphCreator(truncation_recipe()).create() if "residual" in update else None
+    model = tiny(update, graph).model
+    routes = {**worker.routes(model), "residual": type(model.residual["data"]).__name__}
+    assert {k: routes[k] for k in want} == want
 
 
 def test_hierarchical_under_heads_names_item_9(models):
-    """The V-cycle is sharded under ``edges``; the JAX package holds no
-    ``heads`` run of it, so the port refuses one."""
+    """Once refused naming ROADMAP item 9 (the JAX package holds no sharded
+    run of the V-cycle under ``heads``): every level processor now takes a
+    ``HeadsShard`` of its level's mesh, the mappers their halo."""
+    from anemoi_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
     setup = models["hierarchical"]["setup"]
     config = copy.deepcopy(setup["config"])
     config["model"].update(shard_strategy="heads", num_model_shards=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AnemoiModelInterface(
-            config=config, graph=setup["graph"],
-            data_indices={ds: IndexCollection(**kw) for ds, kw in setup["indices"].items()},
-            statistics=setup["statistics"], device="cpu", training=True)
+    iface = AnemoiModelInterface(
+        config=config, graph=setup["graph"],
+        data_indices={ds: IndexCollection(**kw) for ds, kw in setup["indices"].items()},
+        statistics=setup["statistics"], device="cpu", training=True,
+        mesh=Mesh(MeshSpec(model=2)))
+    routes = worker.routes(iface.model)
+    assert routes["level/hidden_1"] == routes["level/hidden_2"] == "HeadsShard"
+    assert routes["down/hidden_1"] == routes["up/hidden_2"] == "HaloShard"
 
 
 def test_grid_sharded_refuses_losses_that_are_no_grid_sum():
+    """Once refused naming ROADMAP item 9: a loss that is no sum over grid
+    rows now takes its route (the values: ``tests/test_torch_parallel_routes.py``)."""
     from anemoi_tpu_torch.training.losses import get_loss_function
-    from anemoi_tpu_torch.training.losses.base import grid_sharded
+    from anemoi_tpu_torch.training.losses.base import WholeGridLoss, grid_sharded
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        grid_sharded(get_loss_function({"name": "WeightedRMSELoss"}), slice(0, 4), 8, None)
+    rmse = grid_sharded(get_loss_function({"name": "WeightedRMSELoss"}), slice(0, 4), 8, None)
+    assert rmse.grid_route == "reduce"
+    spectral = grid_sharded(get_loss_function({"name": "LogFFT2Distance", "x_dim": 2,
+                                               "y_dim": 4}), slice(0, 4), 8, None)
+    assert isinstance(spectral, WholeGridLoss) and spectral.grid_route == "whole"
 
 
 def test_members_must_divide_over_the_ensemble_group():
@@ -314,20 +338,28 @@ def test_members_must_divide_over_the_ensemble_group():
 
 
 def test_transport_on_an_ensemble_group_names_item_9(tmp_path):
-    """A transport model has no members: on an ensemble group every rank
-    would train on the same rows, so the step and the trainer refuse it."""
-    from types import SimpleNamespace
-
+    """Once refused naming ROADMAP item 9: the ranks of an ensemble group
+    now train a transport model as replicas (the run:
+    ``tests/test_torch_parallel_routes.py``); the trainer takes the config
+    and asks for a mesh of two ranks, the step builds on an ensemble mesh."""
     from anemoi_tpu_torch.parallel.mesh import Mesh, MeshSpec
+    from anemoi_tpu_torch.training.losses import get_loss_function
     from anemoi_tpu_torch.training.trainer import AnemoiTrainer
     from anemoi_tpu_torch.training.transport_step import make_transport_step_fns
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_transport_step_fns(SimpleNamespace(mesh=Mesh(MeshSpec(ensemble=2))), {})
     config = {"task": {"name": "transport"},
               "hardware": {"platform": "cpu", "num_devices_per_ensemble": 2}}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AnemoiTrainer(config, output_dir=str(tmp_path))
+    with pytest.raises(AssertionError, match="not divisible by model"):
+        AnemoiTrainer(config, output_dir=str(tmp_path))  # one process: no mesh of 2
+    setup = build("transport", 1, 5)[0]
+    iface = AnemoiModelInterface(
+        config=setup["config"], graph=setup["graph"],
+        data_indices={ds: IndexCollection(**kw) for ds, kw in setup["indices"].items()},
+        statistics=setup["statistics"], device="cpu", training=True,
+        mesh=Mesh(MeshSpec(ensemble=2)))
+    train_step, eval_step = make_transport_step_fns(
+        iface, {"data": get_loss_function({"name": "WeightedMSELoss"})})
+    assert callable(train_step.compute_gradients) and callable(eval_step)
 
 
 def test_sharded_normal_cuts_the_whole_draw():

@@ -1,7 +1,8 @@
 """Rank workers of ``tests/test_torch_parallel.py``,
 ``tests/test_torch_parallel_training.py``,
-``tests/test_torch_parallel_heads.py`` and
-``tests/test_torch_parallel_families.py``.
+``tests/test_torch_parallel_heads.py``,
+``tests/test_torch_parallel_families.py`` and
+``tests/test_torch_parallel_routes.py``.
 
 Every function here runs on each rank started by
 ``anemoi_tpu_torch.parallel.distributed.spawn`` (gloo on the CPU, one thread
@@ -124,7 +125,9 @@ def _step_fns(iface, run, losses):
 def train_runs(setup, runs):
     """Per run (a mesh ``data`` x ``model`` x ``ensemble``, model-config
     overrides, the number of steps, ``zero``, the loss, ``ensemble_size``,
-    the transport ``task``, ``draws`` for :class:`FixedDraws`): the losses of
+    the transport ``task``, ``draws`` for :class:`FixedDraws`, ``params``
+    and ``routes`` to return the parameters after the last step and each
+    component's route, :func:`routes`): the losses of
     each step and the reduced step-1 gradients, from a fresh interface with
     the setup's weights, trained on its rows of the setup's batch (the grid
     cut by the step, or read as the rank's block with ``shard_grid``); with
@@ -143,7 +146,8 @@ def train_runs(setup, runs):
         config["model"].update(run.get("model", {}), num_model_shards=spec.model)
         iface = _interface(setup, mesh, config)
         losses = {"data": get_loss_function(
-            run.get("loss", setup["loss"]), create_scalers(setup["scalers"], graph=setup["graph"]))}
+            run.get("loss", setup["loss"]), create_scalers(setup["scalers"], graph=setup["graph"]),
+            graph=setup["graph"])}
         opt = dict(setup["optimizer"])
         if run.get("zero"):
             opt["optimizer"] = {"name": "adamw", "zero": True}
@@ -165,6 +169,10 @@ def train_runs(setup, runs):
                     out["grads"] = {n: _np(p.grad) for n, p in iface.named_parameters()}
                 state.apply_gradients()
                 out["losses"].append(float(loss))
+            if run.get("params"):
+                out["params"] = {n: _np(p) for n, p in iface.named_parameters()}
+            if run.get("routes"):
+                out["routes"] = routes(iface.model)
             if run.get("predict"):
                 window = np.repeat(setup["batch"][:1], run.get("ensemble_size", 1), axis=2)
                 out["predict"] = {ds: _np(y) for ds, y in iface.predict_step(
@@ -276,3 +284,73 @@ def cli_predict(bundle, output):
     from anemoi_tpu_torch.training.cli import main
 
     return main(["predict", bundle, "--steps", "2", "--platform", "cpu", "--output", output])
+
+
+def routes(model) -> dict:
+    """Each component's share on this rank of a sharded model: the class of
+    its shard (``HaloShard``, ``HeadsShard``, ``BandShard``, ``BlockShard``),
+    per part and, for a mapper, per dataset."""
+    out = {}
+    for part, shard in (model.halo or {}).items():
+        if isinstance(shard, dict):
+            for key, value in shard.items():
+                out[f"{part}/{key}"] = type(value).__name__
+        else:
+            out[part] = type(shard).__name__
+    return out
+
+
+def loss_shards(cases):
+    """Per case (a loss config, its scalers' arrays, ``pred`` and ``target``
+    ``[B, T, E, G, V]``, the grid's ``graph`` for a multiscale loss) this
+    rank's value of ``grid_sharded`` on its grid rows, the model group's sum
+    of the values, and the gradient of its rows of ``pred``."""
+    from anemoi_tpu_torch.parallel.distributed import all_reduce
+    from anemoi_tpu_torch.parallel.mesh import grid_block
+    from anemoi_tpu_torch.training.losses.base import grid_sharded
+
+    mesh = create_mesh(MeshSpec(model=distributed.launch().world))
+    group, s, i = mesh.group("model"), mesh.size("model"), mesh.index("model")
+    out = []
+    for case in cases:
+        n = case["pred"].shape[3]
+        rows = grid_block(n, s, i)
+        loss = grid_sharded(get_loss_function(case["loss"], case["scalers"], graph=case.get("graph"),
+                                              data_indices=case.get("indices")),
+                            rows, n, group)
+        pred = torch.tensor(case["pred"][:, :, :, rows], requires_grad=True)
+        value = loss(pred, torch.as_tensor(case["target"][:, :, :, rows]))
+        value.backward()
+        total = all_reduce(value.detach().clone(), group)
+        out.append({"rows": (rows.start, rows.stop), "value": float(value),
+                    "total": float(total), "grad": _np(pred.grad, pred),
+                    "route": getattr(loss, "grid_route", None) or type(loss).__name__})
+    return out
+
+
+def band_attention_cases(cases):
+    """Per case (global ``q``, ``k``, ``v`` ``[B, N, H, D]``, a cotangent, the
+    window, ``attention_impl``, softcap, ALiBi and rotary flags) this rank's
+    rows of the band halo's attention (``parallel/band.band_mhsa``) over the
+    world's model group, and of the gradients of q, k and v."""
+    from anemoi_tpu_torch.models.layers.attention import get_alibi_slopes
+    from anemoi_tpu_torch.parallel.band import BandShard, band_mhsa
+
+    mesh = create_mesh(MeshSpec(model=distributed.launch().world))
+    group, s, i = mesh.group("model"), mesh.size("model"), mesh.index("model")
+    out = []
+    for case in cases:
+        n, h = case["q"].shape[1], case["q"].shape[2]
+        shard = BandShard.build(group, s, i, n, case["window"], case["impl"], "cpu")
+        rows = shard.dst_rows
+        leaves = [torch.tensor(case[k][:, rows], requires_grad=True) for k in ("q", "k", "v")]
+        q, k, v = (pad_rows(t.flatten(2), shard.n_local).unflatten(2, t.shape[2:])
+                   for t in leaves)
+        slopes = get_alibi_slopes(h) if case["alibi"] else None
+        res = band_mhsa(q, k, v, shard, case["softcap"], slopes,
+                        case["rotary"])[:, : rows.stop - rows.start]
+        (res * torch.as_tensor(case["cotangent"][:, rows])).sum().backward()
+        out.append({"rows": (rows.start, rows.stop), "out": _np(res), "h": shard.h,
+                    "ext": (shard.ext_rows.start, shard.ext_rows.stop), "full": shard.full,
+                    **{f"d{name}": _np(t.grad, t) for name, t in zip("qkv", leaves)}})
+    return out
