@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernels of anemoi_tpu/ops/pallas/paged_gt.py:
 //   K3  _bwd_kernel           -> gt_attention_bwd_dst_kernel (destination pass)
-//   K4  _reduce_kernel        -> gt_attention_bwd_src_kernel (source pass)
+//   K4  _reduce_kernel        -> gt_attention_bwd_src_sum_kernel (source pass)
 //   K5  _fused_reduce_kernel  -> gt_attention_bwd_src_fused_kernel (source
 //                                pass that recomputes instead of reading dkv)
 //
@@ -54,12 +54,17 @@
 //   - K4 and K5 walk a source's edges through the source-ordered view
 //     (src_ptr, src_perm: the edge ids sorted by source, stable by
 //     destination), so each dk, dv row is written by one walk: no atomics,
-//     deterministic; a source without edges writes dk = dv = 0.  K4 takes one
-//     block per (source, batch row), thread c owning channel c.  K5 takes
-//     K3's groups of 16-byte lanes, one source a group, the card's resident
-//     blocks striding over the sources; the q and g rows (and e rows) its edges gather are in flight kStages edges
-//     at a time through a cp.async ring, as in K1 (gt_attention_fwd.cu;
-//     K5's own comment below).
+//     deterministic; a source without edges writes dk = dv = 0 and reads no
+//     dkv row.  Both take K3's groups of 16-byte lanes, one source a group,
+//     the card's resident blocks striding over the sources (K4 from a mean
+//     out-degree of 4 launches one group a source instead).  K4 is a pure
+//     gather-sum, bound by the dkv rows it reads and the dk, dv rows it
+//     writes: the batch row folds into its stride, the next source's edge
+//     range and first 32 edge ids are in flight while this one is summed,
+//     and the dkv rows of kSumEdges edges are loaded into registers before
+//     the first of them is added (its own comment below).  K5's q and g rows
+//     (and e rows) are in flight kStages edges at a time through a cp.async
+//     ring, as in K1 (gt_attention_fwd.cu; K5's own comment below).
 //   - The TPU kernels' slot/page tables and one-hot matmul gathers are
 //     artefacts of Mosaic lacking a row gather and do not appear.
 
@@ -79,7 +84,6 @@ using gt::cp_async_wait;
 using gt::DstLayout;
 using gt::dst_layout;
 using gt::exp2_approx;
-using gt::from_float;
 using gt::group_kernel;
 using gt::prepare_smem;
 using gt::kDstThreads;
@@ -392,29 +396,119 @@ __global__ void gt_attention_bwd_dw_finalize_kernel(const float* __restrict__ pa
   }
 }
 
-// K4: the source pass, summing the per-edge rows of dkv into their source.
-template <typename T>
-__global__ void __launch_bounds__(gt::kMaxThreads) gt_attention_bwd_src_kernel(
-    const T* __restrict__ dkv,          // [B, E, 2HD]
-    const int* __restrict__ src_ptr,    // [Ns + 1]
-    const int* __restrict__ src_perm,   // [E] edge ids sorted by source
-    T* __restrict__ dk, T* __restrict__ dv,  // [B, Ns, HD]
-    int n_src, int n_edges, int hd) {
-  const int s = blockIdx.x;
-  const int b = blockIdx.y;
-  const int c = threadIdx.x;
-  if (c >= hd) return;
-  const T* base = dkv + static_cast<size_t>(b) * n_edges * 2 * hd;
-  float ak = 0.f, av = 0.f;
-  const int end = src_ptr[s + 1];
-  for (int p = src_ptr[s]; p < end; ++p) {
-    const size_t r = static_cast<size_t>(src_perm[p]) * 2 * hd;
-    ak += to_float(base[r + c]);
-    av += to_float(base[r + hd + c]);
+// ---- K4: the source pass ---------------------------------------------------
+
+constexpr int kSumEdges = 4;  // K4: edges of a source whose dkv rows are loaded before any is added
+
+// K4's group shape: K3's (gt::dst_layout) for one head of HD channels, with
+// the head size taken as the largest power of two dividing HD, so that V (16
+// bytes, else 4 or 1 channels) divides HD.
+DstLayout src_sum_layout(int elt, int hd) { return dst_layout(elt, hd, hd & -hd); }
+
+// K4.  Work item w is source s = w % Ns of batch row w / Ns; the grid's
+// groups stride over the items (the resident blocks, or one group an item
+// at a high mean out-degree: launch_src_sum).  A group of GS lanes sums one item:
+// lane l owns channels [lV, lV + V) of the dk half and of the dv half of each
+// dkv row [B, E, 2HD] (K3's per-edge dk_eff | dv_eff), and reads and writes
+// each as one vector.  What would otherwise be a chain of dependent loads a
+// source (src_ptr, then src_perm, then the rows) is pipelined over the
+// group's items: while item w is summed, the edge range of item w + 2 step
+// and the first chunk of edge ids of item w + step are in flight.  Edge ids
+// come in chunks of up to 32, one a lane, spread to the group by shuffles
+// (no barrier: a group of whole warps runs each warp on its own); the two
+// row vectors of kSumEdges edges are loaded into registers before the first
+// of them is added, so a lane has 2 kSumEdges 16-byte loads in flight.  The
+// sums are float32 in src_perm order (stable by destination), each output
+// rounded once at its store; an item without edges stores zeros and reads
+// no dkv row.  No atomics: bitwise repeatable, and equal to a serial float32
+// sum in src_perm order.  Lanes past HD / V take part in the shuffles only.
+// Three blocks an SM (at most 85 registers a thread: at four, bf16 V = 8
+// spilled 92 bytes at its 64-register cap and ran 1.26-1.38x slower on an
+// H100, PERF.md section 6), except at V = 1 (HD not a multiple of 4), whose
+// groups may span 1024 threads.
+template <typename T, int V>
+__global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 ? 1 : 3)
+    gt_attention_bwd_src_sum_kernel(
+        const T* __restrict__ dkv,         // [B, E, 2HD]
+        const int* __restrict__ src_ptr,   // [Ns + 1]
+        const int* __restrict__ src_perm,  // [E] edge ids sorted by source
+        T* __restrict__ dk,                // [B, Ns, HD]
+        T* __restrict__ dv,                // [B, Ns, HD]
+        int n_src, int n_edges, int hd, int work, int gs) {
+  gt::Group<true> grp(V, gs, 1, hd, V, nullptr, 0);
+  const int groups = blockDim.x / gs;
+  const int base = grp.base;
+  const int chunk = grp.chunk;
+  const int cl = grp.cl;
+  const bool active = grp.active;
+  const int c0 = grp.c0;
+  const int step = gridDim.x * groups;
+
+  // item w's edge range in src_perm (empty past the last item)
+  auto range = [&](int w, int& beg, int& end) {
+    beg = end = 0;
+    if (w < work) {
+      const int s = w % n_src;
+      beg = src_ptr[s];
+      end = src_ptr[s + 1];
+    }
+  };
+  // the first chunk of a range's edge ids, one a lane
+  auto first_ids = [&](int beg, int end) { return cl < end - beg ? src_perm[beg + cl] : 0; };
+
+  int w = blockIdx.x * groups + grp.id;
+  int beg, end, beg_n, end_n;
+  range(w, beg, end);
+  int j_c = first_ids(beg, end);
+  range(w + step, beg_n, end_n);
+  for (; w < work; w += step) {
+    const int j_n = first_ids(beg_n, end_n);
+    int beg_nn, end_nn;
+    range(w + 2 * step, beg_nn, end_nn);
+    const int b = w / n_src;
+    const int s = w - b * n_src;
+    const T* rows = dkv + static_cast<size_t>(b) * n_edges * 2 * hd + c0;
+    float ak[V] = {};
+    float av[V] = {};
+    for (int c = beg; c < end; c += chunk) {
+      const int n = end - c < chunk ? end - c : chunk;  // edges of this chunk
+      if (c > beg) j_c = cl < n ? src_perm[c + cl] : 0;
+      for (int o = 0; o < n; o += kSumEdges) {
+        Vec<T, V> kr[kSumEdges], vr[kSumEdges];
+#pragma unroll
+        for (int u = 0; u < kSumEdges; ++u) {
+          const int j = grp.shfl(j_c, base + (o + u < n ? o + u : 0));
+          kr[u].zero();
+          vr[u].zero();
+          if (active && o + u < n) {
+            const T* r = rows + static_cast<size_t>(j) * 2 * hd;
+            kr[u].load(r);
+            vr[u].load(r + hd);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSumEdges; ++u) {
+          if (o + u < n) {
+#pragma unroll
+            for (int x = 0; x < V; ++x) {
+              ak[x] += kr[u].get(x);
+              av[x] += vr[u].get(x);
+            }
+          }
+        }
+      }
+    }
+    if (active) {
+      const size_t o = (static_cast<size_t>(b) * n_src + s) * hd + c0;
+      store_vec<T, V>(dk + o, ak);
+      store_vec<T, V>(dv + o, av);
+    }
+    beg = beg_n;
+    end = end_n;
+    j_c = j_n;
+    beg_n = beg_nn;
+    end_n = end_nn;
   }
-  const size_t o = (static_cast<size_t>(b) * n_src + s) * hd + c;
-  dk[o] = from_float<T>(ak);
-  dv[o] = from_float<T>(av);
 }
 
 // ---- K5: the fused source pass ---------------------------------------------
@@ -638,8 +732,6 @@ __global__ void __launch_bounds__(V == 1 ? 1024 : kDstThreads, V == 1 || FMAX > 
   }
 }
 
-int threads_for(int hd) { return (hd + 31) / 32 * 32; }
-
 // K3's shared memory: two exchange buffers of float2 per group, plus W and
 // bias as float32 on the K1 side, reused for the block's dW sum.
 size_t dst_smem(const DstLayout& l, int hd, int f, bool fuse_edge) {
@@ -731,16 +823,57 @@ void launch_src_fused(bool fuse_edge, const void* q, const void* k, const void* 
       l.seg);
 }
 
+template <typename T>
+auto src_sum_kernel(const DstLayout& l) {
+  constexpr int kVmax = 16 / static_cast<int>(sizeof(T));
+  if (l.v == kVmax) return gt_attention_bwd_src_sum_kernel<T, kVmax>;
+  if (l.v == 4) return gt_attention_bwd_src_sum_kernel<T, 4>;
+  return gt_attention_bwd_src_sum_kernel<T, 1>;
+}
+
+template <typename T>
+int src_sum_blocks_per_sm(int hd) {
+  const DstLayout l = src_sum_layout(sizeof(T), hd);
+  return blocks_per_sm(src_sum_kernel<T>(l), l.threads, 0);
+}
+
+// The mean out-degree (E / Ns) from which K4's grid holds one group an item,
+// the card handing out blocks as earlier ones end, in place of the resident
+// blocks striding over the items.  At the flagship's processor and decoder
+// sets (8 and 11.8 edges a source) a float32 group's stride runs about 13
+// items and the slowest group sets the end: one item a group was 1.8 and
+// 2.6 % faster there on an H100, bf16 equal; at its encoder, hex and ICON
+// sets (about 1.5 edges a source) the stride's pipelining across items made
+// it 4-22 % faster (PERF.md section 6).
+constexpr long long kSumFullGridDegree = 4;
+
+// Launches K4: each group strides over the B * Ns items, with at most
+// `blocks` blocks (fewer when the groups of fewer cover every item), or one
+// group an item from a mean out-degree of kSumFullGridDegree.
+template <typename T>
+void launch_src_sum(const void* dkv, const int* src_ptr, const int* src_perm, void* dk, void* dv,
+                    int batch, int n_src, int n_edges, int hd, int blocks, cudaStream_t stream) {
+  const DstLayout l = src_sum_layout(sizeof(T), hd);
+  const int groups = l.threads / l.gs;
+  const int work = batch * n_src;
+  const int needed = (work + groups - 1) / groups;
+  const auto kernel = src_sum_kernel<T>(l);
+  const bool full = n_edges >= kSumFullGridDegree * n_src;
+  kernel<<<full || needed < blocks ? needed : blocks, l.threads, 0, stream>>>(
+      static_cast<const T*>(dkv), src_ptr, src_perm, static_cast<T*>(dk), static_cast<T*>(dv),
+      n_src, n_edges, hd, work, l.gs);
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  dtype: 0 = float32, 1 = bfloat16.
 // Shapes and types are validated by the Python wrappers.  Each returns the
 // cudaError_t of its launches (0 on success).
 
-// Blocks of K3 (src_fused = 0) or K5 (src_fused = 1) that fit on the current
-// card at once (SMs x occupancy): the grid of K3, the row count of its dW
-// partials, and K5's grid a batch row.
-extern "C" int gt_attention_bwd_blocks(int src_fused, int dtype, int fuse_edge, int hd,
+// Blocks of K3 (kernel = 0), K5 (1) or K4 (2) that fit on the current card
+// at once (SMs x occupancy): the grid of K3, the row count of its dW
+// partials, K5's grid a batch row and K4's striding grid.  K4 reads only dtype and hd.
+extern "C" int gt_attention_bwd_blocks(int kernel, int dtype, int fuse_edge, int hd,
                                        int num_heads, int f, int* blocks) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -749,11 +882,13 @@ extern "C" int gt_attention_bwd_blocks(int src_fused, int dtype, int fuse_edge, 
   const bool fe = fuse_edge != 0;
   int per_sm = 0;
   if (dtype == 0)
-    per_sm = src_fused ? src_fused_blocks_per_sm<float>(hd, d, f, fe)
-                       : dst_blocks_per_sm<float>(hd, d, f, fe);
+    per_sm = kernel == 2   ? src_sum_blocks_per_sm<float>(hd)
+             : kernel == 1 ? src_fused_blocks_per_sm<float>(hd, d, f, fe)
+                           : dst_blocks_per_sm<float>(hd, d, f, fe);
   else if (dtype == 1)
-    per_sm = src_fused ? src_fused_blocks_per_sm<__nv_bfloat16>(hd, d, f, fe)
-                       : dst_blocks_per_sm<__nv_bfloat16>(hd, d, f, fe);
+    per_sm = kernel == 2   ? src_sum_blocks_per_sm<__nv_bfloat16>(hd)
+             : kernel == 1 ? src_fused_blocks_per_sm<__nv_bfloat16>(hd, d, f, fe)
+                           : dst_blocks_per_sm<__nv_bfloat16>(hd, d, f, fe);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   *blocks = sms * (per_sm > 0 ? per_sm : 1);
@@ -801,24 +936,19 @@ extern "C" int gt_attention_bwd_dst(int dtype, int fuse_edge, const void* q, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4.
+// K4, with at most `blocks` blocks below a mean out-degree of
+// kSumFullGridDegree.
 extern "C" int gt_attention_bwd_src(int dtype, const void* dkv, const void* src_ptr,
                                     const void* src_perm, void* dk, void* dv, int batch,
-                                    int n_src, int n_edges, int hd, void* stream) {
+                                    int n_src, int n_edges, int hd, int blocks, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(src_ptr);
   const int* perm = static_cast<const int*>(src_perm);
   if (n_src > 0 && batch > 0) {
-    const dim3 grid(n_src, batch);
-    const int threads = threads_for(hd);
     if (dtype == 0)
-      gt_attention_bwd_src_kernel<float><<<grid, threads, 0, st>>>(
-          static_cast<const float*>(dkv), p, perm, static_cast<float*>(dk),
-          static_cast<float*>(dv), n_src, n_edges, hd);
+      launch_src_sum<float>(dkv, p, perm, dk, dv, batch, n_src, n_edges, hd, blocks, st);
     else if (dtype == 1)
-      gt_attention_bwd_src_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(dkv), p, perm, static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), n_src, n_edges, hd);
+      launch_src_sum<__nv_bfloat16>(dkv, p, perm, dk, dv, batch, n_src, n_edges, hd, blocks, st);
     else
       return static_cast<int>(cudaErrorInvalidValue);
   }

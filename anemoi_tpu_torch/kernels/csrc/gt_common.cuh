@@ -10,11 +10,6 @@
 namespace gt {
 
 constexpr int kMaxEdgeFeatures = 8;  // the fused edge projection's raw width F, at most
-// One thread per channel (K4): HD = 1024 (the Transformer preset's mappers)
-// gives 1024-thread blocks, which launch only if a thread uses at most 64
-// registers.  The bound makes ptxas keep to that.  K1, K2, K3 and K5 walk
-// destinations or sources in groups of lanes instead (DstLayout below).
-constexpr int kMaxThreads = 1024;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -36,13 +31,13 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// ---- groups of 16-byte lanes (K1, K2, K3, K5) ------------------------------
+// ---- groups of 16-byte lanes (K1-K5) ---------------------------------------
 
 constexpr int kDstThreads = 256;  // a block: 256 / GS groups of GS lanes
 
-// The launch shape of a group kernel (a group walks one destination, in K5
-// one source) for HD, head size d and the type's element size: V channels a
-// lane (16 bytes, or 4 or 1 when the head is smaller), GS lanes a group
+// The launch shape of a group kernel (a group walks one destination, in K4
+// and K5 one source) for HD, head size d and the type's element size: V
+// channels a lane (16 bytes, or 4 or 1 when the head is smaller), GS lanes a group
 // (HD / V rounded up to a power of two at most 32, or to a multiple of 32,
 // so a group is a slice of one warp or whole warps), the head butterfly's
 // width `seg` (the largest power of two dividing d / V, at most 32; a head

@@ -58,7 +58,7 @@ def _bwd_entries():
         "blocks": _bind(lib, "gt_attention_bwd_blocks", [_I] * 6 + [_P]),
         "dst": _bind(lib, "gt_attention_bwd_dst",
                      [_I, _I] + [_P] * 17 + [_I] * 7 + [_LL, _LL, ctypes.c_float, _I, _P]),
-        "src": _bind(lib, "gt_attention_bwd_src", [_I] + [_P] * 5 + [_I] * 4 + [_P]),
+        "src": _bind(lib, "gt_attention_bwd_src", [_I] + [_P] * 5 + [_I] * 5 + [_P]),
         "src_fused": _bind(lib, "gt_attention_bwd_src_fused",
                            [_I, _I] + [_P] * 14 + [_I] * 6
                            + [_LL, _LL, ctypes.c_float, _I, _P]),
@@ -68,16 +68,16 @@ def _bwd_entries():
 @functools.lru_cache(maxsize=None)
 def _resident_blocks(kernel: str, device_index: int, dtype_code: int, fused: bool, hd: int,
                      num_heads: int, f: int) -> int:
-    """Blocks of ``kernel`` ("K1" for K1/K2, "K3" or "K5") resident on the
-    card at once: the width of its grid-stride walk over destinations (K1,
-    K3) or sources (K5)."""
+    """Blocks of ``kernel`` ("K1" for K1/K2, "K3", "K4" or "K5") resident on
+    the card at once: the width of its grid-stride walk over destinations
+    (K1, K3) or sources (K4, K5)."""
     out = ctypes.c_int(0)
     args = (dtype_code, int(fused), hd, num_heads, f, ctypes.addressof(out))
     with torch.cuda.device(device_index):
         if kernel == "K1":
             rc = _fwd_entries()["blocks"](*args)
         else:
-            rc = _bwd_entries()["blocks"](int(kernel == "K5"), *args)
+            rc = _bwd_entries()["blocks"]({"K3": 0, "K5": 1, "K4": 2}[kernel], *args)
     if rc != 0:
         raise RuntimeError(f"{kernel}: resident-block query failed: cudaError {rc}")
     return out.value
@@ -99,7 +99,10 @@ def _device_index(t: torch.Tensor) -> int:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card (the raw getter
+    costs the host well under a microsecond a call; building a
+    ``torch.cuda.Stream`` object, several)."""
+    return torch._C._cuda_getCurrentRawStream(_device_index(t))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -142,8 +145,8 @@ def _check(query, key, value, edge_index, dst_ptr, num_heads):
 
 
 def _check_aligned(query, d, f, fuse, vectors):
-    """Each lane of K1/K2, K3 and K5 moves V channels of its row vectors as one
-    aligned access: refuse a tensor that starts off that boundary (no
+    """Each lane of K1/K2, K3, K4 and K5 moves V channels of its row vectors
+    as one aligned access: refuse a tensor that starts off that boundary (no
     fallback)."""
     align = dst_instantiation(query.dtype, d, f, fuse)[0] * query.element_size()
     for name, t in vectors:
@@ -311,31 +314,45 @@ def gt_attention_bwd_dst(
     return DstGrads(dq, dkv, d_edge, dw, db)
 
 
+def src_sum_vector(dtype: torch.dtype, hd: int) -> int:
+    """V, the channels a lane of K4 moves as one vector (``src_sum_layout``
+    in ``csrc/gt_attention_bwd.cu``): 16 bytes when HD is a multiple of
+    that, else 4 channels, else 1."""
+    return dst_instantiation(dtype, hd & -hd, 0, False)[0]
+
+
 def gt_attention_bwd_src(
     dkv: torch.Tensor, src_ptr: torch.Tensor, src_perm: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4, the source pass: ``dk``, ``dv [B, Ns, HD]`` summed from the
     per-edge rows of ``dkv [B, E, 2HD]`` through the source-ordered view
-    (``src_ptr [Ns + 1]``, ``src_perm [E]``, int32).  Sources without edges
-    get zeros."""
+    (``src_ptr [Ns + 1]``, ``src_perm [E]``, int32), in float32 in
+    ``src_perm`` order and rounded once.  Sources without edges get zeros.
+    Takes HD from 1 to 1024; ``dkv`` must start on a boundary of the V
+    channels a lane moves (:func:`src_sum_vector`: 16 bytes at a multiple of
+    8 bf16 or 4 float32 channels)."""
     if not dkv.is_cuda:
         raise ValueError("the CUDA attention kernel needs CUDA tensors")
-    if dkv.dtype not in _DTYPE_CODES:
+    code = _DTYPE_CODES.get(dkv.dtype)
+    if code is None:
         raise TypeError(f"unsupported dtype {dkv.dtype} (float32 or bfloat16)")
-    if dkv.dim() != 3 or dkv.shape[2] % 2 or dkv.shape[2] > 2048 or not dkv.is_contiguous():
-        raise ValueError(f"dkv must be a contiguous [B, E, 2HD] with HD <= 1024; "
-                         f"got {tuple(dkv.shape)}")
-    b, n_e, two_hd = dkv.shape
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit")
-    ns = src_ptr.shape[0] - 1
-    _check_source_order(src_ptr, src_perm, ns, n_e, dkv.device)
+    b, n_e, two_hd = dkv.shape if dkv.dim() == 3 else (0, 0, 0)
     hd = two_hd // 2
-    dk = torch.empty((b, ns, hd), device=dkv.device, dtype=dkv.dtype)
-    dv = torch.empty_like(dk)
+    if two_hd % 2 or not 0 < hd <= 1024 or not dkv.is_contiguous():
+        raise ValueError(f"dkv must be a contiguous [B, E, 2HD] with 1 <= HD <= 1024; "
+                         f"got {tuple(dkv.shape)}")
+    ns = src_ptr.shape[0] - 1
+    if b * ns >= 2 ** 30:
+        raise ValueError(f"B * Ns = {b * ns} exceeds the kernel's index range")
+    _check_source_order(src_ptr, src_perm, ns, n_e, dkv.device)
+    # K4's lanes are K3's for one head of hd & -hd channels (src_sum_vector)
+    _check_aligned(dkv, hd & -hd, 0, False, (("dkv", dkv),))
+    blocks = _resident_blocks("K4", _device_index(dkv), code, False, hd, 1, 0)
+    dk = dkv.new_empty((b, ns, hd))
+    dv = dkv.new_empty((b, ns, hd))
     rc = _bwd_entries()["src"](
-        _DTYPE_CODES[dkv.dtype], dkv.data_ptr(), src_ptr.data_ptr(), src_perm.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, ns, n_e, hd, _stream(dkv),
+        code, dkv.data_ptr(), src_ptr.data_ptr(), src_perm.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, ns, n_e, hd, blocks, _stream(dkv),
     )
     if rc != 0:
         raise RuntimeError(f"gt_attention_bwd_src launch failed: cudaError {rc}")

@@ -159,6 +159,26 @@ def gt_attention_bwd_plain(
     )
 
 
+def gt_attention_bwd_src_plain(
+    dkv: torch.Tensor, src_ptr: torch.Tensor, src_perm: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4 (the TPU kernel ``_reduce_kernel``):
+    ``dk``, ``dv [B, Ns, HD]``, the float32 sums of the rows of ``dkv [B, E,
+    2HD]`` into their sources through the source-ordered view, rounded once
+    to the input type; zeros at sources without edges.  The rows are summed
+    in ``src_perm`` order (an ``index_add_`` over the permuted rows, serial on
+    the CPU)."""
+    acc_type = _acc_type(dkv)
+    b, _, two_hd = dkv.shape
+    ns, hd = src_ptr.shape[0] - 1, two_hd // 2
+    perm = src_perm.long()
+    counts = (src_ptr[1:] - src_ptr[:-1]).long()
+    sources = torch.repeat_interleave(torch.arange(ns, device=dkv.device), counts)
+    acc = torch.zeros((b, ns, two_hd), device=dkv.device, dtype=acc_type).index_add_(
+        1, sources, dkv[:, perm].to(acc_type))
+    return acc[..., :hd].to(dkv.dtype), acc[..., hd:].to(dkv.dtype)
+
+
 def gt_attention_bwd_kernels(
     query: torch.Tensor, key: torch.Tensor, value: torch.Tensor, edge_index: torch.Tensor,
     dst_ptr: torch.Tensor, src_ptr: torch.Tensor, src_perm: torch.Tensor, num_heads: int,

@@ -17,17 +17,19 @@ Phases (any failure exits non-zero, with no result line):
   4. backward  -- at the same edge sets and types, for both edge inputs (K1's
                   raw attributes and K2's projected edges): K3 + K4 and K3
                   (no dkv) + K5 against the plain backward, per output, and
-                  K4 against a float32 index_add_ of K3's dkv; each kernel
-                  timed beside its byte bound and its plain version (K3, K5:
-                  the whole plain backward), K4 also beside one index_add_;
-                  K3, K4 and K5 also back to back, K3 and K5 with their
-                  route and their instantiation's ptxas registers and
-                  spills; bf16 K3 and K5 run twice at the processor edge set
-                  with the fused projection must agree bit for bit (K3: dq,
-                  dkv, dW, dbias; K5: dk, dv);
+                  K4 alone against ``gt_attention_bwd_src_plain`` of K3's dkv
+                  (every K4 row, in every phase: its edgeless sources'
+                  rows exactly 0); each kernel timed beside its byte bound
+                  and its plain version (K3, K5: the whole plain backward),
+                  K4 also beside one index_add_; K3, K4 and K5 also back to
+                  back (K4's index_add_ too), each with its route and its
+                  instantiation's ptxas registers and spills; bf16 K3, K4
+                  and K5 run twice at the processor edge set with the fused
+                  projection must agree bit for bit (K3: dq, dkv, dW,
+                  dbias; K4 and K5: dk, dv);
   5. wide GT   -- K1, K3 + K4 and K3 + K5 against their plain versions at HD
-                  = 1024 (16 heads of 64, the Transformer preset's mappers:
-                  K4 in blocks of 1024 threads) on the data->hidden and
+                  = 1024 (16 heads of 64, the Transformer preset's mappers)
+                  on the data->hidden and
                   hidden->data edge sets, and on the ``multi_scale`` graph's
                   hidden->hidden set (ico-5 ``MultiScaleEdges`` sorted by
                   incoming degree: the processor of ``temporal_downscaler``,
@@ -486,9 +488,12 @@ DST_ROUTE = "CUDA cores, 16-byte vectors a lane, several destinations a block"
 FWD_ROUTE = DST_ROUTE + ", edge rows through a cp.async ring, grid-stride over destinations"
 SRC_ROUTE = ("CUDA cores, 16-byte vectors a lane, several sources a block, gathered rows "
              "through a cp.async ring, grid-stride over sources")
+SUM_ROUTE = ("CUDA cores, 16-byte vectors a lane, several sources a block, grid-stride over "
+             "sources and batch rows, the dkv rows of 4 edges loaded before they are added")
 DST_BUILDS = {"K1": ("gt_attention_fwd", "gt_attention_fwd_kernel", FWD_ROUTE),
               "K2": ("gt_attention_fwd", "gt_attention_fwd_kernel", FWD_ROUTE),
               "K3": ("gt_attention_bwd", "gt_attention_bwd_dst_kernel", DST_ROUTE),
+              "K4": ("gt_attention_bwd", "gt_attention_bwd_src_sum_kernel", SUM_ROUTE),
               "K5": ("gt_attention_bwd", "gt_attention_bwd_src_fused_kernel", SRC_ROUTE)}
 WINDOW_ROUTES = {
     ("K6", torch.bfloat16): ("bf16 warpgroup tensor cores (wgmma m64nNk16)", "_wgmma_kernelILi"),
@@ -625,17 +630,74 @@ def dst_build(kernel, dtype, d, n_feat, fused) -> dict:
     """Route, ptxas registers and spill bytes of the instantiation of
     ``kernel`` (K1, K2, K3 or K5) that a launch of ``dtype`` at head size
     ``d`` with ``n_feat`` edge features takes."""
-    from anemoi_tpu_torch.kernels.build import build_log, ptxas_usage
     from anemoi_tpu_torch.kernels.gt_attention import dst_instantiation
 
-    lib, stem, route = DST_BUILDS[kernel]
     vec, fmax = dst_instantiation(dtype, d, n_feat, fused)
-    name = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
-    key = f"{stem}I{name}Li{vec}ELb{int(fused)}ELi{fmax}EE"
+    return group_build(kernel, f"I{type_name(dtype)}Li{vec}ELb{int(fused)}ELi{fmax}EE")
+
+
+def k4_build(dtype, hd) -> dict:
+    """Route, ptxas registers and spill bytes of the K4 instantiation that a
+    launch of ``dtype`` at width ``hd`` takes (V channels a lane)."""
+    from anemoi_tpu_torch.kernels.gt_attention import src_sum_vector
+
+    return group_build("K4", f"I{type_name(dtype)}Li{src_sum_vector(dtype, hd)}EE")
+
+
+def type_name(dtype) -> str:
+    """The element type as it appears in a mangled kernel name."""
+    return "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+
+
+def group_build(kernel, args: str) -> dict:
+    """Route, ptxas registers and spill bytes of ``kernel``'s instantiation
+    whose mangled template arguments are ``args``."""
+    from anemoi_tpu_torch.kernels.build import build_log, ptxas_usage
+
+    lib, stem, route = DST_BUILDS[kernel]
+    key = stem + args
     found = [u for entry, u in ptxas_usage(build_log(lib)).items() if key in entry]
     if not found:  # another build of the kernel (an older checkout's)
         route = "unknown: no such instantiation in the build log"
     return {"route": route, "instantiation": key, **(found[0] if found else {})}
+
+
+def k4_alone(label, dkv, order, src, n_src) -> dict:
+    """K4 alone on K3's ``dkv``: against ``gt_attention_bwd_src_plain``
+    within ``TOL`` of max|ref| per output and exactly 0 at the sources with
+    no edge; timed single and back to back beside its plain version and one
+    ``index_add_`` of dkv by source (timed the same two ways); its route,
+    registers and spills."""
+    from anemoi_tpu_torch.kernels import gt_attention as kern
+    from anemoi_tpu_torch.ops.gt_attention import gt_attention_bwd_src_plain
+
+    dtype, (b, _, two_hd) = dkv.dtype, dkv.shape
+
+    def k4():
+        return kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm)
+
+    def plain():
+        return gt_attention_bwd_src_plain(dkv, order.src_ptr, order.src_perm)
+
+    def library():
+        return torch.zeros(b, n_src, two_hd, device=dkv.device, dtype=dtype).index_add_(1, src, dkv)
+
+    edgeless = torch.bincount(src, minlength=n_src) == 0
+    err = 0.0
+    for name, x, y in zip(("dk", "dv"), k4(), plain()):
+        e = (x.float() - y.float()).abs().max().item()
+        if not (e <= TOL[dtype] * y.float().abs().max().item() and torch.isfinite(x).all()):
+            raise RuntimeError(f"K4 {label} {dtype} {name} against its plain version: max abs "
+                               f"err {e:.3e} (tol {TOL[dtype]} of max|ref|)")
+        if x[:, edgeless].count_nonzero().item():
+            raise RuntimeError(f"K4 {label} {dtype} {name}: not exactly 0 at the "
+                               f"{int(edgeless.sum())} sources with no edge")
+        err = max(err, e)
+    return {"max_abs_err": err, "ms": cuda_ms(k4), "ms_back_to_back": cuda_ms_back_to_back(k4),
+            "plain_ms": cuda_ms(plain), "plain_is": "gt_attention_bwd_src_plain",
+            "library_ms": cuda_ms(library),
+            "library_ms_back_to_back": cuda_ms_back_to_back(library),
+            "library_is": "index_add_ of dkv", **k4_build(dtype, two_hd // 2)}
 
 
 def kernel_phase(graph, device) -> dict:
@@ -713,8 +775,9 @@ def member_batch_rows(graph, device) -> dict:
     """K1 and K3 + K4 at B = 4 (the ensemble's four members folded into the
     batch rows, as the ensemble phase runs them) at the processor edge set,
     bf16 with the fused edge projection, against their plain versions (K4:
-    the float32 index_add_ of K3's dkv), each timed single and back to back
-    beside its bound, its plain version and (K4) one index_add_."""
+    ``gt_attention_bwd_src_plain`` of K3's dkv), each timed single and back
+    to back beside its bound, its plain version and (K4) one index_add_,
+    timed the same two ways."""
     from anemoi_tpu_torch.kernels import gt_attention as kern
     from anemoi_tpu_torch.ops.gt_attention import (
         SourceOrder, gt_attention_bwd_kernels, gt_attention_bwd_plain, gt_attention_fe,
@@ -780,15 +843,6 @@ def member_batch_rows(graph, device) -> dict:
                                          edge_grad=False, weight_grad=True)
 
     dkv = k3().dkv
-
-    def k4():
-        return kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm)
-
-    def k4_plain():
-        acc = torch.zeros(b, n, 2 * HD, device=device).index_add_(1, src, dkv.float())
-        return acc[..., :HD].to(dtype), acc[..., HD:].to(dtype)
-
-    k4_err = max((x.float() - y.float()).abs().max().item() for x, y in zip(k4(), k4_plain()))
     bounds = backward_bounds(n, n, n_e, n_f, 2, True, batch=b)
     plain_ms = cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g,
                                                       **edge_kw), reps=5, warmup=1)
@@ -798,14 +852,9 @@ def member_batch_rows(graph, device) -> dict:
                    "plain_ms": plain_ms, "plain_is": "gt_attention_bwd_plain",
                    "bound_ms": bounds["K3"][0], "bound_by": bounds["K3"][1],
                    "library_ms": None}]
-    rows["K4"] = [{**base, "max_abs_err": k4_err, "max_abs_err_dk_dv_vs_plain_backward":
-                   max(errs["dk"], errs["dv"]),
-                   "ms": cuda_ms(k4), "ms_back_to_back": cuda_ms_back_to_back(k4),
-                   "plain_ms": cuda_ms(k4_plain), "plain_is": "float32 index_add_ of dkv",
-                   "bound_ms": bounds["K4"][0], "bound_by": bounds["K4"][1],
-                   "library_ms": cuda_ms(lambda: torch.zeros(
-                       b, n, 2 * HD, device=device, dtype=dtype).index_add_(1, src, dkv)),
-                   "library_is": "index_add_ of dkv"}]
+    rows["K4"] = [{**base, **k4_alone(f"at B = {b}", dkv, order, src, n),
+                   "max_abs_err_dk_dv_vs_plain_backward": max(errs["dk"], errs["dv"]),
+                   "bound_ms": bounds["K4"][0], "bound_by": bounds["K4"][1]}]
     for name, r in rows.items():
         print(f"[kernels] {name} at B = {b} (the ensemble's members) {r[0]}", flush=True)
     del dkv, q, k, v, g, out, lse
@@ -898,36 +947,23 @@ def backward_phase(graph, device) -> dict:
                         raise RuntimeError("bf16 K5 is not deterministic: dk or dv differs")
                     print("[backward] bf16 K5 deterministic: dk, dv of two runs bitwise equal",
                           flush=True)
+                    # each source's dkv rows are summed by one group in
+                    # src_perm order, with no atomics
+                    runs = [kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm)
+                            for _ in range(2)]
+                    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+                        raise RuntimeError("bf16 K4 is not deterministic: dk or dv differs")
+                    print("[backward] bf16 K4 deterministic: dk, dv of two runs bitwise equal",
+                          flush=True)
                     del again, runs
                 del first
 
-                # K4 alone: the sum of K3's dkv rows into their sources.  Its
-                # plain version accumulates in float32 as K4 does; the library
-                # call is one index_add_ in the input type
-                def k4_plain():
-                    acc = torch.zeros(1, n_src, 2 * HD, device=device).index_add_(
-                        1, src, dkv.float())
-                    return acc[..., :HD].to(dtype), acc[..., HD:].to(dtype)
-
-                def k4_library():
-                    return torch.zeros(1, n_src, 2 * HD, device=device, dtype=dtype).index_add_(
-                        1, src, dkv)
-
-                k4_ref = k4_plain()
-                for x, y in zip(kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm),
-                                k4_ref):
-                    err = (x.float() - y.float()).abs().max().item()
-                    if not err <= TOL[dtype] * y.float().abs().max().item():
-                        raise RuntimeError(f"K4 {key} {dtype} against its plain version: "
-                                           f"max abs err {err:.3e}")
-                del k4_ref
+                # K4 alone: the sum of K3's dkv rows into their sources
+                k4 = k4_alone("->".join(key), dkv, order, src, n_src)
 
                 def k3():
                     return kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS,
                                                      **edge_kw, **path_kw)
-
-                def k4():
-                    return kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm)
 
                 def k5():
                     return kern.gt_attention_bwd_src_fused(
@@ -939,10 +975,9 @@ def backward_phase(graph, device) -> dict:
                     "K3_no_dkv": cuda_ms(lambda: kern.gt_attention_bwd_dst(
                         q, k, v, g, lse, delta, ei, ptr, HEADS, emit_dkv=False, **edge_kw,
                         **path_kw)),
-                    "K4": cuda_ms(k4), "K4_b2b": cuda_ms_back_to_back(k4),
+                    "K4": k4["ms"],
                     "K5": cuda_ms(k5), "K5_b2b": cuda_ms_back_to_back(k5),
                 }
-                k4_plain_ms, k4_library_ms = cuda_ms(k4_plain), cuda_ms(k4_library)
                 del dkv
                 plain_ms = cuda_ms(lambda: gt_attention_bwd_plain(
                     q, k, v, ei, HEADS, out, lse, g, **edge_kw), reps=10, warmup=2)
@@ -959,10 +994,8 @@ def backward_phase(graph, device) -> dict:
                     "K3": dict(max_abs_err=max(k3_errs.values()), errors=k3_errs,
                                ms_no_dkv=ms["K3_no_dkv"], ms_back_to_back=ms["K3_b2b"],
                                **dst_build("K3", dtype, HD // HEADS, n_f, fused)),
-                    "K4": dict(max_abs_err=max(errs[(False, "dk")], errs[(False, "dv")]),
-                               plain_ms=k4_plain_ms, plain_is="float32 index_add_ of dkv",
-                               library_ms=k4_library_ms, library_is="index_add_ of dkv",
-                               ms_back_to_back=ms["K4_b2b"]),
+                    "K4": dict(**k4, max_abs_err_dk_dv_vs_plain_backward=max(
+                        errs[(False, "dk")], errs[(False, "dv")])),
                     "K5": dict(max_abs_err=max(errs[(True, "dk")], errs[(True, "dv")]),
                                ms_back_to_back=ms["K5_b2b"],
                                **dst_build("K5", dtype, HD // HEADS, n_f, fused)),
@@ -1063,8 +1096,7 @@ def gt_wide_phase(graph, device):
                 return kern.gt_attention_bwd_dst(q, k, v, g, lse, delta, ei, ptr, HEADS,
                                                  **edge_kw, **path_kw)
 
-            def k4():
-                return kern.gt_attention_bwd_src(dkv, order.src_ptr, order.src_perm)
+            k4 = k4_alone(f"HD={WIDE_HD} {'->'.join(key)}", dkv, order, src, n_src)
 
             def k5():
                 return kern.gt_attention_bwd_src_fused(q, k, v, g, lse, delta, ei, ptr,
@@ -1076,7 +1108,7 @@ def gt_wide_phase(graph, device):
                                                       source=order)),
                 "K1_b2b": cuda_ms_back_to_back(k1_raw),
                 "K3": cuda_ms(k3), "K3_b2b": cuda_ms_back_to_back(k3),
-                "K4": cuda_ms(k4), "K4_b2b": cuda_ms_back_to_back(k4),
+                "K4": k4["ms"],
                 "K5": cuda_ms(k5), "K5_b2b": cuda_ms_back_to_back(k5),
             }
             plain = {
@@ -1084,13 +1116,9 @@ def gt_wide_phase(graph, device):
                                                       plain=True), reps=10, warmup=2),
                 "K3": cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, HEADS, out, lse, g,
                                                              **edge_kw), reps=5, warmup=1),
-                "K4": cuda_ms(lambda: torch.zeros(1, n_src, 2 * WIDE_HD, device=device)
-                              .index_add_(1, src, dkv.float()), reps=10, warmup=2),
+                "K4": k4["plain_ms"],
             }
             plain["K5"] = plain["K3"]  # both parts of the whole plain backward
-            k4_library_ms = cuda_ms(lambda: torch.zeros(
-                1, n_src, 2 * WIDE_HD, device=device, dtype=dtype).index_add_(1, src, dkv),
-                reps=10, warmup=2)
             del dkv
             bounds = {"K1": attention_bound(n_dst, n_src, n_e, n_f, q.element_size(), True,
                                             WIDE_HD),
@@ -1107,9 +1135,8 @@ def gt_wide_phase(graph, device):
                            plain_is="gt_attention_bwd_plain", library_ms=None,
                            ms_back_to_back=ms["K3_b2b"],
                            **dst_build("K3", dtype, WIDE_HD // HEADS, n_f, True)),
-                "K4": dict(max_abs_err=max(errs["dk"], errs["dv"]),
-                           plain_is="float32 index_add_ of dkv", library_ms=k4_library_ms,
-                           library_is="index_add_ of dkv", ms_back_to_back=ms["K4_b2b"]),
+                "K4": dict(**k4, max_abs_err_dk_dv_vs_plain_backward=max(errs["dk"],
+                                                                         errs["dv"])),
                 "K5": dict(max_abs_err=max(errs["dk (K5)"], errs["dv (K5)"]),
                            plain_is="gt_attention_bwd_plain", library_ms=None,
                            ms_back_to_back=ms["K5_b2b"],
@@ -2992,8 +3019,9 @@ def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, d
     """K3 + K4 (and, with ``k5``, K3 + K5) at an edge set, against the plain
     backward, the flagship's fused edge projection, width ``hd``, float32
     and bfloat16, within the phase-4 gates; the dk and dv rows of the
-    sources with no edge exactly 0.  Rows for K3, K4 (and K5), each timed
-    single and back to back beside its byte bound, K4 also beside
+    sources with no edge exactly 0; K4 alone against its plain version
+    (``k4_alone``).  Rows for K3, K4 (and K5), each timed single and back to
+    back beside its byte bound, K4 also beside its plain version and
     ``index_add_`` timed the same two ways; with ``k5`` also K3 without its
     dkv output, as the fused backward launches it, and both backward
     passes' back-to-back sums (K3 + K4, K3 without dkv + K5).  ``heads``:
@@ -3055,16 +3083,10 @@ def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, d
                  "K5": lambda: kern.gt_attention_bwd_src_fused(
                      q, k, v, g, lse, delta, ei, ptr, order.src_ptr, order.src_perm, heads,
                      **edge_kw)}
-        ms = {name: cuda_ms(calls[name]) for name in rows}
-        b2b = {name: cuda_ms_back_to_back(calls[name]) for name in rows}
-        src = ei[0].long()
-        k4_plain_ms = cuda_ms(lambda: torch.zeros(1, n_src, 2 * hd, device=device).index_add_(
-            1, src, dkv.float()))
-
-        def k4_library():
-            return torch.zeros(1, n_src, 2 * hd, device=device, dtype=dtype).index_add_(1, src, dkv)
-
-        k4_library_ms, k4_library_b2b = cuda_ms(k4_library), cuda_ms_back_to_back(k4_library)
+        k4 = k4_alone(f"{label} {edge_set}", dkv, order, ei[0].long(), n_src)
+        ms = {name: k4["ms"] if name == "K4" else cuda_ms(calls[name]) for name in rows}
+        b2b = {name: k4["ms_back_to_back"] if name == "K4" else cuda_ms_back_to_back(calls[name])
+               for name in rows}
         plain_ms = cuda_ms(lambda: gt_attention_bwd_plain(q, k, v, ei, heads, out, lse, g,
                                                           **edge_kw), reps=10, warmup=2)
         bounds = backward_bounds(n_dst, n_src, n_e, n_f, q.element_size(), True, hd,
@@ -3078,10 +3100,8 @@ def sparse_set_backward(label, edge_set, ei, ptr, order, attr32, n_src, n_dst, d
             "K3": dict(plain_ms=plain_ms, plain_is="gt_attention_bwd_plain", library_ms=None,
                        max_abs_err=max(e[f] for e in errs.values() for f in k3_fields),
                        errors=errs),
-            "K4": dict(plain_ms=k4_plain_ms, plain_is="float32 index_add_ of dkv",
-                       library_ms=k4_library_ms, library_ms_back_to_back=k4_library_b2b,
-                       library_is="index_add_ of dkv",
-                       max_abs_err=max(errs["K4"]["dk"], errs["K4"]["dv"])),
+            "K4": dict(**k4, max_abs_err_dk_dv_vs_plain_backward=max(errs["K4"]["dk"],
+                                                                     errs["K4"]["dv"])),
             "K5": dict(plain_ms=plain_ms, plain_is="gt_attention_bwd_plain", library_ms=None,
                        max_abs_err=max(errs["K5"]["dk"], errs["K5"]["dv"]) if k5 else None),
         }
@@ -5111,14 +5131,16 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
             "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": head["max_abs_err"], "max_err": head["max_abs_err"],
             "ms": head["ms"],
-            # K1-K3 and K6/K7: the kernel's design, its instantiation's ptxas
-            # registers and spills, and its time back to back
+            # K1-K7: the kernel's design, its instantiation's ptxas
+            # registers and spills, and its time back to back (K4: also
+            # index_add_'s)
             **{key: head[key] for key in ("ms_back_to_back", "instantiation", "registers",
-                                          "spill_stores", "spill_loads")
+                                          "spill_stores", "spill_loads",
+                                          "library_ms_back_to_back")
                if key in head},
             **({"route_detail": head["route"]} if "route" in head else {}),
             # K3, K5: the plain version is the whole plain backward
-            # (gt_attention_bwd_plain); K4: a float32 index_add_ of dkv; K6:
+            # (gt_attention_bwd_plain); K4: gt_attention_bwd_src_plain; K6:
             # the plain band; K7: the plain band's autograd backward, to be
             # compared with K7_pair_ms (K7_dq + K7_dkv), as is library_ms
             "plain_ms": head["plain_ms"],

@@ -14,6 +14,10 @@ augmented ``dW`` (bias lane at row F) is split into ``dW`` and ``db``.
 Tolerance rtol/atol 3e-5, the JAX package's own kernel tolerance
 (tests/test_paged_gt.py).
 
+K4's function alone, ``gt_attention_bwd_src_plain``, is also held against
+``_reduce_kernel`` (through ``_reduce_call``, interpret mode) on the same
+dkv rows in the JAX package's slot layout.
+
 The CUDA kernels K3-K5 are held against the plain backward on the card in
 tests/test_torch_kernels.py.
 """
@@ -28,6 +32,7 @@ import jax.numpy as jnp
 from anemoi_tpu.ops.pallas import paged_gt
 from anemoi_tpu.ops.pallas.paged_gt import (
     PagedTables,
+    _reduce_call,
     augment_edge_weights,
     build_paged_csr,
     pad_raw_edge_features,
@@ -37,6 +42,7 @@ from anemoi_tpu.ops.pallas.paged_gt import (
 from anemoi_tpu_torch.ops.gt_attention import (
     gt_attention,
     gt_attention_bwd_plain,
+    gt_attention_bwd_src_plain,
     gt_attention_fe,
     gt_attention_plain,
     source_order,
@@ -219,3 +225,73 @@ def test_source_order():
     np.testing.assert_array_equal(perm, [1, 4, 3, 0, 2])
     np.testing.assert_array_equal(ptr, [0, 2, 3, 5, 5])
     assert ptr.dtype == perm.dtype == np.int32
+
+
+# K4's function: a source graph with sources 0 and 39 (the first and the
+# last) and 9-11 edgeless, and hub source 13 read by 20 destinations, so that
+# its edges fill several of _reduce_kernel's r-edge slots (r = 8) across
+# destination blocks; sources span 5 pages of 8
+SRC_DEAD = (0, 9, 10, 11, 39)
+SRC_HUB, SRC_HUB_DEGREE = 13, 20
+
+
+def source_pass_case(seed, batch, hd, num_src=40, num_dst=30):
+    """A dst-sorted edge list (1-4 edges a destination plus the hub's) and
+    seeded dkv rows [batch, E, 2HD] in float32."""
+    rng = np.random.default_rng(seed)
+    alive = np.setdiff1d(np.arange(num_src), SRC_DEAD + (SRC_HUB,))
+    src, dst = [], []
+    for dd in range(num_dst):
+        chosen = list(rng.choice(alive, size=int(rng.integers(1, 5)), replace=False))
+        if dd < SRC_HUB_DEGREE:
+            chosen.append(SRC_HUB)
+        src += chosen
+        dst += [dd] * len(chosen)
+    src, dst = np.asarray(src), np.asarray(dst)
+    o = np.lexsort((src, dst))
+    ei = np.stack([src[o], dst[o]]).astype(np.int64)
+    dkv = rng.normal(size=(batch, ei.shape[1], 2 * hd)).astype(np.float32)
+    return ei, dkv
+
+
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("batch", [1, 2], ids=["batch1", "batch2"])
+def test_source_pass_plain_matches_reduce_kernel(batch, hd):
+    """``gt_attention_bwd_src_plain`` against ``_reduce_call`` (the TPU
+    kernel K4 replaces, interpret mode, page 8, r 8) on the same dkv rows,
+    each batch row on its own (the JAX op is unbatched): dk and dv within
+    rtol/atol 3e-5, and exactly 0 at the sources without edges."""
+    num_src, num_dst = 40, 30
+    ei, dkv = source_pass_case(30 + batch + hd, batch, hd, num_src, num_dst)
+    degree = np.bincount(ei[0], minlength=num_src)
+    assert degree[SRC_HUB] == SRC_HUB_DEGREE and (degree[list(SRC_DEAD)] == 0).all()
+    csr = build_paged_csr(ei, num_src, num_dst, bd=8, page=8, r=8)
+    tab = PagedTables.from_csr(csr)
+    ptr, perm = source_order(ei, num_src)
+    dk, dv = gt_attention_bwd_src_plain(torch.from_numpy(dkv), torch.from_numpy(ptr),
+                                        torch.from_numpy(perm))
+    assert dk.shape == dv.shape == (batch, num_src, hd) and dk.dtype == torch.float32
+    for b in range(batch):
+        ref = np.asarray(_reduce_call(jnp.asarray(csr.pad_edge_array(dkv[b])), tab, True))
+        np.testing.assert_allclose(dk[b].numpy(), ref[:, :hd], err_msg=f"dk row {b}", **TOL)
+        np.testing.assert_allclose(dv[b].numpy(), ref[:, hd:], err_msg=f"dv row {b}", **TOL)
+        assert np.all(ref[list(SRC_DEAD)] == 0)
+    assert torch.all(dk[:, list(SRC_DEAD)] == 0) and torch.all(dv[:, list(SRC_DEAD)] == 0)
+
+
+def test_source_pass_plain_sums_in_source_order():
+    """The plain version adds each source's rows in ``src_perm`` order in
+    float32 and rounds once, as K4 does: bf16 outputs equal a serial numpy
+    float32 sum in that order, rounded to bf16, bit for bit."""
+    ei, dkv = source_pass_case(7, 2, 16)
+    ptr, perm = source_order(ei, 40)
+    x = torch.from_numpy(dkv).to(torch.bfloat16)
+    dk, dv = gt_attention_bwd_src_plain(x, torch.from_numpy(ptr), torch.from_numpy(perm))
+    rows = x.float().numpy()
+    want = np.zeros((2, 40, 32), np.float32)
+    for s in range(40):
+        for p in range(ptr[s], ptr[s + 1]):
+            want[:, s] += rows[:, perm[p]]
+    want = torch.from_numpy(want).to(torch.bfloat16)
+    assert dk.dtype == torch.bfloat16
+    assert torch.equal(dk, want[..., :16]) and torch.equal(dv, want[..., 16:])

@@ -7,16 +7,21 @@ JAX nor the JAX package, so they also run where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 They cover the head sizes the flagship (d = 32) does not: d < 32 and d =
-64 -- also at HD = 1024 (16 x 64, the Transformer preset's mappers: 1024
-threads a block in K4) --, destinations without edges, sources without
+64 -- also at HD = 1024 (16 x 64, the Transformer preset's mappers) --,
+destinations without edges, sources without
 edges (backward), and both input types; for the kernels that walk
 destinations or sources in groups of lanes (K1/K2 forward, K3 and K5
 backward) also a destination of in-degree 75 (K1/K2, K3) or a source of
 out-degree 75 (K5) -- three 32-edge chunks --, heads of 512 channels (a
 head sum across warps), eight raw edge features (K1, K5), bitwise
 repeatability in bf16 and the refusal of a vector input off its 16-byte
-boundary.  The banded window kernels K6 (forward: out and lse) and K7 (dq; dk
-and dv) are held against ``band_attention_plain`` and its autograd backward,
+boundary.  K4 (the source pass) is also held alone against
+``gt_attention_bwd_src_plain`` at every width from 6 to 1 024 channels (16-,
+8- and 2-byte lanes, lanes past HD), with all sources edgeless, 81 %
+edgeless, a source of out-degree 75, a mean out-degree of 12, batch 1 and 4
+and more sources than its grid holds groups; its edgeless rows exactly 0 and
+its outputs bit for bit those of the plain version on the CPU.  The banded
+window kernels K6 (forward: out and lse) and K7 (dq; dk and dv) are held against ``band_attention_plain`` and its autograd backward,
 with softcap, ALiBi, a ragged last tile, a full band over several tiles and
 a sequence shorter than one tile, and logits large enough that the running
 max jumps between key tiles; bf16 K6 and K7 (tensor cores) must be bitwise
@@ -39,7 +44,9 @@ from anemoi_tpu_torch.ops.gt_attention import (
     gt_attention,
     gt_attention_bwd_kernels,
     gt_attention_bwd_plain,
+    gt_attention_bwd_src_plain,
     gt_attention_fe,
+    source_order,
 )
 from anemoi_tpu_torch.models.layers.attention import get_alibi_slopes
 from anemoi_tpu_torch.ops.window_attention import (
@@ -561,6 +568,156 @@ def test_fused_source_pass_many_sources_is_deterministic(card, case):
     assert runs[0][0].abs().max() > 0
     for first, second in zip(*runs):
         assert torch.equal(first, second)
+
+
+# ---- K4 alone ---------------------------------------------------------------
+
+# (sources, edges, share of the sources that have edges, {source: out-degree})
+K4_CASES = {
+    "mixed": (300, 600, 0.9, None),
+    "all_edgeless": (300, 0, 0.0, None),
+    "edgeless_81_percent": (10242, 1926, 0.19, None),  # the V-cycle's down set
+    "out_degree_75": (300, 600, 0.9, {7: 75}),
+    "out_degree_12": (300, 3600, 1.0, None),  # one group a source (mean degree >= 4)
+}
+
+
+def k4_inputs(card, case, hd, batch, dtype, seed=16, num_src=None):
+    """dkv [batch, E, 2HD] and the source-ordered view of a random edge
+    list whose sources are drawn from a share of the sources (the others
+    edgeless); returns (dkv, src_ptr, src_perm, edgeless source mask)."""
+    n_src, n_e, share, hubs = K4_CASES[case]
+    n_src = num_src or n_src
+    rng = np.random.default_rng(seed)
+    alive = np.setdiff1d(rng.choice(n_src, size=max(1, int(share * n_src)), replace=False),
+                         list(hubs or {}))
+    src = rng.choice(alive, size=n_e) if n_e else np.zeros(0, np.int64)
+    for s_, n in (hubs or {}).items():
+        src[:n] = s_
+    rng.shuffle(src)
+    ptr, perm = source_order(np.stack([src, np.zeros_like(src)]), n_src)
+    dkv = torch.from_numpy(rng.normal(size=(batch, n_e, 2 * hd)).astype(np.float32))
+    edgeless = torch.from_numpy(np.bincount(src, minlength=n_src) == 0).to(card)
+    return (dkv.to(card, dtype), torch.from_numpy(ptr).to(card), torch.from_numpy(perm).to(card),
+            edgeless)
+
+
+def check_k4(dkv, ptr, perm, edgeless):
+    """K4 against its plain version: one launch, each output within the
+    type's tolerance of max|ref|, the edgeless sources' rows exactly 0."""
+    before = kern.gt_attention_bwd_src.launches
+    got = kern.gt_attention_bwd_src(dkv, ptr, perm)
+    torch.cuda.synchronize()
+    assert kern.gt_attention_bwd_src.launches == before + 1
+    ref = gt_attention_bwd_src_plain(dkv, ptr, perm)
+    tol = 1e-4 if dkv.dtype == torch.float32 else 2e-2
+    for name, x, y in zip(("dk", "dv"), got, ref):
+        assert x.shape == y.shape and x.dtype == dkv.dtype, name
+        err = (x.float() - y.float()).abs().max() if x.numel() else 0.0
+        assert err <= tol * y.float().abs().max(), (name, float(err))
+        assert torch.all(x[:, edgeless] == 0), name
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [6, 8, 12, 32, 64, 128, 256, 512, 1000, 1022, 1024])
+def test_K4_matches_plain_at_every_width(card, hd, dtype):
+    """Widths of 16-byte lanes (8 bf16 or 4 float32 channels), of 8-byte
+    (bf16 at HD 12) and 2- or 4-byte lanes (HD 6, 1022: groups of up to
+    1 024 threads), and lanes past HD (1000: 125 of 128 active)."""
+    check_k4(*k4_inputs(card, "mixed", hd, 2, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_K4_matches_plain_on_source_degrees(card, case, batch, dtype):
+    """All sources edgeless (no dkv row at all), 81 % edgeless, a source of
+    out-degree 75 (three 32-edge chunks), a mean out-degree of 12 (a grid of
+    one group a source, not the resident stride), at the flagship's HD
+    512."""
+    dkv, ptr, perm, edgeless = k4_inputs(card, case, 512, batch, dtype)
+    if case == "out_degree_75":
+        assert int((ptr[8] - ptr[7]).item()) == 75
+    check_k4(dkv, ptr, perm, edgeless)
+
+
+def k4_grid_groups(dtype, hd):
+    """Groups in K4's grid on this card."""
+    v = kern.src_sum_vector(dtype, hd)
+    lanes = hd // v
+    gs = 1 << (lanes - 1).bit_length() if lanes <= 32 else -(-lanes // 32) * 32
+    blocks = kern._resident_blocks("K4", torch.cuda.current_device(), kern._DTYPE_CODES[dtype],
+                                   False, hd, 1, 0)
+    return blocks * max(1, 256 // gs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 512])
+def test_K4_strides_over_more_sources_than_its_groups(card, hd, dtype):
+    """More sources than K4's grid holds groups, at batch 2 (the batch row
+    folds into the stride): each group sums several items."""
+    groups = k4_grid_groups(dtype, hd)
+    n_src = 2 * groups + 7
+    dkv, ptr, perm, edgeless = k4_inputs(card, "mixed", hd, 2, dtype, num_src=n_src)
+    assert ptr.shape[0] - 1 == n_src >= 2 * groups
+    check_k4(dkv, ptr, perm, edgeless)
+
+
+@pytest.mark.cuda
+def test_K4_is_deterministic(card):
+    """bf16 K4: a source's rows are summed by one group in src_perm order,
+    with no atomics, so two runs agree bit for bit."""
+    dkv, ptr, perm, _ = k4_inputs(card, "out_degree_75", 512, 4, torch.bfloat16)
+    runs = [kern.gt_attention_bwd_src(dkv, ptr, perm) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert runs[0][0].abs().max() > 0
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["mixed", "edgeless_81_percent", "out_degree_75",
+                                  "out_degree_12"])
+def test_K4_equals_the_serial_sum_bit_for_bit(card, case, dtype):
+    """K4 sums a source's rows in float32 in src_perm order and rounds once,
+    as the plain version does on the CPU, where its index_add_ is serial in
+    that order (test_source_pass_plain_sums_in_source_order): equal bit for
+    bit, at batch 2 and HD 512."""
+    dkv, ptr, perm, _ = k4_inputs(card, case, 512, 2, dtype)
+    got = kern.gt_attention_bwd_src(dkv, ptr, perm)
+    ref = gt_attention_bwd_src_plain(dkv.cpu(), ptr.cpu(), perm.cpu())
+    for name, x, y in zip(("dk", "dv"), got, ref):
+        assert torch.equal(x.cpu(), y), name
+
+
+@pytest.mark.cuda
+def test_K4_refuses(card):
+    """K4 refuses, before any launch: dkv off the boundary of its lanes'
+    vectors (16 bytes at bf16 HD 512), HD above 1 024, an odd last
+    dimension, a non-contiguous dkv, float16, and int64 source tables."""
+    dkv, ptr, perm, _ = k4_inputs(card, "mixed", 512, 1, torch.bfloat16)
+    buf = torch.zeros(dkv.numel() + 1, device=card, dtype=dkv.dtype)
+    bad = buf[1:].view(dkv.shape)
+    bad.copy_(dkv)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    n_e = dkv.shape[1]
+    before = kern.launch_counts()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kern.gt_attention_bwd_src(bad, ptr, perm)
+    for x in (torch.zeros(1, n_e, 2050, device=card), torch.zeros(1, n_e, 511, device=card),
+              torch.cat([dkv, dkv], -1)[..., ::2]):
+        with pytest.raises(ValueError, match="dkv must be a contiguous"):
+            kern.gt_attention_bwd_src(x, ptr, perm)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        kern.gt_attention_bwd_src(dkv.half(), ptr, perm)
+    with pytest.raises(TypeError, match="int32"):
+        kern.gt_attention_bwd_src(dkv, ptr.long(), perm)
+    assert kern.launch_counts() == before
 
 
 def test_window_kernel_wrappers_refuse_cpu_tensors():
