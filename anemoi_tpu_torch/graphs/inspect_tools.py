@@ -1,8 +1,8 @@
-"""Graph statistics and sparse export.
+"""Graph statistics, sparse export and an overview plot.
 
-Copy of ``anemoi_tpu.graphs.inspect_tools`` without ``plot_graph`` (it needs
-matplotlib, which the port does not use): degree and length statistics per
-edge set, and each edge set as a scipy sparse matrix.
+Copy of ``anemoi_tpu.graphs.inspect_tools``: degree and length statistics
+per edge set, each edge set as a scipy sparse matrix, and
+:func:`plot_graph` (matplotlib, imported when it draws).
 """
 
 from __future__ import annotations
@@ -58,3 +58,40 @@ def export_to_sparse(graph: Graph, output_dir: str) -> Dict[str, str]:
         sp.save_npz(path, mat)
         written[f"{src}->{dst}"] = path
     return written
+
+
+def plot_graph(graph: Graph, output_path: str, max_points: int = 20000) -> str:
+    """Node scatter maps and in-degree histograms in one figure."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    n_node_sets = len(graph.nodes)
+    n_edge_sets = len(graph.edges)
+    fig, axes = plt.subplots(
+        2, max(n_node_sets, n_edge_sets), figsize=(5 * max(n_node_sets, n_edge_sets), 8)
+    )
+    axes = np.atleast_2d(axes)
+
+    for i, (name, ns) in enumerate(graph.nodes.items()):
+        ax = axes[0, i]
+        coords = np.rad2deg(ns.coords)
+        if len(coords) > max_points:
+            sel = np.random.default_rng(0).choice(len(coords), max_points, replace=False)
+            coords = coords[sel]
+        ax.scatter(coords[:, 1], coords[:, 0], s=0.5)
+        ax.set_title(f"nodes '{name}' ({ns.num_nodes})")
+        ax.set_xlabel("lon")
+        ax.set_ylabel("lat")
+
+    for i, ((src, dst), es) in enumerate(graph.edges.items()):
+        ax = axes[1, i]
+        in_deg = np.bincount(es.edge_index[1], minlength=graph[dst].num_nodes)
+        ax.hist(in_deg, bins=30)
+        ax.set_title(f"in-degree {src}->{dst} (E={es.num_edges})")
+
+    fig.tight_layout()
+    fig.savefig(output_path, dpi=100)
+    plt.close(fig)
+    return output_path

@@ -10,12 +10,17 @@ trainer from its loop hooks (``on_train_start``, ``on_step``,
 
 The plot callbacks (``PlotSample``, ``PlotEnsembleSample``,
 ``PlotSpectrum``, ``PlotHistogram``, ``GraphTrainableFeaturesPlot``,
-``LossCurvePlot``) need matplotlib and are not ported: building one raises
-``NotImplementedError``.
+``LossCurvePlot``) render each due validation's figures to
+``<output_dir>/plots/`` through ``training/plots.py``, on a background
+thread unless ``async_plots`` is false.  They import matplotlib when they
+are built, so that a run without it fails before its first step (the JAX
+callbacks import it when they draw, and their executor logs the failure).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -212,16 +217,233 @@ class PerTimestepMetrics(Callback):
                                                   keep=lambda k: "/t_" in k))
 
 
-class _PlotCallback(Callback):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} needs matplotlib and is not ported to anemoi_tpu_torch"
-        )
+class BasePlotCallback(Callback):
+    """Shared machinery: the plots directory, the executor, the cadence."""
+
+    def __init__(self, every_n_validations: int = 1, async_plots: bool = True):
+        from anemoi_tpu_torch.training.plots import AsyncPlotExecutor, SyncPlotExecutor, _plt
+
+        _plt()  # matplotlib, before the first step
+        self.every = max(1, every_n_validations)
+        self._n = 0
+        self.executor = AsyncPlotExecutor() if async_plots else SyncPlotExecutor()
+
+    def _due(self) -> bool:
+        self._n += 1
+        return self._n % self.every == 0
+
+    def _plot_dir(self, trainer) -> str:
+        return os.path.join(trainer.output_dir, "plots")
+
+    def _sample(self, trainer):
+        """One validation batch: (lats, lons, pred, truth, names), pred and
+        truth ``[G, V_out]`` in physical units: the first sample's first
+        output step (the first member's, for an ensemble)."""
+        batch_np = next(iter(trainer.datamodule.val_batches()))
+        with torch.no_grad():
+            out = trainer.interface.predict_step(trainer.put_batch(batch_np))
+        ds = sorted(batch_np)[0]
+        idx = trainer.data_indices[ds]
+        m = trainer.interface.model.n_step_input
+        names = idx.model.output.ordered_names
+        cols = np.asarray([idx.name_to_index[n] for n in names])
+        truth = np.asarray(batch_np[ds][0, m, 0])[:, cols]  # [G, V_out]
+        members = out[ds][0, 0].float().cpu().numpy()  # [E, G, V_out]
+        self._last_members = members
+        self._last_dataset = ds
+        coords = trainer.graph[ds].coords
+        return coords[:, 0], coords[:, 1], members[0], truth, names
+
+    def _focus(self, trainer, lats, lons, *fields):
+        """The configured focus area (``focus_area``) applied to the
+        coordinates and the ``[..., G, V]`` fields; no-op without one."""
+        mask = getattr(self, "_spatial_mask", None)
+        if mask is None:
+            from anemoi_tpu_torch.training.plots import build_spatial_mask
+
+            mask = self._spatial_mask = build_spatial_mask(
+                **(getattr(self, "focus_area", None) or {}))
+        return mask.apply(trainer.graph, self._last_dataset, lats, lons, *fields), mask.tag
+
+    def _selected(self, names) -> list:
+        if self.variables:
+            return [names.index(v) for v in self.variables]
+        return list(range(min(self.max_vars, len(names))))
 
 
-for _name in ("PlotSample", "PlotEnsembleSample", "PlotSpectrum", "PlotHistogram",
-              "GraphTrainableFeaturesPlot", "LossCurvePlot"):
-    CALLBACKS[_name] = type(_name, (_PlotCallback,), {})
+@register_callback("PlotSample")
+class PlotSample(BasePlotCallback):
+    """Truth / prediction / error maps of selected variables each due
+    validation."""
+
+    def __init__(self, variables: Optional[list] = None, max_vars: int = 4,
+                 every_n_validations: int = 1, async_plots: bool = True,
+                 focus_area: Optional[dict] = None, colormaps: Optional[list] = None):
+        super().__init__(every_n_validations, async_plots)
+        self.variables = variables
+        self.max_vars = max_vars
+        self.focus_area = focus_area
+        self.colormaps = colormaps
+
+    def on_validation(self, trainer, step, val_metrics):
+        if not self._due():
+            return
+        from anemoi_tpu_torch.training.plots import build_colormaps, plot_sample_maps, save_figure
+
+        lats, lons, pred, truth, names = self._sample(trainer)
+        (lats, lons, pred, truth), tag = self._focus(trainer, lats, lons, pred, truth)
+        sel = self._selected(names)
+        cmaps = build_colormaps(self.colormaps)
+        path = os.path.join(self._plot_dir(trainer), f"sample{tag}_step{step:07d}.png")
+        self.executor.schedule(lambda: save_figure(
+            plot_sample_maps(lats, lons, pred[:, sel], truth[:, sel], [names[i] for i in sel],
+                             cmaps=cmaps), path))
+
+
+@register_callback("PlotEnsembleSample")
+class PlotEnsembleSample(BasePlotCallback):
+    """Per-member, ensemble-mean and spread maps of an ensemble model."""
+
+    def __init__(self, variables: Optional[list] = None, max_vars: int = 2,
+                 max_members: int = 4, every_n_validations: int = 1,
+                 async_plots: bool = True, focus_area: Optional[dict] = None):
+        super().__init__(every_n_validations, async_plots)
+        self.variables = variables
+        self.max_vars = max_vars
+        self.max_members = max_members
+        self.focus_area = focus_area
+
+    def on_validation(self, trainer, step, val_metrics):
+        if not self._due():
+            return
+        from anemoi_tpu_torch.training.plots import plot_ensemble_maps, save_figure
+
+        lats, lons, _, truth, names = self._sample(trainer)
+        members = self._last_members  # [E, G, V]
+        if members.shape[0] <= 1:
+            return  # a deterministic model: no ensemble to show
+        (lats, lons, members, truth), tag = self._focus(trainer, lats, lons, members, truth)
+        for i in self._selected(names):
+            path = os.path.join(self._plot_dir(trainer),
+                                f"ensemble_{names[i]}{tag}_step{step:07d}.png")
+            self.executor.schedule(
+                lambda m=members[:, :, i], t=truth[:, i], n=names[i], p=path: save_figure(
+                    plot_ensemble_maps(lats, lons, m, t, n, self.max_members), p))
+
+
+@register_callback("PlotSpectrum")
+class PlotSpectrum(BasePlotCallback):
+    """Per-degree spherical-harmonic power spectra of prediction and truth
+    (``gaussian_n`` and ``grid_kind`` pick the transform; a grid that is not
+    the transform's is skipped with a warning)."""
+
+    def __init__(self, gaussian_n: int = 0, grid_kind: str = "octahedral",
+                 variables: Optional[list] = None, max_vars: int = 3,
+                 every_n_validations: int = 1, async_plots: bool = True):
+        super().__init__(every_n_validations, async_plots)
+        self.gaussian_n = gaussian_n
+        self.grid_kind = grid_kind
+        self.variables = variables
+        self.max_vars = max_vars
+
+    def on_validation(self, trainer, step, val_metrics):
+        if not self._due():
+            return
+        from anemoi_tpu_torch.training.plots import plot_power_spectra, power_spectra, save_figure
+
+        _, _, pred, truth, names = self._sample(trainer)
+        sel = self._selected(names)
+        spectra = power_spectra(pred[:, sel], truth[:, sel], [names[i] for i in sel],
+                                self.gaussian_n, self.grid_kind)
+        if spectra is None:
+            return
+        path = os.path.join(self._plot_dir(trainer), f"spectrum_step{step:07d}.png")
+        self.executor.schedule(lambda: save_figure(plot_power_spectra(spectra), path))
+
+
+@register_callback("PlotHistogram")
+class PlotHistogram(BasePlotCallback):
+    """Predicted-versus-truth value histograms."""
+
+    def __init__(self, variables: Optional[list] = None, max_vars: int = 4,
+                 every_n_validations: int = 1, async_plots: bool = True,
+                 focus_area: Optional[dict] = None):
+        super().__init__(every_n_validations, async_plots)
+        self.variables = variables
+        self.max_vars = max_vars
+        self.focus_area = focus_area
+
+    def on_validation(self, trainer, step, val_metrics):
+        if not self._due():
+            return
+        from anemoi_tpu_torch.training.plots import plot_histograms, save_figure
+
+        lats, lons, pred, truth, names = self._sample(trainer)
+        (lats, lons, pred, truth), tag = self._focus(trainer, lats, lons, pred, truth)
+        sel = self._selected(names)
+        path = os.path.join(self._plot_dir(trainer), f"histogram{tag}_step{step:07d}.png")
+        self.executor.schedule(lambda: save_figure(
+            plot_histograms(pred[:, sel], truth[:, sel], [names[i] for i in sel]), path))
+
+
+@register_callback("GraphTrainableFeaturesPlot")
+class GraphTrainableFeaturesPlot(BasePlotCallback):
+    """The norm of each node set's trainable features on the map."""
+
+    PREFIX, SUFFIX = "model.node_attributes.trainable_tensors.", ".trainable"
+
+    def on_validation(self, trainer, step, val_metrics):
+        if not self._due():
+            return
+        from anemoi_tpu_torch.training.plots import _plt, plot_field_map, save_figure
+
+        feats = {name[len(self.PREFIX):-len(self.SUFFIX)]: p.detach().float().cpu().numpy()
+                 for name, p in trainer.interface.named_parameters()
+                 if name.startswith(self.PREFIX) and name.endswith(self.SUFFIX)}
+        if not feats:
+            return
+
+        def render():
+            plt = _plt()
+            fig, axes = plt.subplots(len(feats), 1, figsize=(6, 3 * len(feats)), squeeze=False)
+            for ax, (node_set, emb) in zip(axes[:, 0], sorted(feats.items())):
+                coords = trainer.graph[node_set].coords
+                plot_field_map(coords[:, 0], coords[:, 1], np.linalg.norm(emb, axis=-1),
+                               f"|trainable| {node_set}", ax=ax)
+            fig.tight_layout()
+            save_figure(fig, os.path.join(self._plot_dir(trainer),
+                                          f"node_features_step{step:07d}.png"))
+
+        self.executor.schedule(render)
+
+
+@register_callback("LossCurvePlot")
+class LossCurvePlot(BasePlotCallback):
+    """The loss against the step, from ``metrics.jsonl``."""
+
+    def on_validation(self, trainer, step, val_metrics):
+        if not self._due():
+            return
+        from anemoi_tpu_torch.training.plots import plot_loss_curve, save_figure
+
+        path = os.path.join(trainer.output_dir, "metrics.jsonl")
+        if not os.path.exists(path):
+            return
+        steps, losses, vsteps, vlosses = [], [], [], []
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line)
+                if "loss" in rec and "step" in rec:
+                    steps.append(rec["step"])
+                    losses.append(rec["loss"])
+                if "val_loss" in rec and "step" in rec:
+                    vsteps.append(rec["step"])
+                    vlosses.append(rec["val_loss"])
+        if not steps:
+            return
+        out = os.path.join(self._plot_dir(trainer), f"loss_curve_step{step:07d}.png")
+        self.executor.schedule(
+            lambda: save_figure(plot_loss_curve(steps, losses, vsteps, vlosses), out))
 
 
 def build_callbacks(configs) -> list:

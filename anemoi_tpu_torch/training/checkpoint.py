@@ -22,9 +22,11 @@ Port of ``anemoi_tpu.training.checkpoint``.
 - :func:`load_inference_checkpoint` reads the port's bundles and the JAX
   package's (``params.msgpack``, decoded by ``_msgpack.py`` and converted by
   ``models/port.py:state_dict_from_jax``), re-basing a bundle trained on
-  model shards to the serving ranks (:func:`rebase_sharding`).  A bundle
-  with migrations pending is refused: the JAX package's
-  ``anemoi-tpu-training checkpoint migrate`` brings it up to date.
+  model shards to the serving ranks (:func:`rebase_sharding`).  Migrations
+  pending in a bundle (``models/migrations.py``) are applied as it loads,
+  to the bundle and to the flax parameter tree, before the tree is mapped
+  to the port's names, as the JAX package's loader applies them;
+  ``cli checkpoint migrate`` writes them into the bundle.
 """
 
 from __future__ import annotations
@@ -41,13 +43,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-# the JAX package's migrations (``anemoi_tpu/models/migrations.py``), in
-# order; a bundle written now has applied them all
-MIGRATION_NAMES = (
-    "20260817000000_initial_format",
-    "20260817120000_stack_processor_scan",
-    "20260820120000_hierarchical_module_names",
-)
+from anemoi_tpu_torch.models.migrations import MIGRATOR
+
+# the registered migrations, in order; a bundle written now has applied them all
+MIGRATION_NAMES = tuple(m.name for m in MIGRATOR.migrations)
 FORMAT_VERSION = 1
 LOGGER = logging.getLogger(__name__)
 _CKPT = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -105,7 +104,7 @@ class CheckpointManager:
         return state
 
 
-def _provenance() -> Dict[str, Any]:
+def provenance() -> Dict[str, Any]:
     info = {
         "time": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
         "python": sys.version.split()[0],
@@ -137,17 +136,16 @@ def save_inference_checkpoint(
         **{f"{ds}|{key}": arr for ds, stats in statistics.items() for key, arr in stats.items()},
     )
     md = dict(metadata or {})
-    md.setdefault("provenance", _provenance())
+    md.setdefault("provenance", provenance())
     md.setdefault("format_version", FORMAT_VERSION)
-    md["migrations"] = list(MIGRATION_NAMES)
-    bundle = {"config": config, "data_indices": data_indices_config, "metadata": md}
+    bundle = MIGRATOR.migrate({"config": config, "data_indices": data_indices_config,
+                               "metadata": md})
     with open(os.path.join(path, "checkpoint.json"), "w") as f:
         json.dump(bundle, f, default=str)
 
 
 def pending_migrations(bundle: dict) -> list:
-    done = set((bundle.get("metadata") or {}).get("migrations", []))
-    return [name for name in MIGRATION_NAMES if name not in done]
+    return [m.name for m in MIGRATOR.pending(bundle)]
 
 
 def rebase_sharding(config: dict, mesh=None) -> dict:
@@ -190,12 +188,18 @@ def load_inference_checkpoint(path: str, device: torch.device | str | None = Non
 
     with open(os.path.join(path, "checkpoint.json")) as f:
         bundle = json.load(f)
-    pending = pending_migrations(bundle)
-    if pending:
-        raise RuntimeError(
-            f"checkpoint {path} has migrations pending ({', '.join(pending)}): run "
-            "`anemoi-tpu-training checkpoint migrate` on it first"
-        )
+    torch_params = os.path.join(path, "params.pt")
+    raw_params = None
+    if os.path.exists(torch_params):
+        bundle = MIGRATOR.migrate(bundle)
+    else:
+        from anemoi_tpu_torch.training._msgpack import msgpack_restore
+
+        with open(os.path.join(path, "params.msgpack"), "rb") as f:
+            raw_params = msgpack_restore(f.read())
+        # pending format migrations, on the bundle and on the flax tree,
+        # before the tree is mapped to the port's names
+        bundle, raw_params = MIGRATOR.migrate(bundle, raw_params)
     stats_flat = np.load(os.path.join(path, "statistics.npz"))
     statistics: Dict[str, Dict[str, np.ndarray]] = {}
     for key in stats_flat.files:
@@ -219,14 +223,11 @@ def load_inference_checkpoint(path: str, device: torch.device | str | None = Non
         config=config, graph=graph, data_indices=data_indices, statistics=statistics,
         metadata=bundle.get("metadata"), device=device, mesh=mesh,
     )
-    torch_params = os.path.join(path, "params.pt")
-    if os.path.exists(torch_params):
+    if raw_params is None:
         state_dict = torch.load(torch_params, map_location="cpu", weights_only=True)
     else:
         from anemoi_tpu_torch.models.port import state_dict_from_jax
-        from anemoi_tpu_torch.training._msgpack import msgpack_restore
 
-        with open(os.path.join(path, "params.msgpack"), "rb") as f:
-            state_dict = state_dict_from_jax(msgpack_restore(f.read()), sorted(data_indices))
+        state_dict = state_dict_from_jax(raw_params, sorted(data_indices))
     iface.load_state_dict(state_dict, strict=True)
     return iface

@@ -6,9 +6,16 @@ Port of ``anemoi_tpu.training.cli`` with the same arguments:
     evaluate <config.yaml|json> [a.b.c=value ...] [--output-dir DIR] [--rollout N]
     predict <bundle> [--config C.yaml] [--steps N] [--start-index I]
                      [--output F.npz] [--seed S] [--platform cpu] [--aot-cache DIR]
+    validate <config.yaml|json> [a.b.c=value ...]
     config list
     config generate <config.yaml|json> [a.b.c=value ...] [--output F.yaml]
     checkpoint inspect <bundle>
+    checkpoint migrate <bundle> [--rollback TARGET]
+    checkpoint migrate --create LABEL [--scripts-dir DIR]
+    mlflow login --uri URI [--token T]
+    mlflow sync <run_dir|mlruns> [--uri URI] [--experiment NAME]
+    profile <config.yaml|json> [a.b.c=value ...] [--output-dir DIR] [--steps N]
+            [--trace] [--benchmark-store DIR]
 
 Configs are YAML (or JSON) files composed with their ``defaults:`` by
 ``utils/config.py:load_config``, searched in the file's folder and then in
@@ -20,9 +27,20 @@ runs on the CPU; otherwise the CUDA card, which must be visible.
 drawn from a ``torch.Generator`` seeded with ``--seed``; ``evaluate``
 refuses a model that the deterministic rollout cannot run (an ensemble that
 draws noise, a transport model) before any step and returns 1.  Configs
-are not schema-validated (``schemas.py`` needs pydantic and is not ported).
-The subcommands ``validate``, ``mlflow``, ``profile`` and ``checkpoint
-migrate`` are not ported: they print so and return 2.
+are checked by ``validate`` (``schemas.py``: plain functions, no pydantic);
+``train`` does not check them first.  ``checkpoint migrate`` applies a
+bundle's pending migrations to its ``checkpoint.json`` (``models/
+migrations.py``; ``load_inference_checkpoint`` applies them to the
+parameters as it loads), rolls them back to ``--rollback TARGET``, or
+scaffolds a timestamped migration script (``--create``).  ``mlflow login``
+stores a tracking server's URI and token in
+``~/.config/anemoi_tpu/mlflow.json``; ``mlflow sync`` pushes the offline
+runs of the ``mlflow_offline`` logger to a server over its REST API.
+``profile`` runs ``--steps`` training steps under ``training/profiler.py``
+(``--trace``: a ``torch.profiler`` trace) and with ``--benchmark-store``
+pushes the numeric results into a commit-keyed store
+(``training/benchmark_store.py``) and prints the comparison with the
+latest ancestor commit's.
 
 More than one rank: ``train``, ``evaluate`` and ``predict`` join the world a
 launcher describes (``torchrun``, or the JAX package's ``ANEMOI_TPU_*``
@@ -47,12 +65,7 @@ import logging
 import os
 import sys
 
-NOT_PORTED = 2
-
-
-def _not_ported(what: str) -> int:
-    print(f"{what}: not ported to anemoi_tpu_torch")
-    return NOT_PORTED
+MLFLOW_AUTH = os.path.join("~", ".config", "anemoi_tpu", "mlflow.json")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -64,7 +77,7 @@ def _parser() -> argparse.ArgumentParser:
     p_train.add_argument("overrides", nargs="*", help="a.b.c=value overrides")
     p_train.add_argument("--output-dir", default=None)
 
-    p_val = sub.add_parser("validate", help="(not ported)")
+    p_val = sub.add_parser("validate", help="Validate a config without training")
     p_val.add_argument("config")
     p_val.add_argument("overrides", nargs="*")
 
@@ -82,15 +95,18 @@ def _parser() -> argparse.ArgumentParser:
     p_cfg_gen.add_argument("--output", default=None)
     cfg_sub.add_parser("list", help="List the packaged config files")
 
-    p_ckpt = sub.add_parser("checkpoint", help="Inspect checkpoints")
+    p_ckpt = sub.add_parser("checkpoint", help="Inspect or migrate checkpoints")
     ckpt_sub = p_ckpt.add_subparsers(dest="checkpoint_command", required=True)
     p_ck_insp = ckpt_sub.add_parser("inspect", help="Summarise an inference checkpoint")
     p_ck_insp.add_argument("checkpoint")
-    p_ck_mig = ckpt_sub.add_parser("migrate", help="(not ported)")
+    p_ck_mig = ckpt_sub.add_parser("migrate", help="Apply pending migrations")
     p_ck_mig.add_argument("checkpoint", nargs="?", default=None)
-    p_ck_mig.add_argument("--create", default=None, metavar="LABEL")
-    p_ck_mig.add_argument("--scripts-dir", default=None)
-    p_ck_mig.add_argument("--rollback", default=None, metavar="TARGET")
+    p_ck_mig.add_argument("--create", default=None, metavar="LABEL",
+                          help="Scaffold a timestamped migration script instead")
+    p_ck_mig.add_argument("--scripts-dir", default=None,
+                          help="Directory for --create (default: the packaged scripts)")
+    p_ck_mig.add_argument("--rollback", default=None, metavar="TARGET",
+                          help="Roll the checkpoint back to migration TARGET")
 
     p_pred = sub.add_parser("predict", help="Autoregressive forecast from an inference checkpoint")
     p_pred.add_argument("checkpoint", help="Inference checkpoint directory")
@@ -107,12 +123,138 @@ def _parser() -> argparse.ArgumentParser:
                         help="cpu to serve on the CPU; default: the CUDA card")
     p_pred.add_argument("--aot-cache", default=None, help="accepted; no effect")
 
-    p_mlf = sub.add_parser("mlflow", help="(not ported)")
-    p_mlf.add_argument("rest", nargs="*")
+    p_mlf = sub.add_parser("mlflow", help="Offline-run sync and server login")
+    mlf_sub = p_mlf.add_subparsers(dest="mlflow_command", required=True)
+    p_mlf_login = mlf_sub.add_parser("login", help="Store a tracking server URI and token")
+    p_mlf_login.add_argument("--uri", required=True)
+    p_mlf_login.add_argument("--token", default=None)
+    p_mlf_sync = mlf_sub.add_parser("sync", help="Push offline FileStore runs to a server")
+    p_mlf_sync.add_argument("run_dir", help="Offline run directory (or mlruns root)")
+    p_mlf_sync.add_argument("--uri", default=None, help="Tracking server (default: the login)")
+    p_mlf_sync.add_argument("--experiment", default=None)
 
-    p_prof = sub.add_parser("profile", help="(not ported)")
-    p_prof.add_argument("rest", nargs="*")
+    p_prof = sub.add_parser("profile", help="Short profiled run with speed and memory reports")
+    p_prof.add_argument("config")
+    p_prof.add_argument("overrides", nargs="*")
+    p_prof.add_argument("--output-dir", default=None)
+    p_prof.add_argument("--steps", type=int, default=20)
+    p_prof.add_argument("--trace", action="store_true")
+    p_prof.add_argument("--benchmark-store", default=None,
+                        help="Push the results into this commit-keyed store directory")
     return parser
+
+
+def _migrate(args) -> int:
+    from anemoi_tpu_torch.models.migrations import MIGRATOR, create_migration_script
+
+    if args.create:
+        print(f"created {create_migration_script(args.create, args.scripts_dir)}")
+        return 0
+    if not args.checkpoint:
+        print("error: checkpoint path required (or use --create LABEL)")
+        return 2
+    path = os.path.join(args.checkpoint, "checkpoint.json")
+    with open(path) as f:
+        bundle = json.load(f)
+    if args.rollback:
+        before = MIGRATOR.applied(bundle)
+        bundle = MIGRATOR.rollback_to(bundle, args.rollback)
+        undone = [n for n in before if n not in MIGRATOR.applied(bundle)]
+        message = f"rolled back {len(undone)} migrations: {undone}"
+    else:
+        pending = [m.name for m in MIGRATOR.pending(bundle)]
+        reshaped = _reshaped_by_migration(args.checkpoint, bundle)
+        if reshaped:
+            # marked applied, they would never run on params.msgpack, which
+            # this CLI does not write: leave them to the loader
+            print(f"error: migrations {reshaped} change the parameter tree of "
+                  f"{args.checkpoint}; load_inference_checkpoint applies them as it loads")
+            return 1
+        bundle = MIGRATOR.migrate(bundle)
+        message = f"applied {len(pending)} migrations: {pending}"
+    with open(path, "w") as f:
+        json.dump(bundle, f, default=str)
+    print(message)
+    return 0
+
+
+def _reshaped_by_migration(path: str, bundle: dict) -> list:
+    """The pending migrations whose parameter transforms would change the
+    keys or shapes of the bundle's flax tree (``params.msgpack``)."""
+    from anemoi_tpu_torch.models.migrations import MIGRATOR
+    from anemoi_tpu_torch.training._msgpack import msgpack_restore
+
+    transforms = [m.name for m in MIGRATOR.pending(bundle) if m.params_fn is not None]
+    msgpack = os.path.join(path, "params.msgpack")
+    if not transforms or not os.path.exists(msgpack):
+        return []
+    with open(msgpack, "rb") as f:
+        raw = msgpack_restore(f.read())
+
+    def layout(tree, prefix=()):
+        out = {}
+        for k, v in tree.items():
+            out.update(layout(v, prefix + (k,)) if isinstance(v, dict)
+                       else {prefix + (k,): tuple(getattr(v, "shape", ()))})
+        return out
+
+    before = layout(raw)
+    _, migrated = MIGRATOR.migrate(json.loads(json.dumps(bundle)), raw)
+    return transforms if layout(migrated) != before else []
+
+
+def _mlflow(args) -> int:
+    auth_path = os.path.expanduser(MLFLOW_AUTH)
+    if args.mlflow_command == "login":
+        os.makedirs(os.path.dirname(auth_path), exist_ok=True)
+        with open(auth_path, "w") as f:
+            json.dump({"uri": args.uri, "token": args.token}, f)
+        os.chmod(auth_path, 0o600)
+        print(f"Saved tracking server login to {auth_path}")
+        return 0
+    from anemoi_tpu_torch.training.mlflow_store import sync_offline_run
+
+    auth = {}
+    if os.path.exists(auth_path):
+        with open(auth_path) as f:
+            auth = json.load(f)
+    uri = args.uri or auth.get("uri")
+    if not uri:
+        print("No tracking URI: pass --uri or run `mlflow login` first")
+        return 1
+    # one run directory, or an mlruns root of experiments
+    if os.path.exists(os.path.join(args.run_dir, "meta.yaml")) and os.path.isdir(
+            os.path.join(args.run_dir, "metrics")):
+        run_dirs = [args.run_dir]
+    else:
+        run_dirs = [os.path.join(args.run_dir, exp, run)
+                    for exp in sorted(os.listdir(args.run_dir))
+                    if os.path.isdir(os.path.join(args.run_dir, exp))
+                    for run in sorted(os.listdir(os.path.join(args.run_dir, exp)))
+                    if os.path.isdir(os.path.join(args.run_dir, exp, run, "metrics"))]
+    for rd in run_dirs:
+        run_id = sync_offline_run(rd, uri, experiment=args.experiment, token=auth.get("token"))
+        print(f"synced {rd} -> {uri} run {run_id}")
+    return 0
+
+
+def _profile(conf: dict, args) -> int:
+    from anemoi_tpu_torch.training.profiler import profile_training
+    from anemoi_tpu_torch.training.trainer import AnemoiTrainer
+
+    trainer = AnemoiTrainer(conf, output_dir=args.output_dir)
+    result = profile_training(trainer, num_steps=args.steps, trace=args.trace)
+    print(f"profile: {result}")
+    if args.benchmark_store:
+        from anemoi_tpu_torch.training.benchmark_store import BenchmarkStore
+
+        numbers = {k: v for k, v in result.items() if isinstance(v, (int, float))}
+        store = BenchmarkStore(args.benchmark_store)
+        commit = store.push(numbers)
+        print(f"benchmark store: commit={commit[:12]} {store.compare(numbers)}")
+    for lg in trainer.loggers:
+        lg.finalize()
+    return 0
 
 
 def _inspect(path: str) -> int:
@@ -202,13 +344,13 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     args = _parser().parse_args(argv)
 
-    if args.command in ("validate", "mlflow", "profile"):
-        return _not_ported(args.command)
+    if args.command == "mlflow":
+        return _mlflow(args)
     if args.command == "config" and args.config_command == "list":
         return _config_list()
     if args.command == "checkpoint":
         if args.checkpoint_command == "migrate":
-            return _not_ported("checkpoint migrate")
+            return _migrate(args)
         return _inspect(args.checkpoint)
     if args.command == "predict":
         from anemoi_tpu_torch.inference import run_forecast_cli
@@ -238,8 +380,20 @@ def main(argv=None) -> int:
         result = _train(conf, args.output_dir)
         print(f"training done: {result}")
         return 0
+    if args.command == "validate":
+        from anemoi_tpu_torch.training.schemas import ConfigValidationError, validate_config
+
+        try:
+            validate_config(conf)
+        except ConfigValidationError as err:
+            print(f"config invalid: {err}")
+            return 1
+        print("config OK")
+        return 0
     if args.command == "evaluate":
         return _evaluate(conf, args.output_dir, args.rollout)
+    if args.command == "profile":
+        return _profile(conf, args)
     return 1
 
 

@@ -170,6 +170,15 @@ class Optimizer:
         self.clip_value = clip_value
         self.clip_norm = clip_norm
         self.count = 0  # updates applied so far
+        self.frozen: list = []  # parameters whose update is zeroed (:meth:`freeze`)
+
+    def freeze(self, params: Iterable[torch.nn.Parameter]) -> None:
+        """Zero the update of ``params`` after every step, as the JAX trainer
+        chains ``optax.masked(set_to_zero)`` after the optimizer for the
+        checkpoint pipeline's ``freeze``: their gradients, clipping and
+        optimizer state go on as before, and the weights stay bit for bit,
+        weight decay included."""
+        self.frozen = list(params)
 
     def _block(self, p: torch.nn.Parameter) -> Optional[torch.Tensor]:
         group = self.zero_group
@@ -193,11 +202,14 @@ class Optimizer:
         for p, block in zip(self.params, self.blocks):
             if block is not None:
                 block.grad = None if p.grad is None else self._rows(p.grad, block)
+        kept = [p.detach().clone() for p in self.frozen]
         self.opt.step()
         with torch.no_grad():
             for p, block in zip(self.params, self.blocks):
                 if block is not None:
                     p.data.copy_(torch.cat(all_gather(block.detach(), self.zero_group), 0))
+            for p, weights in zip(self.frozen, kept):
+                p.copy_(weights)
         self.count += 1
 
     def _rows(self, full: torch.Tensor, block: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,16 @@ JAX trainer calls ``float()``).
 
 Accepted with no effect: ``training.precompile_rollouts`` (there is no
 program to compile ahead) and ``training.donate_state`` (the step updates
-the state in place).  Not ported (``NotImplementedError``):
-``training.checkpoint_pipeline`` (``ROADMAP.md`` Queue 1, item 10).
+the state in place).
+
+``training.checkpoint_pipeline`` (``training/checkpoint_pipeline.py``) runs
+on the fresh model's state dict before the optimizer is built, as the JAX
+trainer runs it: its weights are loaded, the pipeline's health checked, the
+variable order it recorded kept for ``CheckVariableOrder``
+(``ckpt_name_to_index``) and the checkpoint's variables metadata checked
+against the datasets'; the parameters a ``freeze`` modifier names get a
+zero update after every optimizer step (``Optimizer.freeze``), so their
+gradients are still computed and the weights stay bit for bit.
 
 Data and model parallelism (JAX ``trainer.py`` mesh): ``hardware.num_devices``
 ranks, started by a launcher (``torchrun``, the ``ANEMOI_TPU_*`` contract of
@@ -143,9 +151,6 @@ class AnemoiTrainer:
             config = dict(config)
             config["training"] = training_cfg
             self.config = config
-        if training_cfg.get("checkpoint_pipeline"):
-            raise NotImplementedError("training.checkpoint_pipeline is not ported to "
-                                      "anemoi_tpu_torch (ROADMAP.md Queue 1, item 10)")
         self._init_mesh(config.get("hardware"))
         if self.mesh_spec.model > 1:
             # the model builds its halo tables over the model group
@@ -222,11 +227,19 @@ class AnemoiTrainer:
                 variables_metadata=getattr(ds, "variables_metadata", None),
             )
 
-        # --- optimizer / state ---------------------------------------
+        # --- checkpoint pipeline, optimizer / state ---------------------
+        self.ckpt_name_to_index = None
+        frozen = []
+        if training_cfg.get("checkpoint_pipeline"):
+            frozen = self._run_checkpoint_pipeline(list(training_cfg["checkpoint_pipeline"]),
+                                                   datasets)
         self.lr_schedule = build_lr_schedule(training_cfg.get("lr", {}))
         self.tx = build_optimizer(training_cfg, self.lr_schedule,
                                   data_group=self.mesh.group("data") if self.mesh else None)
         self.state = TrainState.create(self.interface, self.tx)
+        if frozen:
+            named = dict(self.interface.named_parameters())
+            self.state.optimizer.freeze(named[name] for name in frozen if name in named)
         self.num_params = sum(p.numel() for p in self.interface.parameters())
         LOGGER.info("Model has %.2fM parameters", self.num_params / 1e6)
 
@@ -247,6 +260,32 @@ class AnemoiTrainer:
             lg.log_params({"config": dict(config), "num_params": int(self.num_params)})
 
     # ------------------------------------------------------------------
+    def _run_checkpoint_pipeline(self, stages: list, datasets: dict) -> list:
+        """Load weights through the checkpoint pipeline (JAX
+        ``trainer.py:221-266``); returns the names of the frozen parameters."""
+        from anemoi_tpu_torch.training.checkpoint_pipeline import (
+            CheckpointContext, CheckpointPipeline, validate_pipeline_health,
+        )
+        from anemoi_tpu_torch.utils.variables_metadata import (
+            check_variables_metadata_compatibility, extract_variables_metadata_from_checkpoint,
+        )
+
+        params = {k: v.detach().cpu() for k, v in self.interface.state_dict().items()}
+        ctx = CheckpointPipeline(stages).run(CheckpointContext(params=params))
+        validate_pipeline_health(ctx)
+        self.interface.load_state_dict(ctx.params, strict=True)
+        # the variable order the checkpoint recorded, for CheckVariableOrder
+        self.ckpt_name_to_index = ctx.metadata.get("name_to_index")
+        check_variables_metadata_compatibility(
+            extract_variables_metadata_from_checkpoint(
+                ctx.metadata.get("bundle_metadata", {}), datasets.keys()),
+            {name: {"variables_metadata": getattr(ds, "variables_metadata", None)}
+             for name, ds in datasets.items()},
+        )
+        LOGGER.info("Checkpoint pipeline: %s", {k: v for k, v in ctx.metadata.items()
+                                                if k != "bundle_metadata"})
+        return [name for name, trainable in (ctx.trainable_mask or {}).items() if not trainable]
+
     def _init_mesh(self, hardware: Optional[dict]) -> None:
         """The ranks' mesh from ``hardware`` (JAX ``trainer.py:101-131``):
         join the world a launcher started, check it against

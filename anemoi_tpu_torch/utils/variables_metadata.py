@@ -4,10 +4,12 @@ The port's copy of the part of ``anemoi_tpu.utils.variables_metadata`` that
 the loss scalers use: :func:`crack_variable_name`, :class:`VariableMetadata`
 (param, level and surface flag from a dataset's per-variable metadata,
 mars keys or plain keys) and :class:`ExtractVariableGroupAndLevel`, which
-resolves a variable's group from ``training.variable_groups``, and
+resolves a variable's group from ``training.variable_groups``,
 :func:`check_loss_variable_units_compatibility`, which a loss that scores
-one variable against another runs.  The checkpoint-versus-dataset
-compatibility checks are not ported.
+one variable against another runs, and the checkpoint-versus-dataset checks
+that the trainer runs after a checkpoint pipeline loads weights
+(:func:`extract_variables_metadata_from_checkpoint`,
+:func:`check_variables_metadata_compatibility`).
 """
 
 from __future__ import annotations
@@ -167,6 +169,45 @@ class ExtractVariableGroupAndLevel:
             self.get_param(variable_name),
             self.get_level(variable_name),
         )
+
+
+def extract_variables_metadata_from_checkpoint(
+    metadata: dict, dataset_names
+) -> Optional[Dict[str, dict]]:
+    """The per-dataset ``variables_metadata`` of a bundle's metadata."""
+    dataset_meta = (metadata or {}).get("dataset", {})
+    out = {}
+    for name in dataset_names:
+        vm = (dataset_meta.get(name) or {}).get("variables_metadata")
+        if vm is not None:
+            out[name] = vm
+    return out or None
+
+
+def check_variables_metadata_compatibility(
+    ckpt_variables_metadata: Optional[Dict[str, dict]],
+    dataset_metadata: Dict[str, dict],
+) -> None:
+    """Units and processing period of a checkpoint's variables against the
+    dataset's: ``ValueError`` on a mismatch; a warning, and no check, where
+    either side has no metadata."""
+    if ckpt_variables_metadata is None:
+        LOGGER.warning("Checkpoint has no variables_metadata; skipping unit compatibility check.")
+        return
+    for dataset_name, ckpt_vm in ckpt_variables_metadata.items():
+        ds_vm = (dataset_metadata.get(dataset_name) or {}).get("variables_metadata")
+        if ds_vm is None:
+            LOGGER.warning("Dataset %r has no variables_metadata; skipping unit compatibility "
+                           "check.", dataset_name)
+            continue
+        for name, data in ckpt_vm.items():
+            if name not in ds_vm:
+                continue
+            reason = VariableMetadata.from_dict(name, data).incompatibility(
+                VariableMetadata.from_dict(name, ds_vm[name]))
+            if reason is not None:
+                raise ValueError(f"Variable compatibility check failed for dataset "
+                                 f"{dataset_name!r}, variable {name!r}: {reason}")
 
 
 def check_loss_variable_units_compatibility(

@@ -385,7 +385,30 @@ Phases (any failure exits non-zero, with no result line):
                   K6 and K7 on rank 0's extended block (5 640 of 10 242
                   rows) against the plain op, timed beside the bound and
                   SDPA with the band mask; the seconds of each part;
- 34. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 34. auxiliary -- the auxiliary modules through the CLI (``[auxiliary]``, each
+                  part's seconds): (a) a copy of the committed round-2
+                  bundle ``tests/fixtures/inference_ckpt_r2`` (one migration
+                  pending) through ``cli checkpoint migrate``, then ``cli
+                  predict`` 2 steps on the card and with ``--platform cpu``,
+                  in float32 (relative L2 <= 1e-4) and in the bundle's bf16
+                  (the serving gate): 6 K1 on the card, none on the CPU; an
+                  unmigrated copy through ``load_inference_checkpoint`` on
+                  the card, the same forecast bit for bit; (b) ``cli train``
+                  of phase 9's config 3 steps through ``[local <phase 9's
+                  bundle>, weights_only, freeze [encoder]]``: the weights
+                  equal to its ``params.pt`` before step 1, the encoder's
+                  bit for bit and every processor tensor moved after step
+                  3, 18 K1, K3 and K4 a step; (c) ``cli profile`` 20 steps
+                  with ``--trace --benchmark-store``: the four reports, the
+                  peak bytes above 0 beside the card's name, K1, K3 and K4
+                  named in the trace, the store's numbers those of the
+                  report, 18 K1, K3 and K4 a step; ms a step and peak bytes
+                  with the card line; (d) ``cli train`` 2 steps with the
+                  ``mlflow_offline`` logger: its losses those of
+                  ``metrics.jsonl``, system samples with the card's memory;
+                  (e) ``cli validate`` of every packaged preset (exit 0) and
+                  of one with a bad ``training.rollout`` (exit 1);
+ 35. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
@@ -397,7 +420,8 @@ Phases (any failure exits non-zero, with no result line):
                   two steps, phases 25-30's training steps and forecasts,
                   phase 31's rank-0 training step and forecast, phases
                   32's and 33's rank-0 training step and forecast of each
-                  part;
+                  part, phase 34's migrated fixture's forecast, pipeline
+                  step and profiled step;
                   the K1 row also model shard 2 of 2's processor set and
                   the head subset's, the K3 and K4 rows those sets', the
                   down set's and its shard's, the dynamic encoder set's and
@@ -1510,12 +1534,14 @@ class StepLaunches:
     ``make_transport_step_fns``) builds so that the counts are set to 0 just
     before each step and read just after it (validation and the rollout
     evaluation run outside it), and keeps the trainer it ran in and the
-    unwrapped ``train_step``."""
+    unwrapped ``train_step``; with ``snapshot``, also a CPU copy of the
+    trainer's weights as its loop starts (``initial``)."""
 
     BUILDERS = ("make_step_fns", "make_transport_step_fns")
 
-    def __init__(self):
+    def __init__(self, snapshot: bool = False):
         self.per_step, self.trainer, self.train_step = [], None, None
+        self.snapshot, self.initial = snapshot, None
 
     def __enter__(self):
         from anemoi_tpu_torch import kernels
@@ -1542,6 +1568,9 @@ class StepLaunches:
 
         def train(trainer):
             counter.trainer = trainer
+            if counter.snapshot:
+                counter.initial = {k: v.detach().cpu().clone()
+                                   for k, v in trainer.interface.state_dict().items()}
             return counter._train(trainer)
 
         for name, make in self._made.items():
@@ -5042,10 +5071,288 @@ def routes_phase(workdir: str, graph, device) -> dict:
     return result
 
 
+# --- phase 34: the auxiliary modules through the CLI ------------------------------------
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                       "inference_ckpt_r2")
+MIGRATED_TOL = 1e-4  # relative L2, the fixture's float32 forecast, card against CPU
+AUX_PROFILE_STEPS = 20
+# the kernels the profiler's trace must name: K1, K3 and K4
+TRACE_KERNELS = {"K1": "gt_attention_fwd_kernel", "K3": "gt_attention_bwd_dst_kernel",
+                 "K4": "gt_attention_bwd_src_sum_kernel"}
+
+
+def fixture_copy(workdir: str, name: str, precision=None) -> str:
+    """A copy of the committed round-2 bundle (one migration pending),
+    serving in ``precision`` when given."""
+    import shutil
+
+    path = os.path.join(workdir, name)
+    shutil.copytree(FIXTURE, path)
+    if precision is not None:
+        with open(os.path.join(path, "checkpoint.json")) as f:
+            bundle = json.load(f)
+        bundle["config"]["model"]["inference_precision"] = precision
+        with open(os.path.join(path, "checkpoint.json"), "w") as f:
+            json.dump(bundle, f)
+    return path
+
+
+def migrate_and_serve(workdir: str) -> dict:
+    """(a): ``cli checkpoint migrate`` on a copy of the fixture, then ``cli
+    predict`` on the card and on the CPU; an unmigrated copy loaded
+    in-process forecasts the same bit for bit."""
+    import numpy as np
+
+    from anemoi_tpu_torch import kernels
+    from anemoi_tpu_torch.data.dataset import open_dataset
+    from anemoi_tpu_torch.inference import make_forecast_fn
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.training.checkpoint import MIGRATION_NAMES, load_inference_checkpoint
+
+    with open(os.path.join(FIXTURE, "checkpoint.json")) as f:
+        fixture = json.load(f)
+    data = {"kind": "synthetic", "nodes": {"name": "ReducedGaussianGridNodes", "grid": "o8"},
+            "variables": list(fixture["data_indices"]["data"]["name_to_index"]),
+            "num_times": 8}
+    data_cfg = os.path.join(workdir, "fixture_data.json")
+    with open(data_cfg, "w") as f:
+        json.dump({"data": {"datasets": {"data": data}}}, f)
+    layers = int(fixture["config"]["model"]["processor"]["num_layers"])
+    want = {**NO_LAUNCHES, "K1": (2 + layers) * STEPS}  # encoder, processor, decoder a step
+    result = {}
+    for precision, tol in (("fp32", MIGRATED_TOL), (None, SERVING_TOL)):
+        label = precision or "bundle's bf16"
+        bundle = fixture_copy(workdir, f"fixture_{precision}", precision)
+        if cli.main(["checkpoint", "migrate", bundle]) != 0:
+            raise RuntimeError("auxiliary: cli checkpoint migrate failed")
+        with open(os.path.join(bundle, "checkpoint.json")) as f:
+            applied = json.load(f)["metadata"]["migrations"]
+        if applied != list(MIGRATION_NAMES):
+            raise RuntimeError(f"auxiliary: migrated bundle records {applied}")
+        out, card_launches = {}, None
+        for platform in ("cuda", "cpu"):
+            path = os.path.join(workdir, f"fixture_{precision}_{platform}.npz")
+            kernels.reset_launches()
+            rc = cli.main(["predict", bundle, "--config", data_cfg, "--steps", str(STEPS),
+                           "--output", path] + (["--platform", "cpu"] if platform == "cpu"
+                                                else []))
+            launches = kernels.launch_counts()
+            if rc != 0:
+                raise RuntimeError(f"auxiliary: cli predict ({platform}) returned {rc}")
+            if launches != (want if platform == "cuda" else NO_LAUNCHES):
+                raise RuntimeError(f"auxiliary: cli predict ({platform}) launched {launches}")
+            card_launches = card_launches or launches
+            out[platform] = np.load(path)["data|forecast"]
+        gap = float(np.linalg.norm(out["cuda"] - out["cpu"]) / np.linalg.norm(out["cpu"]))
+        print(f"[auxiliary] migrated fixture ({label}), cli predict on the card against "
+              f"--platform cpu: relative L2 {gap:.3e} (tol {tol}); shape "
+              f"{list(out['cuda'].shape)}; {card_launches['K1']} K1 in {STEPS} steps",
+              flush=True)
+        if not (np.isfinite(out["cuda"]).all() and gap <= tol):
+            raise RuntimeError(f"auxiliary: the migrated fixture's forecast on the card is "
+                               f"{gap:.3e} from the CPU's ({label})")
+        result[label] = {"rel_l2_card_vs_cpu": gap, "launches": card_launches}
+        if precision == "fp32":
+            # the same bundle unmigrated, loaded in-process: migrated as it loads
+            unmigrated = fixture_copy(workdir, "fixture_unmigrated", precision)
+            iface = load_inference_checkpoint(unmigrated)
+            window = open_dataset(dict(data)).get_window(0, iface.model.n_step_input + STEPS)
+            batch = {"data": torch.from_numpy(window[None]).to(iface.device)}
+            ref = make_forecast_fn(iface, steps=STEPS)(batch)["data"].cpu().numpy()
+            if not np.array_equal(ref, out["cuda"]):
+                raise RuntimeError("auxiliary: the unmigrated bundle's forecast differs from "
+                                   "the migrated one's")
+            print("[auxiliary] the unmigrated copy through load_inference_checkpoint: the "
+                  "same forecast bit for bit", flush=True)
+            del iface
+    return result
+
+
+def aux_config(workdir: str, label: str, steps: int, **diagnostics) -> tuple:
+    """Phase 9's example (its store and graph) for ``steps`` steps with one
+    validation batch and no callbacks, into ``<workdir>/aux_<label>``."""
+    with open(os.path.join(workdir, "example_o96_gt.json")) as f:
+        config = json.load(f)
+    config["output_dir"] = os.path.join(workdir, f"aux_{label}")
+    config["training"].update(max_steps=steps, max_epochs=1)
+    config["dataloader"]["validation_fraction"] = 0.02  # one validation batch
+    config["diagnostics"]["callbacks"] = []
+    config["diagnostics"].update(diagnostics)
+    return config, os.path.join(workdir, f"aux_{label}.json")
+
+
+def write_json(config: dict, path: str) -> str:
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
+def load_and_freeze(workdir: str) -> dict:
+    """(b): ``cli train`` 3 steps from phase 9's bundle through
+    ``[local, weights_only, freeze [encoder]]``."""
+    from anemoi_tpu_torch.training import cli
+
+    bundle = os.path.join(workdir, "run", "inference")
+    config, path = aux_config(workdir, "freeze", 3)
+    config["training"]["checkpoint_pipeline"] = [
+        {"stage": "source", "name": "local", "path": bundle},
+        {"stage": "loading", "name": "weights_only"},
+        {"stage": "modifier", "name": "freeze", "submodules": ["encoder"]}]
+    with StepLaunches(snapshot=True) as counted:
+        rc = cli.main(["train", write_json(config, path)])
+    if rc != 0:
+        raise RuntimeError(f"auxiliary: cli train with the pipeline returned {rc}")
+    saved = torch.load(os.path.join(bundle, "params.pt"), map_location="cpu",
+                       weights_only=True)
+    initial = counted.initial
+    if sorted(initial) != sorted(saved) or not all(torch.equal(initial[k], saved[k])
+                                                   for k in saved):
+        raise RuntimeError("auxiliary: the weights before step 1 differ from the bundle's")
+    final = {k: v.detach().cpu() for k, v in counted.trainer.interface.state_dict().items()}
+    encoder = [k for k in saved if k.startswith("model.encoder.")]
+    processor = [k for k in saved if k.startswith("model.processor.")]
+    moved = sum(not torch.equal(final[k], saved[k]) for k in processor)
+    if not encoder or any(not torch.equal(final[k], saved[k]) for k in encoder):
+        raise RuntimeError("auxiliary: a frozen encoder parameter moved")
+    if moved != len(processor):
+        raise RuntimeError(f"auxiliary: {len(processor) - moved} processor parameters did "
+                           "not move")
+    want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
+            "K4": LAUNCHES_PER_STEP}
+    if len(counted.per_step) != 3 or any(c != want for c in counted.per_step):
+        raise RuntimeError(f"auxiliary: expected {want} in each of 3 steps, got "
+                           f"{counted.per_step}")
+    print(f"[auxiliary] pipeline [local, weights_only, freeze [encoder]] on phase 9's bundle: "
+          f"{len(saved)} tensors equal to params.pt before step 1; after 3 steps the "
+          f"{len(encoder)} encoder tensors bit for bit, all {len(processor)} processor "
+          f"tensors moved; {want['K1']} K1, K3 and K4 a step", flush=True)
+    counted.trainer = counted.train_step = None
+    torch.cuda.empty_cache()
+    return {"launches_per_step": counted.per_step[-1], "frozen_tensors": len(encoder),
+            "moved_processor_tensors": moved}
+
+
+def profile_part(workdir: str, card: str) -> dict:
+    """(c): ``cli profile`` 20 steps with ``--trace --benchmark-store``."""
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.training.benchmark_store import BenchmarkStore, current_commit
+
+    config, path = aux_config(workdir, "profile", AUX_PROFILE_STEPS)
+    store = os.path.join(workdir, "aux_benchmark_store")
+    with StepLaunches() as counted:
+        rc = cli.main(["profile", write_json(config, path), "--steps", str(AUX_PROFILE_STEPS),
+                       "--trace", "--benchmark-store", store,
+                       "--output-dir", config["output_dir"]])
+    if rc != 0:
+        raise RuntimeError(f"auxiliary: cli profile returned {rc}")
+    want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
+            "K4": LAUNCHES_PER_STEP}
+    if len(counted.per_step) != AUX_PROFILE_STEPS or any(c != want for c in counted.per_step):
+        raise RuntimeError(f"auxiliary: profile steps launched {counted.per_step}")
+    profile_dir = os.path.join(config["output_dir"], "profile")
+    with open(os.path.join(profile_dir, "profiler_report.json")) as f:
+        report = json.load(f)
+    if sorted(report) != ["config", "memory", "speed", "system", "time"]:
+        raise RuntimeError(f"auxiliary: profiler report sections {sorted(report)}")
+    name = torch.cuda.get_device_name(0)
+    (device_key,) = [k for k in report["memory"] if k.startswith("cuda:")]
+    memory = report["memory"][device_key]
+    if not (memory["peak_bytes_in_use"] > 0 and memory["name"] == name
+            and report["system"]["device_name"] == name):
+        raise RuntimeError(f"auxiliary: memory report {memory}, system {report['system']}")
+    trace_path = os.path.join(profile_dir, "trace", "trace.json")
+    with open(trace_path) as f:
+        trace = f.read()
+    missing = [k for k, kernel in TRACE_KERNELS.items() if kernel not in trace]
+    if missing:
+        raise RuntimeError(f"auxiliary: the trace names none of the kernels {missing}")
+    stored = BenchmarkStore(store).get(current_commit())
+    speed = report["speed"]
+    if stored is None or stored.get("avg_time_per_batch_s") != speed["avg_time_per_batch_s"] \
+            or stored.get("num_steps") != AUX_PROFILE_STEPS - 1:
+        raise RuntimeError(f"auxiliary: the benchmark store holds {stored}")
+    ms = speed["avg_time_per_batch_s"] * 1e3
+    print(f"[auxiliary] cli profile {AUX_PROFILE_STEPS} steps (trace on): "
+          f"{ms:.3f} ms a step (mean of steps 2-{AUX_PROFILE_STEPS}, p50 "
+          f"{speed['p50_time_per_batch_s'] * 1e3:.3f}), peak {memory['peak_bytes_in_use']} "
+          f"bytes of {memory['bytes_limit']}; {card}; the trace ({os.path.getsize(trace_path)} "
+          f"bytes) names {sorted(TRACE_KERNELS.values())}; the store holds "
+          f"{len(stored)} numbers under {current_commit()[:12]}", flush=True)
+    return {"ms_per_step": ms, "p50_ms": speed["p50_time_per_batch_s"] * 1e3,
+            "peak_bytes": memory["peak_bytes_in_use"], "bytes_limit": memory["bytes_limit"],
+            "time_report": report["time"], "launches_per_step": counted.per_step[-1],
+            "trace_bytes": os.path.getsize(trace_path), "card": card}
+
+
+def offline_mlflow(workdir: str) -> dict:
+    """(d): ``cli train`` 2 steps with the ``mlflow_offline`` logger."""
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.training.mlflow_store import read_offline_run
+
+    config, path = aux_config(workdir, "mlflow", 2, loggers=[
+        {"name": "mlflow_offline", "system_metrics_interval_s": 0.5}])
+    if cli.main(["train", write_json(config, path)]) != 0:
+        raise RuntimeError("auxiliary: cli train with the mlflow_offline logger failed")
+    with open(os.path.join(config["output_dir"], "metrics.jsonl")) as f:
+        losses = [(r["step"], r["loss"]) for r in map(json.loads, f) if "loss" in r]
+    mlruns = os.path.join(config["output_dir"], "mlruns")
+    (run_dir,) = [os.path.join(mlruns, exp, r) for exp in os.listdir(mlruns)
+                  if os.path.isdir(os.path.join(mlruns, exp))
+                  for r in os.listdir(os.path.join(mlruns, exp))
+                  if os.path.isdir(os.path.join(mlruns, exp, r))]
+    run = read_offline_run(run_dir)
+    logged = [(m["step"], m["value"]) for m in run["metrics"] if m["key"] == "loss"]
+    device = [m["value"] for m in run["metrics"] if m["key"] == "sys.device_mem_in_use_mib"]
+    if logged != losses or len(losses) != 2:
+        raise RuntimeError(f"auxiliary: offline run losses {logged}, metrics.jsonl {losses}")
+    if not device or not all(v > 0 for v in device):
+        raise RuntimeError("auxiliary: no card memory among the system metrics")
+    print(f"[auxiliary] mlflow_offline: the run's losses {logged} equal metrics.jsonl's; "
+          f"{len(device)} system samples with the card's memory (up to {max(device):.1f} MiB)",
+          flush=True)
+    return {"losses": logged, "device_mem_samples": len(device)}
+
+
+def validate_presets() -> dict:
+    """(e): ``cli validate`` on every packaged preset, and on one with a
+    bad ``training.rollout``."""
+    from anemoi_tpu_torch.training import cli
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    presets = sorted(f for f in os.listdir(PACKAGED_CONFIG_DIR) if f.endswith(".yaml"))
+    failed = [p for p in presets if cli.main(["validate", os.path.join(PACKAGED_CONFIG_DIR, p)])]
+    bad = cli.main(["validate", os.path.join(PACKAGED_CONFIG_DIR, "example_o96_gt.yaml"),
+                    "training.rollout.start=4", "training.rollout.max=2"])
+    if failed or bad == 0:
+        raise RuntimeError(f"auxiliary: validate refused {failed}; the bad rollout gave {bad}")
+    print(f"[auxiliary] cli validate: {len(presets)} presets accepted, the bad rollout "
+          f"refused (exit {bad})", flush=True)
+    return {"presets": len(presets), "bad_rollout_exit": bad}
+
+
+def auxiliary_phase(workdir: str, card: str) -> dict:
+    """Phase 34: checkpoint migrations, the checkpoint pipeline, the
+    profiler and benchmark store, the offline MLflow logger and config
+    validation, driven through the CLI."""
+    result, seconds = {}, {}
+    for name, fn, args in (("migrate", migrate_and_serve, (workdir,)),
+                           ("freeze", load_and_freeze, (workdir,)),
+                           ("profile", profile_part, (workdir, card)),
+                           ("mlflow", offline_mlflow, (workdir,)),
+                           ("validate", validate_presets, ())):
+        t0 = time.perf_counter()
+        result[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[auxiliary] {name}: {seconds[name]:.2f} s", flush=True)
+    result["seconds"] = seconds
+    print(f"[auxiliary] {json.dumps(result)}", flush=True)
+    return result
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
            ens: dict, families: dict, transport: dict, hierarchy: dict,
-           spectral: dict, later: dict) -> dict:
+           spectral: dict, later: dict, auxiliary: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -5067,7 +5374,9 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     31's rank 0's and each phase 32 part's rank 0's training step and
     forecast (``<part>_rank_0_train``, ``..._predict_2_steps``: 2 forecast
     steps, or the transport model's one generative step, or the
-    ensemble's ``predict_step``)."""
+    ensemble's ``predict_step``), and phase 34's (``auxiliary``) migrated
+    fixture's 2-step ``cli predict``, pipeline training step and profiled
+    step."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
                "example_trainer_step": trainer["launches_per_step"],
@@ -5109,7 +5418,10 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                **{f"{label}_{kind}": counts
                   for label, res in later.items()
                   for kind, counts in (("train", res["train"]["launches_per_step"]),
-                                       ("predict_2_steps", res["predict"]["launches"]))}}
+                                       ("predict_2_steps", res["predict"]["launches"]))},
+               "aux_migrated_fixture_predict_2_steps": auxiliary["migrate"]["fp32"]["launches"],
+               "aux_pipeline_freeze_train": auxiliary["freeze"]["launches_per_step"],
+               "aux_profile_train": auxiliary["profile"]["launches_per_step"]}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
                "K4": "training_step", "K5": "training_step_fused_bwd",
                "K6": "transformer_serving_2_steps", "K7_dq": "transformer_training_step",
@@ -5239,6 +5551,7 @@ def main() -> int:
         parallel_families = phase("parallel families", families_phase, workdir, graph, device,
                                   ens["losses"])
         routes = phase("parallel routes", routes_phase, workdir, graph, device)
+        auxiliary = phase("auxiliary", auxiliary_phase, workdir, card)
     for extra_rows in (shard_rows, parallel_families.pop("rows"), routes.pop("rows"),
                        hierarchy["down_set_rows"],
                        slice_17["dynamic"]["runtime_sets"]["encoder_rows"],
@@ -5255,7 +5568,8 @@ def main() -> int:
                                       *routes["parts"].items()]}
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
                  ens, families, transport, hierarchy, spectral,
-                 {**slice_17, **meshes, "parallel_rank_0": parallel_path, **family_paths})
+                 {**slice_17, **meshes, "parallel_rank_0": parallel_path, **family_paths},
+                 auxiliary)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -5268,6 +5582,7 @@ def main() -> int:
                        "hierarchical": hierarchy, "spectral": spectral, **slice_17,
                        "meshes": meshes, "parallel": parallel,
                        "parallel_families": parallel_families, "parallel_routes": routes,
+                       "auxiliary": auxiliary,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

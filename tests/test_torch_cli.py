@@ -4,8 +4,10 @@ dotted overrides) -> ``checkpoint inspect`` -> ``evaluate`` -> ``predict``,
 through ``anemoi_tpu_torch.training.cli.main`` with
 ``hardware.platform=cpu``, the packaged example shrunk to an o8 grid, a
 level-1 mesh, 16 channels and 1 processor layer, reading a zarr store
-written by the port.  The subcommands that are not ported return 2; without
-a platform, ``train`` and ``predict`` raise when no card is visible."""
+written by the port.  ``validate``, ``mlflow login|sync``, ``profile`` and
+``checkpoint migrate`` against the JAX package's CLI; a bundle with a
+migration pending serves as JAX serves it.  Without a platform, ``train``
+and ``predict`` raise when no card is visible."""
 
 import json
 
@@ -92,7 +94,15 @@ def test_cli_predict(cli_run):
 
 
 def test_bundle_with_pending_migrations_is_refused(cli_run, tmp_path):
+    """No longer refused: ``load_inference_checkpoint`` applies the pending
+    migrations.  The port's own bundle with all but the first marked pending
+    serves the same forecast bit for bit; the committed JAX fixture (one
+    migration pending, a float32 copy) forecasts through ``cli predict`` as
+    the JAX package's ``predict`` does (rtol/atol 3e-5)."""
+    import os
     import shutil
+
+    from anemoi_tpu.training.cli import main as jax_main
 
     _, tmp, _ = cli_run
     bundle = tmp_path / "old"
@@ -100,8 +110,33 @@ def test_bundle_with_pending_migrations_is_refused(cli_run, tmp_path):
     meta = json.loads((bundle / "checkpoint.json").read_text())
     meta["metadata"]["migrations"] = list(MIGRATION_NAMES[:1])
     (bundle / "checkpoint.json").write_text(json.dumps(meta))
-    with pytest.raises(RuntimeError, match="checkpoint migrate"):
-        load_inference_checkpoint(str(bundle), device="cpu")
+    forecasts = {}
+    for label, path in (("old", bundle), ("current", tmp / "run" / "inference")):
+        out = tmp_path / f"{label}.npz"
+        assert main(["predict", str(path), "--steps", "2", "--output", str(out),
+                     "--platform", "cpu"]) == 0
+        forecasts[label] = np.load(out)["data|forecast"]
+    np.testing.assert_array_equal(forecasts["old"], forecasts["current"])
+    assert load_inference_checkpoint(str(bundle), device="cpu").metadata["migrations"] == \
+        list(MIGRATION_NAMES)
+
+    fixture = tmp_path / "fixture"
+    shutil.copytree(os.path.join(os.path.dirname(__file__), "fixtures", "inference_ckpt_r2"),
+                    fixture)
+    meta = json.loads((fixture / "checkpoint.json").read_text())
+    meta["config"]["model"]["inference_precision"] = "fp32"
+    (fixture / "checkpoint.json").write_text(json.dumps(meta))
+    data = tmp_path / "data.json"
+    data.write_text(json.dumps({"data": {"datasets": {"data": {
+        "kind": "synthetic", "nodes": {"name": "ReducedGaussianGridNodes", "grid": "o8"},
+        "variables": list(meta["data_indices"]["data"]["name_to_index"]), "num_times": 8}}}}))
+    for label, fn in (("jax", jax_main), ("port", main)):
+        assert fn(["predict", str(fixture), "--config", str(data), "--steps", "2",
+                   "--output", str(tmp_path / f"{label}.npz"), "--platform", "cpu"]) == 0
+    ours = np.load(tmp_path / "port.npz")["data|forecast"]
+    ref = np.load(tmp_path / "jax.npz")["data|forecast"]
+    assert ours.shape == ref.shape == (1, 2, 1, 544, 5) and np.isfinite(ours).all()
+    np.testing.assert_allclose(ours, ref, rtol=3e-5, atol=3e-5)
 
 
 def test_cli_config_generate_writes_the_composed_config(cli_run, tmp_path):
@@ -151,12 +186,104 @@ def test_cli_predict_reads_a_yaml_config(cli_run, tmp_path):
                                   np.load(tmp_path / "own.npz")["data|forecast"])
 
 
-@pytest.mark.parametrize("argv", [["validate", "c.json"],
-                                  ["mlflow", "sync", "runs"], ["profile", "c.json"],
-                                  ["checkpoint", "migrate", "bundle"]])
-def test_unported_subcommands_return_2(argv, capsys):
-    assert main(argv) == 2
-    assert "not ported to anemoi_tpu_torch" in capsys.readouterr().out
+def run_both_clis(argv_of, capsys):
+    """The JAX package's CLI, then the port's: (rc, stdout) of each."""
+    from anemoi_tpu.training.cli import main as jax_main
+
+    out = {}
+    for label, fn in (("jax", jax_main), ("port", main)):
+        capsys.readouterr()
+        rc = fn(argv_of(label))
+        out[label] = (rc, capsys.readouterr().out)
+    return out
+
+
+def subcommand_case(kind, tmp_path, monkeypatch):
+    """(argv of each CLI, the outputs' normaliser, a check of both runs)."""
+    import os
+    import shutil
+
+    from tests.test_torch_trainer import tiny_config
+
+    if kind == "validate":
+        cfg = tmp_path / "cfg.json"
+        cfg.write_text(json.dumps(tiny_config(tmp_path, "run")))
+        return lambda label: ["validate", str(cfg)], None, None
+    if kind == "checkpoint":
+        for label in ("jax", "port"):
+            shutil.copytree(os.path.join(os.path.dirname(__file__), "fixtures",
+                                         "inference_ckpt_r2"), tmp_path / label)
+
+        def check(_):
+            a, b = (json.loads((tmp_path / lb / "checkpoint.json").read_text())
+                    for lb in ("jax", "port"))
+            assert a == b and len(b["metadata"]["migrations"]) == len(MIGRATION_NAMES)
+
+        return (lambda label: ["checkpoint", "migrate", str(tmp_path / label)],
+                lambda text: text.replace(str(tmp_path), "<tmp>"), check)
+    if kind == "profile":
+        cfg = tiny_config(tmp_path, "profile")
+        cfg["diagnostics"]["callbacks"] = []
+        path = tmp_path / "cfg.json"
+        path.write_text(json.dumps(cfg))
+
+        def check(_):
+            reports = [json.loads((tmp_path / lb / "profile" / "profiler_report.json")
+                                  .read_text()) for lb in ("jax", "port")]
+            assert sorted(reports[0]) == sorted(reports[1])
+            stores = [os.listdir(tmp_path / f"store_{lb}") for lb in ("jax", "port")]
+            assert stores[0] == stores[1] and len(stores[1]) == 1
+
+        return (lambda label: ["profile", str(path), "--steps", "2", "--output-dir",
+                               str(tmp_path / label), "--benchmark-store",
+                               str(tmp_path / f"store_{label}")],
+                lambda text: "\n".join(line.split(":")[0] for line in text.splitlines()),
+                check)
+    # mlflow login, then sync with the saved login, against a stub server
+    from http.server import HTTPServer
+    import threading
+
+    from anemoi_tpu_torch.training.mlflow_store import OfflineMLflowRun
+    from tests.test_torch_profiler_stores import _Stub
+
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    run = OfflineMLflowRun(str(tmp_path / "mlruns"), experiment="exp", run_name="r")
+    run.log_params({"a": 1})
+    run.log_metric("loss", 0.5, 1)
+    run.finalize()
+    srv = HTTPServer(("127.0.0.1", 0), _Stub)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    uri = f"http://127.0.0.1:{srv.server_port}"
+    _Stub.calls, _Stub.runs = [], {}
+
+    def argv(label):
+        assert main(["mlflow", "login", "--uri", uri, "--token", "t"]) == 0
+        _Stub.runs = {}
+        return ["mlflow", "sync", str(tmp_path / "mlruns")]
+
+    def check(outputs):
+        srv.shutdown()
+        srv.server_close()
+        assert all(auth == "Bearer t" for _, _, auth in _Stub.calls)
+        assert sum(path.endswith("runs/create") for path, _, _ in _Stub.calls) == 2
+
+    return argv, lambda text: text.replace(str(tmp_path), "<tmp>"), check
+
+
+@pytest.mark.parametrize("argv", [["validate"], ["mlflow", "sync"], ["profile"],
+                                  ["checkpoint", "migrate"]])
+def test_unported_subcommands_return_2(argv, tmp_path, monkeypatch, capsys):
+    """The subcommands that once returned 2 here, against the JAX CLI: the
+    same exit code and output (``profile``: the same lines and report
+    sections; ``mlflow sync``: the same runs pushed, with the saved login)."""
+    argv_of, normalise, check = subcommand_case(argv[0], tmp_path, monkeypatch)
+    outputs = run_both_clis(argv_of, capsys)
+    assert outputs["port"][0] == outputs["jax"][0] == 0
+    if normalise is not None:
+        outputs = {k: (rc, normalise(text)) for k, (rc, text) in outputs.items()}
+    assert outputs["port"] == outputs["jax"]
+    if check is not None:
+        check(outputs)
 
 
 def test_no_platform_needs_the_card(cli_run):

@@ -285,8 +285,17 @@ def test_graphs_cli_matches_jax(tmp_path, capsys):
         got = sp.load_npz(port_out[5] / name)
         assert (got != want).nnz == 0 and got.shape == want.shape
 
-    for argv in (["plot", port_out[0], str(tmp_path / "plots")],
-                 ["inspect", port_out[0], "--plot", str(tmp_path / "p.png")]):
-        assert graphs_main(argv) == 2
-        assert "ROADMAP item 10" in capsys.readouterr().out
-    assert not os.path.exists(tmp_path / "plots") and not os.path.exists(tmp_path / "p.png")
+    # plot and inspect --plot: the same figure files, written by both
+    plotted = {}
+    for label, main in (("jax", jax_graphs_main), ("port", graphs_main)):
+        d = tmp_path / label
+        assert main(["plot", port_out[0], str(d / "plots"), "--max-edges", "500"]) == 0
+        listed = capsys.readouterr().out.replace(str(d), "<dir>")
+        assert main(["inspect", port_out[0], "--plot", str(d / "p.png")]) == 0
+        inspected = capsys.readouterr().out.replace(str(d), "<dir>")
+        files = sorted(os.listdir(d / "plots"))
+        assert all(os.path.getsize(d / "plots" / f) > 0 for f in files)
+        assert os.path.getsize(d / "p.png") > 0
+        plotted[label] = (listed, inspected, files)
+    assert plotted["port"] == plotted["jax"]
+    assert len(plotted["port"][2]) == 2 + 2 + 3  # node sets, edge sets, the three summaries

@@ -18,7 +18,7 @@ names = [m.name for m in pkgutil.walk_packages(anemoi_tpu_torch.__path__, "anemo
 for name in names:
     importlib.import_module(name)
 FORBIDDEN = ("jax", "flax", "sklearn", "yaml", "msgpack", "pydantic", "orbax", "optax",
-             "matplotlib", "anemoi_tpu")
+             "matplotlib", "mlflow", "wandb", "boto3", "anemoi_tpu")
 bad = sorted(
     m for m in sys.modules
     if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))
@@ -29,8 +29,8 @@ print(len(names), bad)
 
 def test_imports_nothing_of_jax_or_the_jax_package():
     """Every module of the port imports; none of jax, flax, sklearn, yaml,
-    msgpack, pydantic, orbax, optax, matplotlib or anemoi_tpu / anemoi_tpu.*
-    is loaded (``anemoi_tpu_torch`` itself starts with the string
+    msgpack, pydantic, orbax, optax, matplotlib, mlflow, wandb, boto3 or
+    anemoi_tpu / anemoi_tpu.* is loaded (``anemoi_tpu_torch`` itself starts with the string
     ``anemoi_tpu``, so the check is on the module name and the
     ``anemoi_tpu.`` prefix)."""
     res = subprocess.run(

@@ -329,10 +329,19 @@ def test_callbacks_and_loggers(tmp_path):
     assert stop.should_stop(None) and stop.best == 0.5
     assert TimeLimit(limit="00:00:00").should_stop(None) is False
     assert TimeLimit(limit_s=1e-9).should_stop(None)
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        build_callbacks([{"name": "PlotSample"}])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_loggers([{"name": "mlflow"}], str(tmp_path))
+    from anemoi_tpu_torch.training.callbacks import PlotSample
+    from anemoi_tpu_torch.training.loggers import OfflineMLflowLogger
+    from anemoi_tpu_torch.training.mlflow_store import read_offline_run
+
+    (plot,) = build_callbacks([{"name": "PlotSample", "async_plots": False}])
+    assert isinstance(plot, PlotSample) and plot.max_vars == 4
+    _, offline = build_loggers([{"name": "mlflow_offline", "system_metrics": False}],
+                               str(tmp_path / "mlflow"))
+    assert isinstance(offline, OfflineMLflowLogger)
+    offline.log_metrics({"loss": 1.5}, 3)
+    offline.finalize()
+    run = read_offline_run(offline.run.run_dir)
+    assert [(m["key"], m["value"], m["step"]) for m in run["metrics"]] == [("loss", 1.5, 3)]
     (jl,) = build_loggers([{"name": "jsonl"}], str(tmp_path))
     jl.log_metrics({"loss": 1.5}, 3)
     jl.finalize()
