@@ -170,7 +170,10 @@ PRECISIONS = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "16-mixed": to
 
 
 class AnemoiModelInterface(nn.Module):
-    """The model with its pre/post processors, on one device."""
+    """The model with its pre/post processors, on one device.  With
+    ``initialise=False`` the parameters skip :func:`initialise_parameters`
+    (they keep torch's construction values), for a caller that loads every
+    one of them next, as ``load_inference_checkpoint`` does."""
 
     def __init__(
         self,
@@ -183,6 +186,7 @@ class AnemoiModelInterface(nn.Module):
         device: torch.device | str | None = None,
         training: bool = False,
         mesh=None,
+        initialise: bool = True,
     ) -> None:
         super().__init__()
         self.device = resolve_device(device)
@@ -248,7 +252,8 @@ class AnemoiModelInterface(nn.Module):
                               ("up_mapper" if "up_mapper" in model_cfg else "decoder", "upscale")):
             if (model_cfg.get(part) or {}).get("initialise_data_extractor_zero", False):
                 zero_heads += list(getattr(model, modules, {}).values())
-        initialise_parameters(model, context_generator("model-init"), zero_heads)
+        if initialise:
+            initialise_parameters(model, context_generator("model-init"), zero_heads)
         self.model = model.to(device=self.device, dtype=self.param_dtype)
         model.shard_over(mesh)
         self.pre_processors: Dict[str, Processors] = {}

@@ -126,7 +126,9 @@ def window_attention_plain(
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """MHSA over the node/sequence dim of ``[B, N, C]`` features.
+    """MHSA over the node/sequence dim of ``[B, N, C]`` features; with
+    ``qk_norm``, q and k are normalised per head (``qk_norm_type``
+    ``layernorm`` or ``rmsnorm``) before the product.
 
     ``plain_attention`` selects the band's plain PyTorch version instead of
     the CUDA kernels, so that a run on the card can be compared with it."""
@@ -136,6 +138,7 @@ class MultiHeadSelfAttention(nn.Module):
         window_size: Optional[int] = None, qkv_bias: bool = False, qk_norm: bool = False,
         softcap: Optional[float] = None, use_alibi_slopes: bool = False,
         use_rotary_embeddings: bool = False, attention_impl: str = "xla",
+        qk_norm_type: str = "layernorm",
     ) -> None:
         super().__init__()
         if attention_impl not in ("xla", "pallas"):
@@ -153,8 +156,8 @@ class MultiHeadSelfAttention(nn.Module):
         self.lin_k = nn.Linear(num_channels, hd, bias=qkv_bias)
         self.lin_v = nn.Linear(num_channels, hd, bias=qkv_bias)
         self.projection = nn.Linear(hd, num_channels)
-        self.q_norm = QKNorm(hd // num_heads) if qk_norm else None
-        self.k_norm = QKNorm(hd // num_heads) if qk_norm else None
+        self.q_norm = QKNorm(hd // num_heads, qk_norm_type) if qk_norm else None
+        self.k_norm = QKNorm(hd // num_heads, qk_norm_type) if qk_norm else None
         # float32 constants, kept out of the parameters and buffers so that a
         # cast of the model to bf16 leaves them exact
         self.alibi_slopes = get_alibi_slopes(num_heads) if use_alibi_slopes else None
@@ -221,11 +224,13 @@ class MultiHeadCrossAttention(nn.Module):
     C]`` keys and values (``x_src``), through :func:`cross_attention`, which
     picks its version by the device alone
     (``AnemoiModelInterface.use_plain_attention`` does not reach it: at the
-    mappers' full size the plain version does not fit on the card).  The JAX
-    module's query/key norm, which no mapper sets, is not ported."""
+    mappers' full size the plain version does not fit on the card).  With
+    ``qk_norm``, q and k are normalised per head (``qk_norm_type``
+    ``layernorm`` or ``rmsnorm``) before the product."""
 
     def __init__(self, num_channels: int, num_heads: int, attn_channels: Optional[int] = None,
-                 qkv_bias: bool = False) -> None:
+                 qkv_bias: bool = False, qk_norm: bool = False,
+                 qk_norm_type: str = "layernorm") -> None:
         super().__init__()
         hd = attn_channels or num_channels
         if hd % num_heads:
@@ -235,6 +240,8 @@ class MultiHeadCrossAttention(nn.Module):
         self.lin_k = nn.Linear(num_channels, hd, bias=qkv_bias)
         self.lin_v = nn.Linear(num_channels, hd, bias=qkv_bias)
         self.projection = nn.Linear(hd, num_channels)
+        self.q_norm = QKNorm(hd // num_heads, qk_norm_type) if qk_norm else None
+        self.k_norm = QKNorm(hd // num_heads, qk_norm_type) if qk_norm else None
 
     def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor,
                 shard: Optional[BlockShard] = None) -> torch.Tensor:
@@ -250,5 +257,8 @@ class MultiHeadCrossAttention(nn.Module):
             k, v = kv[..., :hd], kv[..., hd:]
         nk = k.shape[1]
         q = self.lin_q(x_dst).view(b, nq, h, d)
-        out = cross_attention(q, k.reshape(b, nk, h, d), v.reshape(b, nk, h, d))
+        k = k.reshape(b, nk, h, d)
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        out = cross_attention(q, k, v.reshape(b, nk, h, d))
         return self.projection(out.reshape(b, nq, self.attn_channels))

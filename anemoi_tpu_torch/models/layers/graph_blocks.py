@@ -245,7 +245,7 @@ class GraphConv(nn.Module):
         h = hidden(p_i + p_j + edge_attr @ w_e.t() + first.bias)
         for layer in tail:
             h = layer(h)
-        return self.edge_mlp.layer_norm(h)
+        return self.edge_mlp.finish(h)
 
     def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor, edge_attr: torch.Tensor,
                 sub: SubGraphArrays) -> Tuple[torch.Tensor, torch.Tensor]:

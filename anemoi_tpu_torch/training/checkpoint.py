@@ -221,7 +221,7 @@ def load_inference_checkpoint(path: str, device: torch.device | str | None = Non
         graph = GraphCreator(graph_cfg.get("recipe", graph_cfg)).create()
     iface = AnemoiModelInterface(
         config=config, graph=graph, data_indices=data_indices, statistics=statistics,
-        metadata=bundle.get("metadata"), device=device, mesh=mesh,
+        metadata=bundle.get("metadata"), device=device, mesh=mesh, initialise=False,
     )
     if raw_params is None:
         state_dict = torch.load(torch_params, map_location="cpu", weights_only=True)

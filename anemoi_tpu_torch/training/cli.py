@@ -27,11 +27,12 @@ runs on the CPU; otherwise the CUDA card, which must be visible.
 drawn from a ``torch.Generator`` seeded with ``--seed``; ``evaluate``
 refuses a model that the deterministic rollout cannot run (an ensemble that
 draws noise, a transport model) before any step and returns 1.  Configs
-are checked by ``validate`` (``schemas.py``: plain functions, no pydantic);
-``train`` does not check them first.  ``checkpoint migrate`` applies a
-bundle's pending migrations to its ``checkpoint.json`` (``models/
-migrations.py``; ``load_inference_checkpoint`` applies them to the
-parameters as it loads), rolls them back to ``--rollback TARGET``, or
+are checked by ``validate`` (``schemas.py``: plain functions, no pydantic),
+and by ``train`` before anything is built unless ``config_validation`` is
+false: a refused field is printed and the command returns 1.  ``checkpoint
+migrate`` applies a bundle's pending migrations to its ``checkpoint.json``
+(``models/migrations.py``; ``load_inference_checkpoint`` applies them to
+the parameters as it loads), rolls them back to ``--rollback TARGET``, or
 scaffolds a timestamped migration script (``--create``).  ``mlflow login``
 stores a tracking server's URI and token in
 ``~/.config/anemoi_tpu/mlflow.json``; ``mlflow sync`` pushes the offline
@@ -370,6 +371,18 @@ def main(argv=None) -> int:
         else:
             print(text, end="")
         return 0
+    if args.command == "validate" or (args.command == "train"
+                                      and conf.get("config_validation", True)):
+        from anemoi_tpu_torch.training.schemas import ConfigValidationError, validate_config
+
+        try:
+            validate_config(conf)
+        except ConfigValidationError as err:
+            print(f"config invalid: {err}")
+            return 1
+    if args.command == "validate":
+        print("config OK")
+        return 0
     if args.command == "train":
         hw = dict(conf.get("hardware") or {})
         world = int(hw.get("num_devices", 1))
@@ -379,16 +392,6 @@ def main(argv=None) -> int:
             return _train_local_ranks(conf, args.output_dir, world, hw.get("platform"))
         result = _train(conf, args.output_dir)
         print(f"training done: {result}")
-        return 0
-    if args.command == "validate":
-        from anemoi_tpu_torch.training.schemas import ConfigValidationError, validate_config
-
-        try:
-            validate_config(conf)
-        except ConfigValidationError as err:
-            print(f"config invalid: {err}")
-            return 1
-        print("config OK")
         return 0
     if args.command == "evaluate":
         return _evaluate(conf, args.output_dir, args.rollout)

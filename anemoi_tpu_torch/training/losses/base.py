@@ -417,3 +417,18 @@ def get_loss_function(
             dims, arr = available[scaler_name]
             st.add_scaler(dims, arr, scaler_name)
     return LOSSES[name](scalers=st, **cfg)
+
+
+def variable_scaling_summary(loss: BaseLoss, data_indices) -> Dict[str, float]:
+    """Effective per-variable loss weight: the product of every
+    variable-dim scaler attached to the loss, keyed by model-output variable
+    name (as the JAX package's ``variable_scaling_summary``)."""
+    names = data_indices.model.output.ordered_names
+    total = np.ones(len(names), dtype=np.float64)
+    st = getattr(loss, "scalers", None)
+    for dims, arr in (st.scalers.values() if st is not None else ()):
+        if "variable" in dims:
+            a = arr.detach().cpu().numpy().astype(np.float64).reshape(-1)
+            if len(a) == len(names):
+                total *= a
+    return {name: float(total[i]) for i, name in enumerate(names)}

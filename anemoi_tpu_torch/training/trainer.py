@@ -93,6 +93,7 @@ from anemoi_tpu_torch.training.checkpoint import CheckpointManager, save_inferen
 from anemoi_tpu_torch.training.loggers import build_loggers
 from anemoi_tpu_torch.training.masks import build_output_masks
 from anemoi_tpu_torch.training.losses import get_loss_function
+from anemoi_tpu_torch.training.losses.base import variable_scaling_summary
 from anemoi_tpu_torch.training.losses.scalers import create_scalers
 from anemoi_tpu_torch.training.optimizers import build_lr_schedule, build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, make_step_fns
@@ -226,6 +227,9 @@ class AnemoiTrainer:
                 data_indices=self.data_indices[name],
                 variables_metadata=getattr(ds, "variables_metadata", None),
             )
+            # the effective per-variable loss weighting, once at startup
+            LOGGER.info("variable loss scaling [%s]: %s", name,
+                        variable_scaling_summary(self.losses[name], self.data_indices[name]))
 
         # --- checkpoint pipeline, optimizer / state ---------------------
         self.ckpt_name_to_index = None

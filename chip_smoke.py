@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py [--json PATH]
 
-Phases (any failure exits non-zero, with no result line):
+Phases (any failure exits non-zero, with no result line; widths are the
+models' own; phases 13-15, 18-22 and 24-33 and phase 34's profiled and
+MLflow runs cut their processors to ``CUT_LAYERS`` = 2 of their 16 layers,
+so that the whole run stays well inside its time limit on a slow host;
+phases 7-12, 16-17, 23, 34's other parts and 35 run at full depth):
   1. card      -- require CUDA; print the card's name and power limit;
   2. build     -- build every kernel from the sources in this checkout, one
                   nvcc per source, all started together;
@@ -104,9 +108,10 @@ Phases (any failure exits non-zero, with no result line):
                   and projection, the flattened gradient within relative L2
                   1e-2 of the plain attention's at all 16 layers; ms per step
                   and peak memory;
- 13. remat     -- the flagship through ``make_step_fns`` on one interface
-                  (the same weights) in each remat variant: per-layer remat
-                  off, ``save_attention`` and ``full`` at rollout 1; no
+ 13. remat     -- the flagship (2 layers) through ``make_step_fns`` on one
+                  interface (the same weights) in each remat variant:
+                  per-layer remat off, ``save_attention`` and ``full`` at
+                  rollout 1; no
                   remat, ``remat_rollout`` off, and on with no policy
                   (``full``) and with ``save_attention`` at rollout 2; no
                   remat and ``remat_rollout`` (``full``) at rollout 3.  Each:
@@ -121,22 +126,24 @@ Phases (any failure exits non-zero, with no result line):
                   list`` lists the files of ``anemoi_tpu/config`` (49, 16
                   presets); ``example_o96_gt.yaml`` composed with the
                   flagship's width equals ``example_o96_gt_config()``;
-                  ``cli train`` on that YAML over phase 9's store at
-                  rollout 2 with the packaged remat defaults (3 steps:
-                  finite records, exactly 72 K1, 36 K3 and 36 K4 a step);
+                  ``cli train`` on that YAML (2 layers) over phase 9's
+                  store at rollout 2 with the packaged remat defaults (3
+                  steps: finite records, exactly 16 K1, 8 K3 and 8 K4 a
+                  step);
                   ``cli evaluate --rollout 2`` on it;
  15. ensemble  -- the ensemble CRPS preset (AIFS-ENS) at its own width:
                   ``ensemble_crps.yaml`` (``AnemoiEnsModelEncProcDec``,
                   ``NoiseConditioning``, conditional processor norms,
-                  ``KernelCRPS``, 512 channels, 16 layers, 16 heads, the
-                  ``multi_scale`` graph, 4 members) through ``cli train``
-                  over phase 9's store, bf16, 3 steps: finite records,
-                  exactly 18 K1, K3 and K4 and no other kernel in every step;
+                  ``KernelCRPS``, 512 channels, 16 heads, the
+                  ``multi_scale`` graph, 4 members; 2 layers) through ``cli
+                  train`` over phase 9's store, bf16, 3 steps: finite
+                  records, exactly 4 K1, K3 and K4 and no other kernel in
+                  every step;
                   the trained step's gradient against the plain attention
                   (same weights and noise seed, relative L2 <= 1e-2); wall,
                   device ms and peak memory of the step; ``predict_step`` on
                   a window tiled to the 4 members: [1, 1, 4, 40320, 11],
-                  finite, exactly 18 K1, relative L2 <= 2e-2 against the
+                  finite, exactly 4 K1, relative L2 <= 2e-2 against the
                   plain attention (the same noise), members that differ
                   once the conditional scales are nonzero; its wall, device
                   ms and peak memory;
@@ -156,38 +163,38 @@ Phases (any failure exits non-zero, with no result line):
                   point-wise layers, one input step, the ``autoencoder``
                   task) as phase 16;
  18. downscaler -- ``temporal_downscaler.yaml`` at its width (1024
-                  channels, 16 layers, 16 heads, the ``multi_scale`` graph,
-                  2 output steps) through ``cli train``, 3 steps: exactly 18
-                  K1, 18 K3 and the K4/K5 of the ``fused_backward`` rule a
+                  channels, 16 heads, the ``multi_scale`` graph, 2 output
+                  steps; 2 layers) through ``cli train``, 3 steps: exactly 4
+                  K1, 4 K3 and the K4/K5 of the ``fused_backward`` rule a
                   step; the gradient gate; a validation record with
                   ``PerTimestepMetrics``' ``t_1`` and ``t_2`` keys; then
                   ``temporal_downscaler_ensemble.yaml`` (512 channels, 4
                   members: B·M = 4 rows), 2 steps, the same counts and gate;
  19. gnn       -- the GNN model (``model: gnn`` on ``graph: multi_scale``
                   from a config file's ``defaults:`` list) at ``gnn.yaml``'s
-                  width (512 channels, 16 layers): ``cli train`` 3 steps and
+                  width (512 channels; 2 layers): ``cli train`` 3 steps and
                   ``cli predict`` 2 steps, finite, none of the seven kernels
                   launched; then at 2 layers of 64 channels on the same
                   graph, its float32 forward and gradient on the card
                   against the CPU's (same weights and batch, relative L2
                   <= 1e-4);
  20. lam       -- ``lam.yaml`` at its width (the ``graphtransformer`` model:
-                  1024 channels, 16 layers, 16 heads; the ``limited_area``
+                  1024 channels, 16 heads, 2 layers; the ``limited_area``
                   graph: ``LimitedAreaTriNodes`` ico-5 clipped to the o96
                   grid with a 300 km margin; the loss masked to the
                   ``cutout_mask`` area) through ``cli train`` over phase 9's
                   store, 3 steps: the hidden node count and each edge set's
-                  count and degree ranges, exactly 18 K1, 18 K3 and the K4/K5
+                  count and degree ranges, exactly 4 K1, 4 K3 and the K4/K5
                   of the ``fused_backward`` rule a step, the gradient gate;
                   then one rollout-2 step under the packaged rollout remat
                   (exactly twice the launches, K1 twice more: the rollout
                   checkpoint recomputes the forward) and, through the port's
                   ``advance_input`` on the card, the second model step's
                   input: outside the area the normalised truth bit for bit,
-                  inside the prediction; ``cli predict`` 2 steps (18 K1 a
+                  inside the prediction; ``cli predict`` 2 steps (6 K1 a
                   step, relative L2 <= 2e-2 against the plain attention);
                   wall, device ms and peak memory of each;
- 21. stretched -- ``stretched.yaml`` at its width (1024 channels, 16 layers,
+ 21. stretched -- ``stretched.yaml`` at its width (1024 channels; 2 layers;
                   the ``stretched_grid`` graph: ico-4 outside and ico-6
                   inside a 20 degree cap, KNN-8 processor edges) with
                   AdEMAMix and ``[InputImputer (mean), InputNormalizer]``
@@ -198,20 +205,20 @@ Phases (any failure exits non-zero, with no result line):
                   points and 1 elsewhere, AdEMAMix's three float32 moments
                   per parameter; the device time of the step by kernel;
  22. transport -- the transport family at the presets' width (512
-                  channels, 16 layers, 16 heads, phase 9's ``multi_scale``
+                  channels, 16 heads; 2 layers; phase 9's ``multi_scale``
                   graph and store, bf16): ``transport_edm_diffusion.yaml``
                   and ``transport_stochastic_interpolant_tendency.yaml``
                   through ``cli train``, 3 steps each with no callbacks:
-                  finite records, exactly 18 K1, 18 K3 and the K4/K5 of the
+                  finite records, exactly 4 K1, 4 K3 and the K4/K5 of the
                   ``fused_backward`` rule a step, the gradient gate; on the
                   trained model in bf16, one evaluation at each end of the
                   noise range (sigma_max and sigma_min; t = 0 and 1) and a
                   4-step sample from one generator, each within relative L2
-                  2e-2 of the plain attention; one evaluation's launches (18
+                  2e-2 of the plain attention; one evaluation's launches (6
                   K1) and times; then ``cli predict --seed 7`` at the
                   presets' 20 sampling steps: 2 forecast steps of
-                  ``edm_heun`` (39 evaluations, 702 K1 a step) and 1 of
-                  ``vf_heun`` (40, 720 K1), finite, equal bit for bit to an
+                  ``edm_heun`` (39 evaluations, 156 K1 a step) and 1 of
+                  ``vf_heun`` (40, 160 K1), finite, equal bit for bit to an
                   in-process ``make_transport_forecast_fn`` with a generator
                   seeded 7, the gap to the plain attention's forecast
                   printed; wall and device ms and peak memory of each;
@@ -240,31 +247,33 @@ Phases (any failure exits non-zero, with no result line):
                   synthesis, analysis and synthesis within rtol 1e-4 / atol
                   1e-5, the coefficients of 12 random fields against the
                   port's CPU transform (<= 1e-4 of the largest), analysis
-                  and synthesis timed; then the example (phase 9's graph)
-                  in a fixed-batch bf16 step with ``CombinedLoss`` (MSE +
-                  ``SpectralAMSELoss`` on ``octahedral_sht``, n 96) and
+                  and synthesis timed; then the example (phase 9's graph,
+                  2 layers) in a fixed-batch bf16 step with
+                  ``CombinedLoss`` (MSE + ``SpectralAMSELoss`` on
+                  ``octahedral_sht``, n 96) and
                   ``residual: SpectralOrnsteinConnection`` (octahedral, 96),
                   the store's points checked to be the O96 rings in order:
-                  exactly 18 K1, K3 and K4, the gradient gate, device ms
+                  exactly 4 K1, K3 and K4, the gradient gate, device ms
                   beside the same step with the MSE and the plain skip;
- 25. projections -- the example at its width with a ``truncation`` node set
-                  (o32, 5 248 nodes, KNN-3 both ways weighted by
-                  ``GaussianDistanceWeights`` l1) in its graph, ``residual:
+ 25. projections -- the example at its width (2 layers) with a
+                  ``truncation`` node set (o32, 5 248 nodes, KNN-3 both
+                  ways weighted by ``GaussianDistanceWeights`` l1) in its
+                  graph, ``residual:
                   TruncatedConnection`` and ``MultiscaleLossWrapper`` (the
                   preset's area- and variable-weighted MSE, native weight 1,
                   one scale onto ``hidden`` through the data -> hidden set
                   at 0.5) through ``cli train`` over phase 9's store, bf16, 3
-                  steps: 18/18/18/0 a step, the gradient gate; the trained
+                  steps: 4/4/4/0 a step, the gradient gate; the trained
                   model's three projectors on the card against the CPU
                   (float32 and bf16 inputs, <= 1e-5 of the largest value,
                   projection and input gradient), twice bit for bit, timed;
                   ``cli predict`` 2 steps, bit for bit with the in-process
                   forecast; a fixed-batch step with the projections beside
                   the same step with the MSE and the plain skip (device ms);
- 26. dynamic   -- the example with ``DynamicKNN`` (k 3) on the encoder and
-                  the decoder (runtime sets of 30 726 and 120 960 edges,
-                  built on the card every forward): ``cli train`` 3 steps,
-                  18/18/18/0 a step, the gradient gate; the runtime sets
+ 26. dynamic   -- the example (2 layers) with ``DynamicKNN`` (k 3) on the
+                  encoder and the decoder (runtime sets of 30 726 and 120 960
+                  edges, built on the card every forward): ``cli train`` 3
+                  steps, 4/4/4/0 a step, the gradient gate; the runtime sets
                   against a host KNN of the same coordinates (destinations
                   that differ, each a near tie), the device ``SourceOrder``
                   equal to the host one, the tables' build ms; K3 + K4 at the
@@ -275,27 +284,28 @@ Phases (any failure exits non-zero, with no result line):
                   gate of the same weights on a static graph holding the
                   runtime sets (the gap to the static KNN-3 graph, whose
                   sets differ at ties, printed);
- 27. transformer mappers -- the example with ``TransformerForwardMapper``
-                  / ``TransformerBackwardMapper`` (dense cross attention, 16
+ 27. transformer mappers -- the example (2 layers) with
+                  ``TransformerForwardMapper`` /
+                  ``TransformerBackwardMapper`` (dense cross attention, 16
                   heads) around its GT processor: SDPA (flash /
                   memory-efficient) against the plain cross attention at
                   o32 -> ico-3 both ways (forward relative L2 <= 1e-4 in
                   float32, 2e-2 in bf16; dq, dk, dv <= 1e-2); ``cli train`` 3
-                  steps, 16/16/16/0 a step, the gradient gate, each mapper's
+                  steps, 2/2/2/0 a step, the gradient gate, each mapper's
                   bf16 forward and forward + backward at full shape with its
-                  peak memory; ``cli predict`` 2 steps (16 K1 a step) bit for
+                  peak memory; ``cli predict`` 2 steps (2 K1 a step) bit for
                   bit with the in-process forecast;
  28. hex       -- the ``graphtransformer`` model at its width (1024
-                  channels, 16 layers, 16 heads) on ``graph/hex_mesh.yaml``
+                  channels, 16 heads; 2 layers) on ``graph/hex_mesh.yaml``
                   (o96 -> ``HexNodes`` r5, ``MultiScaleEdges`` x_hops 2)
                   through ``cli train`` over phase 9's store, bf16, 3 steps:
                   the graph's node and edge counts (40 320 / 20 480; 41 704
                   / 245 700 / 120 960 edges), degree ranges and edgeless
-                  sources, exactly 18 K1, K3 and K4 and no K5 a step, the
+                  sources, exactly 4 K1, K3 and K4 and no K5 a step, the
                   gradient gate; K3 + K4 at the encoder set (6 764 of the
                   40 320 sources edgeless) at HD 1024 against the plain
                   backward and ``index_add_``, timed as in phase 23; ``cli
-                  predict`` 2 steps (18 K1 a step) bit for bit with the
+                  predict`` 2 steps (4 K1 a step) bit for bit with the
                   in-process forecast; wall, device ms and peak memory;
  29. healpix   -- as phase 28 with ``HEALPixNodes`` r5 (nested) and
                   ``HEALPixMultiScaleEdges`` (12 288 hidden nodes; 48 880 /
@@ -304,14 +314,16 @@ Phases (any failure exits non-zero, with no result line):
                   phase writes (``write_synthetic_icon_grid`` r6,
                   ``max_level`` 5: 81 920 cells, 10 242 vertices; 245 760 /
                   81 900 / 245 760 edges) with a synthetic dataset on its
-                  cells: as phase 28, but 18 K1, 18 K3, 16 K4 and 2 K5 a step
+                  cells: as phase 28, but 4 K1, 4 K3, 2 K4 and 2 K5 a step
                   (the 2 GB rule picks the fused backward for both mappers at
                   1024 channels), and at the encoder set K3 + K4 and K3 + K5;
  31. parallel  -- data and halo model parallelism over ranks that share the
                   card (``parallel/distributed.spawn``; more ranks than
-                  cards: gloo, whose collectives take the CUDA tensors): the
+                  cards: gloo, whose collectives take the CUDA tensors; one
+                  world of 2 ranks and one of 4, which also run phases 32
+                  and 33's rank parts, one start-up each): the
                   flagship (512 channels, 16 heads, its processor cut to
-                  ``PARALLEL_LAYERS`` = 8 layers, ``shard_strategy:
+                  ``CUT_LAYERS`` = 2 layers, ``shard_strategy:
                   edges``) on a model group of 2 against
                   one process on the same weights and batches: float32
                   step-1 gradients and 2-step forecast within relative L2
@@ -328,8 +340,8 @@ Phases (any failure exits non-zero, with no result line):
                   at batch 2 (relative 1e-4; a constant rate, so that the
                   first update moves the weights); ``cli train`` with
                   ``num_devices_per_model: 2`` (the example on the
-                  flagship's graph, 2 steps, its own ranks) and ``cli
-                  predict`` of its bundle on one device (18 K1 a step); a
+                  flagship's graph, 2 layers, 2 steps, its own ranks) and
+                  ``cli predict`` of its bundle on one device (4 K1 a step); a
                   one-rank NCCL group in that world: an all-reduce of a
                   CUDA tensor and a training step reduced over it; the
                   seconds of each part;
@@ -345,9 +357,9 @@ Phases (any failure exits non-zero, with no result line):
                   2 the flagship (512 channels, 16 heads) and the
                   Transformer preset (1 024 channels, w 512), their
                   processors and the transport and ensemble models' cut to
-                  ``PARALLEL_LAYERS`` = 8 layers,
-                  under ``shard_strategy: heads`` (Ulysses: 2 + 8 K1/K3/K4
-                  a flagship step; 8 K6/K7 a Transformer step on 8 heads
+                  ``CUT_LAYERS`` = 2 layers,
+                  under ``shard_strategy: heads`` (Ulysses: 2 + 2 K1/K3/K4
+                  a flagship step; 2 K6/K7 a Transformer step on 8 heads
                   over the whole mesh), the ``transport_edm_diffusion`` model
                   under ``edges`` (its training step; one generative
                   forecast step of 4 EDM-Heun sampling steps, not the
@@ -356,8 +368,9 @@ Phases (any failure exits non-zero, with no result line):
                   ``ensemble_crps`` model's 4 members on ensemble 2 x model
                   2 (4 ranks, 2 members a rank: its CRPS step and
                   ``predict_step``); ``cli train ensemble_crps.yaml`` with
-                  ``hardware.num_devices_per_ensemble: 2`` (2 steps, its
-                  first loss within 2e-2 of phase 15's one process); K1 and
+                  ``hardware.num_devices_per_ensemble: 2`` (2 layers, as
+                  phase 15; 2 steps, its first loss within 2e-2 of phase
+                  15's one process); K1 and
                   K3 + K4 on 8 of 16 heads (HD 256) at the processor set
                   and K6/K7 on 8 of 16 heads at N 10 242, each against its
                   plain op and timed beside its bound; K3 + K4 at model
@@ -368,12 +381,13 @@ Phases (any failure exits non-zero, with no result line):
                   (gloo), as phase 32 (phase 31's gates against one process,
                   every rank's launches exactly ``family_launches``, 2
                   timed bf16 steps a rank, peak memory, the bytes each rank
-                  sends), on a model group of 2 at each model's width: the
+                  sends), on a model group of 2 at each model's width
+                  (the processors at ``CUT_LAYERS`` = 2 layers): the
                   flagship with ``SpectralOrnsteinConnection`` and
                   ``CombinedLoss`` (MSE + ``SpectralAMSELoss``, O96), the
                   flagship with ``TruncatedConnection`` and the multiscale
                   loss (an o32 ``truncation`` set), the Transformer preset
-                  under ``edges`` (the band halo: 16 K6/K7 a step on the
+                  under ``edges`` (the band halo: 2 K6/K7 a step on the
                   rank's extended block), the GNN model (no kernel), the
                   flagship with dense Transformer mappers, with
                   ``DynamicKNN`` mappers (the runtime sets of the rank's
@@ -402,13 +416,34 @@ Phases (any failure exits non-zero, with no result line):
                   with ``--trace --benchmark-store``: the four reports, the
                   peak bytes above 0 beside the card's name, K1, K3 and K4
                   named in the trace, the store's numbers those of the
-                  report, 18 K1, K3 and K4 a step; ms a step and peak bytes
-                  with the card line; (d) ``cli train`` 2 steps with the
+                  report, 4 K1, K3 and K4 a step (2 layers); ms a step and
+                  peak bytes with the card line; (d) ``cli train`` 2 steps
+                  (2 layers) with the
                   ``mlflow_offline`` logger: its losses those of
                   ``metrics.jsonl``, system samples with the card's memory;
                   (e) ``cli validate`` of every packaged preset (exit 0) and
                   of one with a bad ``training.rollout`` (exit 1);
- 35. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
+ 35. presets left -- the packaged presets no earlier phase runs, at their
+                  width, bf16: ``multi.yaml`` (o96 ``era`` and o48 ``obs``,
+                  synthetic, into one ico-5 mesh; 1024 channels, 16 layers,
+                  16 heads; an encoder and a decoder a dataset; edge sets of
+                  62 980 / 17 548 / 81 900 / 120 960 / 32 832 edges) through
+                  ``cli train`` 3 steps with no callbacks: 20 K1, 20 K3, 20
+                  K4 and no K5 a step (K5 nowhere: no mapper set crosses the
+                  2 GB rule at 1024 channels), the gradient gate; ``cli
+                  predict`` 2 steps (20 K1 a step), each dataset's forecast
+                  bit for bit with the in-process one and within relative L2
+                  2e-2 of the plain attention; K3 + K4 at the two o48 sets
+                  at HD 1024 against the plain backward, timed; ms a step
+                  and peak bytes with the card line; then
+                  ``transport_edm_diffusion_tendency.yaml`` and
+                  ``transport_stochastic_interpolant.yaml`` at their 16
+                  layers, trained and served as phase 22 trains and serves
+                  its two (3 steps, 18 K1/K3/K4 a step, the gradient,
+                  evaluation and 4-step sample gates; ``cli predict`` 1
+                  forecast step at 20 sampling steps, 18 K1 a model
+                  evaluation, bit for bit with the in-process forecast);
+ 36. report    -- one JSON line {"kernels": [...]} (K1-K7, K7 as K7_dq and
                   K7_dkv; each kernel's ``launches`` counted on its path:
                   ``path_of`` in ``report``; ``launches_by_path`` also each
                   remat variant's, the YAML preset's, the ensemble's
@@ -421,10 +456,12 @@ Phases (any failure exits non-zero, with no result line):
                   phase 31's rank-0 training step and forecast, phases
                   32's and 33's rank-0 training step and forecast of each
                   part, phase 34's migrated fixture's forecast, pipeline
-                  step and profiled step;
+                  step and profiled step, phase 35's training steps and
+                  forecasts;
                   the K1 row also model shard 2 of 2's processor set and
                   the head subset's, the K3 and K4 rows those sets', the
-                  down set's and its shard's, the dynamic encoder set's and
+                  down set's and its shard's, the two o48 sets of
+                  ``multi``, the dynamic encoder set's and
                   the hex and ICON encoder sets', the K5 row the ICON
                   encoder set's, the K6 and K7 rows the head subset's and
                   the extended block's), the
@@ -436,6 +473,9 @@ Launch counts come from ``anemoi_tpu_torch.kernels.launch_counts()`` (all
 seven kernels), set to 0 just before each path runs (in the trainer phase,
 before each of its training steps); each path's ``want`` dict lists every
 kernel, the ones it must not launch at 0.  Every phase prints its seconds.
+Phases 9-35 share one temporary working directory; once a phase has passed,
+the directories it made there (its trainers' checkpoints and bundles) are
+removed, all but phase 9's run and store, which later phases read.
 """
 
 from __future__ import annotations
@@ -446,6 +486,7 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1792,20 +1833,28 @@ REMAT_VARIANTS = [
 REMAT_STEPS = 3  # wall-timed steps a variant, after 1 of warmup; 1 more profiled
 REMAT_TOL = 1e-5  # relative L2, a variant's gradient against no remat at its rollout
 FLAGSHIP_LAYERS = 16
+# the processor depth of phases 13-15, 18-22 and 24-33 and of phase 34's
+# profiled and MLflow runs (their widths are the models'): cut from 16 so
+# that the whole run stays well inside its 1 200 s limit on a slow host (at
+# 16 layers one host ran it in 1 009 s, another had not finished it at
+# 1 200 s)
+CUT_LAYERS = 2
+DEPTH_CUT = f"model.processor.num_layers={CUT_LAYERS}"
 KEEPS_ATTENTION = ("save_attention", "save_attention_mlp")
 
 
-def remat_launches(rollout, layer_policy, remat_rollout, rollout_policy) -> dict:
+def remat_launches(rollout, layer_policy, remat_rollout, rollout_policy,
+                   layers: int = FLAGSHIP_LAYERS) -> dict:
     """A flagship training step's launches from the remat structure (the
-    counts tests/test_torch_remat.py asserts for the same structure): each
-    rollout step's forward launches K1 in its 18 blocks; a rollout
-    checkpoint that does not keep the attention's outputs runs the forward
-    again in the backward (rollout > 1 only); a per-layer checkpoint that
-    does not keep them runs each layer's K1 once more; K3 and K4 run once
-    a block's backward."""
-    f = LAUNCHES_PER_STEP
+    counts tests/test_torch_remat.py asserts for the same structure) at
+    ``layers`` processor layers: each rollout step's forward launches K1 in
+    its ``layers`` + 2 blocks; a rollout checkpoint that does not keep the
+    attention's outputs runs the forward again in the backward (rollout > 1
+    only); a per-layer checkpoint that does not keep them runs each layer's
+    K1 once more; K3 and K4 run once a block's backward."""
+    f = layers + 2
     outer = remat_rollout and rollout > 1 and rollout_policy not in KEEPS_ATTENTION
-    again = FLAGSHIP_LAYERS if layer_policy not in ("off", *KEEPS_ATTENTION) else 0
+    again = layers if layer_policy not in ("off", *KEEPS_ATTENTION) else 0
     return {**NO_LAUNCHES, "K1": (f * (1 + outer) + again) * rollout, "K3": f * rollout,
             "K4": f * rollout}
 
@@ -1854,7 +1903,7 @@ def remat_phase(graph, device) -> dict:
     from anemoi_tpu_torch.training.step import make_step_fns
 
     batch = training_batch(graph, device, times=2 + max(v[1] for v in REMAT_VARIANTS))
-    iface, state, _ = build_training(graph, device, flagship_config())
+    iface, state, _ = build_training(graph, device, flagship_config(num_layers=CUT_LAYERS))
     losses = training_losses(graph)
     proc = iface.model.processor
 
@@ -1875,7 +1924,7 @@ def remat_phase(graph, device) -> dict:
         train_step.compute_gradients(state, b)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
-        want = remat_launches(rollout, layer_policy, remat_rollout, rollout_policy)
+        want = remat_launches(rollout, layer_policy, remat_rollout, rollout_policy, CUT_LAYERS)
         if launches != want:
             raise RuntimeError(f"remat {label}: expected launches {want}, got {launches}")
         g = flat_grads(iface)
@@ -1973,7 +2022,8 @@ def presets_phase(workdir: str) -> dict:
                    f"graph.save_path={os.path.join(workdir, 'graph.npz')}",  # phase 9's
                    f"output_dir={run_dir}", f"training.max_steps={PRESET_STEPS}",
                    "training.max_epochs=1", f"training.rollout.start={PRESET_ROLLOUT}",
-                   f"training.rollout.max={PRESET_ROLLOUT}", "diagnostics.log_interval=1"]
+                   f"training.rollout.max={PRESET_ROLLOUT}", "diagnostics.log_interval=1",
+                   DEPTH_CUT]
     t0 = time.perf_counter()
     with StepLaunches() as counted:
         rc = cli.main(["train", preset, *run])
@@ -1990,7 +2040,7 @@ def presets_phase(workdir: str) -> dict:
                            f"{PRESET_ROLLOUT}, got {steps}")
     # the packaged defaults: remat_rollout true with no policy (full
     # recompute of each rollout step), per-layer save_attention
-    want = remat_launches(PRESET_ROLLOUT, "save_attention", True, None)
+    want = remat_launches(PRESET_ROLLOUT, "save_attention", True, None, CUT_LAYERS)
     if len(counted.per_step) != PRESET_STEPS or any(c != want for c in counted.per_step):
         raise RuntimeError(f"presets: expected {want} in each of {PRESET_STEPS} steps, "
                            f"got {counted.per_step}")
@@ -2038,7 +2088,8 @@ def ensemble_phase(workdir: str, device) -> dict:
     store = os.path.join(workdir, "example_o96.zarr")
     run_dir = os.path.join(workdir, "ensemble_run")
     # the preset's model, graph and training at its own width (512 channels,
-    # 16 layers, 16 heads, multi_scale o96 -> ico-5, 4 members), in bf16;
+    # 16 heads, multi_scale o96 -> ico-5, 4 members; the processor at
+    # CUT_LAYERS of its 16 layers), in bf16;
     # phase 9's store and graph (the same recipe); the rollout evaluation
     # callback, which cannot run a noise-drawing model (the JAX package's
     # fails on it too), left out
@@ -2055,7 +2106,7 @@ def ensemble_phase(workdir: str, device) -> dict:
         raise RuntimeError(f"ensemble: the preset composed to {shape}")
     t0 = time.perf_counter()
     with StepLaunches() as counted:
-        rc = cli.main(["train", preset, *run])
+        rc = cli.main(["train", preset, *run, DEPTH_CUT])
     train_s = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"ensemble: cli train returned {rc}")
@@ -2068,8 +2119,7 @@ def ensemble_phase(workdir: str, device) -> dict:
     val = [r for r in records if "val_loss" in r]
     if not val or not math.isfinite(val[-1]["val_loss"]):
         raise RuntimeError(f"ensemble: no finite validation record: {val}")
-    want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
-            "K4": LAUNCHES_PER_STEP}
+    want = {**NO_LAUNCHES, "K1": CUT_LAYERS + 2, "K3": CUT_LAYERS + 2, "K4": CUT_LAYERS + 2}
     if len(counted.per_step) != ENSEMBLE_STEPS or any(c != want for c in counted.per_step):
         raise RuntimeError(f"ensemble: expected {want} in each of {ENSEMBLE_STEPS} steps, "
                            f"got {counted.per_step}")
@@ -2104,7 +2154,7 @@ def ensemble_phase(workdir: str, device) -> dict:
     if tuple(out.shape) != expect or not torch.isfinite(out).all():
         raise RuntimeError(f"ensemble: predict_step shape {tuple(out.shape)} (want {expect}) "
                            "or not finite")
-    if p_launches != {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP}:
+    if p_launches != {**NO_LAUNCHES, "K1": CUT_LAYERS + 2}:
         raise RuntimeError(f"ensemble: predict_step launches {p_launches}")
     iface.use_plain_attention(True)
     plain = iface.predict_step(window)["data"]  # the same noise: context_generator("noise")
@@ -2187,16 +2237,16 @@ FAMILY_DEFAULTS = """defaults:
 
 def expected_launches(config: dict, graph, processor_layers: int) -> dict:
     """A training step's launches from the edge counts: K1 and K3 once a GT
-    block (the two mappers and ``processor_layers`` processor layers), and
-    on each of those edge sets K5 where the JAX package's rule
+    block (each dataset's two mappers and ``processor_layers`` processor
+    layers), and on each of those edge sets K5 where the JAX package's rule
     (``fused_backward``: 2 GB of estimated two-pass transient) picks the
     fused backward, else K4."""
     from anemoi_tpu_torch.models.encoder_processor_decoder import fused_backward
 
     model = config["model"]
     c = int(model["num_channels"])
-    sets = [("encoder", graph[("data", "hidden")].num_edges),
-            ("decoder", graph[("hidden", "data")].num_edges)]
+    sets = [(part, graph[key].num_edges) for ds in sorted(config["data"]["datasets"])
+            for part, key in (("encoder", (ds, "hidden")), ("decoder", ("hidden", ds)))]
     if processor_layers:
         sets += [("processor", graph[("hidden", "hidden")].num_edges)] * processor_layers
     fused = [fused_backward(model, part, n, c) for part, n in sets]
@@ -2295,12 +2345,13 @@ def family_train(workdir: str, device, label: str, path: str, overrides: list, s
 def family_predict(workdir: str, device, label: str, run_dir: str, k1_per_step: int,
                    split: int = 0, bitwise: bool = False) -> dict:
     """``cli predict`` on the bundle of ``run_dir``, ``STEPS`` steps: exit 0,
-    exactly ``k1_per_step`` K1 a step and no other kernel, a finite forecast
-    of the right shape, within relative L2 2e-2 of the same bundle served
-    in-process on the plain attention (on the kernels, for a model with no
-    attention: the sums' atomics vary the last bits); with ``bitwise``, also
-    equal bit for bit to the in-process forecast on the kernels; the
-    in-process forecast's wall and device ms a step and peak memory."""
+    exactly ``k1_per_step`` K1 a step and no other kernel, for each of the
+    bundle's datasets a finite forecast of the right shape, within relative
+    L2 2e-2 of the same bundle served in-process on the plain attention (on
+    the kernels, for a model with no attention: the sums' atomics vary the
+    last bits); with ``bitwise``, also equal bit for bit to the in-process
+    forecast on the kernels; the in-process forecast's wall and device ms a
+    step and peak memory."""
     import numpy as np
 
     from anemoi_tpu_torch import kernels
@@ -2323,32 +2374,42 @@ def family_predict(workdir: str, device, label: str, run_dir: str, k1_per_step: 
     if launches != want:
         raise RuntimeError(f"{label}: predict launches {launches}, want {want}")
     with open(os.path.join(bundle, "checkpoint.json")) as f:
-        dataset = open_dataset(dict(json.load(f)["config"]["data"]["datasets"]["data"]))
-    out = np.load(output)["data|forecast"]
-    expect = (1, STEPS, 1, dataset.num_grid_points, 11)
-    if out.shape != expect or not np.isfinite(out).all():
-        raise RuntimeError(f"{label}: forecast shape {out.shape} (want {expect}) or not finite")
+        datasets = {name: open_dataset(dict(cfg)) for name, cfg in
+                    json.load(f)["config"]["data"]["datasets"].items()}
     iface = load_inference_checkpoint(bundle)
-    window = dataset.get_window(0, iface.model.n_step_input + STEPS)
-    batch = {"data": torch.from_numpy(window[None]).to(iface.device)}
+    written = np.load(output)
+    outs = {name: written[f"{name}|forecast"] for name in datasets}
+    for name, out in outs.items():
+        expect = (1, STEPS, 1, datasets[name].num_grid_points,
+                  iface.data_indices[name].num_model_output_vars)
+        if out.shape != expect or not np.isfinite(out).all():
+            raise RuntimeError(f"{label}: {name} forecast shape {out.shape} (want {expect}) or "
+                               "not finite")
+    batch = {name: torch.from_numpy(ds.get_window(0, iface.model.n_step_input + STEPS)[None])
+             .to(iface.device) for name, ds in datasets.items()}
     forecast = make_forecast_fn(iface, steps=STEPS)
     if bitwise:
-        same = forecast(batch)["data"].cpu().numpy()
-        max_abs = float(np.abs(out - same).max())
+        same = forecast(batch)
+        max_abs = max(float(np.abs(out - same[name].cpu().numpy()).max())
+                      for name, out in outs.items())
         print(f"[{label}] cli predict vs make_forecast_fn in-process: max |diff| {max_abs:.3e} "
               "(want 0: same bundle, window and kernels)", flush=True)
-        if not np.array_equal(out, same):
+        if max_abs != 0:
             raise RuntimeError(f"{label}: the CLI's forecast differs from the in-process one "
                                f"(max |diff| {max_abs:.3e})")
     iface.use_plain_attention(bool(k1_per_step))
-    ref = forecast(batch)["data"].cpu().numpy()
+    ref = forecast(batch)
     iface.use_plain_attention(False)
-    rel_l2 = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+    by_dataset = {}
+    for name, out in outs.items():
+        r = ref[name].cpu().numpy()
+        by_dataset[name] = float(np.linalg.norm(out - r) / np.linalg.norm(r))
+    rel_l2 = max(by_dataset.values())
     against = "the plain attention" if k1_per_step else "the in-process forecast"
-    print(f"[{label}] cli predict vs {against}: relative L2 {rel_l2:.3e} (tol {SERVING_TOL})",
+    print(f"[{label}] cli predict vs {against}: relative L2 {by_dataset} (tol {SERVING_TOL})",
           flush=True)
     if not rel_l2 <= SERVING_TOL:
-        raise RuntimeError(f"{label}: forecast disagrees with {against}: {rel_l2:.3e}")
+        raise RuntimeError(f"{label}: forecast disagrees with {against}: {by_dataset}")
     forecast(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -2360,8 +2421,9 @@ def family_predict(workdir: str, device, label: str, run_dir: str, k1_per_step: 
         walls.append((time.perf_counter() - t1) * 1e3 / STEPS)
     peak = torch.cuda.max_memory_allocated(device)
     device_ms, device_launches, *top = profiled_device_ms(lambda: forecast(batch), 1, split)
-    result = {"seconds": seconds, "launches": launches, "output_shape": list(out.shape),
-              "rel_l2": rel_l2, "rel_l2_against": against,
+    result = {"seconds": seconds, "launches": launches,
+              "output_shape": {name: list(out.shape) for name, out in outs.items()},
+              "rel_l2": rel_l2, "rel_l2_by_dataset": by_dataset, "rel_l2_against": against,
               "ms_per_step": statistics.median(walls), "ms_per_step_runs": walls,
               "device_ms_per_step": device_ms / STEPS,
               "device_launches_per_step": device_launches / STEPS, "peak_memory_bytes": peak,
@@ -2431,8 +2493,9 @@ def downscaler_phase(workdir: str, device) -> dict:
         "model.num_channels": 1024, "model.processor.num_layers": 16,
         "model.processor.num_heads": 16, "model.n_step_input": 2, "model.n_step_output": 2,
         "training.task": "temporal_downscaler"})
-    train, _, val = family_train(workdir, device, "downscaler", path, overrides, FAMILY_STEPS,
-                                 lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS))
+    train, _, val = family_train(workdir, device, "downscaler", path, [*overrides, DEPTH_CUT],
+                                 FAMILY_STEPS,
+                                 lambda t: expected_launches(t.config, t.graph, CUT_LAYERS))
     per_timestep = {k: v for k, v in val.items() if "/t_" in k}
     if not per_timestep or {k.rsplit("/", 1)[1] for k in per_timestep} != {"t_1", "t_2"}:
         raise RuntimeError(f"downscaler: the validation record has no t_1/t_2 keys: {val}")
@@ -2444,9 +2507,9 @@ def downscaler_phase(workdir: str, device) -> dict:
         "model.name": "AnemoiEnsModelEncProcDec", "model.num_channels": 512,
         "model.processor.num_layers": 16, "model.n_step_output": 2,
         "training.ensemble_size": MEMBERS, "training.task": "temporal_downscaler"})
-    ens, _, _ = family_train(workdir, device, "downscaler ensemble", path, overrides,
-                             FAMILY_STEPS - 1,
-                             lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS))
+    ens, _, _ = family_train(workdir, device, "downscaler ensemble", path,
+                             [*overrides, DEPTH_CUT], FAMILY_STEPS - 1,
+                             lambda t: expected_launches(t.config, t.graph, CUT_LAYERS))
     result = {"train": train, "per_timestep_metrics": per_timestep, "ensemble": ens}
     print(f"[downscaler] {json.dumps(result)}", flush=True)
     return result
@@ -2466,8 +2529,9 @@ def gnn_phase(workdir: str, device) -> dict:
     composed_preset(cfg_path, overrides, {
         "model.num_channels": 512, "model.processor.name": "GNNProcessor",
         "model.processor.num_layers": 16, "model.encoder.name": "GNNForwardMapper"})
-    train, run_dir, _ = family_train(workdir, device, "gnn", cfg_path, overrides, FAMILY_STEPS,
-                                     lambda t: dict(NO_LAUNCHES), attention=False, split=12)
+    train, run_dir, _ = family_train(workdir, device, "gnn", cfg_path, [*overrides, DEPTH_CUT],
+                                     FAMILY_STEPS, lambda t: dict(NO_LAUNCHES), attention=False,
+                                     split=12)
     predict = family_predict(workdir, device, "gnn", run_dir, 0, split=12)
     card_cpu = gnn_card_against_cpu(cfg_path, overrides, device)
     result = {"train": train, "predict": predict, "card_vs_cpu": card_cpu}
@@ -2637,9 +2701,9 @@ def lam_phase(workdir: str, device) -> dict:
         return rollout_2_and_boundary("lam", trainer, state, want)
 
     train, run_dir, _ = family_train(
-        workdir, device, "lam", path, overrides, FAMILY_STEPS,
-        lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS), after=after)
-    predict = family_predict(workdir, device, "lam", run_dir, LAUNCHES_PER_STEP)
+        workdir, device, "lam", path, [*overrides, DEPTH_CUT], FAMILY_STEPS,
+        lambda t: expected_launches(t.config, t.graph, CUT_LAYERS), after=after)
+    predict = family_predict(workdir, device, "lam", run_dir, CUT_LAYERS + 2)
     result = {"graph": summary, "train": train, "predict": predict}
     print(f"[lam] {json.dumps(result)}", flush=True)
     return result
@@ -2731,10 +2795,10 @@ def stretched_phase(workdir: str, device) -> dict:
         return {**rollout_2_and_boundary("stretched", trainer, state, want), "checks": checks}
 
     train, run_dir, _ = family_train(
-        workdir, device, "stretched", path, overrides, FAMILY_STEPS,
-        lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS), split=12,
+        workdir, device, "stretched", path, [*overrides, DEPTH_CUT], FAMILY_STEPS,
+        lambda t: expected_launches(t.config, t.graph, CUT_LAYERS), split=12,
         dataset=("npy", store), after=after)
-    predict = family_predict(workdir, device, "stretched", run_dir, LAUNCHES_PER_STEP)
+    predict = family_predict(workdir, device, "stretched", run_dir, CUT_LAYERS + 2)
     result = {"graph": summary, "nan_points": int(box.sum()), "train": train,
               "predict": predict}
     print(f"[stretched] {json.dumps(result)}", flush=True)
@@ -2768,14 +2832,14 @@ def transport_window(trainer, device):
     return {"data": x}
 
 
-def transport_gates(label: str, objective: str, device):
+def transport_gates(label: str, objective: str, device, k1_per_eval: int):
     """``after`` of ``family_train`` for a transport preset: on the trained
     interface, in its serving type (bf16), one model evaluation at each end
     of the noise range (EDM: sigma_max and sigma_min; interpolant: t = 0 and
     1) and a ``TRANSPORT_GATE_STEPS``-step sample from the same generator,
     each on the kernels against the plain attention (relative L2 <=
-    ``SERVING_TOL``); the device ms, wall ms and K1 launches of one model
-    evaluation."""
+    ``SERVING_TOL``); the device ms, wall ms and K1 launches
+    (``k1_per_eval``) of one model evaluation."""
     from anemoi_tpu_torch import kernels
     from anemoi_tpu_torch.models.transport.objectives import (
         EDMConfig, edm_denoise, edm_preconditioning)
@@ -2848,7 +2912,7 @@ def transport_gates(label: str, objective: str, device):
         evaluate(level)
         torch.cuda.synchronize()
         out["evaluation_launches"] = kernels.launch_counts()
-        if out["evaluation_launches"] != {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP}:
+        if out["evaluation_launches"] != {**NO_LAUNCHES, "K1": k1_per_eval}:
             raise RuntimeError(f"{label}: one evaluation launched {out['evaluation_launches']}")
         out["evaluation_ms"] = cuda_ms(lambda: evaluate(level), reps=10, warmup=2)
         out["evaluation_device_ms"], _ = profiled_device_ms(lambda: evaluate(level), 1)
@@ -2862,11 +2926,13 @@ def transport_gates(label: str, objective: str, device):
     return gates
 
 
-def transport_predict(workdir: str, device, label: str, run_dir: str, steps: int) -> dict:
+def transport_predict(workdir: str, device, label: str, run_dir: str, steps: int,
+                      k1_per_eval: int) -> dict:
     """``cli predict <bundle> --steps <steps> --seed TRANSPORT_SEED`` on a
-    transport bundle at its ``sampling_steps`` (20): exit 0, exactly 18 K1
-    a model evaluation and no other kernel, a finite forecast of the right
-    shape, equal bit for bit to an in-process ``make_transport_forecast_fn``
+    transport bundle at its ``sampling_steps`` (20): exit 0, exactly
+    ``k1_per_eval`` K1 a model evaluation and no other kernel, a finite
+    forecast of the right shape, equal bit for bit to an in-process
+    ``make_transport_forecast_fn``
     with a generator seeded alike; its gap to the plain attention's forecast
     from the same generator (printed: 20 chained steps, not gated); the
     in-process forecast's wall and device ms a forecast step and peak
@@ -2903,7 +2969,7 @@ def transport_predict(workdir: str, device, label: str, run_dir: str, steps: int
     iface = load_inference_checkpoint(bundle)
     forecast = make_transport_forecast_fn(iface, steps, **settings)
     n_eval = evaluations(settings["sampler"], settings["num_steps"], forecast.schedule)
-    want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP * n_eval * steps}
+    want = {**NO_LAUNCHES, "K1": k1_per_eval * n_eval * steps}
     print(f"[{label}] cli predict: {settings}, {n_eval} model evaluations a forecast step, "
           f"launches {launches}", flush=True)
     if launches != want:
@@ -2952,21 +3018,24 @@ def transport_predict(workdir: str, device, label: str, run_dir: str, steps: int
     return result
 
 
-def transport_phase(workdir: str, device) -> dict:
-    """Phase 22: the transport presets at their width (512 channels, 16
-    layers, 16 heads, phase 9's ``multi_scale`` graph and store), bf16:
-    ``cli train`` ``TRANSPORT_STEPS`` steps with no callbacks, exactly 18 K1
-    and K3 and the K4/K5 of the ``fused_backward`` rule a step, the
+def transport_phase(workdir: str, device, presets: dict = TRANSPORT_PRESETS,
+                    layers: int = CUT_LAYERS) -> dict:
+    """Phase 22: the transport ``presets`` at their width (512 channels, 16
+    heads, phase 9's ``multi_scale`` graph and store; the processor at
+    ``layers`` of the presets' 16), bf16: ``cli train`` ``TRANSPORT_STEPS``
+    steps with no callbacks, exactly ``layers`` + 2 K1 and K3 and the K4/K5
+    of the ``fused_backward`` rule a step, the
     gradient gate, the evaluation and 4-step sample gates
-    (``transport_gates``), then ``cli predict`` (``transport_predict``):
-    EDM diffusion 2 forecast steps of ``edm_heun``, the tendency
-    interpolant 1 of ``vf_heun``, each at 20 sampling steps."""
+    (``transport_gates``), then ``cli predict`` (``transport_predict``) of
+    the steps ``presets`` gives: EDM diffusion 2 forecast steps of
+    ``edm_heun``, the tendency interpolant 1 of ``vf_heun``, each at 20
+    sampling steps."""
     from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
 
     overrides = [f"graph.save_path={os.path.join(workdir, 'graph.npz')}",  # phase 9's
                  "diagnostics.callbacks=[]"]
     result = {}
-    for label, (preset, objective, steps) in TRANSPORT_PRESETS.items():
+    for label, (preset, objective, steps) in presets.items():
         path = os.path.join(PACKAGED_CONFIG_DIR, f"{preset}.yaml")
         composed_preset(path, overrides, {
             "model.num_channels": 512, "model.processor.num_layers": 16,
@@ -2974,11 +3043,12 @@ def transport_phase(workdir: str, device) -> dict:
             "training.transport.objective": objective,
             "graph.recipe.nodes.hidden.node_builder.resolution": 5})
         train, run_dir, _ = family_train(
-            workdir, device, label, path, overrides, TRANSPORT_STEPS,
-            lambda t: expected_launches(t.config, t.graph, FLAGSHIP_LAYERS),
-            after=transport_gates(label, objective, device))
-        result[label] = {"train": train,
-                         "predict": transport_predict(workdir, device, label, run_dir, steps)}
+            workdir, device, label, path,
+            [*overrides, f"model.processor.num_layers={layers}"], TRANSPORT_STEPS,
+            lambda t: expected_launches(t.config, t.graph, layers),
+            after=transport_gates(label, objective, device, layers + 2))
+        result[label] = {"train": train, "predict": transport_predict(
+            workdir, device, label, run_dir, steps, layers + 2)}
         print(f"[{label}] {json.dumps(result[label])}", flush=True)
     return result
 
@@ -3292,15 +3362,16 @@ def sht_checks(device) -> dict:
 
 
 def spectral_step(graph, device, store) -> dict:
-    """The example (phase 9's ``multi_scale`` graph, 512 channels, 16
-    layers) in one fixed-batch bf16 training step with ``CombinedLoss``
-    (area-weighted MSE + ``SpectralAMSELoss``, ``octahedral_sht``,
-    ``gaussian_n`` 96: the spectral leaf takes no grid scaler) and
-    ``residual: SpectralOrnsteinConnection`` (octahedral, 96): the store's
-    points first checked to be the O96 rings, north to south, from longitude
-    0; exactly 18 K1, K3 and K4; the gradient gate; wall and device ms a
-    step, and the same step with the area-weighted MSE and the plain skip:
-    the difference is what the transforms take."""
+    """The example (phase 9's ``multi_scale`` graph, 512 channels;
+    ``CUT_LAYERS`` layers) in one fixed-batch bf16 training step with
+    ``CombinedLoss`` (area-weighted MSE + ``SpectralAMSELoss``,
+    ``octahedral_sht``, ``gaussian_n`` 96: the spectral leaf takes no grid
+    scaler) and ``residual: SpectralOrnsteinConnection`` (octahedral, 96):
+    the store's points first checked to be the O96 rings, north to south,
+    from longitude 0; exactly ``CUT_LAYERS`` + 2 K1, K3 and K4; the gradient
+    gate; wall and device ms a step, and the same step with the
+    area-weighted MSE and the plain skip: the difference is what the
+    transforms take."""
     import numpy as np
 
     from anemoi_tpu_torch.data.dataset import open_dataset
@@ -3335,12 +3406,12 @@ def spectral_step(graph, device, store) -> dict:
                           "grid_kind": "octahedral", "theta_init": 0.3}, spectral_loss),
             ("plain", None, None)):
         cfg = example_o96_gt_config()
+        cfg["model"]["processor"]["num_layers"] = CUT_LAYERS
         if residual is not None:
             cfg["model"]["residual"] = residual
         iface, state, train_step = build_training(graph, device, cfg, losses)
         launches, loss, _ = one_step(state, train_step, batch)
-        want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
-                "K4": LAUNCHES_PER_STEP}
+        want = {**NO_LAUNCHES, "K1": CUT_LAYERS + 2, "K3": CUT_LAYERS + 2, "K4": CUT_LAYERS + 2}
         if launches != want:
             raise RuntimeError(f"spectral {label} step: launches {launches}, want {want}")
         gap = (grad_gap(iface, state, train_step, batch, f"spectral {label} K3 + K4")
@@ -3388,12 +3459,14 @@ CROSS_CHECK = (("o32", 5248), ("ico-3", 642))  # where the plain cross attention
 
 
 def example_json(workdir: str, label: str, edit) -> str:
-    """The packaged example at its width (512 channels, 16 layers, 16 heads,
-    the ``multi_scale`` o96 -> ico-5 graph saved in the work directory),
-    changed by ``edit(config)``, as a JSON file for ``cli train``."""
+    """The packaged example at its width (512 channels, 16 heads, the
+    ``multi_scale`` o96 -> ico-5 graph saved in the work directory; the
+    processor at ``CUT_LAYERS`` of its 16), changed by ``edit(config)``, as
+    a JSON file for ``cli train``."""
     from anemoi_tpu_torch.flagship import example_o96_gt_config
 
     cfg = example_o96_gt_config()
+    cfg["model"]["processor"]["num_layers"] = CUT_LAYERS
     cfg["graph"]["save_path"] = os.path.join(workdir, f"graph_{label}.npz")
     edit(cfg)
     path = os.path.join(workdir, f"{label}.json")
@@ -3419,6 +3492,9 @@ def with_projections(cfg: dict) -> None:
     cfg["training"]["loss"] = {"name": "MultiscaleLossWrapper", "native_weight": 1.0,
                                "loss": dict(cfg["training"]["loss"]),
                                "scales": [{"nodes": "hidden", "weight": 0.5}]}
+    # the config schemas (both packages') have no MultiscaleLossWrapper: train
+    # it unvalidated, as the JAX CLI trains it
+    cfg["config_validation"] = False
 
 
 def projector_checks(trainer, device) -> dict:
@@ -3464,11 +3540,12 @@ def projector_checks(trainer, device) -> dict:
 
 
 def projection_step(graph, device) -> dict:
-    """One fixed-batch bf16 step of the example on phase 25's graph with
-    ``residual: TruncatedConnection`` and the multiscale loss (area-weighted
-    MSE inside), beside the same step with the area-weighted MSE and the
-    plain skip: exactly 18 K1, K3 and K4 each, the gradient gate on the
-    first, device ms of both; the difference is what the projections take."""
+    """One fixed-batch bf16 step of the example (``CUT_LAYERS`` layers) on
+    phase 25's graph with ``residual: TruncatedConnection`` and the
+    multiscale loss (area-weighted MSE inside), beside the same step with
+    the area-weighted MSE and the plain skip: exactly ``CUT_LAYERS`` + 2 K1,
+    K3 and K4 each, the gradient gate on the first, device ms of both; the
+    difference is what the projections take."""
     from anemoi_tpu_torch.flagship import example_o96_gt_config
     from anemoi_tpu_torch.training.losses import get_loss_function
     from anemoi_tpu_torch.training.losses.scalers import create_scalers
@@ -3484,12 +3561,12 @@ def projection_step(graph, device) -> dict:
     for label, residual, losses in (("projections", {"name": "TruncatedConnection"}, multiscale),
                                     ("plain", None, None)):
         cfg = example_o96_gt_config()
+        cfg["model"]["processor"]["num_layers"] = CUT_LAYERS
         if residual is not None:
             cfg["model"]["residual"] = residual
         iface, state, train_step = build_training(graph, device, cfg, losses)
         launches, loss, _ = one_step(state, train_step, batch)
-        want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
-                "K4": LAUNCHES_PER_STEP}
+        want = {**NO_LAUNCHES, "K1": CUT_LAYERS + 2, "K3": CUT_LAYERS + 2, "K4": CUT_LAYERS + 2}
         if launches != want:
             raise RuntimeError(f"projections {label} step: launches {launches}, want {want}")
         gap = (grad_gap(iface, state, train_step, batch, f"projections {label} K3 + K4")
@@ -3531,8 +3608,8 @@ def projections_phase(workdir: str, device) -> dict:
 
     train, run_dir, _ = family_train(
         workdir, device, "projections", path, [LR_ONLY], FAMILY_STEPS,
-        lambda t: expected_launches(t.config, t.graph, int(t.config["model"]["processor"]["num_layers"])), split=8, after=after)
-    predict = family_predict(workdir, device, "projections", run_dir, LAUNCHES_PER_STEP,
+        lambda t: expected_launches(t.config, t.graph, CUT_LAYERS), split=8, after=after)
+    predict = family_predict(workdir, device, "projections", run_dir, CUT_LAYERS + 2,
                              split=8, bitwise=True)
     graph = Graph.load(os.path.join(workdir, "graph_projections.npz"))
     result = {"train": train, "predict": predict, "projectors": checks,
@@ -3649,7 +3726,6 @@ def dynamic_against_static(workdir: str, run_dir: str, device) -> dict:
     differs wherever a tie was broken the other way (tens of destinations
     at o96 -> ico-5), and is printed, also split by grid point
     (``tie_regions``)."""
-    import shutil
 
     import numpy as np
 
@@ -3723,8 +3799,8 @@ def dynamic_phase(workdir: str, device) -> dict:
 
     train, run_dir, _ = family_train(
         workdir, device, "dynamic", path, [LR_ONLY], FAMILY_STEPS,
-        lambda t: expected_launches(t.config, t.graph, int(t.config["model"]["processor"]["num_layers"])), split=8, after=after)
-    predict = family_predict(workdir, device, "dynamic", run_dir, LAUNCHES_PER_STEP, split=8,
+        lambda t: expected_launches(t.config, t.graph, CUT_LAYERS), split=8, after=after)
+    predict = family_predict(workdir, device, "dynamic", run_dir, CUT_LAYERS + 2, split=8,
                              bitwise=True)
     result = {"train": train, "predict": predict, "runtime_sets": checks,
               "static": dynamic_against_static(workdir, run_dir, device)}
@@ -3838,11 +3914,10 @@ def transformer_mappers_phase(workdir: str, device) -> dict:
         times.update(mapper_times(trainer, device))
         return {}
 
-    want = {**NO_LAUNCHES, "K1": TRANSFORMER_LAYERS, "K3": TRANSFORMER_LAYERS,
-            "K4": TRANSFORMER_LAYERS}
+    want = {**NO_LAUNCHES, "K1": CUT_LAYERS, "K3": CUT_LAYERS, "K4": CUT_LAYERS}
     train, run_dir, _ = family_train(workdir, device, "transformer_mappers", path, [LR_ONLY],
                                      FAMILY_STEPS, lambda t: want, split=8, after=after)
-    predict = family_predict(workdir, device, "transformer_mappers", run_dir, TRANSFORMER_LAYERS,
+    predict = family_predict(workdir, device, "transformer_mappers", run_dir, CUT_LAYERS,
                              split=8, bitwise=True)
     result = {"sdpa_vs_plain": checks, "train": train, "mapper_times": times,
               "predict": predict}
@@ -3856,16 +3931,18 @@ MESH_GRAPHS = {  # label -> data nodes, hidden nodes, data->hidden, hidden->hidd
     "icon": (81920, 10242, 245760, 81900, 245760),
 }
 MESH_LAUNCHES = {  # label -> K1, K3, K4, K5 a training step (K5: the 2 GB mapper rule)
-    "hex": (18, 18, 18, 0), "healpix": (18, 18, 18, 0), "icon": (18, 18, 16, 2)}
+    "hex": (CUT_LAYERS + 2,) * 3 + (0,), "healpix": (CUT_LAYERS + 2,) * 3 + (0,),
+    "icon": (CUT_LAYERS + 2, CUT_LAYERS + 2, CUT_LAYERS, 2)}
 ICON_RESOLUTION, ICON_MAX_LEVEL = 6, 5  # the synthetic ICON grid: 81 920 cells, 10 242 vertices
 ENCODER_SET = ("data", "hidden")
 
 
 def mesh_config(workdir: str, label: str, edit) -> str:
-    """The ``graphtransformer`` model at its width (1024 channels, 16 layers,
-    16 heads) on ``graph/hex_mesh.yaml`` or ``graph/icon_mesh.yaml``
-    (``edit(config)`` picks and changes it), composed from a defaults list
-    by the port's ``load_config`` and written as JSON for ``cli train``."""
+    """The ``graphtransformer`` model at its width (1024 channels, 16 heads;
+    the processor at ``CUT_LAYERS`` of its 16) on ``graph/hex_mesh.yaml`` or
+    ``graph/icon_mesh.yaml`` (``edit(config)`` picks and changes it),
+    composed from a defaults list by the port's ``load_config`` and written
+    as JSON for ``cli train``."""
     from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
 
     graph = "icon_mesh" if label == "icon" else "hex_mesh"
@@ -3878,6 +3955,7 @@ def mesh_config(workdir: str, label: str, edit) -> str:
              model["processor"]["num_heads"], model["encoder"]["num_heads"])
     if width != (1024, FLAGSHIP_LAYERS, 16, 16):
         raise RuntimeError(f"{label}: the graphtransformer preset composed to {width}")
+    model["processor"]["num_layers"] = CUT_LAYERS
     cfg["graph"]["save_path"] = os.path.join(workdir, f"graph_{label}.npz")
     edit(cfg)
     path = os.path.join(workdir, f"{label}.json")
@@ -3940,7 +4018,7 @@ def mesh_phase(workdir: str, device, label: str) -> dict:
     summary, encoder_rows = {}, {}
 
     def want(trainer):
-        counts = expected_launches(trainer.config, trainer.graph, FLAGSHIP_LAYERS)
+        counts = expected_launches(trainer.config, trainer.graph, CUT_LAYERS)
         if tuple(counts[k] for k in ("K1", "K3", "K4", "K5")) != MESH_LAUNCHES[label]:
             raise RuntimeError(f"{label}: the launch rule gives {counts}, want K1/K3/K4/K5 "
                                f"{MESH_LAUNCHES[label]}")
@@ -3961,7 +4039,7 @@ def mesh_phase(workdir: str, device, label: str) -> dict:
 
     train, run_dir, _ = family_train(workdir, device, label, path, [LR_ONLY], FAMILY_STEPS,
                                      want, split=8, dataset=dataset, after=after)
-    predict = family_predict(workdir, device, label, run_dir, LAUNCHES_PER_STEP, split=8,
+    predict = family_predict(workdir, device, label, run_dir, CUT_LAYERS + 2, split=8,
                              bitwise=True)
     result = {"graph": summary, "train": train, "predict": predict}
     print(f"[{label}] {json.dumps(result)}", flush=True)
@@ -3970,9 +4048,6 @@ def mesh_phase(workdir: str, device, label: str) -> dict:
 
 
 # --- phase 31: data and halo model parallelism -------------------------------
-# the processors' depth in phases 31 and 32 (their width is the models'): cut
-# from 16 so that the whole run, phase 33 included, stays under 1 000 s
-PARALLEL_LAYERS = 8
 PARALLEL_STEPS = 3  # timed bf16 training steps of each rank of the model group of 2
 PARALLEL_DP_STEPS = 2  # fp32 steps of data 2 x model 2 against one process at batch 2
 # relative L2 gates (forecast, step-1 gradients) against one process: PERF.md section 2
@@ -4020,7 +4095,7 @@ def parallel_interface(graph, device, mesh=None, num_layers: int = None):
     process."""
     from anemoi_tpu_torch.models.interface import AnemoiModelInterface
 
-    config = flagship_config(num_layers=PARALLEL_LAYERS if num_layers is None else num_layers)
+    config = flagship_config(num_layers=CUT_LAYERS if num_layers is None else num_layers)
     if mesh is not None and mesh.size("model") > 1:
         config["model"].update(shard_strategy="edges", num_model_shards=mesh.size("model"))
     return AnemoiModelInterface(config=config, graph=graph, data_indices=flagship_indices(),
@@ -4243,8 +4318,27 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
+def ranks_of_2(graph, hierarchical_file: str, projections_file: str, workdir: str) -> dict:
+    """Every run of phases 31-33 on a world of 2 ranks, in one world (one
+    start-up for the three): ``parallel_rank``, ``families_rank`` and
+    ``routes_rank`` in turn."""
+    return {"parallel": parallel_rank(graph, workdir),
+            "families": families_rank(graph, hierarchical_file, workdir),
+            "routes": routes_rank(graph, projections_file, hierarchical_file, workdir)}
+
+
+def ranks_of_4(graph, workdir: str) -> dict:
+    """Every run of phases 31-32 on a world of 4 ranks, in one world:
+    ``parallel_dp_rank`` (data 2 x model 2), then ``ensemble_axis_rank``
+    (ensemble 2 x model 2)."""
+    return {"data2_model2": parallel_dp_rank(graph),
+            "ensemble": ensemble_axis_rank(graph, workdir)}
+
+
 def parallel_phase(workdir: str, graph, device) -> dict:
-    """Phase 31: the flagship over ranks that share the card (gloo)."""
+    """Phase 31: the flagship over ranks that share the card (gloo).  Its
+    two worlds (``ranks_of_2``, ``ranks_of_4``) also run the rank parts of
+    phases 32 and 33, whose results go back under ``"worlds"``."""
     from anemoi_tpu_torch import kernels
     from anemoi_tpu_torch.inference import make_forecast_fn
     from anemoi_tpu_torch.parallel.distributed import spawn
@@ -4282,8 +4376,12 @@ def parallel_phase(workdir: str, graph, device) -> dict:
     del iface
 
     lap("one process")
-    ranks = spawn(parallel_rank, 2, args=(graph, workdir))
-    lap("model group of 2")
+    hier_file = os.path.join(workdir, "graph_hierarchical.npz")  # phase 23's
+    proj_file = os.path.join(workdir, "graph_routes_projections.npz")
+    projections_graph(proj_file)  # phase 33's
+    world_2 = spawn(ranks_of_2, 2, args=(graph, hier_file, proj_file, workdir))
+    ranks = [r["parallel"] for r in world_2]
+    lap("ranks of 2 (phases 31-33)")
     result = {"ranks": [], "model_group": 2}
     for r in ranks:
         for precision in ("fp32", "bf16"):
@@ -4336,8 +4434,9 @@ def parallel_phase(workdir: str, graph, device) -> dict:
     del one
 
     # data 2 x model 2 against one process at batch 2, fp32
-    dp = spawn(parallel_dp_rank, 4, args=(graph,))
-    lap("data 2 x model 2")
+    world_4 = spawn(ranks_of_4, 4, args=(graph, workdir))
+    dp = [r["data2_model2"] for r in world_4]
+    lap("ranks of 4 (phases 31-32)")
     batch2 = {"data": torch.cat([batch["data"],
                                  training_batch(graph, device, seed=SEED + 3)["data"]])}
     iface = parallel_interface(graph, device)
@@ -4367,6 +4466,7 @@ def parallel_phase(workdir: str, graph, device) -> dict:
     config["output_dir"] = os.path.join(workdir, "parallel_run")
     config["graph"] = {"save_path": os.path.join(workdir, "flagship_graph.npz")}
     graph.save(config["graph"]["save_path"])
+    config["model"]["processor"]["num_layers"] = CUT_LAYERS
     config["training"].update(max_steps=2, max_epochs=1)
     config["dataloader"]["validation_fraction"] = 0.02  # one validation batch
     config["diagnostics"]["callbacks"] = [{"name": "LearningRateMonitor"}]
@@ -4391,7 +4491,7 @@ def parallel_phase(workdir: str, graph, device) -> dict:
     if rc != 0 or not np.isfinite(fc).all():
         raise RuntimeError(f"parallel cli predict on one device: rc {rc}")
     predict_launches = kernels.launch_counts()
-    if predict_launches != {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP * STEPS}:
+    if predict_launches != {**NO_LAUNCHES, "K1": (CUT_LAYERS + 2) * STEPS}:
         raise RuntimeError(f"parallel cli predict on one device: launches {predict_launches}")
     result["cli"] = {"losses": losses, "seconds": time.perf_counter() - t0,
                      "predict_shape": list(fc.shape), "predict_launches": predict_launches}
@@ -4400,9 +4500,11 @@ def parallel_phase(workdir: str, graph, device) -> dict:
           flush=True)
     lap("cli train on 2 ranks, cli predict")
 
-
     result["seconds"] = seconds
     print(f"[parallel] seconds by part: {seconds}", flush=True)
+    result["worlds"] = {"families": [r["families"] for r in world_2],
+                        "routes": [r["routes"] for r in world_2],
+                        "ensemble": [r["ensemble"] for r in world_4]}
     return result
 
 
@@ -4419,14 +4521,14 @@ def family_config(part: str) -> dict:
     variables (the hierarchical ones on phase 23's graph): the flagship
     (512 channels, 16 heads; phase 33's with a residual, a loss or mappers
     of its part), the Transformer preset (1 024 channels, 16 heads, w
-    512), or the packaged preset's model section at its width; phase 32's
-    processors at ``PARALLEL_LAYERS``, phase 33's at 16 layers (the
-    ``hierarchical`` preset: 2 a level)."""
+    512), or the packaged preset's model section at its width; the
+    processors at ``CUT_LAYERS`` (the ``hierarchical`` preset's at its
+    2 a level, the ``point_wise`` preset's at its 4 point-wise layers)."""
     import copy
 
     from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
 
-    layers = FLAGSHIP_LAYERS if part in ROUTE_PARTS else PARALLEL_LAYERS
+    layers = CUT_LAYERS
     if part in ("flagship_heads", "spectral", "projections", "dynamic", "transformer_mappers"):
         config = flagship_config(num_layers=layers)
         {"spectral": lambda c: c["model"].update(residual=SPECTRAL_RESIDUAL),
@@ -4448,7 +4550,7 @@ def family_config(part: str) -> dict:
         model = load_config(os.path.join(PACKAGED_CONFIG_DIR, f"{preset}.yaml"), [],
                             search_paths=[PACKAGED_CONFIG_DIR]).to_dict()["model"]
     config["model"] = {**copy.deepcopy(model), "inference_precision": "bf16"}
-    if part in ("transport_edges", "ensemble"):
+    if part in ("transport_edges", "transport_ensemble", "ensemble", "gnn"):
         config["model"]["processor"]["num_layers"] = layers
     return config
 
@@ -4804,7 +4906,7 @@ def ensemble_axis_cli(workdir: str, losses_one_process: list) -> dict:
            f"graph.save_path={os.path.join(workdir, 'graph.npz')}", f"output_dir={run_dir}",
            "training.max_steps=2", "training.max_epochs=1", "training.precision=bf16",
            "diagnostics.log_interval=1", "diagnostics.callbacks=[{name: LearningRateMonitor}]",
-           "hardware.num_devices=2", "hardware.num_devices_per_ensemble=2"]
+           "hardware.num_devices=2", "hardware.num_devices_per_ensemble=2", DEPTH_CUT]
     t0 = time.perf_counter()
     rc = cli.main(["train", os.path.join(PACKAGED_CONFIG_DIR, "ensemble_crps.yaml"), *run])
     seconds = time.perf_counter() - t0
@@ -4823,16 +4925,17 @@ def ensemble_axis_cli(workdir: str, losses_one_process: list) -> dict:
             "seconds": seconds}
 
 
-def families_phase(workdir: str, graph, device, ensemble_losses: list) -> dict:
+def families_phase(workdir: str, graph, device, ensemble_losses: list, worlds: dict) -> dict:
     """Phase 32: the parallel families over ranks that share the card
     (gloo): ``FAMILY_PARTS`` on a model group of 2 and the ensemble preset
-    on ensemble 2 x model 2, each against one process on the same weights
+    on ensemble 2 x model 2 (``worlds``: each rank's results of
+    ``families_rank`` and ``ensemble_axis_rank``, run in phase 31's
+    worlds), each against one process on the same weights
     and batches (float32 and bf16 gradients and forecasts within phase 31's
     ``PARALLEL_TOL``; every rank's launches exactly ``family_launches``);
     ``cli train`` on
     the ensemble axis; the head-subset and sharded down-set kernel rows."""
     from anemoi_tpu_torch.graphs.graph import Graph
-    from anemoi_tpu_torch.parallel.distributed import spawn
 
     seconds, t_part = {}, time.perf_counter()
 
@@ -4848,10 +4951,7 @@ def families_phase(workdir: str, graph, device, ensemble_losses: list) -> dict:
         g = Graph.load(hier_file) if part == "hierarchical_edges" else graph
         one[part] = family_run(part, g, device, None, workdir, save=False)
     lap("one process")
-    ranks = spawn(families_rank, 2, args=(graph, hier_file, workdir))
-    lap("model group of 2")
-    ens = spawn(ensemble_axis_rank, 4, args=(graph, workdir))
-    lap("ensemble 2 x model 2")
+    ranks, ens = worlds["families"], worlds["ensemble"]
     result = {"parts": {}, "seconds": seconds}
     for part in parts:
         per_rank = ens if part == "ensemble" else [r[part] for r in ranks]
@@ -4977,16 +5077,17 @@ def extended_block_kernels(device) -> dict:
                                         False)}, "routes", timed=(case,))
 
 
-def routes_phase(workdir: str, graph, device) -> dict:
+def routes_phase(workdir: str, graph, device, worlds: dict) -> dict:
     """Phase 33: the rest of item 9's routes over ranks that share the card
     (gloo): ``ROUTE_PARTS`` on a model group of 2 (the transport model on
-    an ensemble group of 2), each against one process on the same weights
+    an ensemble group of 2; ``worlds``: each rank's results of
+    ``routes_rank``, run in phase 31's world of 2), each against one
+    process on the same weights
     and batches (float32 and bf16 gradients and forecasts within phase 31's
     ``PARALLEL_TOL``; every rank's launches exactly ``family_launches``);
     the transport replicas' parameters equal after the steps and their
     first loss one process's; K6 and K7 on the extended block."""
     from anemoi_tpu_torch.graphs.graph import Graph
-    from anemoi_tpu_torch.parallel.distributed import spawn
 
     seconds, t_part = {}, time.perf_counter()
 
@@ -4996,16 +5097,13 @@ def routes_phase(workdir: str, graph, device) -> dict:
         t_part = time.perf_counter()
 
     hier_file = os.path.join(workdir, "graph_hierarchical.npz")  # phase 23's
-    proj_file = os.path.join(workdir, "graph_routes_projections.npz")
-    graphs = {"projections": projections_graph(proj_file),
-              "hierarchical_heads": Graph.load(hier_file)}
-    lap("projections graph")
+    proj_file = os.path.join(workdir, "graph_routes_projections.npz")  # phase 31's
+    graphs = {"projections": Graph.load(proj_file), "hierarchical_heads": Graph.load(hier_file)}
     one = {}
     for part in ROUTE_PARTS:
         one[part] = family_run(part, graphs.get(part, graph), device, None, workdir, save=False)
     lap("one process")
-    ranks = spawn(routes_rank, 2, args=(graph, proj_file, hier_file, workdir))
-    lap("two ranks")
+    ranks = worlds["routes"]
     result = {"parts": {}, "seconds": seconds}
     for part in ROUTE_PARTS:
         per_rank = [r[part] for r in ranks]
@@ -5084,7 +5182,6 @@ TRACE_KERNELS = {"K1": "gt_attention_fwd_kernel", "K3": "gt_attention_bwd_dst_ke
 def fixture_copy(workdir: str, name: str, precision=None) -> str:
     """A copy of the committed round-2 bundle (one migration pending),
     serving in ``precision`` when given."""
-    import shutil
 
     path = os.path.join(workdir, name)
     shutil.copytree(FIXTURE, path)
@@ -5168,11 +5265,14 @@ def migrate_and_serve(workdir: str) -> dict:
     return result
 
 
-def aux_config(workdir: str, label: str, steps: int, **diagnostics) -> tuple:
-    """Phase 9's example (its store and graph) for ``steps`` steps with one
-    validation batch and no callbacks, into ``<workdir>/aux_<label>``."""
+def aux_config(workdir: str, label: str, steps: int, layers: int = CUT_LAYERS,
+               **diagnostics) -> tuple:
+    """Phase 9's example (its store and graph; the processor at ``layers``)
+    for ``steps`` steps with one validation batch and no callbacks, into
+    ``<workdir>/aux_<label>``."""
     with open(os.path.join(workdir, "example_o96_gt.json")) as f:
         config = json.load(f)
+    config["model"]["processor"]["num_layers"] = layers
     config["output_dir"] = os.path.join(workdir, f"aux_{label}")
     config["training"].update(max_steps=steps, max_epochs=1)
     config["dataloader"]["validation_fraction"] = 0.02  # one validation batch
@@ -5193,7 +5293,7 @@ def load_and_freeze(workdir: str) -> dict:
     from anemoi_tpu_torch.training import cli
 
     bundle = os.path.join(workdir, "run", "inference")
-    config, path = aux_config(workdir, "freeze", 3)
+    config, path = aux_config(workdir, "freeze", 3, FLAGSHIP_LAYERS)  # phase 9's bundle
     config["training"]["checkpoint_pipeline"] = [
         {"stage": "source", "name": "local", "path": bundle},
         {"stage": "loading", "name": "weights_only"},
@@ -5245,8 +5345,7 @@ def profile_part(workdir: str, card: str) -> dict:
                        "--output-dir", config["output_dir"]])
     if rc != 0:
         raise RuntimeError(f"auxiliary: cli profile returned {rc}")
-    want = {**NO_LAUNCHES, "K1": LAUNCHES_PER_STEP, "K3": LAUNCHES_PER_STEP,
-            "K4": LAUNCHES_PER_STEP}
+    want = {**NO_LAUNCHES, "K1": CUT_LAYERS + 2, "K3": CUT_LAYERS + 2, "K4": CUT_LAYERS + 2}
     if len(counted.per_step) != AUX_PROFILE_STEPS or any(c != want for c in counted.per_step):
         raise RuntimeError(f"auxiliary: profile steps launched {counted.per_step}")
     profile_dir = os.path.join(config["output_dir"], "profile")
@@ -5349,10 +5448,104 @@ def auxiliary_phase(workdir: str, card: str) -> dict:
     return result
 
 
+MULTI_SETS = {  # the multi preset's edge sets: o96 ``era`` and o48 ``obs`` into ico-5
+    ("era", "hidden"): 62980, ("obs", "hidden"): 17548, ("hidden", "hidden"): 81900,
+    ("hidden", "era"): 120960, ("hidden", "obs"): 32832}
+# a multi training step: K1 and K3 once a GT block (2 encoders, 16 processor
+# layers, 2 decoders); K4 on all 20 sets, none over the 2 GB rule at 1024
+# channels (the largest, hidden -> era: 120 960 * 1.7 * 3 * 1024 * 2 = 1.26 GB)
+MULTI_LAUNCHES = {"K1": 20, "K3": 20, "K4": 20, "K5": 0}
+O48_SETS = (("obs", "hidden"), ("hidden", "obs"))
+TRANSPORT_PRESETS_LEFT = {  # as TRANSPORT_PRESETS, the other two
+    "transport_edm_tendency": ("transport_edm_diffusion_tendency", "edm", 1),
+    "transport_interpolant_gaussian": ("transport_stochastic_interpolant", "interpolant", 1),
+}
+
+
+def multi_part(workdir: str, device, card: str) -> dict:
+    """``multi.yaml`` at its width (the ``graphtransformer`` model: 1024
+    channels, 16 layers, 16 heads; o96 ``era`` and o48 ``obs``, both
+    synthetic, into one ico-5 mesh, an encoder and a decoder a dataset),
+    bf16, no callbacks: ``cli train`` ``FAMILY_STEPS`` steps with exactly
+    ``MULTI_LAUNCHES`` a step (20 K1, 20 K3, 20 K4, no K5), which
+    ``expected_launches`` must also derive from the graph, whose edge sets
+    must be ``MULTI_SETS``; the gradient gate; ``cli predict`` 2 steps (20
+    K1 a step), each dataset's forecast bit for bit with the in-process one
+    and within the serving gate of the plain attention; then K3 + K4 at
+    the two o48 sets at HD 1024 (``graph_set_backward``: timed, gated only
+    against the plain backward)."""
+    from anemoi_tpu_torch.graphs.graph import Graph
+    from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
+
+    path = os.path.join(PACKAGED_CONFIG_DIR, "multi.yaml")
+    graph_file = os.path.join(workdir, "graph_multi.npz")
+    overrides = [f"graph.save_path={graph_file}", "diagnostics.callbacks=[]"]
+    composed_preset(path, overrides, {
+        "model.num_channels": 1024, "model.processor.num_layers": 16,
+        "model.processor.num_heads": 16, "data.datasets.era.nodes.grid": "o96",
+        "data.datasets.obs.nodes.grid": "o48",
+        "graph.recipe.nodes.hidden.node_builder.resolution": 5})
+    want = {**NO_LAUNCHES, **MULTI_LAUNCHES}
+
+    def launches(trainer):
+        edges = {key: trainer.graph[key].num_edges for key in MULTI_SETS}
+        derived = expected_launches(trainer.config, trainer.graph, FLAGSHIP_LAYERS)
+        if edges != MULTI_SETS or derived != want:
+            raise RuntimeError(f"multi: edge sets {edges} (want {MULTI_SETS}), launches from "
+                               f"the graph {derived} (want {want})")
+        return want
+
+    train, run_dir, _ = family_train(workdir, device, "multi", path, overrides, FAMILY_STEPS,
+                                     launches, split=8, dataset="config")
+    predict = family_predict(workdir, device, "multi", run_dir, MULTI_LAUNCHES["K1"], split=8,
+                             bitwise=True)
+    graph = Graph.load(graph_file)
+    rows = {}
+    for key in O48_SETS:
+        for name, extra in graph_set_backward("multi", graph, key, device, hd=WIDE_HD).items():
+            rows.setdefault(name, []).extend(extra)
+    print(f"[multi] {card}: training step {train['ms_per_step']:.3f} ms (wall), peak "
+          f"{train['peak_memory_bytes']} B; forecast step {predict['ms_per_step']:.3f} ms, "
+          f"peak {predict['peak_memory_bytes']} B; edges {train['edges']}", flush=True)
+    return {"train": train, "predict": predict, "o48_rows": rows}
+
+
+def presets_left_phase(workdir: str, device, card: str) -> dict:
+    """Phase 35: the presets no earlier phase runs: ``multi`` (``multi_part``)
+    and the other two transport presets, ``transport_edm_diffusion_tendency``
+    and ``transport_stochastic_interpolant``, trained and served as phase 22
+    trains and serves its two (``transport_phase``: the steps, their
+    launches and the gradient, evaluation and sample gates; ``cli predict``
+    of one forecast step)."""
+    result = {"multi": multi_part(workdir, device, card)}
+    result.update(transport_phase(workdir, device, TRANSPORT_PRESETS_LEFT, FLAGSHIP_LAYERS))
+    print(f"[presets left] {json.dumps({k: v for k, v in result.items() if k != 'multi'})}",
+          flush=True)
+    return result
+
+
+KEPT_OUTPUTS = {"run", "example_o96.zarr"}  # phase 9's run and store: later phases read them
+
+
+def discard_outputs(workdir: str, before: set) -> tuple:
+    """Remove the directories that a phase made in ``workdir`` (its trainers'
+    output directories with their checkpoints and bundles, its copies of
+    bundles and stores), all but ``KEPT_OUTPUTS``, so that the disk holds one
+    phase's outputs at a time.  Returns how many it removed and their bytes."""
+    made = [os.path.join(workdir, name)
+            for name in sorted(set(os.listdir(workdir)) - before - KEPT_OUTPUTS)]
+    made = [path for path in made if os.path.isdir(path) and not os.path.islink(path)]
+    size = sum(os.path.getsize(os.path.join(root, name))
+               for path in made for root, _, names in os.walk(path) for name in names)
+    for path in made:
+        shutil.rmtree(path)
+    return len(made), size
+
+
 def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
            t_training: dict, trainer: dict, predict: dict, remat: dict, presets: dict,
            ens: dict, families: dict, transport: dict, hierarchy: dict,
-           spectral: dict, later: dict, auxiliary: dict) -> dict:
+           spectral: dict, later: dict, auxiliary: dict, left: dict) -> dict:
     """One entry per kernel.  Headline numbers, bf16: for K1-K5 the
     processor edge set (16 of the 18 launches per flagship step), with the
     flagship's fused edge projection for the backward kernels; for K6 and
@@ -5374,9 +5567,10 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
     31's rank 0's and each phase 32 part's rank 0's training step and
     forecast (``<part>_rank_0_train``, ``..._predict_2_steps``: 2 forecast
     steps, or the transport model's one generative step, or the
-    ensemble's ``predict_step``), and phase 34's (``auxiliary``) migrated
+    ensemble's ``predict_step``), phase 34's (``auxiliary``) migrated
     fixture's 2-step ``cli predict``, pipeline training step and profiled
-    step."""
+    step, and phase 35's (``left``) training steps and ``cli predict`` of
+    ``multi`` and the other two transport presets."""
     by_path = {"serving_2_steps": serving["launches"], "training_step": training["launches"],
                "training_step_fused_bwd": training["fused_bwd"]["launches"],
                "example_trainer_step": trainer["launches_per_step"],
@@ -5403,10 +5597,12 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                       ("rollout_2_step", families[area]["train"]["after"]["launches"]),
                       ("predict_2_steps", families[area]["predict"]["launches"]))},
                **{f"{label}_{kind}": counts
-                  for label, (_, _, steps) in TRANSPORT_PRESETS.items()
+                  for presets, runs in ((TRANSPORT_PRESETS, transport),
+                                        (TRANSPORT_PRESETS_LEFT, left))
+                  for label, (_, _, steps) in presets.items()
                   for kind, counts in (
-                      ("train", transport[label]["train"]["launches_per_step"]),
-                      (f"predict_{steps}_steps", transport[label]["predict"]["launches"]))},
+                      ("train", runs[label]["train"]["launches_per_step"]),
+                      (f"predict_{steps}_steps", runs[label]["predict"]["launches"]))},
                **{f"{label}_{kind}": counts
                   for label in HIERARCHICAL_PRESETS
                   for kind, counts in (
@@ -5421,7 +5617,9 @@ def report(kernel_rows: dict, serving: dict, training: dict, t_serving: dict,
                                        ("predict_2_steps", res["predict"]["launches"]))},
                "aux_migrated_fixture_predict_2_steps": auxiliary["migrate"]["fp32"]["launches"],
                "aux_pipeline_freeze_train": auxiliary["freeze"]["launches_per_step"],
-               "aux_profile_train": auxiliary["profile"]["launches_per_step"]}
+               "aux_profile_train": auxiliary["profile"]["launches_per_step"],
+               "multi_train": left["multi"]["train"]["launches_per_step"],
+               "multi_predict_2_steps": left["multi"]["predict"]["launches"]}
     path_of = {"K1": "serving_2_steps", "K2": "serving_2_steps", "K3": "training_step",
                "K4": "training_step", "K5": "training_step_fused_bwd",
                "K6": "transformer_serving_2_steps", "K7_dq": "transformer_training_step",
@@ -5497,13 +5695,21 @@ def main() -> int:
     graph = GraphCreator(flagship_recipe("o96", 5)).create()
     print(f"[graph] o96 -> ico-5 built in {time.perf_counter() - t0:.2f} s: "
           f"{ {k: es.num_edges for k, es in graph.edges.items()} }", flush=True)
-    phase_seconds = {}
+    phase_seconds, workdir = {}, None
 
     def phase(name, fn, *a):
+        """Run and time one phase; once it has passed, remove the directories
+        it made in the working directory (``discard_outputs``)."""
         t = time.perf_counter()
+        before = set(os.listdir(workdir)) if workdir else None
         out = fn(*a)
         phase_seconds[name] = time.perf_counter() - t
-        print(f"[phase] {name}: {phase_seconds[name]:.2f} s", flush=True)
+        removed = ""
+        if before is not None:
+            t = time.perf_counter()
+            n, size = discard_outputs(workdir, before)
+            removed = f" ({n} directories, {size} B removed in {time.perf_counter() - t:.2f} s)"
+        print(f"[phase] {name}: {phase_seconds[name]:.2f} s{removed}", flush=True)
         return out
 
     rows = phase("kernels", kernel_phase, graph, device)
@@ -5547,12 +5753,15 @@ def main() -> int:
         meshes = {label: phase(label, mesh_phase, workdir, device, label)
                   for label in MESH_GRAPHS}
         parallel = phase("parallel", parallel_phase, workdir, graph, device)
+        worlds = parallel.pop("worlds")
         shard_rows = phase("parallel shard kernels", halo_shard_kernels, graph, device)
         parallel_families = phase("parallel families", families_phase, workdir, graph, device,
-                                  ens["losses"])
-        routes = phase("parallel routes", routes_phase, workdir, graph, device)
+                                  ens["losses"], worlds)
+        routes = phase("parallel routes", routes_phase, workdir, graph, device, worlds)
         auxiliary = phase("auxiliary", auxiliary_phase, workdir, card)
-    for extra_rows in (shard_rows, parallel_families.pop("rows"), routes.pop("rows"),
+        left = phase("presets left", presets_left_phase, workdir, device, card)
+    for extra_rows in (shard_rows, left["multi"].pop("o48_rows"),
+                       parallel_families.pop("rows"), routes.pop("rows"),
                        hierarchy["down_set_rows"],
                        slice_17["dynamic"]["runtime_sets"]["encoder_rows"],
                        *(m.pop("encoder_rows") for m in meshes.values())):
@@ -5569,7 +5778,7 @@ def main() -> int:
     rep = report(rows, serving, training, t_serving, t_training, trainer, predict, remat, presets,
                  ens, families, transport, hierarchy, spectral,
                  {**slice_17, **meshes, "parallel_rank_0": parallel_path, **family_paths},
-                 auxiliary)
+                 auxiliary, left)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -5582,7 +5791,7 @@ def main() -> int:
                        "hierarchical": hierarchy, "spectral": spectral, **slice_17,
                        "meshes": meshes, "parallel": parallel,
                        "parallel_families": parallel_families, "parallel_routes": routes,
-                       "auxiliary": auxiliary,
+                       "auxiliary": auxiliary, "presets_left": left,
                        "wide_gt_errors": wide, **rep},
                       f, indent=1)
     print(json.dumps(rep))

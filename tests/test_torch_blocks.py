@@ -30,6 +30,7 @@ from anemoi_tpu_torch.models.layers.graph_blocks import (
 from anemoi_tpu_torch.models.layers.mlp import MLP
 from anemoi_tpu_torch.models.layers.normalization import LayerNorm
 from anemoi_tpu_torch.models.port import state_dict_from_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -76,7 +77,7 @@ def test_layer_norm():
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, 7, 16)).astype(np.float32) * 3 + 1
     mod = jax_norm.LayerNorm()
-    params = randomised(mod.init(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
+    params = randomised(jax.eval_shape(mod.init, jax.random.PRNGKey(0), jnp.asarray(x)), rng)
     ref = np.asarray(mod.apply(params, jnp.asarray(x)))
     port = LayerNorm(16)
     sd = state_dict_from_jax({"params": {"layer_norm_attention": params["params"]}})
@@ -89,7 +90,7 @@ def test_mlp(layer_norm):
     rng = np.random.default_rng(1)
     x = rng.normal(size=(2, 9, 12)).astype(np.float32)
     mod = jax_mlp.MLP(hidden_dim=48, out_features=10, layer_norm=layer_norm)
-    params = randomised(mod.init(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
+    params = randomised(jax.eval_shape(mod.init, jax.random.PRNGKey(0), jnp.asarray(x)), rng)
     ref = np.asarray(mod.apply(params, jnp.asarray(x)))
     port = load(MLP(12, 48, 10, layer_norm=layer_norm), params, under="node_dst_mlp")
     np.testing.assert_allclose(port(torch.from_numpy(x)).detach().numpy(), ref, **TOL)
@@ -99,7 +100,7 @@ def test_trainable_node_attributes():
     rng = np.random.default_rng(2)
     static = rng.normal(size=(11, 4)).astype(np.float32)
     mod = jax_embed.TrainableNodeAttributes(num_nodes=11, trainable_size=8)
-    params = randomised(mod.init(jax.random.PRNGKey(0), jnp.asarray(static)), rng)
+    params = randomised(jax.eval_shape(mod.init, jax.random.PRNGKey(0), jnp.asarray(static)), rng)
     ref = np.asarray(mod.apply(params, jnp.asarray(static)))
     sd = state_dict_from_jax({"params": {"node_attributes_data": params["params"]}})
     assert list(sd) == ["model.node_attributes.trainable_tensors.data.trainable"]
@@ -118,7 +119,7 @@ def test_mapper_block():
         num_heads=heads, hidden_dim=4 * c, out_channels=c, backend="segment"
     )
     x_jax = (jnp.asarray(xs), jnp.asarray(xd))
-    params = randomised(mod.init(jax.random.PRNGKey(0), x_jax, jax_edges), rng)
+    params = randomised(jax.eval_shape(mod.init, jax.random.PRNGKey(0), x_jax, jax_edges), rng)
     (ref_src, ref_dst), _ = mod.apply(params, x_jax, jax_edges)
     port = load(GraphTransformerMapperBlock(c, 4 * c, c, heads, edge_dim=3), params)
     out_src, out_dst = port((torch.from_numpy(xs), torch.from_numpy(xd)), sub, sub.edge_attr)
@@ -141,7 +142,8 @@ def test_processor_block(qk_norm, edge_pre_mlp):
         num_heads=heads, hidden_dim=4 * c, out_channels=c, qk_norm=qk_norm,
         edge_pre_mlp=edge_pre_mlp, backend="segment",
     )
-    params = randomised(mod.init(jax.random.PRNGKey(0), jnp.asarray(x), jax_edges), rng)
+    shapes = jax.eval_shape(mod.init, jax.random.PRNGKey(0), jnp.asarray(x), jax_edges)
+    params = randomised(shapes, rng)
     ref, _ = mod.apply(params, jnp.asarray(x), jax_edges)
     port = load(
         GraphTransformerProcessorBlock(

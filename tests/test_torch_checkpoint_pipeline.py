@@ -34,6 +34,7 @@ from anemoi_tpu_torch.training.checkpoint_pipeline import (
     ComponentCatalog,
     validate_pipeline_health,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def port_name(path) -> str:

@@ -21,6 +21,7 @@ from anemoi_tpu_torch.flagship import EXAMPLE_VARIABLES, example_o96_gt_config
 from anemoi_tpu_torch.training.checkpoint import MIGRATION_NAMES, load_inference_checkpoint
 from anemoi_tpu_torch.training.cli import main
 from anemoi_tpu_torch.utils.config import dump_yaml, load_config, read_yaml
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 OVERRIDES = ["hardware.platform=cpu", "training.max_steps=3", "training.max_epochs=1",
              "diagnostics.log_interval=1", "dataloader.prefetch=2"]

@@ -38,6 +38,7 @@ from anemoi_tpu_torch.utils.config import (
     load_config,
     read_yaml,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JAX_CONFIG_DIR = os.path.join(os.path.dirname(anemoi_tpu.__file__), "config")
 FILES = sorted(os.path.relpath(p, JAX_CONFIG_DIR)

@@ -43,6 +43,7 @@ from anemoi_tpu_torch.models.port import state_dict_from_jax
 from test_torch_blocks import randomised
 from test_torch_gnn import check_module, close
 from test_torch_model import port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KEY = jax.random.PRNGKey(0)
 
@@ -53,7 +54,7 @@ def test_cross_attention_matches_jax(qkv_bias):
     src = rng.normal(size=(2, 20, 16)).astype(np.float32)
     dst = rng.normal(size=(2, 12, 16)).astype(np.float32)
     mod = JaxCrossAttention(num_heads=4, qkv_bias=qkv_bias)
-    params = randomised(mod.init(KEY, jnp.asarray(src), jnp.asarray(dst)), rng)
+    params = randomised(jax.eval_shape(mod.init, KEY, jnp.asarray(src), jnp.asarray(dst)), rng)
     port = MultiHeadCrossAttention(16, 4, qkv_bias=qkv_bias)
     # the module's names inside a mapper: cross_attention/{q,k,v,out_proj}
     prefix = "model.encoder.data.proc.attention."
@@ -129,7 +130,7 @@ def test_model_with_transformer_mappers_matches_jax():
                                           forcing=["cos_lat", "z"], diagnostic=["tp"])}
     cfg = transformer_mapper_config()
     iface = JaxInterface(config=cfg, graph=graph, data_indices=indices, statistics=stats)
-    params = randomised(iface.init_params(), np.random.default_rng(2))
+    params = randomised(jax.eval_shape(iface.init_params), np.random.default_rng(2))
     port = AnemoiModelInterface(config=cfg, graph=port_graph(graph),
                                 data_indices=flagship_indices(), statistics=stats, device="cpu")
     port.load_state_dict(state_dict_from_jax(params), strict=True)

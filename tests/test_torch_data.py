@@ -51,6 +51,7 @@ from anemoi_tpu_torch.utils.config import (
     apply_overrides,
     load_config,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CODECS = {
     "raw": None,

@@ -55,6 +55,7 @@ from anemoi_tpu_torch.ops.gt_attention import SourceOrder, gt_attention
 from test_torch_blocks import randomised
 from test_torch_gnn import close
 from test_torch_model import port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 K = 3
 
@@ -148,7 +149,7 @@ def test_dynamic_model_matches_jax():
     stats = flagship_statistics(seed=1)
     cfg = dynamic_config(trainable=2)
     iface = JaxInterface(config=cfg, graph=graph, data_indices=jax_indices(), statistics=stats)
-    params = randomised(iface.init_params(), np.random.default_rng(3))
+    params = randomised(jax.eval_shape(iface.init_params), np.random.default_rng(3))
     port = AnemoiModelInterface(config=cfg, graph=port_graph(graph),
                                 data_indices=flagship_indices(), statistics=stats, device="cpu")
     port.load_state_dict(state_dict_from_jax(params), strict=True)

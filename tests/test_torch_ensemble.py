@@ -70,6 +70,7 @@ from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
 from anemoi_tpu_torch.utils.seeding import context_seed, fold_seed
 from test_torch_switches import _indices
 from test_torch_training import grad_store, port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JAX_CONFIG_DIR = os.path.join(os.path.dirname(anemoi_tpu.__file__), "config")
 TOL = 3e-5
@@ -125,7 +126,7 @@ def ens():
     for injector in ("NoiseConditioning", "NoiseInjector"):
         iface = JaxInterface(config=ens_config(injector), graph=graph, data_indices=_indices(),
                              statistics=stats)
-        out[injector] = (iface, randomised(iface.init_params(), rng))
+        out[injector] = (iface, randomised(jax.eval_shape(iface.init_params), rng))
     mean, std = stats["data"]["mean"], stats["data"]["stdev"]
     out["batch"] = (mean + std * rng.normal(size=(1, 4, 1, out["n_grid"], 7))).astype(np.float32)
     return out
@@ -172,7 +173,8 @@ def test_noise_injector_matches_jax(monkeypatch, injector):
     kw = {k: v for k, v in NOISE.items() if k != "name"}
     mod = getattr(jax_ensemble, injector)(**kw)
     key = jax.random.PRNGKey(0)
-    params = randomised(mod.init({"params": key, "noise": key}, jnp.asarray(x)), rng)
+    shapes = jax.eval_shape(mod.init, {"params": key, "noise": key}, jnp.asarray(x))
+    params = randomised(shapes, rng)
     noise = noise_arrays(2, 1, (6, 13, 4))
     SameNoise(monkeypatch, noise)
     ref_x, ref_cond = mod.apply(params, jnp.asarray(x), rngs={"noise": key})

@@ -63,6 +63,7 @@ from anemoi_tpu_torch.models.layers.processor import GNNProcessor, PointWiseMLPP
 from anemoi_tpu_torch.models.port import state_dict_from_jax
 from test_torch_blocks import random_graph, randomised
 from test_torch_model import port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 3e-5
 KEY = jax.random.PRNGKey(0)
@@ -96,7 +97,7 @@ def check_module(jax_mod, port_mod, inputs, port_call, rng, name=None, prefix="m
     the gradients of ``sum(out_i * cot_i)`` with respect to the parameters
     and the float inputs."""
     jin = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in inputs]
-    params = randomised(jax_mod.init(KEY, *args(*jin)), rng)
+    params = randomised(jax.eval_shape(jax_mod.init, KEY, *args(*jin)), rng)
     port_mod.load_state_dict(port_state(params, name, prefix), strict=True)
 
     def call(p, *xs):
@@ -327,7 +328,7 @@ def model_case(kind):
     indices = {"data": JaxIndexCollection({n: i for i, n in enumerate(VARIABLES)},
                                           forcing=["cos_lat", "z"], diagnostic=["tp"])}
     iface = JaxInterface(config=cfg, graph=graph, data_indices=indices, statistics=stats)
-    params = randomised(iface.init_params(), np.random.default_rng(10))
+    params = randomised(jax.eval_shape(iface.init_params), np.random.default_rng(10))
     port = AnemoiModelInterface(config=cfg, graph=port_graph(graph),
                                 data_indices=flagship_indices(), statistics=stats, device="cpu")
     port.load_state_dict(state_dict_from_jax(params), strict=True)

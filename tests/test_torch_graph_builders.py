@@ -34,6 +34,7 @@ from anemoi_tpu_torch.graphs.create import GraphCreator
 from anemoi_tpu_torch.graphs.generate import gaussian, icon
 from anemoi_tpu_torch.graphs.graph import Graph, NodeSet
 from tests.torch_graph_compare import compare_graphs
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EA = {"edge_length": {"name": "EdgeLength"}, "edge_dirs": {"name": "EdgeDirection"}}
 

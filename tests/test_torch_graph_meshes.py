@@ -61,6 +61,7 @@ from anemoi_tpu_torch.training.optimizers import build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, make_step_fns
 from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
 from tests.torch_graph_compare import compare_graphs
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 3e-5
 
@@ -188,7 +189,7 @@ def test_tiny_graph_transformer_matches_jax(icon_grids, label):
     jax_iface = JaxInterface(config=model_config(), graph=graph, data_indices=indices,
                              statistics=stats)
     rng = np.random.default_rng(0)
-    flat = flax.traverse_util.flatten_dict(jax_iface.init_params()["params"])
+    flat = flax.traverse_util.flatten_dict(jax.eval_shape(jax_iface.init_params)["params"])
     params = {"params": flax.traverse_util.unflatten_dict(
         {k: (0.3 * rng.normal(size=v.shape)).astype(np.float32) for k, v in flat.items()})}
     mean, std = stats["data"]["mean"], stats["data"]["stdev"]

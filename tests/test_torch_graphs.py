@@ -22,6 +22,7 @@ from anemoi_tpu.graphs.create import GraphCreator as JaxGraphCreator
 from anemoi_tpu_torch.flagship import flagship_recipe
 from anemoi_tpu_torch.graphs.create import GraphCreator
 from tests.torch_graph_compare import compare_graphs
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "inference_ckpt_r2")
 

@@ -27,6 +27,7 @@ from anemoi_tpu.ops.pallas.paged_gt import (
 )
 from anemoi_tpu.ops.segment import graph_transformer_attention
 from anemoi_tpu_torch.ops.gt_attention import gt_attention, gt_attention_fe, gt_attention_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=3e-5, atol=3e-5)
 

@@ -47,6 +47,7 @@ from anemoi_tpu_torch.ops.gt_attention import (
     gt_attention_plain,
     source_order,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=3e-5, atol=3e-5)
 EMPTY_DST = (7, 20)

@@ -62,6 +62,7 @@ from test_torch_presets_tasks import (
     composed,
     train_both,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL, GRAD_TOL = 3e-5, 1e-4
 NAMES = {"q": 0, "t": 1, "u": 2, "z": 3, "tp": 4, "cos_lat": 5}
@@ -158,7 +159,7 @@ def close(ours, ref, tol):
 def setup(graphs, cfg, seed):
     ref, ours = interfaces(graphs, cfg)
     rng = np.random.default_rng(seed)
-    params = randomised(jax.jit(ref.init_params)(jax.random.PRNGKey(0)), rng)
+    params = randomised(jax.eval_shape(ref.init_params, jax.random.PRNGKey(0)), rng)
     ours.load_state_dict(state_dict_from_jax(params), strict=True)
     n_grid = graphs[0]["data"].num_nodes
     x = rng.normal(size=(1, 2, 1, n_grid, 5)).astype(np.float32)

@@ -54,6 +54,7 @@ from anemoi_tpu_torch.ops.window_attention import (
     band_attention_bwd_plain,
     band_attention_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DEAD_SRC = (0, 5, 299)
 

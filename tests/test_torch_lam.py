@@ -49,6 +49,7 @@ from anemoi_tpu_torch.training.optimizers import build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, _index_arrays, advance_input, make_step_fns
 from test_torch_remat import RTOL, batch_of, port_iface
 from test_torch_training import LOSS, OPT, SCALERS, config, grad_store, tiny  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JAX_CONFIG_DIR = os.path.join(os.path.dirname(anemoi_tpu.__file__), "config")
 BOX = {"lat_min": 30.0, "lat_max": 70.0, "lon_min": -30.0, "lon_max": 40.0}

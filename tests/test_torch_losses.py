@@ -36,6 +36,7 @@ from anemoi_tpu_torch.graphs.graph import Graph, NodeSet
 from anemoi_tpu_torch.training.losses import get_loss_function
 from anemoi_tpu_torch.training.losses.scalers import create_scalers
 from anemoi_tpu_torch.training.optimizers import AdEMAMix, build_optimizer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 3e-5
 N2I = {n: i for i, n in enumerate(EXAMPLE_VARIABLES)}

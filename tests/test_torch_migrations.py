@@ -35,6 +35,7 @@ from anemoi_tpu_torch.training.checkpoint import load_inference_checkpoint
 from anemoi_tpu_torch.training.cli import main
 from tests.test_migrations import build
 from tests.test_models import model_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "inference_ckpt_r2")
 TOL = 3e-5

@@ -46,6 +46,7 @@ from anemoi_tpu_torch.graphs.graph import EdgeSet, Graph, NodeSet
 from anemoi_tpu_torch.inference import make_forecast_fn
 from anemoi_tpu_torch.models.interface import AnemoiModelInterface
 from anemoi_tpu_torch.models.port import state_dict_from_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "inference_ckpt_r2")
 
@@ -76,7 +77,7 @@ def tiny():
     iface = JaxInterface(config=jax_config("fp32"), graph=graph, data_indices=indices,
                          statistics=stats)
     rng = np.random.default_rng(0)
-    flat = flax.traverse_util.flatten_dict(iface.init_params()["params"])
+    flat = flax.traverse_util.flatten_dict(jax.eval_shape(iface.init_params)["params"])
     params = {"params": flax.traverse_util.unflatten_dict(
         {k: (0.3 * rng.normal(size=v.shape)).astype(np.float32) for k, v in flat.items()}
     )}

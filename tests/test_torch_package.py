@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 IMPORT_ALL = """

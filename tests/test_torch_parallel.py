@@ -44,6 +44,7 @@ from anemoi_tpu_torch.training.trainer import trainer_device
 from tests import torch_parallel_worker as worker
 from tests.test_model_parallel import _recipe
 from tests.test_torch_training import port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SETS = {"processor": ("hidden", "hidden"), "encoder": ("data", "hidden"),
         "decoder": ("hidden", "data")}

@@ -61,6 +61,7 @@ from tests.test_model_parallel import _recipe
 from tests.test_torch_parallel_heads import assert_grads_close
 from tests.test_torch_parallel_training import INDICES, OPT, SCALERS, VARIABLES
 from tests.test_torch_training import port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GT = {"num_heads": 4, "mlp_hidden_ratio": 2.0,
       "sub_graph_edge_attributes": ["edge_dirs", "edge_length"]}
@@ -141,7 +142,7 @@ def build(kind, batch_rows, seed):
     jidx = {"data": JaxIndexCollection(INDICES["data"]["name_to_index"], forcing=["cos_lat"])}
     config = model_config(kind)
     iface = JaxInterface(config=config, graph=graph, data_indices=jidx, statistics=stats)
-    flat = flax.traverse_util.flatten_dict(iface.init_params()["params"])
+    flat = flax.traverse_util.flatten_dict(jax.eval_shape(iface.init_params)["params"])
     params = {"params": flax.traverse_util.unflatten_dict(
         {k: (0.3 * rng.normal(size=v.shape)).astype(np.float32) for k, v in flat.items()})}
     n_grid, n_hidden = graph["data"].num_nodes, graph[graph.node_names()[1]].num_nodes

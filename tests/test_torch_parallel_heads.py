@@ -52,6 +52,7 @@ from anemoi_tpu_torch.training.optimizers import build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, make_step_fns
 from tests import torch_parallel_worker as worker
 from tests.test_torch_parallel_training import LOSS, OPT, SCALERS, jax_setup
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PROCESSORS = ("gt", "transformer")
 HEADS = {"shard_strategy": "heads"}

@@ -66,6 +66,7 @@ from tests.test_torch_parallel_families import fixed_jax_draws, hierarchical_rec
 from tests.test_torch_parallel_heads import assert_grads_close
 from tests.test_torch_parallel_training import INDICES, OPT, SCALERS, VARIABLES
 from tests.test_torch_training import port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATTRS = ["edge_dirs", "edge_length"]
 GT = {"num_heads": 4, "mlp_hidden_ratio": 2.0, "sub_graph_edge_attributes": ATTRS}
@@ -208,7 +209,7 @@ def build(name, seed=5):
     config = {"model": copy.deepcopy(model_cfg),
               "data": {"processors": [{"name": "InputNormalizer", "default": "mean-std"}]}}
     iface = JaxInterface(config=config, graph=graph, data_indices=jidx, statistics=stats)
-    flat = flax.traverse_util.flatten_dict(iface.init_params()["params"])
+    flat = flax.traverse_util.flatten_dict(jax.eval_shape(iface.init_params)["params"])
     params = {"params": flax.traverse_util.unflatten_dict(
         {k: (0.3 * rng.normal(size=v.shape)).astype(np.float32) for k, v in flat.items()})}
     n_grid = graph["data"].num_nodes

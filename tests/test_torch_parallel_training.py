@@ -61,6 +61,7 @@ from anemoi_tpu_torch.training.step import TrainState, make_step_fns
 from tests import torch_parallel_worker as worker
 from tests.test_model_parallel import _recipe
 from tests.test_torch_training import grad_store, port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 VARIABLES = ["q", "t", "u", "z", "cos_lat"]
 INDICES = {"data": {"name_to_index": {n: i for i, n in enumerate(VARIABLES)},
@@ -104,7 +105,7 @@ def jax_setup(processor):
     indices = {"data": JaxIndexCollection(INDICES["data"]["name_to_index"], forcing=["cos_lat"])}
     iface = JaxInterface(config=model_config(processor), graph=graph, data_indices=indices,
                          statistics=stats)
-    flat = flax.traverse_util.flatten_dict(iface.init_params()["params"])
+    flat = flax.traverse_util.flatten_dict(jax.eval_shape(iface.init_params)["params"])
     params = {"params": flax.traverse_util.unflatten_dict(
         {k: (0.3 * rng.normal(size=v.shape)).astype(np.float32) for k, v in flat.items()})}
     n_grid = graph["data"].num_nodes

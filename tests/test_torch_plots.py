@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from anemoi_tpu.training import plots as jax_plots
 from anemoi_tpu_torch.training import plots
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import flax
+import jax
 import jax.numpy as jnp
 
 from anemoi_tpu.data_indices.collection import IndexCollection as JaxIndexCollection
@@ -50,6 +51,7 @@ from anemoi_tpu_torch.training.optimizers import build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, make_step_fns
 from test_torch_remat import RTOL, batch_of, port_iface
 from test_torch_training import LOSS, OPT, SCALERS, config, grad_store, tiny  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 3e-5
 # the flagship's variables and two wind components given as cos/sin and as a direction
@@ -226,7 +228,7 @@ def test_interface_with_remapper_matches_jax(tiny):
     assert isinstance(ours.pre_processors["data"].processors[1], BaseImputer)
 
     rng = np.random.default_rng(0)
-    flat = flax.traverse_util.flatten_dict(ref.init_params()["params"])
+    flat = flax.traverse_util.flatten_dict(jax.eval_shape(ref.init_params)["params"])
     params = {"params": flax.traverse_util.unflatten_dict(
         {k: (0.3 * rng.normal(size=v.shape)).astype(np.float32) for k, v in flat.items()})}
     ours.load_state_dict(state_dict_from_jax(params), strict=True)

@@ -25,6 +25,7 @@ import torch
 from anemoi_tpu_torch.training.checkpoint import load_inference_checkpoint
 from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR
 from test_torch_presets_tasks import LR_ONLY, assert_records_equal, composed, train_both
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _SMALL_DATA = ["data.datasets.data.nodes.grid=o8", "data.datasets.data.num_times=16",
                "graph.recipe.nodes.data.node_builder.grid=o8"]

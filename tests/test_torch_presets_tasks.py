@@ -32,6 +32,7 @@ from anemoi_tpu_torch.models.port import state_dict_from_jax
 from anemoi_tpu_torch.training.trainer import AnemoiTrainer
 from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
 from test_torch_ensemble import SameNoise, noise_arrays
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JAX_CONFIG_DIR = os.path.join(os.path.dirname(anemoi_tpu.__file__), "config")
 GNN_DEFAULTS = """defaults:

@@ -44,6 +44,7 @@ from test_torch_presets_tasks import (
     train_both,
 )
 from test_torch_transport import SameDraws
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PRESETS = {  # preset -> (model class, objective, tendency)
     "transport_edm_diffusion": ("AnemoiTransportModelEncProcDec", "edm", False),

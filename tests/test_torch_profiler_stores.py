@@ -27,6 +27,7 @@ import pytest
 from anemoi_tpu.training import benchmark_store as jax_bench
 from anemoi_tpu.training import mlflow_store as jax_mlflow
 from anemoi_tpu_torch.training import benchmark_store, mlflow_store
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 # --- profiler ------------------------------------------------------------

@@ -70,6 +70,7 @@ from test_torch_presets_tasks import (
     composed,
     train_both,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 3e-5
 
@@ -442,7 +443,7 @@ def test_hierarchical_model_reads_the_truncation_graph():
                            model_config("GT", residual={"name": "TruncatedConnection"}))
     assert type(ours.model.residual["data"]).__name__ == "TruncatedConnection"
     rng = np.random.default_rng(7)
-    params = randomised(jax.jit(ref.init_params)(jax.random.PRNGKey(0)), rng)
+    params = randomised(jax.eval_shape(ref.init_params, jax.random.PRNGKey(0)), rng)
     ours.load_state_dict(state_dict_from_jax(params), strict=True)
     x = rng.normal(size=(1, 2, 1, jax_graph["data"].num_nodes, 5)).astype(np.float32)
     want = ref.model.apply(params, {"data": jnp.asarray(x)}, ref.graph_inputs)["data"]

@@ -51,6 +51,7 @@ from anemoi_tpu_torch.training.losses.scalers import create_scalers
 from anemoi_tpu_torch.training.optimizers import build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, make_step_fns
 from test_torch_training import LOSS, OPT, SCALERS, config, grad_store, tiny  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 3e-5
 LAYERS = 2  # processor layers of both tiny models

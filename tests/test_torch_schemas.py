@@ -19,6 +19,7 @@ from anemoi_tpu.utils.config import load_config as jax_load_config
 from anemoi_tpu_torch.training.schemas import ConfigValidationError, validate_config
 from anemoi_tpu_torch.utils.config import PACKAGED_CONFIG_DIR, load_config
 from tests.test_schemas import base_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JAX_PACKAGED = os.path.join(os.path.dirname(anemoi_tpu.__file__), "config")
 PRESETS = sorted(f for f in os.listdir(PACKAGED_CONFIG_DIR) if f.endswith(".yaml"))

@@ -53,6 +53,7 @@ from test_torch_presets_tasks import (
     composed,
     train_both,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL, GRAD_TOL = 3e-5, 1e-4
 O8_POINTS = 544

@@ -50,6 +50,7 @@ from anemoi_tpu_torch.models.layers.residual import build_residual
 from anemoi_tpu_torch.models.port import state_dict_from_jax
 from test_torch_blocks import random_graph, randomised
 from test_torch_training import port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=3e-5, atol=3e-5)
 GATED = ["glu", "swiglu", "geglu", "reglu"]
@@ -99,7 +100,7 @@ def test_gated_mlp(implementation):
     w = rng.normal(size=(2, 9, 10)).astype(np.float32)
     mod = jax_mlp.MLP(hidden_dim=24, out_features=10, layer_norm=False,
                       implementation=implementation)
-    params = randomised(mod.init(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
+    params = randomised(jax.eval_shape(mod.init, jax.random.PRNGKey(0), jnp.asarray(x)), rng)
     ref = mod.apply(params, jnp.asarray(x))
     ref_dx = jax.grad(lambda v: jnp.sum(mod.apply(params, v) * w))(jnp.asarray(x))
     port = loaded(MLP(12, 24, 10, layer_norm=False, implementation=implementation), params,
@@ -122,7 +123,8 @@ def test_processor_block_switches(qk_norm_type, mlp):
     mod = jax_blocks.GraphTransformerProcessorBlock(
         num_heads=heads, hidden_dim=2 * c, out_channels=c, qk_norm=True,
         qk_norm_type=qk_norm_type, mlp_implementation=mlp, backend="segment")
-    params = randomised(mod.init(jax.random.PRNGKey(0), jnp.asarray(x), jax_edges), rng)
+    shapes = jax.eval_shape(mod.init, jax.random.PRNGKey(0), jnp.asarray(x), jax_edges)
+    params = randomised(shapes, rng)
     ref, _ = mod.apply(params, jnp.asarray(x), jax_edges)
     port = loaded(GraphTransformerProcessorBlock(c, 2 * c, c, heads, edge_dim=3, qk_norm=True,
                                                  qk_norm_type=qk_norm_type,
@@ -158,7 +160,8 @@ def test_conditional_mapper_block():
         num_heads=heads, hidden_dim=2 * c, out_channels=c, conditional=True,
         mlp_implementation="reglu", backend="segment")
     x_jax, c_jax = (jnp.asarray(xs), jnp.asarray(xd)), (jnp.asarray(cs), jnp.asarray(cd))
-    params = randomised(mod.init(jax.random.PRNGKey(0), x_jax, jax_edges, c_jax), rng)
+    shapes = jax.eval_shape(mod.init, jax.random.PRNGKey(0), x_jax, jax_edges, c_jax)
+    params = randomised(shapes, rng)
     (_, ref), _ = mod.apply(params, x_jax, jax_edges, c_jax)
     port = loaded(GraphTransformerMapperBlock(c, 2 * c, c, heads, edge_dim=3, cond_dim=4,
                                               mlp_implementation="reglu"),
@@ -238,7 +241,8 @@ def test_scan_unroll_processor_loads():
     mod = jax_processor.GraphTransformerProcessor(
         num_layers=layers, num_channels=c, num_heads=heads, mlp_hidden_ratio=2.0,
         scan_unroll=2, gradient_checkpointing=False, backend="segment")
-    params = randomised(mod.init(jax.random.PRNGKey(0), jnp.asarray(x), jax_edges), rng)
+    shapes = jax.eval_shape(mod.init, jax.random.PRNGKey(0), jnp.asarray(x), jax_edges)
+    params = randomised(shapes, rng)
     assert sorted(params["params"]["blocks"]) == ["block_0", "block_1"]
     ref = mod.apply(params, jnp.asarray(x), jax_edges)
     port = GraphTransformerProcessor(layers, c, heads, edge_dim=3, mlp_hidden_ratio=2.0,
@@ -291,7 +295,7 @@ def test_model_switches_match_jax(graphs, case):
     stats["data"]["stdev_tend"] = 0.3 * stats["data"]["stdev"]
     iface = JaxInterface(config=cfg, graph=jax_graph, data_indices=_indices(), statistics=stats)
     rng = np.random.default_rng(9)
-    params = randomised(iface.init_params(), rng)
+    params = randomised(jax.eval_shape(iface.init_params), rng)
     port = AnemoiModelInterface(config=cfg, graph=graph, data_indices=flagship_indices(),
                                 statistics=stats, device="cpu")
     port.load_state_dict(state_dict_from_jax(params), strict=True)

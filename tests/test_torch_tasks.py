@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from anemoi_tpu.graphs.create import GraphCreator as JaxGraphCreator
@@ -49,6 +50,7 @@ from test_torch_ensemble import SameNoise, assert_grads_close, noise_arrays, ran
 from test_torch_gnn import encoder_decoder_only
 from test_torch_switches import _indices
 from test_torch_training import grad_store, port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCALERS = {"area": {"name": "GraphNodeAttributeScaler", "nodes_name": "data",
                     "attribute_name": "area_weight"}}
@@ -91,7 +93,7 @@ def setups(graphs, task, members, rollout, remat):
     loss_cfg = ({"name": "KernelCRPS", "scalers": ["area"]} if members > 1
                 else {"name": "WeightedMSELoss", "scalers": ["area"]})
     jax_iface = JaxInterface(config=cfg, graph=graph, data_indices=_indices(), statistics=stats)
-    params = randomised(jax_iface.init_params(), np.random.default_rng(0))
+    params = randomised(jax.eval_shape(jax_iface.init_params), np.random.default_rng(0))
     jax_losses = {"data": jax_get_loss_function(
         loss_cfg, jax_create_scalers(SCALERS, graph=graph, data_indices=_indices()["data"]))}
     jax_train, jax_eval = jax_make_step_fns(jax_iface, jax_losses, rollout=rollout,

@@ -54,6 +54,7 @@ from anemoi_tpu_torch.models.interface import AnemoiModelInterface
 from anemoi_tpu_torch.models.port import state_dict_from_jax
 from anemoi_tpu_torch.training.losses.scalers import create_scalers
 from anemoi_tpu_torch.training.trainer import AnemoiTrainer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-4
 
@@ -291,7 +292,7 @@ def test_rollout_eval_matches_jax(tmp_path, n_out):
     jax_iface = JaxInterface(config=cfg, graph=graph,
                              data_indices={"data": JaxIndexCollection(n2i, **kw)},
                              statistics=stats)
-    flat = flax.traverse_util.flatten_dict(jax_iface.init_params()["params"])
+    flat = flax.traverse_util.flatten_dict(jax.eval_shape(jax_iface.init_params)["params"])
     params = {"params": flax.traverse_util.unflatten_dict(
         {k: (0.3 * rng.normal(size=x.shape)).astype(np.float32) for k, x in flat.items()})}
     iface = AnemoiModelInterface(config=cfg, graph=Graph.load(cfg["graph"]["save_path"]),

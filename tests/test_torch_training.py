@@ -56,6 +56,7 @@ from anemoi_tpu_torch.training.losses import get_loss_function
 from anemoi_tpu_torch.training.losses.scalers import create_scalers
 from anemoi_tpu_torch.training.optimizers import build_lr_schedule, build_optimizer
 from anemoi_tpu_torch.training.step import TrainState, _index_arrays, advance_input, make_step_fns
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCALERS = {"area": {"name": "GraphNodeAttributeScaler", "nodes_name": "data",
                     "attribute_name": "area_weight"}}
@@ -89,7 +90,7 @@ def tiny():
                                           forcing=["cos_lat", "z"], diagnostic=["tp"])}
     iface = JaxInterface(config=config(), graph=graph, data_indices=indices, statistics=stats)
     rng = np.random.default_rng(0)
-    flat = flax.traverse_util.flatten_dict(iface.init_params()["params"])
+    flat = flax.traverse_util.flatten_dict(jax.eval_shape(iface.init_params)["params"])
     params = {"params": flax.traverse_util.unflatten_dict(
         {k: (0.3 * rng.normal(size=v.shape)).astype(np.float32) for k, v in flat.items()}
     )}

@@ -62,6 +62,7 @@ from anemoi_tpu_torch.utils import threefry
 from anemoi_tpu_torch.utils.seeding import context_seed, fold_seed
 from test_torch_ensemble import assert_grads_close, close
 from test_torch_training import grad_store, port_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 3e-5
 STEP_TOL = 1e-4
@@ -151,7 +152,7 @@ def tr():
     for name in MODELS:
         iface = JaxInterface(config=model_config(name), graph=graph,
                              data_indices=indices(name, True), statistics=stats)
-        out[name] = (iface, randomised(iface.init_params(), rng))
+        out[name] = (iface, randomised(jax.eval_shape(iface.init_params), rng))
     mean, std = stats["data"]["mean"], stats["data"]["stdev"]
     out["batch"] = (mean + std * rng.normal(size=(2, 4, 1, out["n_grid"], 7))).astype(np.float32)
     return out

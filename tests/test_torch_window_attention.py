@@ -47,6 +47,7 @@ from anemoi_tpu_torch.ops.window_attention import (
     band_attention_plain,
     band_pairs,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=3e-5, atol=3e-5)
 W, H, D = 16, 2, 32
@@ -181,7 +182,8 @@ def test_mhsa_matches_flax(case):
     c, h, n = 32, 4, 50
     x = np.random.default_rng(5).normal(size=(2, n, c)).astype(np.float32)
     jax_mod = JaxMHSA(num_heads=h, **kw)
-    params = randomised(jax_mod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 6)
+    shapes = jax.eval_shape(jax_mod.init, jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = randomised(shapes, 6)
     ref = jax_mod.apply({"params": params}, jnp.asarray(x))
     ours = load_component(MultiHeadSelfAttention(c, h, **kw), {"attention": params},
                           "model.processor.proc.0.attention.")
@@ -194,7 +196,8 @@ def test_transformer_block_matches_flax():
     x = np.random.default_rng(7).normal(size=(1, n, c)).astype(np.float32)
     jax_mod = JaxBlock(num_channels=c, hidden_dim=4 * c, num_heads=h, window_size=16,
                        qk_norm=True, use_alibi_slopes=True)
-    params = randomised(jax_mod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 8)
+    shapes = jax.eval_shape(jax_mod.init, jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = randomised(shapes, 8)
     ref, _ = jax_mod.apply({"params": params}, jnp.asarray(x))
     block = load_component(
         TransformerProcessorBlock(c, 4 * c, h, window_size=16, qk_norm=True,
