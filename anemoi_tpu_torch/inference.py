@@ -31,6 +31,7 @@ import torch
 
 from anemoi_tpu_torch.models.transport.objectives import EDMConfig
 from anemoi_tpu_torch.training.step import advance_input, device_index_arrays
+from anemoi_tpu_torch.utils.tracing import span
 
 
 def make_forecast_fn(interface, steps: int) -> Callable[[Dict[str, torch.Tensor]], Dict]:
@@ -41,7 +42,10 @@ def make_forecast_fn(interface, steps: int) -> Callable[[Dict[str, torch.Tensor]
     future forcings.  Raises ``ValueError`` for a model that draws noise.
     Under model shards every rank of the model group runs its grid rows
     (of a whole-grid or a local batch) and returns the whole forecast,
-    gathered over the group."""
+    gathered over the group.  A forecast is the profiler's span
+    ``anemoi.forecast``, its phases the spans
+    ``anemoi.forecast.{inputs,cast,model,output,advance,gather}`` inside it
+    (``utils/tracing.py``)."""
     interface.require_deterministic("make_forecast_fn")
     model = interface.model
     pre = interface.pre_processors
@@ -52,20 +56,34 @@ def make_forecast_fn(interface, steps: int) -> Callable[[Dict[str, torch.Tensor]
 
     @torch.no_grad()
     def forecast(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        batch_norm, x = interface.normalised_input(interface.local_rows(batch))
-        params = interface.cast_parameters(interface.inference_dtype) if cast else None
+        with span("anemoi.forecast"):
+            return rollout(batch)
+
+    def rollout(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        with span("anemoi.forecast.inputs"):
+            batch_norm, x = interface.normalised_input(interface.local_rows(batch))
+        params = None
+        if cast:
+            with span("anemoi.forecast.cast"):
+                params = interface.cast_parameters(interface.inference_dtype)
         outputs = {ds: [] for ds in dataset_names}
         for step in range(steps):
-            y_pred = interface.run_model(x, params, fcstep=step)
+            lead = {"step": step}
+            with span("anemoi.forecast.model", lead):
+                y_pred = interface.run_model(x, params, fcstep=step)
             t0 = m + step * n_out
-            for ds in dataset_names:
-                outputs[ds].append(pre[ds].inverse_transform(y_pred[ds].float()))
+            with span("anemoi.forecast.output", lead):
+                for ds in dataset_names:
+                    outputs[ds].append(pre[ds].inverse_transform(y_pred[ds].float()))
             if step + 1 < steps:
-                x = {
-                    ds: advance_input(x[ds], y_pred[ds], batch_norm[ds], t0, ia[ds])
-                    for ds in dataset_names
-                }
-        return interface.gather_grid({ds: torch.cat(v, dim=1) for ds, v in outputs.items()})
+                with span("anemoi.forecast.advance", lead):
+                    x = {
+                        ds: advance_input(x[ds], y_pred[ds], batch_norm[ds], t0, ia[ds])
+                        for ds in dataset_names
+                    }
+        with span("anemoi.forecast.gather"):
+            return interface.gather_grid({ds: torch.cat(v, dim=1)
+                                          for ds, v in outputs.items()})
 
     return forecast
 

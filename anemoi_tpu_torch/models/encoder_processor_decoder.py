@@ -105,6 +105,7 @@ from anemoi_tpu_torch.ops.dynamic import (
 from anemoi_tpu_torch.parallel.band import BandShard
 from anemoi_tpu_torch.parallel.heads import HeadsShard
 from anemoi_tpu_torch.parallel.rows import BlockShard, gather_blocks
+from anemoi_tpu_torch.utils.tracing import components, plain
 
 LOGGER = logging.getLogger(__name__)
 BACKENDS = ("paged", "padded", "segment")
@@ -660,14 +661,18 @@ class AnemoiModelEncProcDec(nn.Module):
         out = residual(whole, n_step_output=self.n_step_output)
         return out.narrow(3, rows.start, rows.stop - rows.start)
 
-    def _run_processor(self, x_latent: torch.Tensor, cond: Optional[torch.Tensor]):
+    def _run_processor(self, x_latent: torch.Tensor, cond: Optional[torch.Tensor], call=plain):
         """The processor on the rank's hidden rows: over the processor set or
-        the rank's share of it (``call_processor``)."""
+        the rank's share of it (``call_processor``), through ``call``
+        (``utils/tracing.components``)."""
         graph, halo = self.graph, self.halo
         sub = graph.processor if halo is None else halo["processor"]
         edges = (self._edges("processor_graph_provider", graph.processor)
                  if self.processor_edges else None)
-        return call_processor(self.processor, x_latent, sub, edges, cond, self.processor_edges)
+        return call(
+            "processor", lambda x, e, c: call_processor(self.processor, x, sub, e, c,
+                                                        self.processor_edges),
+            x_latent, edges, cond)
 
     def forward(self, x: Dict[str, torch.Tensor], cond: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, fcstep: int = 0) -> Dict[str, torch.Tensor]:
@@ -676,7 +681,9 @@ class AnemoiModelEncProcDec(nn.Module):
         processor's conditioning (default: the noise injector's); ``noise``:
         the noise injector's standard normal draw (``noise_shape(x)``);
         ``fcstep``: the rollout step (the ensemble model's input channel).
-        Returns {ds: [B, n_step_output, E, G, V_model_out]}."""
+        Returns {ds: [B, n_step_output, E, G, V_model_out]}.  The encoder,
+        processor and decoder calls run under the profiler's spans
+        ``anemoi.model.<part>`` (``utils/tracing.components``)."""
         graph = self.graph
         hidden = graph.hidden_name
         datasets = sorted(x)
@@ -692,6 +699,7 @@ class AnemoiModelEncProcDec(nn.Module):
         hidden_attrs = hidden_attrs[self.hidden_rows()]
         x_hidden_latent = hidden_attrs[None].expand((bflat,) + hidden_attrs.shape)
 
+        call = components()
         x_skip, x_data_latent, latents = {}, {}, []
         for ds in datasets:
             xd = x[ds]
@@ -706,10 +714,10 @@ class AnemoiModelEncProcDec(nn.Module):
                 parts.append(flat.new_full((bflat, xd.shape[3], 1), float(min(1, fcstep))))
             x_latent_in = torch.cat(parts, dim=-1)
             sub = self._mapper_edges("encoder", ds, hidden, graph.encoder[ds])
-            x_data_latent[ds], x_latent = self.encoder[ds](
-                (x_latent_in, x_hidden_latent), self._set("encoder", ds, sub),
-                self._edges("encoder_graph_provider", sub, ds)
-            )
+            encoder, mapper_set = self.encoder[ds], self._set("encoder", ds, sub)
+            x_data_latent[ds], x_latent = call(
+                "encoder", lambda src, dst, edges: encoder((src, dst), mapper_set, edges),
+                x_latent_in, x_hidden_latent, self._edges("encoder_graph_provider", sub, ds))
             latents.append(x_latent)
 
         x_latent = sum(latents)
@@ -720,7 +728,7 @@ class AnemoiModelEncProcDec(nn.Module):
             x_latent, noise_cond = self.noise_injector(x_latent, noise)
         if cond is None:
             cond = noise_cond
-        x_latent_proc = self._run_processor(x_latent, cond)
+        x_latent_proc = self._run_processor(x_latent, cond, call)
         if self.latent_skip:
             x_latent_proc = x_latent_proc + x_latent
 
@@ -728,10 +736,10 @@ class AnemoiModelEncProcDec(nn.Module):
         for ds in datasets:
             idx = self.data_indices[ds]
             sub = self._mapper_edges("decoder", hidden, ds, graph.decoder[ds])
-            x_out = self.decoder[ds](
-                (x_latent_proc, x_data_latent[ds]), self._set("decoder", ds, sub),
-                self._edges("decoder_graph_provider", sub, ds),
-            )
+            decoder, mapper_set = self.decoder[ds], self._set("decoder", ds, sub)
+            x_out = call(
+                "decoder", lambda src, dst, edges: decoder((src, dst), mapper_set, edges),
+                x_latent_proc, x_data_latent[ds], self._edges("decoder_graph_provider", sub, ds))
             # [(B E), G, (T V)] -> [B, T, E, G, V]
             x_out = x_out.reshape(batch, ens, x_out.shape[1], self.n_step_output,
                                   idx.num_model_output_vars).permute(0, 3, 1, 2, 4)

@@ -26,6 +26,7 @@ import torch
 
 from anemoi_tpu_torch.parallel.distributed import RowShard, all_gather, fetch_replicated
 from anemoi_tpu_torch.parallel.mesh import zero_sharding
+from anemoi_tpu_torch.utils.tracing import span
 
 Schedule = Callable[[int], float]
 
@@ -192,25 +193,28 @@ class Optimizer:
         return block.requires_grad_(True)
 
     def step(self) -> None:
-        if self.clip_value > 0:
-            torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
-        elif self.clip_norm > 0:
-            torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
-        lr = self.schedule(self.count)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        for p, block in zip(self.params, self.blocks):
-            if block is not None:
-                block.grad = None if p.grad is None else self._rows(p.grad, block)
-        kept = [p.detach().clone() for p in self.frozen]
-        self.opt.step()
-        with torch.no_grad():
+        """Clip (span ``anemoi.optim.clip``), then update (``anemoi.optim.update``)."""
+        with span("anemoi.optim.clip"):
+            if self.clip_value > 0:
+                torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
+            elif self.clip_norm > 0:
+                torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
+        with span("anemoi.optim.update"):
+            lr = self.schedule(self.count)
+            for group in self.opt.param_groups:
+                group["lr"] = lr
             for p, block in zip(self.params, self.blocks):
                 if block is not None:
-                    p.data.copy_(torch.cat(all_gather(block.detach(), self.zero_group), 0))
-            for p, weights in zip(self.frozen, kept):
-                p.copy_(weights)
-        self.count += 1
+                    block.grad = None if p.grad is None else self._rows(p.grad, block)
+            kept = [p.detach().clone() for p in self.frozen]
+            self.opt.step()
+            with torch.no_grad():
+                for p, block in zip(self.params, self.blocks):
+                    if block is not None:
+                        p.data.copy_(torch.cat(all_gather(block.detach(), self.zero_group), 0))
+                for p, weights in zip(self.frozen, kept):
+                    p.copy_(weights)
+            self.count += 1
 
     def _rows(self, full: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
         """This rank's block of rows of a parameter-shaped tensor."""

@@ -36,6 +36,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from anemoi_tpu_torch.utils.tracing import span
+
 
 def power_limit(index: int = 0) -> Optional[str]:
     """The card's power limit as ``nvidia-smi`` reports it, or None where
@@ -88,12 +90,14 @@ class BenchmarkProfiler:
     def section(self, name: str, device: bool = False):
         """Accumulate the wall time of a named phase: ``with
         prof.section("dataloader"): ...``; with ``device`` the section ends
-        when the device's work is done."""
+        when the device's work is done.  In a trace the section is the span
+        ``anemoi.profile.<name>`` (``utils/tracing.py``)."""
         t0 = time.perf_counter()
         try:
-            yield
-            if device:
-                self.sync()
+            with span(f"anemoi.profile.{name}"):
+                yield
+                if device:
+                    self.sync()
         finally:
             self.section_times.setdefault(name, []).append(time.perf_counter() - t0)
 

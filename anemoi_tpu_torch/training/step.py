@@ -56,6 +56,17 @@ members and, under model shards, hidden rows cut from it); every rank's
 loss sees all the members, gathered over the group
 (``losses/base.py:gather_members``), and the gradients are summed over the
 group.
+
+Under ``torch.profiler`` the train step is the span ``anemoi.step`` and its
+phases are named spans inside it (``utils/tracing.py``):
+``anemoi.step.cast`` (the compute copies),
+``anemoi.step.inputs`` (the gradients' reset, local rows, imputer aux,
+normalising, input indexing, the next rollout step's inputs),
+``anemoi.step.forward`` (each rollout step's model call, its args the train
+step and the rollout step), ``anemoi.step.loss``, ``anemoi.step.backward``,
+``anemoi.step.grad_reduce``, ``anemoi.step.grad_norm``, then the
+optimizer's ``anemoi.optim.clip`` and ``anemoi.optim.update``.  With the
+profiler off each costs one flag test.
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ from anemoi_tpu_torch.training.losses.base import gather_members
 from anemoi_tpu_torch.training.losses.multiscale import MultiscaleLossWrapper
 from anemoi_tpu_torch.training.metrics import variable_groups
 from anemoi_tpu_torch.utils.seeding import context_seed, fold_seed
+from anemoi_tpu_torch.utils.tracing import span
 
 TASKS = ("forecaster", "autoencoder", "temporal_downscaler")
 EVAL_NOISE_STEP = 2**31 - 1  # the validation's noise stream, as the JAX eval step folds it
@@ -348,60 +360,71 @@ def make_step_fns(
                 out[f"rmse/{ds}/{gname}/{step + 1}"] = torch.sqrt(per_var_mse[idxs].mean())
 
     def rollout_loss(batch, noise_step: int, with_metrics=False):
-        batch = interface.local_rows(batch)
-        params = (interface.cast_parameters(compute_dtype, fp32_head)
-                  if compute_dtype is not None else None)
-        # the imputer's NaN bookkeeping, from the raw batch
-        pre_aux = {ds: pre[ds].compute_aux(batch[ds]) for ds in dataset_names}
-        loss_masks = {ds: pre[ds].loss_mask(pre_aux[ds]) for ds in dataset_names}
-        batch_norm = {ds: pre[ds].transform(batch[ds].float()) for ds in dataset_names}
-        x = {ds: batch_norm[ds][:, inputs][..., ia[ds]["data_input_full"]]
-             for ds in dataset_names}
-        if compute_dtype is not None:
-            x = {ds: v.to(compute_dtype) for ds, v in x.items()}
-        if ensemble_size > 1:
-            # every member starts from the same state; the noise spreads them
-            x = {ds: v.expand(v.shape[:2] + (ensemble_size,) + v.shape[3:])
-                 for ds, v in x.items()}
+        with span("anemoi.step.cast"):
+            params = (interface.cast_parameters(compute_dtype, fp32_head)
+                      if compute_dtype is not None else None)
+        with span("anemoi.step.inputs"):
+            batch = interface.local_rows(batch)
+            # the imputer's NaN bookkeeping, from the raw batch
+            pre_aux = {ds: pre[ds].compute_aux(batch[ds]) for ds in dataset_names}
+            loss_masks = {ds: pre[ds].loss_mask(pre_aux[ds]) for ds in dataset_names}
+            batch_norm = {ds: pre[ds].transform(batch[ds].float()) for ds in dataset_names}
+            x = {ds: batch_norm[ds][:, inputs][..., ia[ds]["data_input_full"]]
+                 for ds in dataset_names}
+            if compute_dtype is not None:
+                x = {ds: v.to(compute_dtype) for ds, v in x.items()}
+            if ensemble_size > 1:
+                # every member starts from the same state; the noise spreads them
+                x = {ds: v.expand(v.shape[:2] + (ensemble_size,) + v.shape[3:])
+                     for ds, v in x.items()}
         total = 0.0
         metrics: Dict[str, torch.Tensor] = {}
         for step in range(steps):
-            noise = noise_for(x, noise_step, step)
-            if remat and torch.is_grad_enabled():
-                y_pred = checkpointed(forward, policy, x, params, noise, step)
-            else:
-                y_pred = forward(x, params, noise, step)
-            t0 = first_target(step)
-            for ds in dataset_names:
-                target = batch_norm[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]]
-                # the loss in float32 whatever the compute type
-                pred = gather_members(y_pred[ds].float(), members_group)
-                total = total + losses[ds](pred, target, mask=loss_masks[ds])
-            if with_metrics:
-                _group_metrics(metrics, y_pred, batch, step, t0, pre_aux)
+            with span("anemoi.step.forward", {"step": noise_step, "rollout": step}):
+                noise = noise_for(x, noise_step, step)
+                if remat and torch.is_grad_enabled():
+                    y_pred = checkpointed(forward, policy, x, params, noise, step)
+                else:
+                    y_pred = forward(x, params, noise, step)
+            with span("anemoi.step.loss"):
+                t0 = first_target(step)
+                for ds in dataset_names:
+                    target = batch_norm[ds][:, t0 : t0 + n_out][..., ia[ds]["model_out_in_data"]]
+                    # the loss in float32 whatever the compute type
+                    pred = gather_members(y_pred[ds].float(), members_group)
+                    total = total + losses[ds](pred, target, mask=loss_masks[ds])
+                if with_metrics:
+                    _group_metrics(metrics, y_pred, batch, step, t0, pre_aux)
             if step + 1 < steps:
-                x = {ds: advance_input(x[ds], y_pred[ds], batch_norm[ds], t0, ia[ds],
-                                       boundary_mask=boundary[ds])
-                     for ds in dataset_names}
-        loss = total / (steps * len(dataset_names))
+                with span("anemoi.step.inputs"):
+                    x = {ds: advance_input(x[ds], y_pred[ds], batch_norm[ds], t0, ia[ds],
+                                           boundary_mask=boundary[ds])
+                         for ds in dataset_names}
+        with span("anemoi.step.loss"):
+            loss = total / (steps * len(dataset_names))
         return (loss, metrics) if with_metrics else loss
 
     def compute_gradients(state: TrainState, batch) -> torch.Tensor:
-        interface.zero_grad(set_to_none=True)
+        with span("anemoi.step.inputs"):
+            interface.zero_grad(set_to_none=True)
         loss = rollout_loss(batch, state.step)
-        loss.backward()
-        reduce_gradients(interface.parameters(), interface)
-        return mean_loss_over_ranks(loss.detach(), interface)
+        with span("anemoi.step.backward"):
+            loss.backward()
+        with span("anemoi.step.grad_reduce"):
+            reduce_gradients(interface.parameters(), interface)
+            return mean_loss_over_ranks(loss.detach(), interface)
 
     def train_step(state: TrainState, batch):
-        loss = compute_gradients(state, batch)
-        metrics = {"loss": loss}
-        if with_grad_norm:
-            metrics["grad_norm"] = global_norm(
-                p.grad for p in interface.parameters() if p.grad is not None
-            )
-        state.apply_gradients()
-        return state, metrics
+        with span("anemoi.step"):
+            loss = compute_gradients(state, batch)
+            metrics = {"loss": loss}
+            if with_grad_norm:
+                with span("anemoi.step.grad_norm"):
+                    metrics["grad_norm"] = global_norm(
+                        p.grad for p in interface.parameters() if p.grad is not None
+                    )
+            state.apply_gradients()
+            return state, metrics
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):

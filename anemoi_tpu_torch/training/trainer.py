@@ -99,8 +99,10 @@ from anemoi_tpu_torch.training.optimizers import build_lr_schedule, build_optimi
 from anemoi_tpu_torch.training.step import TrainState, make_step_fns
 from anemoi_tpu_torch.training.transport_step import make_transport_step_fns
 from anemoi_tpu_torch.utils.device import resolve_device
+from anemoi_tpu_torch.utils.tracing import span
 
 LOGGER = logging.getLogger(__name__)
+_END = object()  # the end of an epoch's batches
 
 
 class RolloutSchedule:
@@ -256,8 +258,6 @@ class AnemoiTrainer:
 
         self._step_fns: Dict[int, Any] = {}  # rollout -> (train_step, eval_step)
         self._log_file = None  # metrics.jsonl, open while train() runs
-        # host seconds the loop waited for each training batch
-        self.data_wait_s: list = []
         self.callbacks = build_callbacks(diag.get("callbacks"))
         self.loggers = build_loggers(diag.get("loggers"), self.output_dir) if self.is_root else []
         for lg in self.loggers:
@@ -417,9 +417,11 @@ class AnemoiTrainer:
             t_epoch = time.time()
             n_batches = 0
             batch_iter = maybe_prefetch(self.datamodule.train_batches(epoch), self._put, prefetch)
-            t_wait = time.perf_counter()
-            for batch in batch_iter:
-                self.data_wait_s.append(time.perf_counter() - t_wait)
+            while True:
+                with span("anemoi.trainer.data_wait"):
+                    batch = next(batch_iter, _END)
+                if batch is _END:
+                    break
                 self.state, metrics = train_step(self.state, batch)
                 last_metrics = metrics
                 global_step += 1
@@ -466,7 +468,6 @@ class AnemoiTrainer:
                     LOGGER.info("Callback requested stop")
                     stop = True
                     break
-                t_wait = time.perf_counter()
             batch_iter.close()  # stop and join the prefetch thread after an early break
             if n_batches:
                 self._log({"epoch": epoch, "epoch_time_s": time.time() - t_epoch,

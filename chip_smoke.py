@@ -1693,7 +1693,6 @@ def trainer_phase(workdir: str, training: dict) -> dict:
 
     walls = [(b["elapsed_s"] - a["elapsed_s"]) * 1e3 for a, b in zip(steps, steps[1:])]
     timed = walls[TRAINER_TIMED.start - 1:]  # the walls of steps 3-8
-    waits = [w * 1e3 for w in trainer.data_wait_s[TRAINER_TIMED]]
     counted.trainer = counted.train_step = None
     del trainer, batch
     torch.cuda.empty_cache()
@@ -1701,7 +1700,6 @@ def trainer_phase(workdir: str, training: dict) -> dict:
         "seconds": seconds, "store_write_s": write_s, "edges": edges,
         "ms_per_step": statistics.median(timed), "ms_per_step_runs": timed,
         "ms_per_step_min": min(timed), "ms_per_step_max": max(timed),
-        "data_wait_ms_runs": waits, "data_wait_ms": statistics.median(waits),
         "fixed_batch_ms_per_step": training["ms_per_step"],
         "losses": [r["loss"] for r in steps], "grad_norms": [r["grad_norm"] for r in steps],
         "val_loss": val[-1]["val_loss"], "launches_per_step": counted.per_step[-1],
@@ -1710,8 +1708,7 @@ def trainer_phase(workdir: str, training: dict) -> dict:
     }
     print(f"[trainer] wall ms a step over steps 3-{TRAINER_STEPS} (data pipeline included): "
           f"median {result['ms_per_step']:.3f}, min {min(timed):.3f}, max {max(timed):.3f}; "
-          f"host wait for batches median {result['data_wait_ms']:.3f} ms; phase 8's fixed "
-          f"batch {training['ms_per_step']:.3f} ms", flush=True)
+          f"phase 8's fixed batch {training['ms_per_step']:.3f} ms", flush=True)
     print(f"[trainer] {json.dumps(result)}", flush=True)
     return result
 
